@@ -1,0 +1,77 @@
+"""Vector math on `[..., 3]` float tensors.
+
+Counterpart of `ba_pathtracing_fur_tpu/core/vecmath.py`, holding what the
+camera and the shading body use. Every function is batched over the leading
+axes; scalars come back as `[...]` tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+EPS = 1e-7
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a * b).sum(-1)
+
+
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.cross(*torch.broadcast_tensors(a, b), dim=-1)
+
+
+def length(v: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.clamp(dot(v, v), min=1e-20))
+
+
+def normalize(v: torch.Tensor) -> torch.Tensor:
+    """Safe normalize: zero vectors pass through scaled by 0."""
+    return v / torch.clamp(length(v), min=EPS)[..., None]
+
+
+def reflect(incident: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
+    """GLSL-convention reflect: incident points toward the surface."""
+    return incident - (2.0 * dot(incident, normal))[..., None] * normal
+
+
+def refract(incident: torch.Tensor, normal: torch.Tensor, eta) -> torch.Tensor:
+    """glm::refract; the zero vector on total internal reflection. `eta` is
+    a float or a `[...]` tensor."""
+    if isinstance(eta, torch.Tensor):
+        eta = eta[..., None]
+    cos_i = dot(normal, incident)[..., None]
+    k = 1.0 - eta * eta * (1.0 - cos_i * cos_i)
+    out = eta * incident - (eta * cos_i + torch.sqrt(torch.clamp(k, min=1e-12))) * normal
+    return torch.where(k < 0.0, 0.0, out)
+
+
+def faceforward(n: torch.Tensor, i: torch.Tensor, nref: torch.Tensor) -> torch.Tensor:
+    """GLSL faceforward: n if dot(nref, i) < 0 else -n."""
+    return torch.where((dot(nref, i) < 0.0)[..., None], n, -n)
+
+
+def orthonormal_basis(normal: torch.Tensor):
+    """(s, t) orthogonal to `normal` (Light::orthonormalBase)."""
+    nx, ny, nz = normal.unbind(-1)
+    use_x = (nx.abs() > ny.abs())[..., None]
+    inv_xz = 1.0 / torch.sqrt(torch.clamp(nx * nx + nz * nz, min=EPS))
+    inv_yz = 1.0 / torch.sqrt(torch.clamp(ny * ny + nz * nz, min=EPS))
+    zero = torch.zeros_like(nx)
+    s_a = torch.stack([-nz * inv_xz, zero, nx * inv_xz], dim=-1)
+    s_b = torch.stack([zero, nz * inv_yz, -ny * inv_yz], dim=-1)
+    s = torch.where(use_x, s_a, s_b)
+    return s, cross(normal, s)
+
+
+def local_to_world_normal(local_dir: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
+    """Math::localToWorldNormal: s = normalize(n.y^2 > n.x^2 ? (0, nz, -ny)
+    : (-nz, 0, nx)); t = normalize(cross(n, s)). Not the Light frame above:
+    the branch condition differs."""
+    nx, ny, nz = normal.unbind(-1)
+    zero = torch.zeros_like(nx)
+    dx0 = torch.stack([zero, nz, -ny], dim=-1)
+    dx1 = torch.stack([-nz, zero, nx], dim=-1)
+    s = normalize(torch.where((ny * ny > nx * nx)[..., None], dx0, dx1))
+    t = normalize(cross(normal, s))
+    return (local_dir[..., 0:1] * s + local_dir[..., 1:2] * t
+            + local_dir[..., 2:3] * normal)
