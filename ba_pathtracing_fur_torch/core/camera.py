@@ -44,9 +44,10 @@ def make_camera(position=(0.0, 0.0, 0.0), look_at=(0.0, 0.0, -1.0),
                 up=(0.0, 1.0, 0.0), resolution=(512, 512),
                 sensor_size=(0.036, 0.024), focal_length=0.0415, f_stop=1.8,
                 focus_distance=11.0, transform=None, use_dof=False,
-                device=None) -> Camera:
+                device="cuda") -> Camera:
     """Camera::applyParameters (Camera.cpp:6-37), in host float32 numpy as
-    the JAX package does it. `look_at` is a direction."""
+    the JAX package does it, with the vectors on `device`. `look_at` is a
+    direction."""
 
     def _nrm(v):
         return v / max(float(np.linalg.norm(v)), 1e-20)
@@ -82,9 +83,9 @@ def make_camera(position=(0.0, 0.0, 0.0), look_at=(0.0, 0.0, -1.0),
         resolution=tuple(resolution), use_dof=use_dof)
 
 
-def camera_from_numpy(cam, device=None) -> Camera:
+def camera_from_numpy(cam, device="cuda") -> Camera:
     """Read a JAX-package `Camera` field by field (no jax import needed:
-    the object is passed in) into the port's Camera."""
+    the object is passed in) into the port's Camera on `device`."""
     return Camera(
         position=_vec(cam.position, device), axis_x=_vec(cam.axis_x, device),
         axis_y=_vec(cam.axis_y, device), axis_z=_vec(cam.axis_z, device),

@@ -44,8 +44,8 @@ def threefry2x32(k0, k1, x0, x1):
     return x0, x1
 
 
-def key(seed: int, device=None) -> torch.Tensor:
-    """`jax.random.key(seed)` key data as an int64 `[2]` tensor."""
+def key(seed: int, device="cuda") -> torch.Tensor:
+    """`jax.random.key(seed)` key data as an int64 `[2]` tensor on `device`."""
     return torch.tensor([(seed >> 32) & _MASK, seed & _MASK],
                         dtype=torch.int64, device=device)
 

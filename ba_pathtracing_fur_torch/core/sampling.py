@@ -1,8 +1,8 @@
 """Sampling and Fresnel helpers on tensors.
 
 Counterpart of `ba_pathtracing_fur_tpu/core/sampling.py`, holding what the
-shading body uses; the hair helpers come with ROADMAP K1. Uniform random
-numbers come in as explicit arguments.
+shading body and the hair automaton use. Uniform random numbers come in as
+explicit arguments.
 """
 
 from __future__ import annotations
@@ -12,6 +12,14 @@ import math
 import torch
 
 from . import vecmath as vm
+
+INV_SQRT_2PI = 0.3989422804014327
+
+
+def normal_gauss_pdf(x, mean, stddev):
+    """Gaussian pdf, matching BSDFHelper::normal_gauss_pdf (Bsdf.cpp:79-85)."""
+    a = (x - mean) / stddev
+    return INV_SQRT_2PI / stddev * torch.exp(-0.5 * a * a)
 
 
 def dielectric_fresnel(cos_theta, eta_i, eta_t):

@@ -12,9 +12,11 @@
 //
 // The JAX body is compute-all-select (Mosaic has no branches); here each
 // lane branches on its own material and on each light's kind (uniform across
-// the block). Native acosf replaces the Cephes forms. The Marschner/d'Eon
-// hair automaton arrives with the fur slice (ROADMAP K1), which reuses this
-// header from the port of _shade_kernel.
+// the block). Native acosf/asinf/atan2f replace the Cephes forms. The
+// Marschner/d'Eon hair automaton (models/fur.py twins, Bsdf.cpp:465-1051)
+// sits behind the compile-time switch `kHair` of shade_bounce_core: the
+// full-bounce kernel instantiates it without hair, the shade kernel
+// (shade.cu) with and without.
 //
 // Build without --use_fast_math: approximate division and denormal flush
 // would move results against the 1.19e-7 determinant threshold. FMA
@@ -40,6 +42,7 @@ enum { BSDF_LAMBERT = 0, BSDF_SPECULAR_REFLECTION = 1, BSDF_SPECULAR_TRANSMISSIO
        BSDF_LAMBERT_TRANSMISSION = 6, BSDF_EMISSION = 7, BSDF_TRANSPARENT = 8,
        BSDF_MARSCHNER_HAIR = 9, BSDF_DEON_HAIR = 10 };
 enum { LIGHT_POINT = 0, LIGHT_QUAD = 1, LIGHT_SPOT = 2, LIGHT_SUN = 3 };
+enum { SHADER_SIMPLE = 0, SHADER_MARSCHNER_HAIR = 1 };
 enum { MATFLAG_TRANSPARENT_BOUNCE = 1, MATFLAG_SPECULAR_BOUNCE = 2,
        MATFLAG_EMISSIVE_BOUNCE = 4, MATFLAG_CYLINDER_T_BOUNCE = 8,
        MATFLAG_CYLINDER_TR_BOUNCE = 16 };
@@ -508,6 +511,284 @@ __device__ __forceinline__ float sample_pdf(const Mat& mp, float3 n, float3 wi_v
 }
 
 // ---------------------------------------------------------------------------
+// Hair automaton (models/shade_core.py: _marschner, _deon, sample_hair)
+// ---------------------------------------------------------------------------
+
+constexpr float HAIR_EPS = 1e-6f;  // fur._EPS
+constexpr float INV_SQRT_2PI = 0.3989422804014327f;
+constexpr float PI3 = 31.00627668029982f;  // pi ** 3
+
+// The fiber frame at the hit: u, v (the fiber axis), w.
+struct Fiber {
+  float3 u, v, w;
+};
+
+struct HairSample {
+  float3 refl, wo;
+  float pdf;
+  int flags;
+  float theta_i;
+};
+
+// World -> Marschner cylinder space: component 0 is along the fiber axis
+// (the reference passes the axes in (V, U, W) order, Bsdf.cpp:482).
+__device__ __forceinline__ float3 to_cyl(float3 x, const Fiber& f) {
+  return f3(dot(x, f.v), dot(x, f.u), dot(x, f.w));
+}
+
+__device__ __forceinline__ float hair_theta(float3 c) {
+  return atan2f(sqrtf(fmaxf(c.x * c.x + c.z * c.z, 1e-20f)), c.y);
+}
+
+__device__ __forceinline__ float hair_phi(float3 c) {
+  bool degenerate = fabsf(c.x) < 1e-12f && fabsf(c.y) < 1e-12f;
+  return atan2f(c.x, degenerate ? 1.0f : c.y);
+}
+
+// Rodrigues rotation about `axis` (vm.rotate_about_axis).
+__device__ __forceinline__ float3 rotate(float3 v, float3 axis, float angle) {
+  float c = cosf(angle), s = sinf(angle);
+  float3 a = normalize(axis);
+  return v * c + cross(a, v) * s + a * (dot(a, v) * (1.0f - c));
+}
+
+__device__ __forceinline__ float angle_between(float3 a, float3 b) {
+  return acosf(clampf(dot(normalize(a), normalize(b)), -1.0f + 1e-7f, 1.0f - 1e-7f));
+}
+
+__device__ __forceinline__ float clip1(float x) { return clampf(x, -1.0f + 1e-6f, 1.0f - 1e-6f); }
+
+__device__ __forceinline__ float safe_div(float a, float b) {
+  return a / (fabsf(b) < HAIR_EPS ? (b < 0.0f ? -HAIR_EPS : HAIR_EPS) : b);
+}
+
+__device__ __forceinline__ float gauss_pdf(float x, float stddev) {
+  float a = x / stddev;
+  return INV_SQRT_2PI / stddev * expf(-0.5f * a * a);
+}
+
+// Bessel J0 (Abramowitz & Stegun 9.4), as fur.bessel_j0.
+__device__ __forceinline__ float bessel_j0(float x) {
+  float ax = fabsf(x);
+  if (ax < 8.0f) {
+    float y = fminf(x * x, 64.0f);
+    float p1 = 57568490574.0f + y * (-13362590354.0f + y * (651619640.7f
+               + y * (-11214424.18f + y * (77392.33017f + y * -184.9052456f))));
+    float q1 = 57568490411.0f + y * (1029532985.0f + y * (9494680.718f
+               + y * (59272.64853f + y * (267.8532712f + y))));
+    return p1 / q1;
+  }
+  float z = 8.0f / ax;
+  float y2 = z * z;
+  float xx = ax - 0.785398164f;
+  float p2 = 1.0f + y2 * (-0.1098628627e-2f + y2 * (0.2734510407e-4f
+             + y2 * (-0.2073370639e-5f + y2 * 0.2093887211e-6f)));
+  float q2 = -0.1562499995e-1f + y2 * (0.1430488765e-3f + y2 * (-0.6911147651e-5f
+             + y2 * (0.7621095161e-6f + y2 * -0.934935152e-7f)));
+  return sqrtf(0.636619772f / ax) * (cosf(xx) * p2 - z * sinf(xx) * q2);
+}
+
+// Virtual (Bravais) indices (Bsdf.cpp:542-545).
+__device__ __forceinline__ void bravais(float ior, float gamma_i, float& n1, float& n2) {
+  float cg = cosf(gamma_i);
+  float cg_safe = fabsf(cg) < HAIR_EPS ? HAIR_EPS : cg;
+  float sg = sinf(gamma_i);
+  float x1 = sqrtf(fmaxf(ior * ior - sg * sg, HAIR_EPS));
+  n1 = x1 / cg_safe;
+  n2 = ior * ior * cg_safe / x1;
+}
+
+// d'Eon longitudinal term M with the reference's mixed radians()/degrees()
+// quirk on the R lobe (Bsdf.cpp:993-995) and MSVC _j0.
+__device__ __forceinline__ float deon_M(float v, float theta_i, float theta_r, bool radians_quirk) {
+  float v_safe = fmaxf(v, HAIR_EPS);
+  float x, scale;
+  if (radians_quirk) {
+    x = (1.0f / v_safe) * DEG2RAD;
+    scale = v_safe * RAD2DEG;
+  } else {
+    x = 1.0f / v_safe;
+    scale = v_safe;
+  }
+  float s = sinf(-theta_i) * sinf(theta_r) / scale;
+  float x_pos = fmaxf(x, HAIR_EPS);
+  float log_m = -x_pos - logf(fmaxf(1.0f - expf(-2.0f * x_pos), 1e-30f)) - logf(v_safe) + s;
+  float bes = bessel_j0(cosf(-theta_i) * cosf(theta_r) / scale);
+  return expf(fminf(log_m, 80.0f)) * bes;
+}
+
+// d'Eon azimuthal detector: wrapped Gaussian over 21 periods.
+__device__ __forceinline__ float deon_detector(float phi, float stddev_deg) {
+  float acc = 0.0f;
+  for (int k = -10; k <= 10; ++k) acc += gauss_pdf(phi - 2.0f * PI * static_cast<float>(k), stddev_deg);
+  return acc;
+}
+
+__device__ __forceinline__ float3 exp3(float3 v) { return f3(expf(v.x), expf(v.y), expf(v.z)); }
+
+// The first hit of the walk when it enters the fiber (p_choice 1 or 2).
+__device__ __forceinline__ HairSample hair_enter(float3 nin, float3 nf, float ior, int p_choice) {
+  HairSample hs;
+  hs.refl = f3(0.0f);
+  hs.wo = refract(-nin, nf, 1.0f / ior);
+  hs.pdf = 1.0f;
+  hs.flags = p_choice == 2 ? MATFLAG_CYLINDER_TR_BOUNCE : MATFLAG_CYLINDER_T_BOUNCE;
+  hs.theta_i = 0.0f;
+  return hs;
+}
+
+// The internal-reflection step of TR.
+__device__ __forceinline__ HairSample hair_tr(float3 nin, float3 nf) {
+  HairSample hs;
+  hs.refl = f3(0.0f);
+  hs.wo = reflect(-nin, nf);
+  hs.pdf = 1.0f;
+  hs.flags = MATFLAG_CYLINDER_TR_BOUNCE | MATFLAG_CYLINDER_T_BOUNCE | MATFLAG_SPECULAR_BOUNCE;
+  hs.theta_i = 0.0f;
+  return hs;
+}
+
+// MarschnerHairBSDF::localSample (Bsdf.cpp:465-769): the walk state in the
+// flag bits picks R / entry, TT, TR or TRT. Degree-valued alpha/beta are
+// fed to radian math, and the TRT lobe is boosted x10, as in the reference.
+__device__ inline HairSample marschner_sample(const Mat& mp, float3 nin, float3 n, const Fiber& fb,
+                                              int flags, int p_choice) {
+  float alpha = mp.hair_alpha, beta = mp.hair_beta;
+  float theta_i = hair_theta(to_cyl(nin, fb));
+  float3 nf = faceforward(n, -nin, n);
+  float gamma_i = angle_between(nin, normalize(n));
+  float h = sinf(gamma_i);
+  float b1, b2;
+  bravais(mp.ior, gamma_i, b1, b2);
+  float fresnel = dielectric_fresnel(gamma_i, b1, b2);
+  bool t_set = (flags & MATFLAG_CYLINDER_T_BOUNCE) != 0;
+  bool tr_set = (flags & MATFLAG_CYLINDER_TR_BOUNCE) != 0;
+  HairSample hs;
+  if (tr_set && !t_set) return hair_tr(nin, nf);
+  if (!t_set && !tr_set) {
+    if (p_choice != 0) return hair_enter(nin, nf, mp.ior, p_choice);
+    // R
+    float3 wo_r = rotate(reflect(-nin, nf), fb.v, -alpha);
+    float th_r = hair_theta(to_cyl(wo_r, fb));
+    float th_h = 0.5f * (th_r + theta_i), th_d = 0.5f * (th_r - theta_i);
+    float pdf_r = gauss_pdf(th_h - alpha, beta);
+    float dh_dphi = fabsf(safe_div(-2.0f, sqrtf(fmaxf(1.0f - h * h, HAIR_EPS))));
+    float n_r = 0.5f * fresnel * dh_dphi;
+    float cd = cosf(th_d);
+    float scat = pdf_r * n_r / fmaxf(cd * cd, HAIR_EPS);
+    hs.refl = f3(scat);
+    hs.wo = wo_r;
+    hs.pdf = pdf_r;
+    hs.flags = MATFLAG_SPECULAR_BOUNCE;
+    hs.theta_i = theta_i;
+    return hs;
+  }
+  float c_tt = asinf(clip1(1.0f / b1));
+  float inv_root = safe_div(1.0f, sqrtf(fmaxf(1.0f - h * h, HAIR_EPS)));
+  if (t_set && !tr_set) {  // TT exit
+    float3 wo = rotate(refract(-nin, nf, 1.0f), fb.v, alpha / 2.0f);
+    float th_r = hair_theta(to_cyl(wo, fb));
+    float th_h = 0.5f * (th_r + theta_i), th_d = 0.5f * (th_r - theta_i);
+    float pdf = gauss_pdf(th_h + alpha / 2.0f, beta / 2.0f);
+    float denom = inv_root * (-(24.0f * c_tt / PI3) * (gamma_i * gamma_i) + (6.0f * c_tt / PI - 2.0f));
+    float dh = safe_div(1.0f, fabsf(denom));
+    float cos_gamma_t = -2.0f * cosf(asinf(clip1(h / b1)));
+    float inv_ctr = 1.0f / fmaxf(cosf(th_r), HAIR_EPS);
+    float3 att = exp3(mp.diffuse * inv_ctr * cos_gamma_t) * ((1.0f - fresnel) * (1.0f - fresnel));
+    float cd = cosf(th_d);
+    hs.refl = att * (0.5f * dh) * (pdf / fmaxf(cd * cd, HAIR_EPS));
+    hs.wo = wo;
+    hs.pdf = pdf;
+    hs.flags = 0;
+    hs.theta_i = theta_i;
+    return hs;
+  }
+  // TRT exit
+  float3 wo = rotate(refract(-nin, nf, 1.0f), fb.v, 3.0f * alpha / 2.0f);
+  float th_r = hair_theta(to_cyl(wo, fb));
+  float th_h = 0.5f * (th_r + theta_i), th_d = 0.5f * (th_r - theta_i);
+  float pdf = gauss_pdf(th_h + 3.0f * alpha / 2.0f, 2.0f * beta);
+  float denom = inv_root * (-(48.0f * c_tt / PI3) * (gamma_i * gamma_i) + (12.0f * c_tt / PI - 2.0f));
+  float dh = safe_div(1.0f, fabsf(denom));
+  float gamma_t = asinf(clip1(h / b1));
+  float fresnel_exit = dielectric_fresnel(gamma_t, 1.0f / b1, 1.0f / b2);
+  float inv_ctr = 1.0f / fmaxf(cosf(th_r), HAIR_EPS);
+  float3 e2 = exp3(mp.diffuse * inv_ctr * (-2.0f * cosf(gamma_t)));
+  float3 att = (e2 * e2) * ((1.0f - fresnel) * (1.0f - fresnel) * fresnel_exit);
+  float cd = cosf(th_d);
+  hs.refl = att * (0.5f * dh) * (10.0f * pdf / fmaxf(cd * cd, HAIR_EPS));
+  hs.wo = wo;
+  hs.pdf = pdf;
+  hs.flags = 0;
+  hs.theta_i = theta_i;
+  return hs;
+}
+
+// DEonHairBSDF::localSample (Bsdf.cpp:784-1051): the same walk states with
+// d'Eon's energy-conserving longitudinal and azimuthal terms.
+__device__ inline HairSample deon_sample(const Mat& mp, float3 nin, float3 n, const Fiber& fb,
+                                         int flags, int p_choice) {
+  float3 ic = to_cyl(nin, fb);
+  float alpha = mp.hair_alpha * DEG2RAD, beta = mp.hair_beta * DEG2RAD;
+  float ior = mp.ior;
+  float theta_i = hair_theta(ic);
+  float phi_i = hair_phi(ic);
+  float gamma_i = angle_between(nin, normalize(n));
+  float h = sinf(gamma_i);
+  float3 nf = faceforward(n, -nin, n);
+  bool t_set = (flags & MATFLAG_CYLINDER_T_BOUNCE) != 0;
+  bool tr_set = (flags & MATFLAG_CYLINDER_TR_BOUNCE) != 0;
+  HairSample hs;
+  if (tr_set && !t_set) {
+    hs = hair_tr(nin, nf);
+    hs.theta_i = theta_i;
+    return hs;
+  }
+  if (!t_set && !tr_set) {
+    if (p_choice != 0) {
+      hs = hair_enter(nin, nf, ior, p_choice);
+      hs.theta_i = theta_i;
+      return hs;
+    }
+    float3 wo_r = rotate(reflect(-nin, nf), fb.v, -alpha);
+    float3 rc = to_cyl(wo_r, fb);
+    float m_r = deon_M(beta * beta, theta_i, hair_theta(rc), true);
+    float d_r = 0.25f * fabsf(cosf(hair_phi(rc) - phi_i / 2.0f));
+    float fres = dielectric_fresnel(0.5f * acosf(clip1(dot(nin, normalize(wo_r)))), 1.0f, ior);
+    hs.refl = f3(m_r * 0.5f * fres * d_r);
+    hs.wo = wo_r;
+    hs.pdf = m_r;
+    hs.flags = MATFLAG_SPECULAR_BOUNCE;
+    hs.theta_i = theta_i;
+    return hs;
+  }
+  bool tt = t_set && !tr_set;  // else TRT
+  float lobe_beta = tt ? beta / 2.0f : beta * 2.0f;
+  float3 wo = rotate(refract(-nin, nf, 1.0f), fb.v, tt ? alpha / 2.0f : 3.0f * alpha / 2.0f);
+  float3 xc = to_cyl(wo, fb);
+  float theta_r = hair_theta(xc);
+  float theta_d = 0.5f * (theta_r - theta_i);
+  float m = deon_M(lobe_beta * lobe_beta, theta_i, theta_r, false);
+  float phi = hair_phi(xc) - phi_i;
+  float cos_td = cosf(theta_d);
+  float sin_td = sinf(theta_d);
+  float brav = sqrtf(fmaxf(ior * ior - sin_td * sin_td, HAIR_EPS)) / fmaxf(cos_td, HAIR_EPS);
+  float det = deon_detector(phi, lobe_beta * RAD2DEG);
+  float fres = dielectric_fresnel(acosf(clip1(cos_td * cosf(gamma_i))), ior, 1.0f);
+  float cos_2gt = cosf(2.0f * asinf(clip1(h / brav)));
+  float inv_c = 1.0f / fmaxf(cosf(theta_r), HAIR_EPS);
+  float3 base = exp3(mp.diffuse * inv_c * (-2.0f * (1.0f + cos_2gt)));
+  float3 att = tt ? base * ((1.0f - fres) * (1.0f - fres))
+                  : (base * base) * ((1.0f - fres) * (1.0f - fres) * fres);
+  hs.refl = att * (m * 0.5f * det);
+  hs.wo = wo;
+  hs.pdf = m;
+  hs.flags = 0;
+  hs.theta_i = theta_i;
+  return hs;
+}
+
+// ---------------------------------------------------------------------------
 // The bounce's shade stage
 // ---------------------------------------------------------------------------
 
@@ -543,10 +824,15 @@ struct Shadow {
 };
 
 // One bounce after the traversal (models/shade_core.py::shade_bounce_core).
-// `lights` holds n_lights rows of LIGHT_COLS floats.
+// `lights` holds n_lights rows of LIGHT_COLS floats. With kHair, materials
+// of the hair shader take the Marschner/d'Eon automaton in the fiber frame
+// `fib` (walk choice from `u_hairp` when `hair_p_random`); without it the
+// function is the hair-free body the full-bounce kernel runs.
+template <bool kHair = false>
 __device__ inline Shadow shade_bounce_core(PathState& st, const Hit& hit, const Mat& mp, float3 env_color,
                                     float3 env_ambient, const float* lights, const Uniforms& u,
-                                    const Cfg& cfg) {
+                                    const Cfg& cfg, const Fiber& fib = Fiber{},
+                                    float u_hairp = 0.0f, bool hair_p_random = false) {
   Shadow sh;
   sh.o = f3(0.0f);
   sh.d = f3(0.0f, 1.0f, 0.0f);
@@ -639,20 +925,52 @@ __device__ inline Shadow shade_bounce_core(PathState& st, const Hit& hit, const 
   // ambient = env_ambient * evaluateLight(n, n) / pi (SimpleShader.h:47)
   float3 amb_rgb = (env_ambient * evaluate_light(mp, n, n, n) * INV_PI) * st.radiance;
 
-  BsdfSample bs = sample_surface(mp, counter, n, u.bsdf1, u.bsdf2, st.flags, cfg.bsdfs_present);
+  // the surface BSDF sample, or the hair automaton's step on hair materials
+  // (without kHair every hair branch folds away at compile time)
+  const bool is_hair = kHair && mp.shader_id == SHADER_MARSCHNER_HAIR;
+  float hair_theta_i = st.theta_i;
+  BsdfSample bs;
+  if (is_hair) {
+    int p_choice = hair_p_random ? min(static_cast<int>(u_hairp * 3.0f), 2) : 0;
+    float3 nin = normalize(counter);
+    HairSample hs = mp.bsdf_id == BSDF_DEON_HAIR
+        ? deon_sample(mp, nin, n, fib, st.flags, p_choice)
+        : marschner_sample(mp, nin, n, fib, st.flags, p_choice);
+    bs.refl = hs.refl;
+    bs.wo = hs.wo;
+    bs.pdf = hs.pdf;
+    bs.flags = hs.flags;
+    hair_theta_i = hs.theta_i;
+  } else {
+    bs = sample_surface(mp, counter, n, u.bsdf1, u.bsdf2, st.flags, cfg.bsdfs_present);
+  }
   bool kill = is_zero(bs.refl) || bs.pdf <= 1e-4f || (!cfg.rr && max3(st.radiance) < 0.01f);
   bool emissive = (bs.flags & MATFLAG_EMISSIVE_BOUNCE) != 0;
   bool mid_walk = (bs.flags & (MATFLAG_CYLINDER_T_BOUNCE | MATFLAG_CYLINDER_TR_BOUNCE)) != 0;
   bool specular = (bs.flags & MATFLAG_SPECULAR_BOUNCE) != 0;
   float3 offset = specular ? bs.wo * 1e-4f : faceforward(-1e-4f * n, n, bs.wo);
 
-  // SimpleShader colour and throughput update
-  float3 c = amb_rgb;
-  if (emissive && !kill) c = c + mp.emission * st.radiance;
-  st.color = st.color + c;
-  float3 rad = (kill || emissive)
-      ? f3(0.0f)
-      : st.radiance * bs.refl * (fabsf(dot(bs.wo, n)) * (1.0f / fmaxf(bs.pdf, 1e-20f)));
+  float3 rad;
+  if (is_hair) {
+    // MarschnerHairShader: no NEE or ambient while the walk is inside the
+    // fiber, and the throughput passes through unchanged there
+    if (mid_walk) {
+      sh.direct_rgb = f3(0.0f);
+      sh.tmax = 0.0f;
+      rad = st.radiance;
+    } else {
+      st.color = st.color + amb_rgb;
+      rad = kill ? f3(0.0f) : st.radiance * bs.refl * (3.0f * fabsf(cosf(hair_theta_i)));
+    }
+  } else {
+    // SimpleShader colour and throughput update
+    float3 c = amb_rgb;
+    if (emissive && !kill) c = c + mp.emission * st.radiance;
+    st.color = st.color + c;
+    rad = (kill || emissive)
+        ? f3(0.0f)
+        : st.radiance * bs.refl * (fabsf(dot(bs.wo, n)) * (1.0f / fmaxf(bs.pdf, 1e-20f)));
+  }
   rad = f3(fminf(rad.x, cfg.clamp_throughput), fminf(rad.y, cfg.clamp_throughput),
            fminf(rad.z, cfg.clamp_throughput));
   if (cfg.rr && cfg.rr_gate && !mid_walk) {
@@ -661,12 +979,15 @@ __device__ inline Shadow shade_bounce_core(PathState& st, const Hit& hit, const 
   }
   st.radiance = rad;
 
-  if (!kill && !emissive) {
+  // continuing rays take the new ray; the hair walk moves its ray (and
+  // writes its flags and theta_i) even mid-walk
+  if ((!kill && !emissive) || is_hair) {
     st.origin = pos + offset;
     st.direction = bs.wo;
     st.flags = bs.flags;
   }
-  if (cfg.mis) st.prev_pdf = sample_pdf(mp, n, counter, bs.wo);
+  if (is_hair) st.theta_i = hair_theta_i;
+  if (cfg.mis) st.prev_pdf = is_hair ? -1.0f : sample_pdf(mp, n, counter, bs.wo);
   return sh;
 }
 

@@ -1,14 +1,16 @@
 """Build and load the port's hand-written CUDA kernels.
 
-At first use, nvcc compiles every `csrc/*.cu` into ONE shared library with a
-plain C interface, under `ba_pathtracing_fur_torch/_build/` (git-ignored),
-and ctypes loads it. Pointers and the stream go in as `c_void_p`; each C
+At first use, nvcc compiles each `csrc/*.cu` into its own shared library
+with a plain C interface, all sources at once (one nvcc process per source,
+started together), under `ba_pathtracing_fur_torch/_build/` (git-ignored),
+and ctypes loads them. Pointers and the stream go in as `c_void_p`; each C
 entry point returns `cudaGetLastError()` of its launch, and the wrapper
 raises when that is not 0. A failed build raises too: there is never a
 quiet fallback to the plain torch versions.
 
-The library's file name carries a hash of the sources and flags, so an
-edited source is rebuilt and a stale library is never loaded.
+The build directory's name carries a hash of every source and header and
+of the flags, so an edited source is rebuilt and a stale library is never
+loaded.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import types
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -32,18 +35,34 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
+#: per-source flags on top of NVCC_FLAGS. The traversal kernel is built
+#: without FMA contraction, so its leaf and box tests round like the plain
+#: torch version's separate ops: the two agree bit for bit on t and found.
+SOURCE_FLAGS = {"traverse.cu": ("-fmad=false",)}
+
 _C_VOID_P, _C_INT, _C_FLOAT, _C_UINT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                                        ctypes.c_uint)
 
-#: argtypes of every C entry point in csrc/
+#: every C entry point: (source file, argtypes)
 SIGNATURES = {
-    "full_bounce_launch": (
+    "full_bounce_launch": ("full_bounce.cu", (
         [_C_INT] + [_C_VOID_P] * 11            # n_rays, 7 state + 4 uniform arrays
         + [_C_VOID_P, _C_INT, _C_VOID_P, _C_INT, _C_VOID_P, _C_INT]  # tables + counts
         + [_C_VOID_P]                          # env colour + ambient (6 floats)
         + [_C_INT, _C_INT, _C_INT, _C_FLOAT, _C_UINT]  # mis rr rr_gate clamp present
         + [_C_VOID_P] * 7                      # outputs
-        + [_C_VOID_P]),                        # cudaStream_t
+        + [_C_VOID_P])),                       # cudaStream_t
+    "traverse_launch": ("traverse.cu", (
+        [_C_INT] + [_C_VOID_P] * 6             # n_rays, o d t_max bmin bmax packed
+        + [_C_INT, _C_INT, _C_INT, _C_INT, _C_FLOAT]  # n_leaves leaf_k cone any_hit t_min
+        + [_C_VOID_P] * 3                      # t row found
+        + [_C_VOID_P])),                       # cudaStream_t
+    "shade_launch": ("shade.cu", (
+        [_C_INT, _C_VOID_P, _C_VOID_P]         # n_rays, &ShadeIn, &ShadeOut
+        + [_C_VOID_P, _C_INT]                  # lights table + count
+        + [_C_INT, _C_INT, _C_INT, _C_FLOAT, _C_UINT]  # mis rr rr_gate clamp present
+        + [_C_INT, _C_INT, _C_INT]             # has_hair hair_p_random env_per_ray
+        + [_C_VOID_P])),                       # cudaStream_t
 }
 
 _lock = threading.Lock()
@@ -69,50 +88,68 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path() -> Path:
-    """The library's path, named by a hash of the sources and the flags."""
-    h = hashlib.sha256(repr(NVCC_FLAGS).encode())
+def build_dir() -> Path:
+    """The libraries' directory, named by a hash of the sources and flags."""
+    h = hashlib.sha256(repr((NVCC_FLAGS, SOURCE_FLAGS)).encode())
     for p in sorted(SRC_DIR.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    return BUILD_DIR / f"libfur_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"fur_kernels_{h.hexdigest()[:16]}"
 
 
-def build_command(out: Path, nvcc: str = "nvcc") -> list[str]:
-    """The nvcc command line that builds every csrc/*.cu into `out`."""
-    return [nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", str(out),
-            *(str(s) for s in sources())]
+def library_path(src: Path) -> Path:
+    return build_dir() / f"lib{src.stem}.so"
 
 
-def build() -> Path:
-    """Compile the library if it is not built yet; returns its path. The
-    compiler's output (with the ptxas report) is kept in LAST_BUILD_LOG."""
+def build_command(src: Path, out: Path, nvcc: str = "nvcc") -> list[str]:
+    """The nvcc command line that builds one csrc/*.cu into `out`."""
+    return [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, ()), "-I", str(SRC_DIR), "-o",
+            str(out), str(src)]
+
+
+def build() -> list[Path]:
+    """Compile every library that is not built yet, one nvcc per source, all
+    started together; returns their paths. The compilers' output (with the
+    ptxas reports) is kept in LAST_BUILD_LOG."""
     global LAST_BUILD_LOG
-    out = library_path()
-    if out.is_file():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        tmp_out = Path(tmp) / out.name
-        cmd = build_command(tmp_out, nvcc_path())
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        LAST_BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                               f"{LAST_BUILD_LOG}")
-        os.replace(tmp_out, out)
-    return out
+    outs = [library_path(s) for s in sources()]
+    todo = [(s, o) for s, o in zip(sources(), outs) if not o.is_file()]
+    if not todo:
+        return outs
+    outs[0].parent.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=outs[0].parent) as tmp:
+        jobs = []
+        for src, out in todo:
+            cmd = build_command(src, Path(tmp) / out.name, nvcc)
+            jobs.append((cmd, out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for cmd, out, proc in jobs:
+            log = proc.communicate()[0]
+            logs.append(f"$ {' '.join(cmd)}\n{log}")
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+        LAST_BUILD_LOG = "\n".join(logs)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for cmd, out, _ in jobs:
+            os.replace(Path(tmp) / out.name, out)
+    return outs
 
 
-def load_library() -> ctypes.CDLL:
-    """The built kernel library, with argtypes set (built on first use)."""
+def load_library() -> types.SimpleNamespace:
+    """The C entry points of the built libraries, with argtypes set (built
+    on first use), as attributes of one namespace."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
+            libs = {p.name: ctypes.CDLL(str(p)) for p in build()}
+            fns = {}
+            for name, (src, argtypes) in SIGNATURES.items():
+                fn = getattr(libs[f"lib{Path(src).stem}.so"], name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            _lib = lib
+                fns[name] = fn
+            _lib = types.SimpleNamespace(**fns)
         return _lib

@@ -1,15 +1,25 @@
-"""Wavefront progressive path tracer: the level-2 (full-bounce) path.
+"""Wavefront progressive path tracer with fused shading.
 
 Counterpart of `ba_pathtracing_fur_tpu/models/pathtracer.py`. A sample is a
-wavefront of `[R]`-shaped ray state; each bounce is one call of
-`ops/cuda/shade.shade_bounce_full` (one CUDA kernel on the card, the plain
-torch twin on the CPU), and the samples are averaged as the running mean
-`acc + (c - acc) / (i + 1)`. The JAX bounce loop is a `fori_loop`; here it
-is a Python loop, so `bounce` is a plain int.
+wavefront of `[R]`-shaped ray state, and the samples are averaged as the
+running mean `acc + (c - acc) / (i + 1)`. The JAX bounce loop is a
+`fori_loop`; here it is a Python loop, so `bounce` is a plain int. Each
+bounce is `trace_bounce_fused`:
 
-Only `fused_shading=True, compact=False` on scenes that pass
-`full_fuse_eligible` is ported so far; other configurations raise
-`NotImplementedError` naming the ROADMAP item that brings them.
+  * on scenes that pass `full_fuse_eligible` (small untextured triangle
+    scenes without a BVH: the Cornell class) one call of
+    `ops/cuda/shade.shade_bounce_full`, the whole bounce in one kernel;
+  * on every other scene (fur, BVHs) the JAX package's general branch, step
+    for step: the closest hit (`ops/traverse.closest_hit`: the traversal
+    kernel for BVH packs, the dense grid otherwise) and the Hit assembly,
+    the material gather, environment colour and threefry draws in torch,
+    the shade kernel (`ops/cuda/shade.shade_bounce`), the shadow any-hit,
+    and the masked add of the NEE term.
+
+On the card each kernel is a CUDA launch; on the CPU its plain twin runs.
+Only `fused_shading=True, compact=False` on untextured scenes is ported so
+far; other configurations raise `NotImplementedError` naming the ROADMAP
+item that brings them.
 """
 
 from __future__ import annotations
@@ -20,7 +30,9 @@ from typing import Optional, Sequence
 import torch
 
 from ..core import camera as cam_mod, rng
+from ..models import bsdf, shading
 from ..models.shade_core import CoreCfg
+from ..ops import traverse
 from ..ops.cuda import shade as cshade
 from ..scene.types import DeviceScene
 
@@ -103,10 +115,6 @@ def check_supported(scene: DeviceScene, cfg: RenderConfig) -> None:
         raise NotImplementedError("stream compaction is not ported yet (ROADMAP M6)")
     if cfg.tonemap:
         raise NotImplementedError("tone mapping is not ported yet (ROADMAP M6)")
-    if not cshade.full_fuse_eligible(scene):
-        raise NotImplementedError(
-            "only scenes eligible for the full-bounce kernel are ported yet: BVH "
-            "traversal and hair shading arrive with ROADMAP K1, K2+K3 and M7")
 
 
 def full_bounce_inputs(state: RayState, scene: DeviceScene, keys: torch.Tensor, bounce: int,
@@ -123,22 +131,63 @@ def full_bounce_inputs(state: RayState, scene: DeviceScene, keys: torch.Tensor, 
         env_color3=scene.env.color, env_ambient=scene.env.ambient,
         n_lights=scene.lights.count, n_tris=scene.tris.count, n_mats=scene.materials.count,
         u_bsdf=u[0], u_pick=u_pick, u_light=u[2], u_hairp=u[3, :, 0],
-        u_rr=u[4, :, 0].contiguous() if cfg.rr else torch.zeros_like(u_pick),
+        u_rr=u[4, :, 0].contiguous() if cfg.rr else None,
         rr_gate=bounce >= cfg.rr_start,
-        cfg=CoreCfg(n_lights=scene.lights.count, mis=cfg.mis, rr=cfg.rr,
-                    has_hair=scene.has_hair, clamp_throughput=cfg.clamp_throughput,
-                    bsdfs_present=scene.bsdfs_present))
+        cfg=core_cfg(scene, cfg))
+
+
+def core_cfg(scene: DeviceScene, cfg: RenderConfig) -> CoreCfg:
+    return CoreCfg(n_lights=scene.lights.count, mis=cfg.mis, rr=cfg.rr,
+                   has_hair=scene.has_hair, hair_p_random=cfg.hair_p_random,
+                   clamp_throughput=cfg.clamp_throughput, bsdfs_present=scene.bsdfs_present)
+
+
+def shade_inputs(state: RayState, scene: DeviceScene, keys: torch.Tensor, bounce: int,
+                 cfg: RenderConfig, hit, tables: BounceTables) -> dict:
+    """The keyword arguments of `shade_bounce` for this bounce: the ray
+    state, the hit, the material gather, the environment colour and the
+    draws u_bsdf/u_pick/u_light/u_hairp (and u_rr when `cfg.rr`) with the
+    tags 0-4 of the JAX package."""
+    u = rng.bounce_uniforms(keys, bounce, 5 if cfg.rr else 4, 2)  # [tags, R, 2]
+    u_pick = u[1, :, 0].contiguous()
+    return dict(
+        origin=state.origin, direction=state.direction, radiance=state.radiance,
+        color=state.color, flags=state.flags, theta_i=state.theta_i, prev_pdf=state.prev_pdf,
+        hit_t=hit.t, hit_valid=hit.valid, hit_pos=hit.position, hit_normal=hit.normal,
+        fib_u=hit.fiber_u, fib_v=hit.fiber_v, fib_w=hit.fiber_w,
+        mp=bsdf.gather_materials(scene.materials, hit.mat_id, scene.textures),
+        env_color=shading.environment_color(scene.env, state.direction),
+        env_ambient=scene.env.ambient, lights_table=tables.lights,
+        n_lights=scene.lights.count, u_bsdf=u[0], u_pick=u_pick, u_light=u[2],
+        u_hairp=u[3, :, 0].contiguous(),
+        u_rr=u[4, :, 0].contiguous() if cfg.rr else None,
+        rr_gate=bounce >= cfg.rr_start, cfg=core_cfg(scene, cfg))
 
 
 def trace_bounce_fused(state: RayState, scene: DeviceScene, keys: torch.Tensor,
                        bounce: int, cfg: RenderConfig,
                        tables: Optional[BounceTables] = None) -> RayState:
-    """One level-2 bounce: closest hit, shading and shadow any-hit in one
-    pass (one kernel launch on a CUDA device)."""
+    """One bounce. Level-2 scenes run it as one full-bounce pass; every
+    other scene runs closest hit -> Hit assembly -> material gather, env
+    colour and draws -> shade kernel -> shadow any-hit -> NEE add."""
     check_supported(scene, cfg)
     tables = BounceTables.of(scene) if tables is None else tables
-    return RayState(**cshade.shade_bounce_full(
-        **full_bounce_inputs(state, scene, keys, bounce, cfg, tables)))
+    if cshade.full_fuse_eligible(scene):
+        return RayState(**cshade.shade_bounce_full(
+            **full_bounce_inputs(state, scene, keys, bounce, cfg, tables)))
+
+    do_trace = (state.radiance != 0.0).any(-1) & (state.direction != 0.0).any(-1)
+    t_cap = torch.where(do_trace, traverse.INF, 0.0)
+    hit = traverse.closest_hit(state.origin, state.direction, scene, t_max=t_cap)
+    out = cshade.shade_bounce(**shade_inputs(state, scene, keys, bounce, cfg, hit, tables))
+    color = out["color"]
+    if scene.lights.count:
+        blocked = traverse.any_hit(out["shadow_o"], out["shadow_d"], scene,
+                                   out["shadow_tmax"])
+        color = color + torch.where(blocked[:, None], 0.0, out["direct_rgb"])
+    return RayState(origin=out["origin"], direction=out["direction"],
+                    radiance=out["radiance"], color=color, flags=out["flags"],
+                    theta_i=out["theta_i"], prev_pdf=out["prev_pdf"])
 
 
 def camera_wavefront(camera: cam_mod.Camera, pixel_ids: torch.Tensor, key: torch.Tensor,

@@ -15,9 +15,10 @@ update. Same citations, epsilons and quirks as the reference:
 
 Vectors are `[R, 3]` tensors and scalars `[R]`. Lights are consumed one by
 one in a Python loop over `CoreLight`s whose kind is a Python int, so only
-the branch of each light's kind is evaluated. Native `torch.acos` replaces
-the Cephes forms the TPU lowering needed. The Marschner/d'Eon hair
-automaton is not ported yet (ROADMAP K1).
+the branch of each light's kind is evaluated. Native `torch.acos`/`asin`/
+`atan2` replace the Cephes forms the TPU lowering needed. With
+`CoreCfg.has_hair`, materials of the hair shader take the Marschner/d'Eon
+walk automaton (`sample_hair`, the `_marschner3`/`_deon3` twins).
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ import torch
 
 from ..core import vecmath as vm
 from ..core.sampling import (
-    cosine_sample_hemisphere, dielectric_fresnel, sample_angle, uniform_sphere_sample,
+    cosine_sample_hemisphere, dielectric_fresnel, normal_gauss_pdf, sample_angle,
+    uniform_sphere_sample,
 )
 from ..scene.types import (
     BSDF_EMISSION, BSDF_GLASS, BSDF_GLOSSY, BSDF_LAMBERT, BSDF_LAMBERT_TRANSMISSION,
@@ -37,7 +39,9 @@ from ..scene.types import (
     BSDF_SPECULAR_TRANSMISSION, BSDF_TRANSPARENT, LIGHT_POINT, LIGHT_QUAD, LIGHT_SPOT,
     LIGHT_SUN, MATFLAG_CYLINDER_T_BOUNCE, MATFLAG_CYLINDER_TR_BOUNCE,
     MATFLAG_EMISSIVE_BOUNCE, MATFLAG_SPECULAR_BOUNCE, MATFLAG_TRANSPARENT_BOUNCE,
+    SHADER_MARSCHNER_HAIR,
 )
+from .fur import _EPS as _HAIR_EPS, _bravais, _clip1, _safe_div, bessel_j0
 
 EPS = 1e-7  # vm.EPS
 INF = 3.4e38
@@ -98,6 +102,7 @@ class CoreCfg:
     mis: bool = False
     rr: bool = False
     has_hair: bool = False
+    hair_p_random: bool = False  # the walk's first step drawn from u_hairp
     clamp_throughput: float = 1e4
     bsdfs_present: tuple = ()
 
@@ -446,6 +451,210 @@ def sample_pdf(mp: CoreMat, n, wi_view, wo):
 
 
 # ---------------------------------------------------------------------------
+# Hair automaton (models/fur.py twins) -> (refl, wo, pdf, flags, theta_i)
+# ---------------------------------------------------------------------------
+
+def _to_cyl(x, fu, fv, fw):
+    """World -> cylinder space; component 0 is along the fiber axis V."""
+    return vm.dot(x, fv), vm.dot(x, fu), vm.dot(x, fw)
+
+
+def _theta(c0, c1, c2):
+    return torch.atan2(torch.sqrt(torch.clamp(c0 * c0 + c2 * c2, min=1e-20)), c1)
+
+
+def _phi(c0, c1):
+    degenerate = (c0.abs() < 1e-12) & (c1.abs() < 1e-12)
+    return torch.atan2(c0, torch.where(degenerate, 1.0, c1))
+
+
+def _rotate(v, axis, angle):
+    """Rodrigues rotation about `axis` by `angle` [R] (vm.rotate_about_axis)."""
+    c = torch.cos(angle)[..., None]
+    s = torch.sin(angle)[..., None]
+    a = vm.normalize(axis)
+    return v * c + vm.cross(a, v) * s + a * (vm.dot(a, v)[..., None] * (1.0 - c))
+
+
+def _angle_between(a, b):
+    d = vm.dot(vm.normalize(a), vm.normalize(b))
+    return torch.acos(torch.clamp(d, -1.0 + 1e-7, 1.0 - 1e-7))
+
+
+def _deon_M(v, theta_i, theta_r, radians_quirk: bool):
+    """d'Eon's longitudinal term with the reference's mixed radians()/
+    degrees() quirk on the R lobe (Bsdf.cpp:993-995) and MSVC _j0."""
+    v_safe = torch.clamp(v, min=_HAIR_EPS)
+    if radians_quirk:
+        x = torch.deg2rad(1.0 / v_safe)
+        scale = torch.rad2deg(v_safe)
+    else:
+        x = 1.0 / v_safe
+        scale = v_safe
+    s = torch.sin(-theta_i) * torch.sin(theta_r) / scale
+    x_pos = torch.clamp(x, min=_HAIR_EPS)
+    log_m = (-x_pos - torch.log(torch.clamp(1.0 - torch.exp(-2.0 * x_pos), min=1e-30))
+             - torch.log(v_safe) + s)
+    bes = bessel_j0(torch.cos(-theta_i) * torch.cos(theta_r) / scale)
+    return torch.exp(torch.clamp(log_m, max=80.0)) * bes
+
+
+def _deon_detector(phi, stddev_deg):
+    """d'Eon's azimuthal detector: a Gaussian wrapped over 21 periods."""
+    acc = 0.0
+    for k in range(-10, 11):
+        acc = acc + normal_gauss_pdf(phi - 2.0 * math.pi * k, 0.0, stddev_deg)
+    return acc
+
+
+def _walk_select(flags, p_choice, first_r, enter, tt, tr, trt):
+    """The automaton's state select over (refl, wo, pdf, flags, theta_i)
+    tuples: R or the entry step on a first hit, then TT, TR or TRT by the
+    walk bits of `flags`."""
+    t_set = (flags & MATFLAG_CYLINDER_T_BOUNCE) != 0
+    tr_set = (flags & MATFLAG_CYLINDER_TR_BOUNCE) != 0
+    first = p_choice == 0
+    out = [(_w3 if f.dim() == 2 else torch.where)(first, a, b)
+           for f, a, b in zip(first_r, first_r, enter)]
+    for m, lobe in ((tr_set & t_set, trt), (tr_set & ~t_set, tr), (t_set & ~tr_set, tt)):
+        out = [(_w3 if o.dim() == 2 else torch.where)(m, a, o) for o, a in zip(out, lobe)]
+    return out
+
+
+def _marschner(mp: CoreMat, nin, n, fu, fv, fw, flags, p_choice):
+    """fur.marschner_sample twin (MarschnerHairBSDF::localSample,
+    Bsdf.cpp:465-769): degree-valued alpha/beta fed to radian math and the
+    x10 TRT boost, as in the reference."""
+    alpha, beta = mp.hair_alpha, mp.hair_beta
+    theta_i = _theta(*_to_cyl(nin, fu, fv, fw))
+    nf = vm.faceforward(n, -nin, n)
+    gamma_i = _angle_between(nin, vm.normalize(n))
+    h = torch.sin(gamma_i)
+    b1, b2 = _bravais(mp.ior, gamma_i)
+    fresnel = dielectric_fresnel(gamma_i, b1, b2)
+    zero3 = torch.zeros_like(nin)
+    ones = torch.ones_like(h)
+    zeros = torch.zeros_like(h)
+
+    wo_r = _rotate(vm.reflect(-nin, nf), fv, -alpha)
+    th_r = _theta(*_to_cyl(wo_r, fu, fv, fw))
+    th_h, th_d = 0.5 * (th_r + theta_i), 0.5 * (th_r - theta_i)
+    pdf_r = normal_gauss_pdf(th_h - alpha, 0.0, beta)
+    dh_dphi = _safe_div(-2.0, torch.sqrt(torch.clamp(1.0 - h * h, min=_HAIR_EPS))).abs()
+    scat_r = pdf_r * (0.5 * fresnel * dh_dphi) / torch.clamp(torch.cos(th_d) ** 2,
+                                                             min=_HAIR_EPS)
+    r_lobe = (scat_r[:, None].expand(-1, 3), wo_r, pdf_r,
+              torch.full_like(flags, MATFLAG_SPECULAR_BOUNCE), theta_i)
+    enter = (zero3, vm.refract(-nin, nf, 1.0 / mp.ior), ones,
+             torch.where(p_choice == 2, MATFLAG_CYLINDER_TR_BOUNCE,
+                         MATFLAG_CYLINDER_T_BOUNCE).to(torch.int32), zeros)
+
+    c_tt = torch.asin(_clip1(1.0 / b1))
+    inv_root = _safe_div(1.0, torch.sqrt(torch.clamp(1.0 - h * h, min=_HAIR_EPS)))
+    pi3 = math.pi ** 3
+
+    wo_tt = _rotate(vm.refract(-nin, nf, 1.0), fv, alpha / 2.0)
+    th_r_tt = _theta(*_to_cyl(wo_tt, fu, fv, fw))
+    th_h_tt, th_d_tt = 0.5 * (th_r_tt + theta_i), 0.5 * (th_r_tt - theta_i)
+    pdf_tt = normal_gauss_pdf(th_h_tt + alpha / 2.0, 0.0, beta / 2.0)
+    denom = inv_root * (-(24.0 * c_tt / pi3) * gamma_i ** 2 + (6.0 * c_tt / math.pi - 2.0))
+    dh_tt = _safe_div(1.0, denom.abs())
+    cos_gamma_t = -2.0 * torch.cos(torch.asin(_clip1(h / b1)))
+    inv_ctr = 1.0 / torch.clamp(torch.cos(th_r_tt), min=_HAIR_EPS)
+    att = torch.exp(mp.diffuse * inv_ctr[:, None] * cos_gamma_t[:, None]) \
+        * ((1.0 - fresnel) ** 2)[:, None]
+    refl_tt = att * (0.5 * dh_tt)[:, None] \
+        * (pdf_tt / torch.clamp(torch.cos(th_d_tt) ** 2, min=_HAIR_EPS))[:, None]
+    tt = (refl_tt, wo_tt, pdf_tt, torch.zeros_like(flags), theta_i)
+
+    tr = (zero3, vm.reflect(-nin, nf), ones,
+          torch.full_like(flags, MATFLAG_CYLINDER_TR_BOUNCE | MATFLAG_CYLINDER_T_BOUNCE
+                          | MATFLAG_SPECULAR_BOUNCE), zeros)
+
+    wo_trt = _rotate(vm.refract(-nin, nf, 1.0), fv, 3.0 * alpha / 2.0)
+    th_r_trt = _theta(*_to_cyl(wo_trt, fu, fv, fw))
+    th_h_trt, th_d_trt = 0.5 * (th_r_trt + theta_i), 0.5 * (th_r_trt - theta_i)
+    pdf_trt = normal_gauss_pdf(th_h_trt + 3.0 * alpha / 2.0, 0.0, 2.0 * beta)
+    denom2 = inv_root * (-(48.0 * c_tt / pi3) * gamma_i ** 2 + (12.0 * c_tt / math.pi - 2.0))
+    dh_trt = _safe_div(1.0, denom2.abs())
+    gamma_t = torch.asin(_clip1(h / b1))
+    fresnel_exit = dielectric_fresnel(gamma_t, 1.0 / b1, 1.0 / b2)
+    inv_ctr2 = 1.0 / torch.clamp(torch.cos(th_r_trt), min=_HAIR_EPS)
+    e2 = torch.exp(mp.diffuse * inv_ctr2[:, None] * (-2.0 * torch.cos(gamma_t))[:, None])
+    att2 = (e2 * e2) * ((1.0 - fresnel) ** 2 * fresnel_exit)[:, None]
+    refl_trt = att2 * (0.5 * dh_trt)[:, None] * (
+        10.0 * pdf_trt / torch.clamp(torch.cos(th_d_trt) ** 2, min=_HAIR_EPS))[:, None]
+    trt = (refl_trt, wo_trt, pdf_trt, torch.zeros_like(flags), theta_i)
+    return _walk_select(flags, p_choice, r_lobe, enter, tt, tr, trt)
+
+
+def _deon(mp: CoreMat, nin, n, fu, fv, fw, flags, p_choice):
+    """fur.deon_sample twin (DEonHairBSDF::localSample, Bsdf.cpp:784-1051)."""
+    ic0, ic1, ic2 = _to_cyl(nin, fu, fv, fw)
+    alpha = torch.deg2rad(mp.hair_alpha)
+    beta = torch.deg2rad(mp.hair_beta)
+    ior = mp.ior
+    theta_i = _theta(ic0, ic1, ic2)
+    phi_i = _phi(ic0, ic1)
+    gamma_i = _angle_between(nin, vm.normalize(n))
+    h = torch.sin(gamma_i)
+    nf = vm.faceforward(n, -nin, n)
+    zero3 = torch.zeros_like(nin)
+    ones = torch.ones_like(h)
+
+    wo_r = _rotate(vm.reflect(-nin, nf), fv, -alpha)
+    rc0, rc1, rc2 = _to_cyl(wo_r, fu, fv, fw)
+    m_r = _deon_M(beta * beta, theta_i, _theta(rc0, rc1, rc2), radians_quirk=True)
+    d_r = 0.25 * torch.cos(_phi(rc0, rc1) - phi_i / 2.0).abs()
+    fres_r = dielectric_fresnel(
+        0.5 * torch.acos(_clip1(vm.dot(nin, vm.normalize(wo_r)))), 1.0, ior)
+    s_r = m_r * 0.5 * fres_r * d_r
+    r_lobe = (s_r[:, None].expand(-1, 3), wo_r, m_r,
+              torch.full_like(flags, MATFLAG_SPECULAR_BOUNCE), theta_i)
+    enter = (zero3, vm.refract(-nin, nf, 1.0 / ior), ones,
+             torch.where(p_choice == 2, MATFLAG_CYLINDER_TR_BOUNCE,
+                         MATFLAG_CYLINDER_T_BOUNCE).to(torch.int32), theta_i)
+
+    def exit_lobe(angle, lobe_beta, trt: bool):
+        wo = _rotate(vm.refract(-nin, nf, 1.0), fv, angle)
+        c0, c1, c2 = _to_cyl(wo, fu, fv, fw)
+        theta_r = _theta(c0, c1, c2)
+        theta_d = 0.5 * (theta_r - theta_i)
+        m = _deon_M(lobe_beta ** 2, theta_i, theta_r, radians_quirk=False)
+        phi = _phi(c0, c1) - phi_i
+        cos_td = torch.cos(theta_d)
+        bravais = torch.sqrt(torch.clamp(ior * ior - torch.sin(theta_d) ** 2,
+                                         min=_HAIR_EPS)) / torch.clamp(cos_td, min=_HAIR_EPS)
+        det = _deon_detector(phi, torch.rad2deg(lobe_beta))
+        fres = dielectric_fresnel(torch.acos(_clip1(cos_td * torch.cos(gamma_i))), ior, 1.0)
+        cos_2gt = torch.cos(2.0 * torch.asin(_clip1(h / bravais)))
+        inv_c = 1.0 / torch.clamp(torch.cos(theta_r), min=_HAIR_EPS)
+        base = torch.exp(mp.diffuse * inv_c[:, None] * (-2.0 * (1.0 + cos_2gt))[:, None])
+        if trt:
+            att = (base * base) * ((1.0 - fres) ** 2 * fres)[:, None]
+        else:
+            att = base * ((1.0 - fres) ** 2)[:, None]
+        return (att * (m * 0.5 * det)[:, None], wo, m, torch.zeros_like(flags), theta_i)
+
+    tt = exit_lobe(alpha / 2.0, beta / 2.0, trt=False)
+    tr = (zero3, vm.reflect(-nin, nf), ones,
+          torch.full_like(flags, MATFLAG_CYLINDER_TR_BOUNCE | MATFLAG_CYLINDER_T_BOUNCE
+                          | MATFLAG_SPECULAR_BOUNCE), theta_i)
+    trt = exit_lobe(3.0 * alpha / 2.0, beta * 2.0, trt=True)
+    return _walk_select(flags, p_choice, r_lobe, enter, tt, tr, trt)
+
+
+def sample_hair(mp: CoreMat, wi, n, fu, fv, fw, flags, p_choice):
+    """One step of the hair walk: d'Eon for its bsdf id, Marschner
+    otherwise -> (refl, wo, pdf, flags, theta_i)."""
+    nin = vm.normalize(wi)
+    m = _marschner(mp, nin, n, fu, fv, fw, flags, p_choice)
+    d = _deon(mp, nin, n, fu, fv, fw, flags, p_choice)
+    is_deon = mp.bsdf_id == BSDF_DEON_HAIR
+    return [(_w3 if a.dim() == 2 else torch.where)(is_deon, b, a) for a, b in zip(m, d)]
+
+
+# ---------------------------------------------------------------------------
 # The bounce's shade stage
 # ---------------------------------------------------------------------------
 
@@ -457,13 +666,12 @@ def shade_bounce_core(
     lights: list, u_bsdf1, u_bsdf2, u_pick, u_light1, u_light2, u_rr,
     rr_gate: bool,  # bounce >= cfg.rr_start
     cfg: CoreCfg,
+    fib_u=None, fib_v=None, fib_w=None,  # [R,3] fiber frame at the hit (hair)
+    u_hairp=None,  # [R] walk-choice draw (hair with cfg.hair_p_random)
 ) -> CoreOut:
     """One wavefront bounce after the scene traversal (trace_bounce
     line for line), with the NEE term factored out as (shadow ray,
     direct_rgb) so that the caller applies the scene occlusion."""
-    if cfg.has_hair:
-        raise NotImplementedError(
-            "the Marschner/d'Eon hair automaton is not ported yet (ROADMAP K1)")
     n_lights = cfg.n_lights
     active = (radiance != 0.0).any(-1)
     do_trace = active & (direction != 0.0).any(-1)
@@ -572,9 +780,28 @@ def shade_bounce_core(
     # ambient = env_ambient * evaluateLight(n, n) / pi (SimpleShader.h:47)
     ambient = evaluate_light(mp, n, n, n)
 
-    # --- BSDF sample
+    # --- BSDF sample, or the hair walk's step on hair-shader materials
     refl, wo, pdf, new_flags = sample_surface(mp, counter, n, u_bsdf1, u_bsdf2, flags,
                                               present=cfg.bsdfs_present)
+    if cfg.has_hair:
+        if cfg.hair_p_random:
+            p_choice = torch.clamp((u_hairp * 3).to(torch.int32), max=2)
+        else:
+            p_choice = torch.zeros_like(flags)
+        xax = torch.tensor([1.0, 0.0, 0.0], device=origin.device)
+        zax = torch.tensor([0.0, 0.0, 1.0], device=origin.device)
+        fu = _w3(hit_valid, fib_u, xax)
+        fv = _w3(hit_valid, fib_v, up)
+        fw = _w3(hit_valid, fib_w, zax)
+        h_refl, h_wo, h_pdf, h_flags, hs_theta_i = sample_hair(mp, counter, n, fu, fv, fw,
+                                                               flags, p_choice)
+        is_hair = mp.shader_id == SHADER_MARSCHNER_HAIR
+        refl, wo = _w3(is_hair, h_refl, refl), _w3(is_hair, h_wo, wo)
+        pdf = torch.where(is_hair, h_pdf, pdf)
+        new_flags = torch.where(is_hair, h_flags, new_flags)
+    else:
+        is_hair = torch.zeros_like(hit_valid)
+        hs_theta_i = theta_i
     refl_zero = (refl == 0.0).all(-1)
     if cfg.rr:
         kill = refl_zero | (pdf <= 1e-4)
@@ -587,17 +814,22 @@ def shade_bounce_core(
     offset = _w3(specular, wo * 1e-4, vm.faceforward(-1e-4 * n, n, wo))
     new_origin = pos + offset
 
-    direct_rgb = _w3(hit_geom, direct * radiance, 0.0)
-    shadow_tmax = torch.where(hit_geom, shadow_tmax, 0.0)
+    # the direct term, suppressed while a hair walk is inside the fiber
+    direct_gate = hit_geom & ~(is_hair & mid_walk)
+    direct_rgb = _w3(direct_gate, direct * radiance, 0.0)
+    shadow_tmax = torch.where(direct_gate, shadow_tmax, 0.0)
 
-    # --- SimpleShader colour and throughput update
+    # --- SimpleShader / MarschnerHairShader colour and throughput update
     amb_rgb = (env_ambient * ambient * INV_PI) * radiance
     simple_color = amb_rgb + _w3(emissive & ~kill, mp.emission * radiance, 0.0)
     inv_pdf = 1.0 / torch.clamp(pdf, min=1e-20)
     simple_radiance = _w3(kill | emissive, 0.0,
                           radiance * refl * (vm.dot(wo, n).abs() * inv_pdf)[..., None])
-    color = color + _w3(hit_geom, simple_color, 0.0)
-    radiance = _w3(hit_geom, simple_radiance, radiance)
+    hair_color = _w3(mid_walk, 0.0, amb_rgb)
+    hair_radiance = _w3(mid_walk, radiance, _w3(
+        kill, 0.0, radiance * refl * (3.0 * torch.cos(hs_theta_i).abs())[..., None]))
+    color = color + _w3(hit_geom, _w3(is_hair, hair_color, simple_color), 0.0)
+    radiance = _w3(hit_geom, _w3(is_hair, hair_radiance, simple_radiance), radiance)
     radiance = torch.clamp(radiance, max=cfg.clamp_throughput)
 
     if cfg.rr:
@@ -607,13 +839,18 @@ def shade_bounce_core(
         boost = torch.where(do_rr & ~dead, 1.0 / q, 1.0)
         radiance = _w3(dead, 0.0, radiance * boost[..., None])
 
+    # continuing rays take the new ray; the hair walk moves its ray (and
+    # writes its flags and theta_i) even mid-walk
     continuing = hit_geom & ~kill & ~emissive
-    origin = _w3(continuing, new_origin, origin)
-    direction = _w3(continuing, wo, direction)
-    flags = torch.where(continuing, new_flags, flags)
+    move = continuing | (hit_geom & is_hair)
+    origin = _w3(move, new_origin, origin)
+    direction = _w3(move, wo, direction)
+    flags = torch.where(move, new_flags, flags)
+    theta_i = torch.where(hit_geom & is_hair, hs_theta_i, theta_i)
 
     if cfg.mis:
-        prev_pdf = torch.where(hit_geom, sample_pdf(mp, n, counter, wo), prev_pdf)
+        spdf = torch.where(is_hair, -1.0, sample_pdf(mp, n, counter, wo))
+        prev_pdf = torch.where(hit_geom, spdf, prev_pdf)
 
     return CoreOut(origin=origin, direction=direction, radiance=radiance, color=color,
                    flags=flags, theta_i=theta_i, prev_pdf=prev_pdf, shadow_o=shadow_o,

@@ -1,21 +1,28 @@
-"""The level-2 full-bounce pass: one CUDA kernel per bounce, with its twin.
+"""The shading kernels of a bounce, each with its plain torch twin.
 
-Counterpart of `ba_pathtracing_fur_tpu/ops/pallas/shade.py::
-shade_bounce_full`. For small untextured triangle scenes without a BVH (the
-Cornell class), the whole bounce is one pass: the Möller-Trumbore closest
-hit over the triangle table, the barycentric normal, the material row, the
-shading body (`models/shade_core.py`, `csrc/shade_core.cuh`), the NEE shadow
-any-hit over the same table, and the masked add of the NEE term.
+Counterparts of `ba_pathtracing_fur_tpu/ops/pallas/shade.py`:
 
-`shade_bounce_full` dispatches on the device of its tensors: CPU tensors
-go to `shade_bounce_full_ref` (plain torch), CUDA tensors launch
-`csrc/full_bounce.cu` or raise. `KERNEL_LAUNCHES` and `REF_CALLS` count
-which of the two ran.
+  * `shade_bounce_full` (the level-2 pass, `csrc/full_bounce.cu`): for small
+    untextured triangle scenes without a BVH (the Cornell class) the whole
+    bounce is one pass: the Möller-Trumbore closest hit over the triangle
+    table, the barycentric normal, the material row, the shading body
+    (`models/shade_core.py`, `csrc/shade_core.cuh`), the NEE shadow any-hit
+    over the same table, and the masked add of the NEE term.
+    `KERNEL_LAUNCHES` and `REF_CALLS` count which of kernel and twin ran.
+  * `shade_bounce` (`csrc/shade.cu`): the shade stage alone, after the
+    traversal, for every other scene (fur, BVHs): light hits, NEE (it emits
+    the shadow ray and the unoccluded direct term), the surface BSDFs or the
+    hair automaton, and the throughput update. `SHADE_LAUNCHES` and
+    `SHADE_REF_CALLS` count which of kernel and twin ran.
+
+Both dispatch on the device of their tensors: CPU tensors go to the plain
+version, CUDA tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -32,6 +39,20 @@ MAX_TABLE_BYTES = 227 * 1024
 
 KERNEL_LAUNCHES = 0
 REF_CALLS = 0
+SHADE_LAUNCHES = 0
+SHADE_REF_CALLS = 0
+
+#: the per-ray tensors of `shade_bounce`, in the field order of the ShadeIn /
+#: ShadeOut structs of csrc/shade.cu
+SHADE_IN_FIELDS = (
+    "origin", "direction", "radiance", "color", "theta_i", "prev_pdf", "flags", "hit_t",
+    "hit_valid", "hit_pos", "hit_normal", "fib_u", "fib_v", "fib_w", "diffuse", "specular",
+    "volume", "emission", "ior", "transparency", "reflectivity", "roughness", "hair_alpha",
+    "hair_beta", "bsdf_id", "shader_id", "env_color", "env_ambient", "u_bsdf", "u_pick",
+    "u_light", "u_hairp", "u_rr")
+SHADE_OUT_FIELDS = ("origin", "direction", "radiance", "color", "theta_i", "prev_pdf",
+                    "flags", "shadow_o", "shadow_d", "shadow_tmax", "direct_rgb")
+MAT_FIELDS = tuple(f.name for f in dataclasses.fields(CoreMat))
 
 
 # ---------------------------------------------------------------------------
@@ -88,8 +109,9 @@ def core_lights(table: torch.Tensor) -> list[CoreLight]:
 
 def full_fuse_eligible(scene: DeviceScene) -> bool:
     """Whether the level-2 pass covers the scene: untextured, hair-free
-    triangles only, at most MAX_FULL_FUSE_TRIS of them."""
-    return (scene.cones.count == 0
+    triangles only, at most MAX_FULL_FUSE_TRIS of them, and no BVH."""
+    return (scene.tri_bvh is None and scene.cone_bvh is None
+            and scene.cones.count == 0
             and 0 < scene.tris.count <= MAX_FULL_FUSE_TRIS
             and scene.textures is None
             and (scene.env.kind == ENV_COLOR or scene.env.texture is None)
@@ -188,7 +210,7 @@ def shade_bounce_full_ref(*, origin, direction, radiance, color, flags, theta_i,
 def _check(name, x, shape, dtype, device):
     if x.device != device or x.dtype != dtype or tuple(x.shape) != shape \
             or not x.is_contiguous():
-        raise ValueError(f"full_bounce: {name} must be a contiguous {dtype} {shape} "
+        raise ValueError(f"{name} must be a contiguous {dtype} {shape} "
                          f"tensor on {device}; got {x.dtype} {tuple(x.shape)} on {x.device}")
 
 
@@ -256,3 +278,110 @@ def shade_bounce_full(*, origin, u_hairp=None, **kw) -> dict:
     if origin.device.type == "cuda":
         return _shade_bounce_full_cuda(origin=origin, **kw)
     raise ValueError(f"shade_bounce_full: no kernel for device {origin.device}")
+
+
+# ---------------------------------------------------------------------------
+# The shade stage alone (after the traversal)
+# ---------------------------------------------------------------------------
+
+def shade_bounce_ref(*, origin, direction, radiance, color, flags, theta_i, prev_pdf, hit_t,
+                     hit_valid, hit_pos, hit_normal, fib_u, fib_v, fib_w, mp: CoreMat,
+                     env_color, env_ambient, lights_table, n_lights: int, u_bsdf, u_pick,
+                     u_light, u_hairp, u_rr, rr_gate: bool, cfg: CoreCfg) -> dict:
+    """The shade stage in plain torch (`models/shade_core.py`) -> the
+    CoreOut fields as a dict."""
+    global SHADE_REF_CALLS
+    SHADE_REF_CALLS += 1
+    out = sc.shade_bounce_core(
+        origin=origin, direction=direction, radiance=radiance, color=color, flags=flags,
+        theta_i=theta_i, prev_pdf=prev_pdf, hit_t=hit_t, hit_valid=hit_valid,
+        hit_pos=hit_pos, hit_normal=hit_normal, mp=mp, env_color=env_color,
+        env_ambient=env_ambient, lights=core_lights(lights_table[:n_lights]),
+        u_bsdf1=u_bsdf[:, 0], u_bsdf2=u_bsdf[:, 1], u_pick=u_pick, u_light1=u_light[:, 0],
+        u_light2=u_light[:, 1], u_rr=u_rr, rr_gate=rr_gate, cfg=cfg, fib_u=fib_u,
+        fib_v=fib_v, fib_w=fib_w, u_hairp=u_hairp)
+    return {f: getattr(out, f) for f in SHADE_OUT_FIELDS}
+
+
+class _Ptrs(ctypes.Structure):
+    """Base of the ctypes mirrors of ShadeIn / ShadeOut: one pointer a field."""
+
+    @classmethod
+    def of(cls, tensors: dict):
+        """Null for a field whose tensor is None (the kernel does not read it)."""
+        return cls(**{f: None if tensors[f] is None else tensors[f].data_ptr()
+                      for f, _ in cls._fields_})
+
+
+class _ShadeIn(_Ptrs):
+    _fields_ = [(f, ctypes.c_void_p) for f in SHADE_IN_FIELDS]
+
+
+class _ShadeOut(_Ptrs):
+    _fields_ = [(f, ctypes.c_void_p) for f in SHADE_OUT_FIELDS]
+
+
+def _shade_bounce_cuda(*, origin, n_lights: int, lights_table, mp: CoreMat, rr_gate: bool,
+                       cfg: CoreCfg, **rays) -> dict:
+    from ...kernels import load_library
+
+    global SHADE_LAUNCHES
+    dev = origin.device
+    r = origin.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    ins = dict(rays, origin=origin, **{f: getattr(mp, f) for f in MAT_FIELDS})
+    # a constant environment colour ([3], or [R,3] broadcast from it) goes
+    # to the kernel as its 3 floats
+    env = ins["env_color"]
+    env_per_ray = env.dim() == 2 and env.stride(0) != 0
+    if not env_per_ray:
+        ins["env_color"] = env.reshape(-1, 3)[0].to(dev, f32).contiguous()
+    ins["env_ambient"] = ins["env_ambient"].reshape(3).to(dev, f32).contiguous()
+    if not cfg.rr:
+        ins["u_rr"] = None
+    vec3 = {"origin", "direction", "radiance", "color", "hit_pos", "hit_normal", "fib_u",
+            "fib_v", "fib_w", "diffuse", "specular", "volume", "emission", "env_color"}
+    for f in SHADE_IN_FIELDS:
+        if f == "env_ambient" or (f == "env_color" and not env_per_ray):
+            _check(f, ins[f], (3,), f32, dev)
+            continue
+        if f == "u_rr" and not cfg.rr:
+            continue
+        shape = (r, 3) if f in vec3 else (r, 2) if f in ("u_bsdf", "u_light") else (r,)
+        dtype = (i32 if f in ("flags", "bsdf_id", "shader_id")
+                 else torch.bool if f == "hit_valid" else f32)
+        _check(f, ins[f], shape, dtype, dev)
+    _check("lights_table", lights_table, (lights_table.shape[0], LIGHT_COLS), f32, dev)
+    if not 0 <= n_lights <= lights_table.shape[0]:
+        raise ValueError(f"shade: bad light count {n_lights}")
+    if 4 * n_lights * LIGHT_COLS > 48 * 1024:
+        raise ValueError(f"shade: a light table of {n_lights} lights exceeds shared memory")
+
+    outs = {f: torch.empty_like(ins[f]) for f in SHADE_OUT_FIELDS if f in ins}
+    outs.update(shadow_o=torch.empty_like(origin), shadow_d=torch.empty_like(origin),
+                shadow_tmax=torch.empty((r,), dtype=f32, device=dev),
+                direct_rgb=torch.empty_like(origin))
+    s_in, s_out = _ShadeIn.of(ins), _ShadeOut.of(outs)
+    err = load_library().shade_launch(
+        ctypes.c_int(r), ctypes.byref(s_in), ctypes.byref(s_out),
+        ctypes.c_void_p(lights_table.data_ptr()), ctypes.c_int(n_lights),
+        ctypes.c_int(int(cfg.mis)), ctypes.c_int(int(cfg.rr)), ctypes.c_int(int(rr_gate)),
+        ctypes.c_float(cfg.clamp_throughput),
+        ctypes.c_uint(bsdfs_present_mask(cfg.bsdfs_present)), ctypes.c_int(int(cfg.has_hair)),
+        ctypes.c_int(int(cfg.hair_p_random)), ctypes.c_int(int(env_per_ray)),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"shade kernel launch failed: CUDA error {err}")
+    SHADE_LAUNCHES += 1
+    return outs
+
+
+def shade_bounce(*, origin, **kw) -> dict:
+    """The shade stage of one bounce after the traversal. CPU tensors run
+    the plain version; CUDA tensors launch the kernel (or raise). Returns
+    the new ray state and the NEE shadow ray with its direct term."""
+    if origin.device.type == "cpu":
+        return shade_bounce_ref(origin=origin, **kw)
+    if origin.device.type == "cuda":
+        return _shade_bounce_cuda(origin=origin, **kw)
+    raise ValueError(f"shade_bounce: no kernel for device {origin.device}")

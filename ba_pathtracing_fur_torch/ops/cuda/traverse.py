@@ -1,0 +1,183 @@
+"""BVH traversal: one CUDA kernel (closest or any hit, cone or triangle
+leaves), with its plain torch twin.
+
+Counterpart of `ba_pathtracing_fur_tpu/ops/pallas/traverse.py::
+traverse_vmem`. For each ray (o, d, t_max) it finds the nearest row of the
+BVH's reordered pack with t in (t_min, t_max) and returns `(t, row, found)`:
+t is t_max on a miss, row = cluster * leaf_size + within (-1 on a miss).
+The any-hit mode stops at the first acceptance and returns t = 0 there.
+
+`traverse` dispatches on the device of its tensors: CPU tensors go to
+`traverse_ref` (brute force over every row of the reordered pack with the
+leaf tests of `ops/bvh.py`: argmin of t with the lowest row on ties, any
+hit as t < t_max), CUDA tensors launch `csrc/traverse.cu` or raise.
+`KERNEL_LAUNCHES` and `REF_CALLS` count which of the two ran.
+
+Row ties: the kernel visits clusters in its own near-to-far order, so its
+rows equal the twin's except on exact t ties across clusters (within a leaf
+the lowest index wins; across clusters the strictly smaller t does).
+`work_ref` counts the box and leaf tests any near-to-far walk of the BVH
+must make for given rays: the measure of the kernel's bound.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import bvh as bvh_mod
+from ..intersect import INF
+
+KINDS = {"cone": 16, "tri": 9}  # leaf width W of `bvh.packed` per kind
+#: bound on the elements of one [rays, rows] chunk of the plain version
+_REF_ELEMS = 1 << 25
+#: flops of one test, counted on the kernel's arithmetic (csrc/traverse.cu,
+#: compares and min/max included): the slab test of one box (3 axes of 2
+#: sub, 2 mul, min, max and the running max/min, then 3 compares and the
+#: entry clamp: 28), one KIRK cone row (origin offset 3, six frame
+#: projections 30, a/b/c 24, discriminant 4, roots 10, o.v 5, axis slab
+#: 4, acceptance 10: 93) and one Möller-Trumbore row (55)
+BOX_TEST_FLOPS = 28
+LEAF_TEST_FLOPS = {"cone": 93, "tri": 55}
+
+KERNEL_LAUNCHES = 0
+REF_CALLS = 0
+
+
+def _leaf_fn(kind: str):
+    return bvh_mod._cone_core if kind == "cone" else bvh_mod._tri_core
+
+
+def _rows_cm(bvh: bvh_mod.BVH) -> list:
+    """The packed leaf geometry as W tensors of [1, C*K] (row-major)."""
+    c, w, k = bvh.packed.shape
+    flat = bvh.packed.permute(1, 0, 2).reshape(w, c * k)
+    return [flat[i][None] for i in range(w)]
+
+
+def traverse_ref(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = False,
+                 t_min: float = 1e-4):
+    """Brute force over all rows of the reordered pack, chunked over rays."""
+    global REF_CALLS
+    REF_CALLS += 1
+    comp = _rows_cm(bvh)
+    n_rows = comp[0].shape[1]
+    leaf = _leaf_fn(kind)
+    step = max(1, _REF_ELEMS // n_rows)
+    ts, rows, founds = [], [], []
+    for s in range(0, o.shape[0], step):
+        tm = t_max[s:s + step]
+        t = leaf(o[s:s + step], d[s:s + step], comp, t_min, tm)  # [Rc, P], INF = none
+        if any_hit:
+            valid = t < INF
+            found = valid.any(-1)
+            row = valid.to(torch.int8).argmax(-1)  # the lowest valid row
+            t_out = torch.where(found, 0.0, tm)
+        else:
+            row = t.argmin(-1)
+            t_best = t.gather(-1, row[:, None])[:, 0]
+            found = t_best < INF
+            t_out = torch.where(found, t_best, tm)
+        ts.append(t_out)
+        rows.append(torch.where(found, row, -1).to(torch.int32))
+        founds.append(found)
+    return torch.cat(ts), torch.cat(rows), torch.cat(founds)
+
+
+def _slab_entry(o, d, bmin, bmax, t_best):
+    """Entry distance of every ray into every box ([R,N], INF where the slab
+    test fails or the entry is not below t_best): the kernel's box test."""
+    eps = 1e-20
+    inv = 1.0 / torch.where(d.abs() < eps, torch.where(d < 0, -eps, eps), d)
+    tnear = torch.full((o.shape[0], bmin.shape[0]), -INF, device=o.device)
+    tfar = torch.full_like(tnear, INF)
+    for a in range(3):
+        t0 = (bmin[None, :, a] - o[:, a:a + 1]) * inv[:, a:a + 1]
+        t1 = (bmax[None, :, a] - o[:, a:a + 1]) * inv[:, a:a + 1]
+        tnear = torch.maximum(tnear, torch.minimum(t0, t1))
+        tfar = torch.minimum(tfar, torch.maximum(t0, t1))
+    hit = (tnear <= tfar) & (tfar >= 0.0) & (tnear < t_best[:, None])
+    return torch.where(hit, torch.clamp(tnear, min=0.0), INF)
+
+
+def work_ref(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = False,
+             t_min: float = 1e-4) -> dict:
+    """The tests that any near-to-far walk of this BVH, pruning a node when
+    its entry is not below the best hit, must make for these rays: the root
+    box, both child boxes of every inner node whose entry lies below the
+    ray's final t, and every row of every such leaf. For an any-hit ray that
+    finds a hit the need is one root-to-leaf path (2 depth + 1 boxes) and
+    one row test. Returns totals over the rays (lower bounds of the
+    kernel's work) with their flops."""
+    t, _, found = traverse_ref(o, d, t_max, bvh, kind, any_hit=False, t_min=t_min)
+    n_inner = bvh.n_leaves - 1
+    step = max(1, _REF_ELEMS // bvh.bmin.shape[0])
+    inner = leaves = 0
+    for s in range(0, o.shape[0], step):
+        t_fin = t[s:s + step]
+        if any_hit:  # an occluded ray is counted below as one path
+            t_fin = torch.where(found[s:s + step], -INF, t_max[s:s + step])
+        e = _slab_entry(o[s:s + step], d[s:s + step], bvh.bmin, bvh.bmax, t_fin)
+        opened = e < INF
+        inner += int(opened[:, :n_inner].sum())
+        leaves += int(opened[:, n_inner:].sum())
+    n_rays = o.shape[0]
+    box_tests = n_rays + 2 * inner
+    leaf_rows = leaves * bvh.leaf_size
+    if any_hit:
+        n_found = int(found.sum())
+        box_tests += n_found * (2 * bvh.depth)
+        leaf_rows += n_found
+    return dict(rays=n_rays, box_tests=box_tests, leaf_row_tests=leaf_rows,
+                flops=box_tests * BOX_TEST_FLOPS + leaf_rows * LEAF_TEST_FLOPS[kind])
+
+
+def _check(name, x, shape, dtype, device):
+    if x.device != device or x.dtype != dtype or tuple(x.shape) != shape \
+            or not x.is_contiguous():
+        raise ValueError(f"traverse: {name} must be a contiguous {dtype} {shape} tensor "
+                         f"on {device}; got {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def _traverse_cuda(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool, t_min: float):
+    from ...kernels import load_library
+
+    global KERNEL_LAUNCHES
+    dev = o.device
+    r = o.shape[0]
+    c, k = bvh.n_leaves, bvh.leaf_size
+    f32 = torch.float32
+    for name, x, shape, dt in (
+            ("o", o, (r, 3), f32), ("d", d, (r, 3), f32), ("t_max", t_max, (r,), f32),
+            ("bmin", bvh.bmin, (2 * c - 1, 3), f32), ("bmax", bvh.bmax, (2 * c - 1, 3), f32),
+            ("packed", bvh.packed, (c, KINDS[kind], k), f32)):
+        _check(name, x, shape, dt, dev)
+    t_out = torch.empty((r,), dtype=f32, device=dev)
+    row_out = torch.empty((r,), dtype=torch.int32, device=dev)
+    found_out = torch.empty((r,), dtype=torch.bool, device=dev)
+    p = lambda x: ctypes.c_void_p(x.data_ptr())  # noqa: E731
+    err = load_library().traverse_launch(
+        ctypes.c_int(r), p(o), p(d), p(t_max), p(bvh.bmin), p(bvh.bmax), p(bvh.packed),
+        ctypes.c_int(c), ctypes.c_int(k), ctypes.c_int(int(kind == "cone")),
+        ctypes.c_int(int(any_hit)), ctypes.c_float(t_min), p(t_out), p(row_out),
+        p(found_out), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"traverse kernel launch failed: CUDA error {err}")
+    KERNEL_LAUNCHES += 1
+    return t_out, row_out, found_out
+
+
+def traverse(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = False,
+             t_min: float = 1e-4):
+    """(t [R], row [R] int32, found [R] bool) of rays against a BVH. CPU
+    tensors run the plain version; CUDA tensors launch the kernel (or
+    raise)."""
+    if kind not in KINDS:
+        raise ValueError(f"traverse: kind must be one of {sorted(KINDS)}, got {kind!r}")
+    o, d, t_max = o.contiguous(), d.contiguous(), t_max.contiguous()
+    if o.device.type == "cpu":
+        return traverse_ref(o, d, t_max, bvh, kind, any_hit, t_min)
+    if o.device.type == "cuda":
+        return _traverse_cuda(o, d, t_max, bvh, kind, any_hit, t_min)
+    raise ValueError(f"traverse: no kernel for device {o.device}")

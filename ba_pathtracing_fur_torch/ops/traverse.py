@@ -1,0 +1,322 @@
+"""Scene intersection with BVHs: build attachment, dispatch and Hit assembly.
+
+Counterpart of `ba_pathtracing_fur_tpu/ops/traverse.py`. A scene carries
+optional triangle and cone BVHs (attached by `attach_bvh`); `closest_hit`
+and `any_hit` run the traversal kernel (`ops/cuda/traverse.traverse`: the
+CUDA kernel on the card, its brute-force twin on the CPU) for packs with a
+BVH and the dense all-pairs grid (`ops/intersect.py`) for packs without
+one, and merge the two kinds per ray. On the card the grid takes only
+fewer than 2^24 ray-primitive pairs; beyond that the JAX package runs a
+brute-force kernel that is not ported yet, and the port raises.
+
+As in the JAX package, the traversal only selects the winning row; the
+winner's t is recomputed outside it from the gathered row, with the same
+arithmetic as the leaf test. The JAX package's entry-morton ray sort is
+left out: it is a pure permutation that exists for the TPU's shared
+per-tile schedule, and the Hit is the same per ray without it (ROADMAP
+lists it as a perf candidate for the per-ray kernel).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..core import vecmath as vm
+from ..scene.types import ConePack, DeviceScene, TrianglePack
+from . import bruteforce, bvh as bvh_mod, intersect as isect
+from .cuda import traverse as ctraverse
+
+INF = isect.INF
+
+#: leaf targets of auto_leaf_size per primitive kind (the JAX package's
+#: values; the streaming-kernel cone target arrives with ROADMAP M9)
+TRI_LEAF_TARGET = 256
+CONE_LEAF_TARGET = 128
+#: bound on the elements of one all-pairs grid chunk
+_GRID_ELEMS = 1 << 24
+
+
+def auto_leaf_size(n_prims: int, target: int = 256) -> int:
+    """A leaf size near `target` that fills the power-of-two leaf count
+    tightly, rounded up to a multiple of 8."""
+    n_leaves = max(bvh_mod._next_pow2(-(-n_prims // target)), 1)
+    k = -(-n_prims // n_leaves)
+    return max(-(-k // 8) * 8, 8)
+
+
+def _host_build(pack, aabb_fn, reorder_fn, pack_fn, leaf_size, target):
+    """Median build of one pack on the host; returns (reordered pack, BVH)
+    on the host."""
+    k = leaf_size or auto_leaf_size(pack.count, target)
+    bmin, bmax = aabb_fn(pack)
+    b = bvh_mod.build_median(bmin.numpy(), bmax.numpy(), k)
+    pack = reorder_fn(pack, b)
+    return pack, pack_fn(pack, b)
+
+
+def attach_bvh(scene: DeviceScene, leaf_size: Optional[int] = None, method: str = "median",
+               min_prims: int = 2048) -> DeviceScene:
+    """Build median-split BVHs over the packs of at least `min_prims`
+    primitives and reorder those packs so leaf clusters are contiguous.
+    Smaller packs stay BVH-less and go through the dense grid. The build
+    runs on host copies in numpy/CPU torch (bit-identical to the JAX
+    package's numpy build); the result lands on the scene's device."""
+    if method == "none":
+        return scene
+    if method != "median":
+        raise NotImplementedError(f"BVH method {method!r} is not ported yet: only the "
+                                  "median build is (ROADMAP Queue 1 item 3)")
+    from ..scene.types import _to
+
+    dev = scene.device
+    out = {}
+    if scene.tris.count >= min_prims:
+        tris, tri_bvh = _host_build(_to(scene.tris, "cpu"), isect.triangle_aabbs,
+                                    bvh_mod.reorder_tris, bvh_mod.pack_tris, leaf_size,
+                                    TRI_LEAF_TARGET)
+        out.update(tris=_to(tris, dev), tri_bvh=_to(tri_bvh, dev))
+    if scene.cones.count >= min_prims:
+        cones, cone_bvh = _host_build(_to(scene.cones, "cpu"), isect.cone_aabbs,
+                                      bvh_mod.reorder_cones, bvh_mod.pack_cones, leaf_size,
+                                      CONE_LEAF_TARGET)
+        out.update(cones=_to(cones, dev), cone_bvh=_to(cone_bvh, dev))
+    return dataclasses.replace(scene, **out)
+
+
+# ---------------------------------------------------------------------------
+# Winner rows
+# ---------------------------------------------------------------------------
+
+def _i2f(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int32).view(torch.float32)
+
+
+def _f2i(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.int32)
+
+
+def cone_aos(cones: ConePack) -> torch.Tensor:
+    """[N, 19] AoS of every cone field the winner-t recompute and the Hit
+    assembly need (the int mat_id bitcast into an f32 column)."""
+    return torch.cat([cones.base, cones.u, cones.v, cones.w,
+                      torch.stack([cones.slope, cones.r_base, cones.min_d, cones.max_d,
+                                   cones.base_d, cones.height, _i2f(cones.mat_id)], dim=1)],
+                     dim=1)
+
+
+def tri_aos(tris: TrianglePack) -> torch.Tensor:
+    """[N, 34] AoS of every triangle field the assembly needs."""
+    return torch.cat([tris.v0, tris.v1, tris.v2, tris.n0, tris.n1, tris.n2,
+                      tris.uv0, tris.uv1, tris.uv2, tris.fiber_u, tris.fiber_v,
+                      tris.fiber_w, _i2f(tris.mat_id)[:, None]], dim=1)
+
+
+def take_cone_rows(cones: ConePack, rows: torch.Tensor) -> dict:
+    """One [R, 19] row gather of the winning cones' fields."""
+    g = cone_aos(cones)[rows.long()]
+    return {"base": g[:, 0:3], "u": g[:, 3:6], "v": g[:, 6:9], "w": g[:, 9:12],
+            "slope": g[:, 12], "r_base": g[:, 13], "min_d": g[:, 14], "max_d": g[:, 15],
+            "base_d": g[:, 16], "height": g[:, 17], "mat_id": _f2i(g[:, 18]), "_g": g}
+
+
+def take_tri_rows(tris: TrianglePack, rows: torch.Tensor) -> TrianglePack:
+    """One [R, 34] row gather of the winning triangles' fields."""
+    g = tri_aos(tris)[rows.long()]
+    return TrianglePack(
+        v0=g[:, 0:3], v1=g[:, 3:6], v2=g[:, 6:9], n0=g[:, 9:12], n1=g[:, 12:15],
+        n2=g[:, 15:18], uv0=g[:, 18:20], uv1=g[:, 20:22], uv2=g[:, 22:24],
+        fiber_u=g[:, 24:27], fiber_v=g[:, 27:30], fiber_w=g[:, 30:33],
+        mat_id=_f2i(g[:, 33]))
+
+
+def _recompute_t_tri(rp: TrianglePack, o, d, t_min, t_best):
+    """The winner's t from its gathered row (the leaf test's arithmetic)."""
+    v0, e1, e2 = rp.v0, rp.v1 - rp.v0, rp.v2 - rp.v0
+    comp = [v0[:, 0:1], v0[:, 1:2], v0[:, 2:3], e1[:, 0:1], e1[:, 1:2], e1[:, 2:3],
+            e2[:, 0:1], e2[:, 1:2], e2[:, 2:3]]
+    return bvh_mod._tri_core(o, d, comp, t_min, t_best)[:, 0]
+
+
+def _recompute_t_cone(rc: dict, o, d, t_min, t_best):
+    g = rc["_g"]
+    return bvh_mod._cone_core(o, d, [g[:, i:i + 1] for i in range(16)], t_min, t_best)[:, 0]
+
+
+def _cone_enter_rows(base, u_ax, v_ax, w_ax, slope, r_base, o, d, t):
+    """Was the winning cone hit on its entering (nearer) root? Recompute the
+    quadratic for the winner (Cylinder.cpp:126,140) and classify t by the
+    closer root."""
+    rel = o - base
+    px, py, pz = vm.dot(rel, u_ax), vm.dot(rel, v_ax), vm.dot(rel, w_ax)
+    dx, dy, dz = vm.dot(d, u_ax), vm.dot(d, v_ax), vm.dot(d, w_ax)
+    a = dx * dx + dz * dz - slope * slope * dy * dy
+    b = px * dx + pz * dz + r_base * slope * dy - slope * slope * py * dy
+    disc = b * b - a * (px * px + pz * pz - (r_base - slope * py) ** 2)
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    a_safe = torch.where(a.abs() < 1e-12, 1e-12, a)
+    ra = (-b - sq) / a_safe
+    rb = (-b + sq) / a_safe
+    t1 = torch.minimum(ra, rb)
+    t2 = torch.maximum(ra, rb)
+    return (t - t1).abs() <= (t - t2).abs()
+
+
+def _check_grid_size(o, pack):
+    """The dense grid serves small BVH-less packs and the CPU. On the card,
+    where the JAX package switches to its brute-force kernels
+    (`ops/pallas/intersect.py` tri_closest / cone_closest) at R*P >= 2^24,
+    the port raises until that kernel is ported."""
+    if o.device.type == "cuda" and o.shape[0] * pack.count >= _GRID_ELEMS:
+        raise NotImplementedError(
+            f"a BVH-less pack of {pack.count} primitives against {o.shape[0]} rays needs the "
+            "brute-force kernel (K5, ROADMAP M9), which is not ported yet; attach a BVH "
+            "(ops/traverse.attach_bvh) or lower min_prims")
+
+
+def _grid_closest(o, d, pack, grid_fn, t_min, t_max):
+    """Nearest hit over a BVH-less pack by the dense grid, chunked over
+    rays -> (t [R] INF where none, row [R])."""
+    _check_grid_size(o, pack)
+    r, p = o.shape[0], pack.count
+    step = max(1, _GRID_ELEMS // max(p, 1))
+    ts, rows = [], []
+    for s in range(0, r, step):
+        g = grid_fn(o[s:s + step], d[s:s + step], pack, t_min, t_max[s:s + step, None])[0]
+        row = g.argmin(-1)
+        ts.append(g.gather(-1, row[:, None])[:, 0])
+        rows.append(row.to(torch.int32))
+    return torch.cat(ts), torch.cat(rows)
+
+
+def _grid_any(o, d, pack, grid_fn, t_min, t_max):
+    """Does any primitive of a BVH-less pack lie in (t_min, t_max)? -> [R]."""
+    _check_grid_size(o, pack)
+    r, p = o.shape[0], pack.count
+    step = max(1, _GRID_ELEMS // max(p, 1))
+    return torch.cat([grid_fn(o[s:s + step], d[s:s + step], pack, t_min,
+                              t_max[s:s + step, None])[-1].any(-1)
+                      for s in range(0, r, step)])
+
+
+def _assemble_hit(o, d, scene: DeviceScene, t_tri, tri_row, t_cone, cone_row, t_max,
+                  tri_rp=None, cone_rc=None) -> bruteforce.Hit:
+    """Merge the per-kind winners into a full Hit. Rows index the scene's
+    current (reordered) packs; the BVH's perm maps them back to the
+    original primitive ids."""
+    r = o.shape[0]
+    tris, cones = scene.tris, scene.cones
+    cone_wins = t_cone < t_tri
+    t = torch.where(cone_wins, t_cone, t_tri)
+    valid = t < t_max
+    prim_type = torch.where(~valid, bruteforce.PRIM_NONE,
+                            torch.where(cone_wins, bruteforce.PRIM_CONE,
+                                        bruteforce.PRIM_TRI)).to(torch.int32)
+    position = o + t[:, None] * d
+
+    n = torch.zeros_like(o)
+    uv = torch.zeros((r, 2), dtype=torch.float32, device=o.device)
+    mat_id = torch.zeros((r,), dtype=torch.int32, device=o.device)
+    fu, fv, fw = torch.zeros_like(o), torch.zeros_like(o), torch.zeros_like(o)
+    enter = torch.zeros((r,), dtype=torch.bool, device=o.device)
+    prim_id = torch.zeros((r,), dtype=torch.int32, device=o.device)
+
+    def w3(m, a, b):
+        return torch.where(m[:, None], a, b)
+
+    if tris.count:
+        if tri_rp is None:
+            tri_rp = take_tri_rows(tris, tri_row)
+        tn, tuv, _ = isect.triangle_interpolate_rows(tri_rp, position, o, d)
+        is_tri = prim_type == bruteforce.PRIM_TRI
+        n, uv = w3(is_tri, tn, n), w3(is_tri, tuv, uv)
+        mat_id = torch.where(is_tri, tri_rp.mat_id, mat_id)
+        fu, fv, fw = (w3(is_tri, tri_rp.fiber_u, fu), w3(is_tri, tri_rp.fiber_v, fv),
+                      w3(is_tri, tri_rp.fiber_w, fw))
+        orig = scene.tri_bvh.perm[tri_row.long()] if scene.tri_bvh is not None else tri_row
+        prim_id = torch.where(is_tri, orig, prim_id)
+    if cones.count:
+        if cone_rc is None:
+            cone_rc = take_cone_rows(cones, cone_row)
+        cn = isect.cone_normal_rows(cone_rc["v"], cone_rc["base"], cone_rc["base_d"],
+                                    cone_rc["slope"], position)
+        cuv = isect.cone_texcoord_rows(cone_rc["base"], cone_rc["u"], cone_rc["v"],
+                                       cone_rc["w"], cone_rc["r_base"], cone_rc["slope"],
+                                       cone_rc["height"], position)
+        is_cone = prim_type == bruteforce.PRIM_CONE
+        n, uv = w3(is_cone, cn, n), w3(is_cone, cuv, uv)
+        mat_id = torch.where(is_cone, cone_rc["mat_id"], mat_id)
+        fu, fv, fw = (w3(is_cone, cone_rc["u"], fu), w3(is_cone, cone_rc["v"], fv),
+                      w3(is_cone, cone_rc["w"], fw))
+        enter = is_cone & _cone_enter_rows(cone_rc["base"], cone_rc["u"], cone_rc["v"],
+                                           cone_rc["w"], cone_rc["slope"],
+                                           cone_rc["r_base"], o, d, t)
+        orig = scene.cone_bvh.perm[cone_row.long()] if scene.cone_bvh is not None else cone_row
+        prim_id = torch.where(is_cone, orig, prim_id)
+
+    return bruteforce.Hit(
+        t=torch.where(valid, t, INF), valid=valid, prim_type=prim_type, prim_id=prim_id,
+        mat_id=mat_id, position=position, normal=n, uv=uv, enter=enter, fiber_u=fu,
+        fiber_v=fv, fiber_w=fw)
+
+
+def _t_max_of(t_max, r, like):
+    return torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
+                                              device=like.device), (r,)).contiguous()
+
+
+def closest_hit(o, d, scene: DeviceScene, t_min=1e-4, t_max=INF) -> bruteforce.Hit:
+    """Nearest hit per ray: the traversal kernel for packs with a BVH (then
+    the winner's t recomputed from its row), the dense grid for packs
+    without one. t_max may be per ray [R]."""
+    r = o.shape[0]
+    t_max = _t_max_of(t_max, r, o)
+    tris, cones = scene.tris, scene.cones
+
+    t_tri = torch.full((r,), INF, device=o.device)
+    tri_row = torch.zeros((r,), dtype=torch.int32, device=o.device)
+    tri_rp = None
+    if scene.tri_bvh is not None:
+        _, tri_row, found = ctraverse.traverse(o, d, t_max, scene.tri_bvh, "tri", t_min=t_min)
+        tri_row = torch.clamp(tri_row, min=0)
+        tri_rp = take_tri_rows(tris, tri_row)
+        t_tri = torch.where(found, _recompute_t_tri(tri_rp, o, d, t_min, t_max), INF)
+    elif tris.count:
+        t_tri, tri_row = _grid_closest(o, d, tris, isect.triangle_hit_grid, t_min, t_max)
+
+    t_cone = torch.full((r,), INF, device=o.device)
+    cone_row = torch.zeros((r,), dtype=torch.int32, device=o.device)
+    cone_rc = None
+    if scene.cone_bvh is not None:
+        _, cone_row, found = ctraverse.traverse(o, d, t_max, scene.cone_bvh, "cone",
+                                                t_min=t_min)
+        cone_row = torch.clamp(cone_row, min=0)
+        cone_rc = take_cone_rows(cones, cone_row)
+        t_cone = torch.where(found, _recompute_t_cone(cone_rc, o, d, t_min, t_max), INF)
+    elif cones.count:
+        t_cone, cone_row = _grid_closest(o, d, cones, isect.cone_hit_grid, t_min, t_max)
+
+    return _assemble_hit(o, d, scene, t_tri, tri_row, t_cone, cone_row, t_max,
+                         tri_rp=tri_rp, cone_rc=cone_rc)
+
+
+def any_hit(o, d, scene: DeviceScene, t_max, t_min=1e-4) -> torch.Tensor:
+    """Shadow-ray occlusion: does any geometry lie in (t_min, t_max)? -> [R]
+    bool. The traversal kernel's any-hit mode for packs with a BVH, the
+    dense grid otherwise."""
+    r = o.shape[0]
+    t_max = _t_max_of(t_max, r, o)
+    blocked = torch.zeros((r,), dtype=torch.bool, device=o.device)
+    if scene.tri_bvh is not None:
+        blocked |= ctraverse.traverse(o, d, t_max, scene.tri_bvh, "tri", any_hit=True,
+                                      t_min=t_min)[2]
+    elif scene.tris.count:
+        blocked |= _grid_any(o, d, scene.tris, isect.triangle_hit_grid, t_min, t_max)
+    if scene.cone_bvh is not None:
+        blocked |= ctraverse.traverse(o, d, t_max, scene.cone_bvh, "cone", any_hit=True,
+                                      t_min=t_min)[2]
+    elif scene.cones.count:
+        blocked |= _grid_any(o, d, scene.cones, isect.cone_hit_grid, t_min, t_max)
+    return blocked

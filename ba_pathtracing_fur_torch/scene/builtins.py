@@ -1,8 +1,9 @@
 """Built-in validation scenes.
 
-Counterpart of `ba_pathtracing_fur_tpu/scene/builtins.py`. Only the Cornell
-box is ported so far; the fur patch, terrain and hair ball follow with the
-fur slice (ROADMAP M3/M9).
+Counterpart of `ba_pathtracing_fur_tpu/scene/builtins.py`: the Cornell box
+and the fur patch, with the same geometry, materials, lights and cameras.
+The scenes land on the card unless the caller asks for another device
+(`device="cpu"`). The terrain and the hair ball follow with ROADMAP M3/M9.
 """
 
 from __future__ import annotations
@@ -11,10 +12,11 @@ import numpy as np
 import torch
 
 from ..core.camera import make_camera
+from . import mesh as mesh_mod
 from .types import (
     BSDF_GLASS, BSDF_LAMBERT, BSDF_SPECULAR_REFLECTION, DeviceScene, Environment,
-    empty_cone_pack, make_light_pack, make_material_table, make_triangle_pack,
-    scene_bsdfs_present, to_device,
+    empty_cone_pack, make_cone_pack, make_light_pack, make_material_table,
+    make_triangle_pack, scene_bsdfs_present, scene_has_hair, to_device,
 )
 
 
@@ -43,10 +45,10 @@ def _box(lo, hi):
 
 
 def cornell_box(resolution=(256, 256), variant="diffuse", light_kind="quad",
-                device=None):
+                device="cuda"):
     """Cornell box. variant: 'diffuse' | 'glossy' (mirror + glass boxes).
 
-    Returns (DeviceScene, Camera) on `device` (host tensors by default)."""
+    Returns (DeviceScene, Camera) on `device`."""
     white = dict(name="white", diffuse=(0.73, 0.73, 0.73), bsdf=BSDF_LAMBERT)
     red = dict(name="red", diffuse=(0.65, 0.05, 0.05), bsdf=BSDF_LAMBERT)
     green = dict(name="green", diffuse=(0.12, 0.45, 0.15), bsdf=BSDF_LAMBERT)
@@ -91,4 +93,42 @@ def cornell_box(resolution=(256, 256), variant="diffuse", light_kind="quad",
         has_hair=False, bsdfs_present=scene_bsdfs_present(mat_table))
     cam = make_camera(position=(0.0, 0.0, 3.4), look_at=(0.0, 0.0, -1.0),
                       up=(0.0, 1.0, 0.0), resolution=resolution, device=device)
-    return (scene if device is None else to_device(scene, device)), cam
+    return to_device(scene, device), cam
+
+
+def fur_patch(resolution=(256, 256), fibers_per_face=5, fiber_verts=10,
+              fiber_radius=0.004, bsdf="MarschnerHairBSDF", seed=0,
+              patch_halfsize=0.5, device="cuda"):
+    """Fur skin patch: a 2-triangle ground plane and grown fibers as cone
+    chains (the Fur_SmallSkinPatch default workload, Demo/main.cpp:207,235).
+
+    Returns (DeviceScene, Camera) on `device`."""
+    s = patch_halfsize
+    ground = _quad((-s, 0.0, -s), (-s, 0.0, s), (s, 0.0, s), (s, 0.0, -s))
+    v = np.asarray(ground, np.float32)
+
+    skin = dict(name="skin", diffuse=(0.35, 0.25, 0.18), bsdf=BSDF_LAMBERT)
+    # fur material defaults from CPU_Scene.cpp:115-117 (brown, ior 1.55)
+    fur_mat = dict(name="Fiber_Mat", diffuse=(0.545, 0.353, 0.169), ior=1.55, bsdf=bsdf)
+    pack = make_triangle_pack(v[:, 0], v[:, 1], v[:, 2], mat_id=np.zeros(len(ground)))
+
+    faces = np.stack([v[:, 0], v[:, 1], v[:, 2]], axis=1)
+    fibers = mesh_mod.grow_fur_fibers(faces, fibers_per_face, fiber_verts, fiber_radius,
+                                      seed=seed)
+    base, apex, r0, r1 = mesh_mod.fibers_to_cone_chain(fibers)
+    cones = make_cone_pack(base, apex, r0, r1, np.ones(base.shape[0]))
+
+    lights = make_light_pack([
+        dict(kind="point", color=(10.0, 10.0, 10.0), position=(0.6, 1.2, 0.8),
+             radius=0.05, const_att=1.0),
+        dict(kind="sun", color=(1.5, 1.4, 1.2), direction=(-0.4, -1.0, -0.3), radius=0.05),
+    ])
+    mat_table = make_material_table([skin, fur_mat])
+    scene = DeviceScene(
+        tris=pack, cones=cones, materials=mat_table, lights=lights,
+        env=Environment(color=torch.tensor([0.05, 0.06, 0.08]),
+                        ambient=torch.tensor([0.08, 0.08, 0.08])),
+        has_hair=scene_has_hair(mat_table), bsdfs_present=scene_bsdfs_present(mat_table))
+    cam = make_camera(position=(0.0, 0.45, 1.1), look_at=(0.0, -0.35, -1.0),
+                      up=(0.0, 1.0, 0.0), resolution=resolution, device=device)
+    return to_device(scene, device), cam

@@ -3,8 +3,10 @@
 Counterpart of `ba_pathtracing_fur_tpu/scene/types.py`: the same ids and
 flag bits, and the same pack layouts. Packs are built on the host with
 numpy (`make_*`) and moved to a device in one call (`to_device`).
-`scene_from_numpy` reads a host-built JAX-package scene field by field, so
-both packages can render the very same scene.
+`scene_from_numpy` reads a host-built JAX-package scene field by field,
+BVHs included, so both packages can render the very same scene; like every
+entry point of the port it puts its tensors on the card unless the caller
+asks for another device.
 
 BSDF ids: 0 Lambert, 1 specular reflection, 2 specular transmission,
 3 glossy, 4 glass, 5 milk glass, 6 Lambert transmission, 7 emission,
@@ -14,10 +16,13 @@ BSDF ids: 0 Lambert, 1 specular reflection, 2 specular transmission,
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import numpy as np
 import torch
+
+if TYPE_CHECKING:
+    from ..ops.bvh import BVH
 
 BSDF_LAMBERT = 0
 BSDF_SPECULAR_REFLECTION = 1
@@ -104,8 +109,7 @@ class TrianglePack:
 
 @dataclasses.dataclass
 class ConePack:
-    """[F] fur-fiber cones. Only the empty pack exists in the port so far
-    (fur geometry arrives with ROADMAP M3/M7)."""
+    """[F] fur-fiber cones with the Cylinder-ctor local frame (u, v, w)."""
 
     base: torch.Tensor  # [F,3]
     apex: torch.Tensor
@@ -201,6 +205,8 @@ class DeviceScene:
     has_hair: bool = True
     # sorted tuple of the surface bsdf ids in the table; () = evaluate all
     bsdfs_present: tuple = ()
+    tri_bvh: Optional["BVH"] = None  # ops/bvh.BVH over the (reordered) triangles
+    cone_bvh: Optional["BVH"] = None  # ops/bvh.BVH over the (reordered) cones
 
     @property
     def device(self) -> torch.device:
@@ -212,13 +218,20 @@ def scene_bsdfs_present(materials: MaterialTable) -> tuple:
     return tuple(sorted(int(b) for b in torch.unique(materials.bsdf_id.cpu())))
 
 
+def scene_has_hair(materials: MaterialTable) -> bool:
+    """Whether any material routes to the hair shader."""
+    return bool((materials.shader_id.cpu() == SHADER_MARSCHNER_HAIR).any())
+
+
 def to_device(scene: DeviceScene, device) -> DeviceScene:
-    """The scene with every pack on `device`."""
+    """The scene with every pack and BVH on `device`."""
     return dataclasses.replace(
         scene, tris=_to(scene.tris, device), cones=_to(scene.cones, device),
         materials=_to(scene.materials, device), lights=_to(scene.lights, device),
         env=_to(scene.env, device),
-        textures=None if scene.textures is None else scene.textures.to(device))
+        textures=None if scene.textures is None else scene.textures.to(device),
+        tri_bvh=None if scene.tri_bvh is None else _to(scene.tri_bvh, device),
+        cone_bvh=None if scene.cone_bvh is None else _to(scene.cone_bvh, device))
 
 
 # ---------------------------------------------------------------------------
@@ -261,6 +274,35 @@ def make_triangle_pack(v0, v1, v2, n0=None, n1=None, n2=None, uv0=None,
         fiber_u=_f32(opt(fiber_u, frame[:, 0]), (-1, 3)),
         fiber_v=_f32(opt(fiber_v, frame[:, 1]), (-1, 3)),
         fiber_w=_f32(opt(fiber_w, frame[:, 2]), (-1, 3)))
+
+
+def make_cone_pack(base, apex, r_base, r_apex, mat_id) -> ConePack:
+    """The per-cone local frame exactly as Cylinder's ctor builds it
+    (Cylinder.cpp:5-43), for untransformed fibers, in host float32 numpy as
+    the JAX package does it. w = normalize(cross(u, v)) is the invariant the
+    packed traversal relies on."""
+    base = np.asarray(base, np.float32).reshape(-1, 3)
+    apex = np.asarray(apex, np.float32).reshape(-1, 3)
+    r_base = np.asarray(r_base, np.float32).reshape(-1)
+    r_apex = np.asarray(r_apex, np.float32).reshape(-1)
+    local_v = apex - base
+    height = np.maximum(np.linalg.norm(local_v, axis=-1), 1e-12)
+    v = local_v / height[:, None]
+    tmp = np.tile(np.array([0.0, 1.0, 0.0], np.float32), (base.shape[0], 1))
+    degenerate = 1.0 - np.abs(np.sum(tmp * v, axis=-1)) < 1e-4
+    tmp[degenerate] = np.array([0.0, 0.0, 1.0], np.float32)
+    u = np.cross(v, tmp)
+    u /= np.maximum(np.linalg.norm(u, axis=-1, keepdims=True), 1e-12)
+    w = np.cross(u, v)
+    w /= np.maximum(np.linalg.norm(w, axis=-1, keepdims=True), 1e-12)
+    slope = (r_base - r_apex) / height
+    base_d = np.sum(base * v, axis=-1)
+    apex_d = np.sum(apex * v, axis=-1)
+    return ConePack(
+        base=_f32(base), apex=_f32(apex), r_base=_f32(r_base), r_apex=_f32(r_apex),
+        u=_f32(u), v=_f32(v), w=_f32(w), slope=_f32(slope), height=_f32(height),
+        base_d=_f32(base_d), min_d=_f32(np.minimum(base_d, apex_d)),
+        max_d=_f32(np.maximum(base_d, apex_d)), mat_id=_i32(mat_id))
 
 
 def empty_cone_pack() -> ConePack:
@@ -360,12 +402,23 @@ def _read_fields(cls, obj):
     return cls(**out)
 
 
-def scene_from_numpy(scene, device=None) -> DeviceScene:
-    """Read a JAX-package `DeviceScene` field by field into the port's
-    scene on `device`. The JAX object is passed in, so no jax import is
-    needed here. BVH-carrying scenes wait for the port's BVH (ROADMAP M7)."""
-    if getattr(scene, "tri_bvh", None) is not None or getattr(scene, "cone_bvh", None) is not None:
-        raise NotImplementedError("scenes with a BVH are not ported yet (ROADMAP M7)")
+def _read_bvh(bvh):
+    """The port's BVH from a JAX-package one: the heap boxes, the slot
+    permutation and the packed leaf geometry, as numpy -> tensors."""
+    from ..ops.bvh import BVH
+
+    if bvh is None:
+        return None
+    return BVH(bmin=_f32(bvh.bmin), bmax=_f32(bvh.bmax), perm=_i32(bvh.perm),
+               packed=None if bvh.packed is None else _f32(bvh.packed),
+               n_leaves=int(bvh.n_leaves), leaf_size=int(bvh.leaf_size),
+               fanout=int(bvh.fanout))
+
+
+def scene_from_numpy(scene, device="cuda") -> DeviceScene:
+    """Read a JAX-package `DeviceScene` field by field, BVHs included, into
+    the port's scene on `device` (the card unless the caller asks for
+    another). The JAX object is passed in, so no jax import is needed."""
     env = scene.env
     out = DeviceScene(
         tris=_read_fields(TrianglePack, scene.tris),
@@ -376,5 +429,6 @@ def scene_from_numpy(scene, device=None) -> DeviceScene:
                         ambient=_f32(env.ambient, (3,)),
                         texture=None if env.texture is None else _f32(env.texture)),
         textures=None if scene.textures is None else _f32(scene.textures),
-        has_hair=bool(scene.has_hair), bsdfs_present=tuple(scene.bsdfs_present))
-    return out if device is None else to_device(out, device)
+        has_hair=bool(scene.has_hair), bsdfs_present=tuple(scene.bsdfs_present),
+        tri_bvh=_read_bvh(scene.tri_bvh), cone_bvh=_read_bvh(scene.cone_bvh))
+    return to_device(out, device)

@@ -2,18 +2,34 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from `ba_pathtracing_fur_torch/csrc`, checks
-each against its plain torch version on the card, drives the main path
-(`models/pathtracer.render_image` on the Cornell box, the JAX package's
-bench configs 0 and 2) through the kernels, and checks the images. It exits
-non-zero, printing no result, when there is no CUDA device, when any phase
-fails, or when the package is missing. The last line of its output is
-`{"ok": true, "device": {...}}`; the line before it lists each kernel with
-its launches on the main path, its error against the plain version and
-its time beside the plain version's. Before those lines it prints the
-config-0 render time through the kernel and through the plain version, and
-a torch.profiler breakdown of one config-0 sample. The config-0 image is
-written to `smoke_out/smoke_config0.png` (git-ignored).
+Builds the port's CUDA kernels from `ba_pathtracing_fur_torch/csrc` (one
+nvcc per source, started together), checks each against its plain torch
+version on the card, drives the main paths through the entry points a user
+calls (`scene/builtins` -> `ops/traverse.attach_bvh` -> `models/pathtracer.
+render_image`) and checks the images:
+
+  * the Cornell path (the JAX package's bench configs 0 and 2) through the
+    full-bounce kernel;
+  * the fur patch (bench config 4: 512x512, 45,000 cones, depth 4, spp 8,
+    no cut) through the traversal kernel (cone BVH) and the shade kernel;
+  * a Cornell box with a triangle BVH through the traversal kernel's
+    triangle leaves and the shade kernel, gated against the full-bounce
+    render of the same box; the traversal is held against its plain
+    version, timed and bounded on this box's camera wavefront and shadow
+    rays. A soup of random triangles checks the triangle leaves on a deeper
+    BVH; its numbers go under `soup` in the traverse_tri entry.
+
+It exits non-zero, printing no result, when there is no CUDA device, when
+any phase fails, or when the package is missing. The last line of its
+output is `{"ok": true, "device": {...}}`; the line before it lists each
+kernel with its launches on the main path, its error against the plain
+version, its time beside the plain version's and its bound; the line before
+that is the card's name and power limit. Before those lines it prints the
+render times (rays/s) through the kernels and through the plain versions,
+the BVH build time, the per-kernel work counts behind the bounds, and a
+torch.profiler breakdown of one config-0 and one config-4 sample. The
+images go to `smoke_out/smoke_config0.png` and `smoke_out/smoke_fur_patch.png`
+(git-ignored).
 """
 
 from __future__ import annotations
@@ -34,12 +50,30 @@ CONFIG0 = dict(variant="diffuse", res=(1280, 720), depth=5, mis=False)
 # Config 2: glossy Cornell 512^2, depth 4, MIS + Russian roulette.
 CONFIG2 = dict(variant="glossy", res=(512, 512), depth=4, mis=True)
 SPP = 16
+# Config 4: the fur patch (bench.py:313-317, bench_fur), the reference's
+# Fur_SmallSkinPatch workload: 2 x 2500 fibers x 9 cones, median cone BVH,
+# 512^2, depth 4, spp 8 -- bench.py's own setting, no cut.
+CONFIG4 = dict(res=(512, 512), fibers_per_face=2500, depth=4, spp=8)
+# The triangle-BVH path: Cornell diffuse 512^2 with a BVH over its 34
+# triangles (attach_bvh min_prims=1), depth 4; spp cut to 4.
+TRI_BVH = dict(variant="diffuse", res=(512, 512), depth=4, mis=False, spp=4)
+# K2 on its triangle leaves: a soup of random triangles, rays into it.
+TRI_SOUP, SOUP_RAYS = 20_000, 262_144
 TIMED_REPS = 3
+# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3.
+PEAK_FP32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# Shading flops per ray, counted roughly on shade_core.cuh (light hits, NEE
+# sample and pdf, one BSDF sample, throughput update; the hair automaton
+# adds its trig): used only where bytes bind, which they do for both.
+SHADE_FLOPS_PER_RAY = 400
+# Möller-Trumbore flops of one triangle row in full_bounce.cu (as traverse.cu)
+TRI_ROW_FLOPS = 55
 # Per-field gate of tests/test_fused_shade.py::test_fused_single_bounce_exact.
 FIELD_ATOL, FIELD_RTOL, FIELD_MAX_FRAC = 1e-4, 1e-4, 0.02
 # Image gate of tests/test_fused_shade.py::_compare.
 IMG_MEAN, IMG_FLIP, IMG_FLIP_FRAC = 5e-3, 1e-3, 0.02
 FIELDS = ("origin", "direction", "radiance", "color", "flags", "theta_i", "prev_pdf")
+SHADE_FIELDS = FIELDS + ("shadow_tmax", "direct_rgb")
 OUT_DIR = Path("smoke_out")
 
 
@@ -55,24 +89,77 @@ def card_line() -> str:
 
 @contextlib.contextmanager
 def plain_bounces():
-    """Route every bounce through the plain torch version, on any device."""
-    from ba_pathtracing_fur_torch.ops.cuda import shade as cshade
+    """Route every kernel of a bounce through its plain torch version, on
+    any device."""
+    from ba_pathtracing_fur_torch.ops.cuda import shade as cshade, traverse as ctraverse
 
-    kernel_fn = cshade.shade_bounce_full
-    cshade.shade_bounce_full = cshade.shade_bounce_full_ref
+    swaps = ((cshade, "shade_bounce_full", cshade.shade_bounce_full_ref),
+             (cshade, "shade_bounce", cshade.shade_bounce_ref),
+             (ctraverse, "traverse", ctraverse.traverse_ref))
+    kernels_fns = [getattr(m, name) for m, name, _ in swaps]
+    for m, name, ref in swaps:
+        setattr(m, name, ref)
     try:
         yield
     finally:
-        cshade.shade_bounce_full = kernel_fn
+        for (m, name, _), fn in zip(swaps, kernels_fns):
+            setattr(m, name, fn)
 
 
-def row_mismatch(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
-    """(fraction of rows off by more than atol + rtol*|a|, max |a - b|)."""
+def reset_counts():
+    """Every kernel wrapper's launch and plain-call counts to 0."""
+    from ba_pathtracing_fur_torch.ops.cuda import shade as cshade, traverse as ctraverse
+
+    cshade.KERNEL_LAUNCHES = cshade.REF_CALLS = 0
+    cshade.SHADE_LAUNCHES = cshade.SHADE_REF_CALLS = 0
+    ctraverse.KERNEL_LAUNCHES = ctraverse.REF_CALLS = 0
+
+
+def read_counts() -> dict:
+    from ba_pathtracing_fur_torch.ops.cuda import shade as cshade, traverse as ctraverse
+
+    return dict(full_bounce=cshade.KERNEL_LAUNCHES, full_bounce_ref=cshade.REF_CALLS,
+                shade=cshade.SHADE_LAUNCHES, shade_ref=cshade.SHADE_REF_CALLS,
+                traverse=ctraverse.KERNEL_LAUNCHES, traverse_ref=ctraverse.REF_CALLS)
+
+
+def timed(fn, reps: int) -> float:
+    """Milliseconds per call of `fn` on the card (CUDA events, after a warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def bound(flops: float, n_bytes: float) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the FP32 peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                flops=flops, bytes=n_bytes)
+
+
+def nbytes(*xs) -> int:
+    return sum(x.numel() * x.element_size() for x in xs)
+
+
+def row_mismatch(a: torch.Tensor, b: torch.Tensor, rel: bool = False):
+    """(fraction of rows off by more than atol + rtol*|a|, max |a - b|[,
+    max |a - b| / max(|a|, 1)])."""
     a = a.double().reshape(a.shape[0], -1)
     b = b.double().reshape(b.shape[0], -1)
     d = (a - b).abs()
     bad = (d > FIELD_ATOL + FIELD_RTOL * a.abs()).any(-1)
-    return bad.double().mean().item(), d.max().item()
+    out = (bad.double().mean().item(), d.max().item() if d.numel() else 0.0)
+    if rel:
+        out += ((d / a.abs().clamp(min=1.0)).max().item() if d.numel() else 0.0,)
+    return out
 
 
 def image_gate(a: np.ndarray, b: np.ndarray, what: str) -> dict:
@@ -151,22 +238,49 @@ def time_one_bounce(dev) -> dict:
     state, keys = pt.camera_wavefront(cam, ids, rng.key(0, dev), [0], cfg)
     kw = pt.full_bounce_inputs(state, scene, keys, 0, cfg, pt.BounceTables.of(scene))
 
-    def timed(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(reps):
-            fn()
-        t1.record()
-        torch.cuda.synchronize()
-        return t0.elapsed_time(t1) / reps
-
     ms = timed(lambda: cshade.shade_bounce_full(**kw), 50)
     plain_ms = timed(lambda: cshade.shade_bounce_full_ref(**kw), 5)
     log(f"one config-0 bounce ({CONFIG0['res'][0] * CONFIG0['res'][1]} rays): kernel "
         f"{ms:.4f} ms, plain {plain_ms:.3f} ms")
-    return dict(ms=ms, plain_ms=plain_ms)
+    return dict(ms=ms, plain_ms=plain_ms, **full_bounce_bound(kw))
+
+
+def full_bounce_bound(kw) -> dict:
+    """The full-bounce kernel's bound on these inputs: the triangle rows its
+    closest hit must test (every row, for every ray that traces) and those
+    its shadow any-hit must test (rows up to the first blocker, or all), at
+    TRI_ROW_FLOPS each, plus SHADE_FLOPS_PER_RAY; bytes are the per-ray
+    state and draws read once and the new state written once."""
+    from ba_pathtracing_fur_torch.ops.cuda import shade as cshade
+
+    n_tris = kw["n_tris"]
+    grids = []
+    grid_fn = cshade.tri_grid
+
+    def recording_grid(o, d, table, t_min, t_max):
+        out = grid_fn(o, d, table, t_min, t_max)
+        grids.append((out[1], t_max))
+        return out
+
+    cshade.tri_grid = recording_grid
+    try:
+        out = cshade.shade_bounce_full_ref(**kw)
+    finally:
+        cshade.tri_grid = grid_fn
+    (_, cap), (shadow_valid, shadow_tmax) = grids
+    tracing = int((cap > 0).sum())
+    has_shadow = shadow_tmax > cshade.T_MIN
+    first = torch.where(shadow_valid.any(-1), shadow_valid.int().argmax(-1) + 1, n_tris)
+    shadow_rows = int(first[has_shadow].sum())
+    flops = (tracing * n_tris + shadow_rows) * TRI_ROW_FLOPS \
+        + kw["origin"].shape[0] * SHADE_FLOPS_PER_RAY
+    io = [kw[k] for k in ("origin", "direction", "radiance", "color", "flags", "theta_i",
+                          "prev_pdf", "u_bsdf", "u_pick", "u_light")] + list(out.values())
+    res = bound(flops, nbytes(*io))
+    log(f"full_bounce work: {tracing} tracing rays x {n_tris} rows + {shadow_rows} shadow "
+        f"rows -> {flops:.4e} flops, {res['bytes']:.4e} bytes, bound {res['bound_ms']:.4f} "
+        f"ms by {res['bound_by']}")
+    return res
 
 
 def render(scene, cam, key, cfg) -> torch.Tensor:
@@ -190,8 +304,7 @@ def phase_main_path(dev) -> dict:
         scene, cam = builtins.cornell_box(resolution=c["res"], variant=c["variant"], device=dev)
         cfg = render_cfg(c, SPP)
         key = rng.key(0, dev)
-        cshade.KERNEL_LAUNCHES = 0
-        cshade.REF_CALLS = 0
+        reset_counts()
         img = render(scene, cam, key, cfg)
         n_k, n_ref = cshade.KERNEL_LAUNCHES, cshade.REF_CALLS
         log(f"{name}: KERNEL_LAUNCHES {n_k} (expected spp*depth = {SPP * c['depth']}), "
@@ -221,20 +334,22 @@ def phase_small_reference(dev) -> None:
     c = dict(CONFIG2, res=(32, 32), depth=3)
     cfg = render_cfg(c, 4)
     scene_g, cam_g = builtins.cornell_box(resolution=c["res"], variant=c["variant"], device=dev)
-    scene_c, cam_c = builtins.cornell_box(resolution=c["res"], variant=c["variant"])
+    scene_c, cam_c = builtins.cornell_box(resolution=c["res"], variant=c["variant"],
+                                          device="cpu")
     a = render(scene_g, cam_g, rng.key(0, dev), cfg).cpu().numpy()
     from ba_pathtracing_fur_torch.models import pathtracer as pt
-    b = pt.render_image(scene_c, cam_c, rng.key(0), cfg).numpy()
+    b = pt.render_image(scene_c, cam_c, rng.key(0, "cpu"), cfg).numpy()
     image_gate(b, a, "glossy 32x32 card kernel vs CPU plain")
 
 
-def phase_timing(scene, cam, key, cfg) -> dict:
-    """Median of TIMED_REPS config-0 renders, kernel and plain, in turns."""
+def phase_timing(scene, cam, key, cfg, name="config0", with_plain=True) -> dict:
+    """Median of TIMED_REPS renders, kernel and plain in turns."""
     w, h = cam.resolution
     rays = w * h * cfg.spp * cfg.depth
-    times = {"kernel": [], "plain": []}
+    kinds = ("kernel", "plain") if with_plain else ("kernel",)
+    times = {k: [] for k in kinds}
     for rep in range(TIMED_REPS):
-        for which in (("kernel", "plain") if rep % 2 == 0 else ("plain", "kernel")):
+        for which in (kinds if rep % 2 == 0 else kinds[::-1]):
             ctx = plain_bounces() if which == "plain" else contextlib.nullcontext()
             with ctx:
                 torch.cuda.synchronize()
@@ -245,14 +360,14 @@ def phase_timing(scene, cam, key, cfg) -> dict:
     for which, ts in times.items():
         med = float(np.median(ts))
         out[which] = med
-        log(f"config0 render via {which}: median {med:.4f} s of {ts} "
+        log(f"{name} render via {which}: median {med:.4f} s of {ts} "
             f"-> {rays / med:.4e} rays/s ({rays} rays: {w}x{h}, spp {cfg.spp}, "
             f"depth {cfg.depth})")
     return out
 
 
-def phase_profile(scene, cam, key, cfg) -> None:
-    """Where one config-0 sample's time goes: device time by kernel under
+def phase_profile(scene, cam, key, cfg, name="config-0", marks=("full_bounce",)) -> None:
+    """Where one sample's time goes: device time by kernel under
     torch.profiler, against the host wall clock of the same traced run."""
     import dataclasses
 
@@ -271,13 +386,310 @@ def phase_profile(scene, cam, key, cfg) -> None:
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
     busy = sum(dev_us(e) for e in kernels) / 1e6
-    fb = sum(dev_us(e) for e in kernels if "full_bounce" in e.key) / 1e6
     launches = sum(e.count for e in kernels)
-    log(f"profile, one config-0 sample (traced): wall {wall:.4f} s, device busy {busy:.4f} s "
+    parts = []
+    for mark in marks:
+        t = sum(dev_us(e) for e in kernels if mark in e.key) / 1e6
+        parts.append(f"{mark} {t:.5f} s = {t / max(busy, 1e-12):.4f} of device time")
+    log(f"profile, one {name} sample (traced): wall {wall:.4f} s, device busy {busy:.4f} s "
         f"(idle share {max(0.0, 1.0 - busy / wall):.3f}), {launches} kernel launches, "
-        f"full_bounce {fb:.5f} s = {fb / max(busy, 1e-12):.4f} of device time")
-    for e in sorted(kernels, key=dev_us, reverse=True)[:5]:
+        + ", ".join(parts))
+    for e in sorted(kernels, key=dev_us, reverse=True)[:6]:
         log(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:100]}")
+
+
+def fur_scene(dev):
+    """Config 4 through the entry points: the fur patch on the card and its
+    median cone BVH (the ground's 2 triangles stay BVH-less)."""
+    from ba_pathtracing_fur_torch.models import pathtracer as pt
+    from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.scene import builtins
+
+    scene, cam = builtins.fur_patch(resolution=CONFIG4["res"],
+                                    fibers_per_face=CONFIG4["fibers_per_face"], device=dev)
+    n_cones = scene.cones.count
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scene = traverse.attach_bvh(scene, method="median")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    b = scene.cone_bvh
+    log(f"config4: {n_cones} cones, {scene.tris.count} triangles; cone BVH "
+        f"{b.n_leaves} leaves x {b.leaf_size}, packed {tuple(b.packed.shape)}, built in "
+        f"{build_s:.3f} s (host numpy median split + reorder + pack + upload)")
+    if n_cones != 2 * CONFIG4["fibers_per_face"] * 9 or b is None or scene.tri_bvh is not None:
+        raise AssertionError("config4: unexpected scene")
+    cfg = pt.RenderConfig(depth=CONFIG4["depth"], spp=CONFIG4["spp"], compact=False,
+                          fused_shading=True)
+    return scene, cam, cfg, build_s
+
+
+def compare_traverse(o, d, t_max, bvh, kind, any_hit, what) -> dict:
+    """K2 against its twin on the same CUDA inputs: found mismatches, the
+    row-mismatch fraction among rays both found, max |dt| there."""
+    from ba_pathtracing_fur_torch.ops.cuda import traverse as ctraverse
+
+    t1, r1, f1 = ctraverse.traverse(o, d, t_max, bvh, kind, any_hit=any_hit)
+    t0, r0, f0 = ctraverse.traverse_ref(o, d, t_max, bvh, kind, any_hit=any_hit)
+    torch.cuda.synchronize()
+    both = f0 & f1
+    found_mis = int((f0 != f1).sum())
+    row_frac = float((r0[both] != r1[both]).double().mean()) if both.any() and not any_hit \
+        else 0.0
+    same = both & (r0 == r1)
+    max_dt = float((t0[same] - t1[same]).abs().max()) if same.any() else 0.0
+    log(f"traverse {kind} {'any' if any_hit else 'closest'} hit vs plain, {what}: "
+        f"{o.shape[0]} rays, found {int(f0.sum())}, found mismatches {found_mis}, "
+        f"row mismatch among found {row_frac:.6f}, max |dt| {max_dt:.3e}")
+    if found_mis > 1e-4 * o.shape[0] or row_frac > 1e-3 or max_dt > 1e-3:
+        raise AssertionError(f"traverse {kind} {what}: kernel disagrees with plain")
+    return dict(found_mismatches=found_mis, row_mismatch_frac=row_frac, max_abs_err=max_dt)
+
+
+def traverse_bound(o, d, t_max, bvh, kind, any_hit) -> dict:
+    """The traversal's bound on these rays: the tests `work_ref` counts,
+    and the rays, boxes and leaf geometry read once, (t, row, found)
+    written once."""
+    from ba_pathtracing_fur_torch.ops.cuda import traverse as ctraverse
+
+    w = ctraverse.work_ref(o, d, t_max, bvh, kind, any_hit=any_hit)
+    n_bytes = nbytes(o, d, t_max, bvh.bmin, bvh.bmax, bvh.packed) + o.shape[0] * 9
+    res = bound(w["flops"], n_bytes)
+    log(f"traverse {kind} {'any' if any_hit else 'closest'} work: {w['rays']} rays, "
+        f"{w['box_tests']} box tests, {w['leaf_row_tests']} leaf-row tests -> "
+        f"{w['flops']:.4e} flops, {n_bytes:.4e} bytes, bound {res['bound_ms']:.4f} ms by "
+        f"{res['bound_by']}")
+    return res
+
+
+def shade_bound(kw, got) -> dict:
+    """The shade kernel's bound on these inputs: the per-ray tensors it
+    reads (the fiber frame and hair draw only with hair, the RR draw only
+    with RR, a constant environment colour as its 3 floats, the ambient and
+    the n_lights rows of the light table once) and its outputs written
+    once; SHADE_FLOPS_PER_RAY a ray."""
+    from ba_pathtracing_fur_torch.ops.cuda import shade as cshade
+
+    cfg = kw["cfg"]
+    skip = {"env_color", "env_ambient", "mp"}
+    skip |= set() if cfg.rr else {"u_rr"}
+    skip |= set() if cfg.has_hair else {"fib_u", "fib_v", "fib_w", "u_hairp"}
+    io = [kw[f] for f in cshade.SHADE_IN_FIELDS if f in kw and f not in skip]
+    io += [getattr(kw["mp"], f) for f in cshade.MAT_FIELDS]
+    env = kw["env_color"]
+    io.append(env[0] if env.dim() == 2 and env.stride(0) == 0 else env)
+    io += [kw["env_ambient"], kw["lights_table"][:kw["n_lights"]]]
+    r = kw["origin"].shape[0]
+    res = bound(r * SHADE_FLOPS_PER_RAY, nbytes(*io, *got.values()))
+    log(f"shade work: {r} rays, {len(io)} inputs and {len(got)} outputs -> "
+        f"{res['bytes']:.4e} bytes, {res['flops']:.4e} flops, bound {res['bound_ms']:.4f} ms "
+        f"by {res['bound_by']}")
+    return res
+
+
+def phase_fur_kernels(scene, cam, cfg, dev) -> dict:
+    """Bounces 0-3 of config 4: K2 (cone closest and shadow any-hit) and K1
+    against their plain versions on the same CUDA inputs, with the times of
+    both kernels beside their plain versions at the bounce-0 and bounce-1
+    shapes."""
+    from ba_pathtracing_fur_torch.core import rng
+    from ba_pathtracing_fur_torch.models import pathtracer as pt
+    from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.ops.cuda import shade as cshade, traverse as ctraverse
+
+    bvh = scene.cone_bvh
+    tables = pt.BounceTables.of(scene)
+    ids = torch.arange(cam.resolution[0] * cam.resolution[1], device=dev)
+    state, keys = pt.camera_wavefront(cam, ids, rng.key(0, dev), [0], cfg)
+    k2, k1 = [], dict(worst_frac=0.0, max_abs_err=0.0, max_rel_err=0.0)
+    out = {}
+    for bounce in range(cfg.depth):
+        alive = (state.radiance != 0.0).any(-1) & (state.direction != 0.0).any(-1)
+        t_cap = torch.where(alive, traverse.INF, 0.0)
+        o, d = state.origin, state.direction
+        what = "camera wavefront" if bounce == 0 else f"bounce-{bounce} wavefront"
+        if bounce < 2:
+            k2.append(compare_traverse(o, d, t_cap, bvh, "cone", False, what))
+        hit = traverse.closest_hit(o, d, scene, t_max=t_cap)
+        kw = pt.shade_inputs(state, scene, keys, bounce, cfg, hit, tables)
+        got = cshade.shade_bounce(**kw)
+        want = cshade.shade_bounce_ref(**kw)
+        torch.cuda.synchronize()
+        live = want["shadow_tmax"] > 0
+        for f in SHADE_FIELDS + ("shadow_o", "shadow_d"):
+            a, b = want[f], got[f]
+            if f in ("shadow_o", "shadow_d"):
+                a, b = a[live], b[live]
+            frac, mx, rel = row_mismatch(a, b, rel=True)
+            k1["worst_frac"], k1["max_abs_err"] = max(k1["worst_frac"], frac), \
+                max(k1["max_abs_err"], mx)
+            k1["max_rel_err"] = max(k1["max_rel_err"], rel)
+            if frac >= FIELD_MAX_FRAC:
+                raise AssertionError(f"shade config4 bounce {bounce} {f}: {frac:.4f} of rows "
+                                     f"mismatched (max |diff| {mx:.3e})")
+        log(f"shade vs plain, config4 bounce {bounce}: ok, {int(alive.sum())} rays alive, "
+            f"{int((hit.prim_type == 1).sum())} cone hits, {int(live.sum())} shadow rays")
+        so, sd, st_max = want["shadow_o"], want["shadow_d"], want["shadow_tmax"]
+        if bounce < 2:
+            k2.append(compare_traverse(so, sd, st_max, bvh, "cone", True,
+                                       f"bounce-{bounce} shadow rays"))
+            reps = 20
+            times = dict(
+                closest_ms=timed(lambda: ctraverse.traverse(o, d, t_cap, bvh, "cone"), reps),
+                closest_plain_ms=timed(lambda: ctraverse.traverse_ref(o, d, t_cap, bvh,
+                                                                      "cone"), 1),
+                any_ms=timed(lambda: ctraverse.traverse(so, sd, st_max, bvh, "cone",
+                                                        any_hit=True), reps),
+                any_plain_ms=timed(lambda: ctraverse.traverse_ref(so, sd, st_max, bvh, "cone",
+                                                                  any_hit=True), 1),
+                shade_ms=timed(lambda: cshade.shade_bounce(**kw), 50),
+                shade_plain_ms=timed(lambda: cshade.shade_bounce_ref(**kw), 3))
+            log(f"config4 bounce {bounce} times ({o.shape[0]} rays): " + ", ".join(
+                f"{k} {v:.4f}" for k, v in times.items()))
+            out[bounce] = dict(times=times,
+                               closest_bound=traverse_bound(o, d, t_cap, bvh, "cone", False),
+                               any_bound=traverse_bound(so, sd, st_max, bvh, "cone", True))
+            if bounce == 0:
+                out["shade_bound"] = shade_bound(kw, got)
+        blocked = traverse.any_hit(so, sd, scene, st_max)
+        color = want["color"] + torch.where(blocked[:, None], 0.0, want["direct_rgb"])
+        state = pt.RayState(origin=want["origin"], direction=want["direction"],
+                            radiance=want["radiance"], color=color, flags=want["flags"],
+                            theta_i=want["theta_i"], prev_pdf=want["prev_pdf"])
+    log(f"shade vs plain, config4: worst mismatched-row fraction {k1['worst_frac']:.5f} "
+        f"(gate: below {FIELD_MAX_FRAC}), max |diff| {k1['max_abs_err']:.3e} (the sun's "
+        f"shadow t_max is ~1e16, where an ulp is ~1e9), max |diff| / max(|plain|, 1) "
+        f"{k1['max_rel_err']:.3e}")
+    out.update(k2=k2, k1=k1)
+    return out
+
+
+def phase_fur_main_path(scene, cam, cfg, dev) -> dict:
+    """render_image of config 4 through the kernels: launch counts, the
+    image, rays/s, and the spp-1 image against the plain path's."""
+    import dataclasses
+
+    from ba_pathtracing_fur_torch.core import rng
+    from ba_pathtracing_fur_torch.utils import film
+
+    key = rng.key(0, dev)
+    reset_counts()
+    img = render(scene, cam, key, cfg)
+    counts = read_counts()
+    want = cfg.spp * cfg.depth
+    log(f"config4: launches {counts} (expected traverse {2 * want} = spp x depth x "
+        f"(closest + shadow), shade {want}, no plain calls)")
+    if counts != dict(full_bounce=0, full_bounce_ref=0, shade=want, shade_ref=0,
+                      traverse=2 * want, traverse_ref=0):
+        raise AssertionError("config4: the main path did not run on the kernels alone")
+    w, h = cam.resolution
+    a = check_image(img, (h, w, 3), "config4")
+    OUT_DIR.mkdir(exist_ok=True)
+    film.write_png(OUT_DIR / "smoke_fur_patch.png", a)
+    times = phase_timing(scene, cam, key, cfg, name="config4", with_plain=False)
+    one = dataclasses.replace(cfg, spp=1)
+    a1 = check_image(render(scene, cam, key, one), (h, w, 3), "config4 spp 1")
+    with plain_bounces():
+        t0 = time.perf_counter()
+        b1 = check_image(render(scene, cam, key, one), (h, w, 3), "config4 spp 1 plain")
+        plain_s = time.perf_counter() - t0
+    log(f"config4 spp-1 render via plain: {plain_s:.3f} s")
+    gate = image_gate(b1, a1, "config4 spp-1 kernel vs plain image")
+    return dict(counts=counts, times=times, gate=gate)
+
+
+def camera_and_shadow_rays(scene, cam, cfg, dev):
+    """Bounce 0 of `scene`: the camera wavefront (o, d, t_max) and the NEE
+    shadow rays (o, d, t_max) the plain shade stage emits for its hits."""
+    from ba_pathtracing_fur_torch.core import rng
+    from ba_pathtracing_fur_torch.models import pathtracer as pt
+    from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.ops.cuda import shade as cshade
+
+    ids = torch.arange(cam.resolution[0] * cam.resolution[1], device=dev)
+    state, keys = pt.camera_wavefront(cam, ids, rng.key(0, dev), [0], cfg)
+    alive = (state.radiance != 0.0).any(-1) & (state.direction != 0.0).any(-1)
+    t_cap = torch.where(alive, traverse.INF, 0.0)
+    hit = traverse.closest_hit(state.origin, state.direction, scene, t_max=t_cap)
+    kw = pt.shade_inputs(state, scene, keys, 0, cfg, hit, pt.BounceTables.of(scene))
+    sh = cshade.shade_bounce_ref(**kw)
+    return ((state.origin, state.direction, t_cap),
+            (sh["shadow_o"], sh["shadow_d"], sh["shadow_tmax"]))
+
+
+def phase_tri_bvh(dev) -> dict:
+    """K2's triangle leaves. On the main path: a Cornell box with a
+    triangle BVH, its camera wavefront (closest hit) and shadow rays (any
+    hit) held against the plain version, timed and bounded there, then
+    rendered through the traversal and shade kernels and held against the
+    full-bounce render of the same box. Off it: a soup of random triangles
+    against the plain version, reported under its own name."""
+    import dataclasses
+
+    from ba_pathtracing_fur_torch.core import rng
+    from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.ops.cuda import traverse as ctraverse
+    from ba_pathtracing_fur_torch.scene import builtins, types
+
+    c = TRI_BVH
+    scene, cam = builtins.cornell_box(resolution=c["res"], variant=c["variant"], device=dev)
+    cfg = render_cfg(c, c["spp"])
+    with_bvh = traverse.attach_bvh(scene, leaf_size=8, min_prims=1)
+    bvh = with_bvh.tri_bvh
+    (o, d, t_cap), (so, sd, st_max) = camera_and_shadow_rays(with_bvh, cam, cfg, dev)
+    checks = [compare_traverse(o, d, t_cap, bvh, "tri", False, "cornell camera wavefront"),
+              compare_traverse(so, sd, st_max, bvh, "tri", True, "cornell shadow rays")]
+    times = dict(ms=timed(lambda: ctraverse.traverse(o, d, t_cap, bvh, "tri"), 20),
+                 plain_ms=timed(lambda: ctraverse.traverse_ref(o, d, t_cap, bvh, "tri"), 3),
+                 any_ms=timed(lambda: ctraverse.traverse(so, sd, st_max, bvh, "tri",
+                                                         any_hit=True), 20),
+                 any_plain_ms=timed(lambda: ctraverse.traverse_ref(so, sd, st_max, bvh, "tri",
+                                                                   any_hit=True), 3))
+    log(f"traverse tri, cornell bounce 0 ({o.shape[0]} rays, BVH {bvh.n_leaves} leaves x "
+        f"{bvh.leaf_size}): " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    b = traverse_bound(o, d, t_cap, bvh, "tri", False)
+    traverse_bound(so, sd, st_max, bvh, "tri", True)
+
+    key = rng.key(0, dev)
+    reset_counts()
+    img = render(with_bvh, cam, key, cfg)
+    counts = read_counts()
+    want = cfg.spp * cfg.depth
+    log(f"cornell with a triangle BVH ({bvh.n_leaves} leaves x {bvh.leaf_size}): "
+        f"launches {counts}")
+    if counts != dict(full_bounce=0, full_bounce_ref=0, shade=want, shade_ref=0,
+                      traverse=2 * want, traverse_ref=0):
+        raise AssertionError("cornell tri BVH: the main path did not run on the kernels alone")
+    w, h = c["res"]
+    a = check_image(img, (h, w, 3), "cornell tri BVH")
+    ref = check_image(render(scene, cam, key, cfg), (h, w, 3), "cornell full bounce")
+    image_gate(ref, a, "cornell: triangle-BVH path vs full-bounce path image")
+
+    g = np.random.default_rng(0)
+    v0 = g.uniform(-1, 1, (TRI_SOUP, 3)).astype(np.float32)
+    v1, v2 = (v0 + g.normal(0, 0.04, (TRI_SOUP, 3)).astype(np.float32) for _ in range(2))
+    soup = traverse.attach_bvh(dataclasses.replace(
+        scene, tris=types._to(types.make_triangle_pack(v0, v1, v2), dev)), min_prims=1).tri_bvh
+    so_ = torch.from_numpy(g.uniform(-1.5, 1.5, (SOUP_RAYS, 3)).astype(np.float32)).to(dev)
+    sd_ = torch.nn.functional.normalize(
+        torch.from_numpy(g.normal(size=(SOUP_RAYS, 3)).astype(np.float32)), dim=-1).to(dev)
+    t_inf = torch.full((SOUP_RAYS,), 3.4e38, device=dev)
+    t_one = torch.full((SOUP_RAYS,), 1.0, device=dev)
+    log(f"triangle soup: {TRI_SOUP} triangles, BVH {soup.n_leaves} leaves x {soup.leaf_size}")
+    soup_checks = [compare_traverse(so_, sd_, t_inf, soup, "tri", False, "soup"),
+                   compare_traverse(so_, sd_, t_one, soup, "tri", True, "soup, t_max 1")]
+    soup_res = dict(ms=timed(lambda: ctraverse.traverse(so_, sd_, t_inf, soup, "tri"), 20),
+                    plain_ms=timed(lambda: ctraverse.traverse_ref(so_, sd_, t_inf, soup,
+                                                                  "tri"), 1))
+    log(f"traverse tri closest, soup ({SOUP_RAYS} rays): kernel {soup_res['ms']:.4f} ms, "
+        f"plain {soup_res['plain_ms']:.3f} ms")
+    sb = traverse_bound(so_, sd_, t_inf, soup, "tri", False)
+    soup_res.update(bound_ms=sb["bound_ms"], bound_by=sb["bound_by"], rays=SOUP_RAYS,
+                    triangles=TRI_SOUP,
+                    max_abs_err=max(x["max_abs_err"] for x in soup_checks))
+    return dict(launches=counts["traverse"], max_abs_err=max(x["max_abs_err"] for x in checks),
+                ms=times["ms"], plain_ms=times["plain_ms"], bound_ms=b["bound_ms"],
+                bound_by=b["bound_by"], soup=soup_res)
 
 
 def main() -> int:
@@ -298,13 +710,13 @@ def main() -> int:
     kernels.load_library()
     log(f"kernel build + load: {time.perf_counter() - t0:.2f} s")
     for line in kernels.LAST_BUILD_LOG.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "Compiling entry" in line or "stack frame" in line:
             log("ptxas:", line.strip())
 
     # threefry on the card is bit-exact with the CPU
     from ba_pathtracing_fur_torch.core import rng
     ids = torch.arange(4096)
-    kc = rng.bounce_uniforms(rng.keys_for_pixels(rng.key(0), ids, 3), 2, 5, 2)
+    kc = rng.bounce_uniforms(rng.keys_for_pixels(rng.key(0, "cpu"), ids, 3), 2, 5, 2)
     kg = rng.bounce_uniforms(rng.keys_for_pixels(rng.key(0, dev), ids.to(dev), 3), 2, 5, 2)
     if not torch.equal(kc, kg.cpu()):
         raise AssertionError("threefry uniforms on the card differ from the CPU")
@@ -319,13 +731,51 @@ def main() -> int:
     log(f"config0 end to end: kernel path {times['kernel']:.4f} s, plain path "
         f"{times['plain']:.4f} s, on {card}")
 
-    log(json.dumps({"kernels": [{
-        "name": "full_bounce", "route": "cuda",
-        "source": "ba_pathtracing_fur_torch/csrc/full_bounce.cu",
-        "replaces": "ba_pathtracing_fur_tpu/ops/pallas/shade.py:359",
-        "launches": main_res["launches"], "max_abs_err": check["max_abs_err"],
-        "mismatch_frac": check["mismatch_frac"], "ms": timing_bounce["ms"],
-        "plain_ms": timing_bounce["plain_ms"]}]}))
+    scene4, cam4, cfg4, build_s = fur_scene(dev)
+    fur = phase_fur_kernels(scene4, cam4, cfg4, dev)
+    fur_main = phase_fur_main_path(scene4, cam4, cfg4, dev)
+    from ba_pathtracing_fur_torch.core import rng
+    phase_profile(scene4, cam4, rng.key(0, dev), cfg4, name="config-4",
+                  marks=("traverse_kernel", "shade_kernel"))
+    rays4 = cam4.resolution[0] * cam4.resolution[1] * cfg4.spp * cfg4.depth
+    log(f"config4 end to end: kernel path {fur_main['times']['kernel']:.4f} s = "
+        f"{rays4 / fur_main['times']['kernel']:.4e} rays/s, BVH build {build_s:.3f} s, "
+        f"on {card}")
+    tri = phase_tri_bvh(dev)
+
+    t0 = fur[0]["times"]
+    b0 = fur[0]["closest_bound"]
+    kernels_line = [
+        dict(name="full_bounce", route="cuda",
+             source="ba_pathtracing_fur_torch/csrc/full_bounce.cu",
+             replaces="ba_pathtracing_fur_tpu/ops/pallas/shade.py:359",
+             launches=main_res["launches"], max_abs_err=check["max_abs_err"],
+             mismatch_frac=check["mismatch_frac"], ms=timing_bounce["ms"],
+             plain_ms=timing_bounce["plain_ms"], bound_ms=timing_bounce["bound_ms"],
+             bound_by=timing_bounce["bound_by"], library_ms=None),
+        dict(name="traverse_cone", route="cuda",
+             source="ba_pathtracing_fur_torch/csrc/traverse.cu",
+             replaces="ba_pathtracing_fur_tpu/ops/pallas/traverse.py:247",
+             launches=fur_main["counts"]["traverse"],
+             max_abs_err=max(x["max_abs_err"] for x in fur["k2"]), ms=t0["closest_ms"],
+             plain_ms=t0["closest_plain_ms"], bound_ms=b0["bound_ms"],
+             bound_by=b0["bound_by"], library_ms=None),
+        dict(name="traverse_tri", route="cuda",
+             source="ba_pathtracing_fur_torch/csrc/traverse.cu",
+             replaces="ba_pathtracing_fur_tpu/ops/pallas/traverse.py:247",
+             launches=tri["launches"], max_abs_err=tri["max_abs_err"], ms=tri["ms"],
+             plain_ms=tri["plain_ms"], bound_ms=tri["bound_ms"], bound_by=tri["bound_by"],
+             library_ms=None, soup=tri["soup"]),
+        dict(name="shade", route="cuda", source="ba_pathtracing_fur_torch/csrc/shade.cu",
+             replaces="ba_pathtracing_fur_tpu/ops/pallas/shade.py:92",
+             launches=fur_main["counts"]["shade"], max_abs_err=fur["k1"]["max_abs_err"],
+             mismatch_frac=fur["k1"]["worst_frac"], max_rel_err=fur["k1"]["max_rel_err"],
+             ms=t0["shade_ms"],
+             plain_ms=t0["shade_plain_ms"], bound_ms=fur["shade_bound"]["bound_ms"],
+             bound_by=fur["shade_bound"]["bound_by"], library_ms=None),
+    ]
+    log(card)
+    log(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

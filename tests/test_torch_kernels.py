@@ -28,9 +28,9 @@ KW = dict(depth=2, spp=2, compact=False, fused_shading=True)
 
 
 def test_cpu_tensors_take_the_plain_version():
-    scene, cam = builtins.cornell_box(resolution=(6, 4))
+    scene, cam = builtins.cornell_box(resolution=(6, 4), device="cpu")
     launches, refs = cshade.KERNEL_LAUNCHES, cshade.REF_CALLS
-    img = pt.render_image(scene, cam, rng.key(0), pt.RenderConfig(**KW))
+    img = pt.render_image(scene, cam, rng.key(0, "cpu"), pt.RenderConfig(**KW))
     assert cshade.REF_CALLS - refs == KW["spp"] * KW["depth"]
     assert cshade.KERNEL_LAUNCHES == launches
     assert torch.isfinite(img).all()
@@ -43,10 +43,14 @@ def test_device_without_kernel_raises():
 
 
 def test_nvcc_command_targets_hopper_without_fast_math(tmp_path):
-    cmd = kernels.build_command(tmp_path / "lib.so")
-    assert "arch=compute_90a,code=sm_90a" in cmd and "-O3" in cmd
-    assert not any("fast_math" in c or "fast-math" in c for c in cmd)
-    assert [Path(c).name for c in cmd if c.endswith(".cu")] == ["full_bounce.cu"]
+    srcs = kernels.sources()
+    assert [s.name for s in srcs] == ["full_bounce.cu", "shade.cu", "traverse.cu"]
+    for src in srcs:  # one nvcc per source, each into its own library
+        cmd = kernels.build_command(src, tmp_path / f"lib{src.stem}.so")
+        assert "arch=compute_90a,code=sm_90a" in cmd and "-O3" in cmd
+        assert not any("fast_math" in c or "fast-math" in c for c in cmd)
+        assert [Path(c).name for c in cmd if c.endswith(".cu")] == [src.name]
+        assert ("-fmad=false" in cmd) == (src.name == "traverse.cu")
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):
@@ -57,14 +61,30 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(kernels, "nvcc_path", lambda: str(fake))
     with pytest.raises(RuntimeError, match="nvcc: refused"):
         kernels.build()
-    assert not list((tmp_path / "build").glob("*.so"))
+    assert not list((tmp_path / "build").rglob("*.so"))
 
 
-def test_c_signatures_match_the_sources():
-    src = (PKG / "csrc" / "full_bounce.cu").read_text()
-    decl = src[src.index('extern "C" int full_bounce_launch('):]
+@pytest.mark.parametrize("name", sorted(kernels.SIGNATURES))
+def test_c_signatures_match_the_sources(name):
+    src_name, argtypes = kernels.SIGNATURES[name]
+    src = (PKG / "csrc" / src_name).read_text()
+    decl = src[src.index(f'extern "C" int {name}('):]
     params = decl[decl.index("(") + 1:decl.index(")")].split(",")
-    assert len(params) == len(kernels.SIGNATURES["full_bounce_launch"])
+    assert len(params) == len(argtypes)
+
+
+@pytest.mark.parametrize("struct,fields", [("ShadeIn", cshade.SHADE_IN_FIELDS),
+                                           ("ShadeOut", cshade.SHADE_OUT_FIELDS)])
+def test_shade_structs_match_the_source(struct, fields):
+    """The ctypes mirrors of csrc/shade.cu's pointer structs list the same
+    fields in the same order."""
+    import re
+
+    src = (PKG / "csrc" / "shade.cu").read_text()
+    body = src[src.index(f"struct {struct} {{"):]
+    body = body[body.index("{") + 1:body.index("};")]
+    names = re.findall(r"\*\s*(\w+)", body)
+    assert tuple(names) == fields
 
 
 def _imports(path: Path):
@@ -91,8 +111,8 @@ def test_port_renders_with_jax_unimportable():
         "from ba_pathtracing_fur_torch.scene import builtins\n"
         "from ba_pathtracing_fur_torch.utils import film\n"
         "import ba_pathtracing_fur_torch.kernels\n"
-        "scene, cam = builtins.cornell_box(resolution=(8, 8))\n"
-        "img = pt.render_image(scene, cam, rng.key(0), pt.RenderConfig("
+        "scene, cam = builtins.cornell_box(resolution=(8, 8), device='cpu')\n"
+        "img = pt.render_image(scene, cam, rng.key(0, 'cpu'), pt.RenderConfig("
         "depth=2, spp=1, compact=False, fused_shading=True))\n"
         "assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())\n"
         "assert film.encode_png(img.numpy())[:4] == b'\\x89PNG'\n"
@@ -115,8 +135,9 @@ def test_kernel_matches_plain_on_the_card():
         launches = cshade.KERNEL_LAUNCHES
         got = pt.render_image(scene, cam, rng.key(0, dev), cfg)
         assert cshade.KERNEL_LAUNCHES - launches == cfg.spp * cfg.depth
-        cpu_scene, cpu_cam = builtins.cornell_box(resolution=(64, 64), variant=variant)
-        want = pt.render_image(cpu_scene, cpu_cam, rng.key(0), cfg)
+        cpu_scene, cpu_cam = builtins.cornell_box(resolution=(64, 64), variant=variant,
+                                                  device="cpu")
+        want = pt.render_image(cpu_scene, cpu_cam, rng.key(0, "cpu"), cfg)
         d = (got.cpu() - want).abs()
         assert d.mean() < 5e-3 and (d.amax(-1) > 1e-3).double().mean() <= 0.02
 
@@ -135,7 +156,7 @@ def test_kernel_all_bsdfs_and_light_kinds_on_the_card(mis):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (run on the card with -m cuda)")
     dev = torch.device("cuda")
-    scene, _ = builtins.cornell_box(resolution=(64, 64))
+    scene, _ = builtins.cornell_box(resolution=(64, 64), device="cpu")
     _, cam = builtins.cornell_box(resolution=(64, 64), device=dev)
     table = types.make_material_table([
         dict(bsdf=b, diffuse=(0.7, 0.5, 0.3), specular=(0.9, 0.8, 0.7), volume=(0.8, 0.9, 1.0),
@@ -167,3 +188,133 @@ def test_kernel_all_bsdfs_and_light_kinds_on_the_card(mis):
             bad = ((a - b).abs() > 1e-4 + 1e-4 * a.abs()).any(-1).double().mean().item()
             assert bad < 0.02, f"bounce {bounce} {f}: {bad:.4f} of rows mismatched"
         state = pt.RayState(**want)
+
+
+def _fur_wavefront(dev, res=(48, 48), bounces=1):
+    """A fur-patch scene with a cone BVH and the wavefront of `bounces`
+    plain bounces from the camera, on `dev`."""
+    from ba_pathtracing_fur_torch.ops import traverse
+
+    scene, cam = builtins.fur_patch(resolution=res, fibers_per_face=200, device=dev)
+    scene = traverse.attach_bvh(scene)
+    cfg = pt.RenderConfig(**KW)
+    ids = torch.arange(res[0] * res[1], device=dev)
+    state, keys = pt.camera_wavefront(cam, ids, rng.key(0, dev), [0], cfg)
+    return scene, state, keys, cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["cone", "tri"])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_traverse_kernel_matches_plain_on_the_card(kind, any_hit):
+    """K2 against its brute-force twin on the same CUDA inputs: the same
+    found rays, the same rows on found closest-hit rays (up to exact t ties
+    across clusters) and t within FMA ulps."""
+    from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.ops.cuda import traverse as ctraverse
+    from ba_pathtracing_fur_torch.scene import types
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card with -m cuda)")
+    dev = torch.device("cuda")
+    if kind == "cone":
+        scene, state, _, _ = _fur_wavefront(dev)
+        bvh, o, d = scene.cone_bvh, state.origin, state.direction
+    else:
+        g = torch.Generator().manual_seed(0)
+        v = torch.rand((3000, 3, 3), generator=g) * 2 - 1
+        v[:, 1:] = v[:, :1] + 0.1 * v[:, 1:]
+        soup = types.make_triangle_pack(v[:, 0].numpy(), v[:, 1].numpy(), v[:, 2].numpy())
+        scene, _ = builtins.cornell_box(resolution=(4, 4), device="cpu")
+        scene = traverse.attach_bvh(types.to_device(
+            __import__("dataclasses").replace(scene, tris=soup), dev), min_prims=1)
+        bvh = scene.tri_bvh
+        o = (torch.rand((4096, 3), generator=g) * 4 - 2).to(dev)
+        d = torch.nn.functional.normalize(torch.randn((4096, 3), generator=g), dim=-1).to(dev)
+    t_max = torch.full((o.shape[0],), 3.0 if any_hit else 3.4e38, device=dev)
+    launches = ctraverse.KERNEL_LAUNCHES
+    t1, r1, f1 = ctraverse.traverse(o, d, t_max, bvh, kind, any_hit=any_hit)
+    assert ctraverse.KERNEL_LAUNCHES == launches + 1
+    t0, r0, f0 = ctraverse.traverse_ref(o, d, t_max, bvh, kind, any_hit=any_hit)
+    torch.cuda.synchronize()
+    # built without FMA contraction, the kernel rounds as the twin does
+    assert torch.equal(f0, f1) and f0.any()
+    if not any_hit:
+        m = f0 & (r0 == r1)  # rows differ only on exact t ties across clusters
+        assert (r0[f0] != r1[f0]).double().mean() < 1e-3
+        assert torch.equal(t0[m], t1[m])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p_random", [False, True])
+def test_shade_kernel_matches_plain_on_the_card(p_random):
+    """K1 against its twin on fur-patch hits, bounce by bounce, under the
+    per-field gate (shadow rays compared where they are traced)."""
+    import dataclasses
+
+    from ba_pathtracing_fur_torch.ops import traverse
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card with -m cuda)")
+    dev = torch.device("cuda")
+    scene, state, keys, cfg = _fur_wavefront(dev)
+    cfg = dataclasses.replace(cfg, hair_p_random=p_random, mis=p_random, rr=p_random)
+    tables = pt.BounceTables.of(scene)
+    for bounce in range(3):
+        hit = traverse.closest_hit(state.origin, state.direction, scene)
+        kw = pt.shade_inputs(state, scene, keys, bounce, cfg, hit, tables)
+        launches = cshade.SHADE_LAUNCHES
+        got = cshade.shade_bounce(**kw)
+        assert cshade.SHADE_LAUNCHES == launches + 1
+        want = cshade.shade_bounce_ref(**kw)
+        live = want["shadow_tmax"] > 0
+        for f, a in want.items():
+            b = got[f]
+            if f in ("shadow_o", "shadow_d"):
+                a, b = a[live], b[live]
+            a, b = a.double().reshape(len(a), -1), b.double().reshape(len(b), -1)
+            bad = ((a - b).abs() > 1e-4 + 1e-4 * a.abs()).any(-1).double().mean().item()
+            assert bad < 0.02, f"bounce {bounce} {f}: {bad:.4f} of rows mismatched"
+        state = pt.RayState(**{f: want[f] for f in cshade.SHADE_OUT_FIELDS
+                               if f in pt.RayState.__dataclass_fields__})
+
+
+@pytest.mark.cuda
+def test_shade_kernel_takes_a_per_ray_environment_on_the_card():
+    """The environment colour reaches K1 either once (a constant: 3 floats)
+    or per ray ([R,3] rows); both agree with the plain version."""
+    from ba_pathtracing_fur_torch.ops import traverse
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card with -m cuda)")
+    dev = torch.device("cuda")
+    scene, state, keys, cfg = _fur_wavefront(dev)
+    hit = traverse.closest_hit(state.origin, state.direction, scene)
+    kw = pt.shade_inputs(state, scene, keys, 0, cfg, hit, pt.BounceTables.of(scene))
+    assert kw["env_color"].stride(0) == 0
+    g = torch.Generator().manual_seed(1)
+    per_ray = torch.rand((state.origin.shape[0], 3), generator=g).to(dev)
+    for env in (kw["env_color"], per_ray):
+        got = cshade.shade_bounce(**{**kw, "env_color": env})
+        want = cshade.shade_bounce_ref(**{**kw, "env_color": env})
+        a, b = want["color"].double(), got["color"].double()
+        assert ((a - b).abs() > 1e-4 + 1e-4 * a.abs()).any(-1).double().mean() < 0.02
+
+
+@pytest.mark.cuda
+def test_large_bvh_less_pack_raises_on_the_card():
+    """On the card a BVH-less pack of 2^24 or more ray-primitive pairs needs
+    the unported brute-force kernel (K5): closest and any hit raise."""
+    from ba_pathtracing_fur_torch.ops import traverse
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card with -m cuda)")
+    dev = torch.device("cuda")
+    scene, _ = builtins.fur_patch(resolution=(4, 4), fibers_per_face=2000, device=dev)
+    r = -(-(1 << 24) // scene.cones.count)
+    o = torch.zeros((r, 3), device=dev)
+    d = torch.tensor([0.0, -1.0, 0.0], device=dev).expand(r, 3).contiguous()
+    with pytest.raises(NotImplementedError, match="K5"):
+        traverse.closest_hit(o, d, scene)
+    with pytest.raises(NotImplementedError, match="K5"):
+        traverse.any_hit(o, d, scene, 1.0)

@@ -34,7 +34,8 @@ def _render_both(variant, **cfg_kw):
     a = np.asarray(jpt.render_image(js, jc, jax.random.key(0),
                                     jpt.RenderConfig(**KW, ray_chunk=256, **cfg_kw)))
     launches, refs = cshade.KERNEL_LAUNCHES, cshade.REF_CALLS
-    b = pt.render_image(scene_from_numpy(js), camera_from_numpy(jc), rng.key(0),
+    b = pt.render_image(scene_from_numpy(js, device="cpu"), camera_from_numpy(jc, device="cpu"),
+                        rng.key(0, "cpu"),
                         pt.RenderConfig(**KW, **cfg_kw))
     # one plain full bounce per bounce of every sample, no kernel on the CPU
     assert cshade.REF_CALLS - refs == KW["spp"] * KW["depth"]
@@ -55,22 +56,22 @@ def test_render_image_cornell_diffuse_matches_jax():
 
 
 def _small(variant="diffuse", res=(8, 6)):
-    return builtins.cornell_box(resolution=res, variant=variant)
+    return builtins.cornell_box(resolution=res, variant=variant, device="cpu")
 
 
 def test_sharded_pixels_render_identically():
     scene, cam = _small()
     cfg = pt.RenderConfig(**KW)
-    full = pt.render_sample(scene, cam, rng.key(1), 1, cfg)
+    full = pt.render_sample(scene, cam, rng.key(1, "cpu"), 1, cfg)
     ids = torch.tensor([0, 5, 17, 30, 47])
-    part = pt.render_sample_ids(scene, cam, ids, rng.key(1), 1, cfg)
+    part = pt.render_sample_ids(scene, cam, ids, rng.key(1, "cpu"), 1, cfg)
     assert torch.equal(part, full[ids])
 
 
 def test_spp_batch_is_the_same_estimator():
     scene, cam = _small("glossy")
-    one = pt.render_image(scene, cam, rng.key(2), pt.RenderConfig(**{**KW, "spp": 4}, mis=True))
-    batched = pt.render_image(scene, cam, rng.key(2),
+    one = pt.render_image(scene, cam, rng.key(2, "cpu"), pt.RenderConfig(**{**KW, "spp": 4}, mis=True))
+    batched = pt.render_image(scene, cam, rng.key(2, "cpu"),
                               pt.RenderConfig(**{**KW, "spp": 4}, mis=True, spp_batch=2))
     torch.testing.assert_close(batched, one, rtol=1e-5, atol=1e-6)
 
@@ -78,7 +79,7 @@ def test_spp_batch_is_the_same_estimator():
 def test_qmc_and_dof_render():
     scene, cam = _small()
     cam.use_dof = True
-    img = pt.render_image(scene, cam, rng.key(0), pt.RenderConfig(**KW, qmc=True))
+    img = pt.render_image(scene, cam, rng.key(0, "cpu"), pt.RenderConfig(**KW, qmc=True))
     assert img.shape == (6, 8, 3) and torch.isfinite(img).all() and img.max() > 0.01
 
 
@@ -88,4 +89,4 @@ def test_qmc_and_dof_render():
 def test_unported_configs_raise(change, item):
     scene, cam = _small()
     with pytest.raises(NotImplementedError, match=item):
-        pt.render_image(scene, cam, rng.key(0), pt.RenderConfig(**{**KW, **change}))
+        pt.render_image(scene, cam, rng.key(0, "cpu"), pt.RenderConfig(**{**KW, **change}))

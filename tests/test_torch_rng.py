@@ -23,7 +23,7 @@ def _u32(x):
 @pytest.mark.parametrize("seed", [0, 1, 7, 12345, 2**31 - 1])
 def test_key_data(seed):
     want = _u32(jax.random.key_data(jax.random.key(seed)))
-    np.testing.assert_array_equal(rng.key(seed).numpy(), want)
+    np.testing.assert_array_equal(rng.key(seed, "cpu").numpy(), want)
 
 
 @pytest.mark.parametrize("sample", [0, 1, 37])
@@ -31,7 +31,7 @@ def test_keys_for_pixels_bit_exact(sample):
     ids = np.random.default_rng(sample).integers(0, 1 << 20, size=300)
     want = _u32(jax.random.key_data(
         jrng.keys_for_pixels(jax.random.key(0), jnp.asarray(ids), sample)))
-    got = rng.keys_for_pixels(rng.key(0), torch.from_numpy(ids), sample).numpy()
+    got = rng.keys_for_pixels(rng.key(0, "cpu"), torch.from_numpy(ids), sample).numpy()
     np.testing.assert_array_equal(got, want)
 
 
@@ -39,7 +39,7 @@ def test_keys_for_pixels_bit_exact(sample):
 def test_bounce_uniform_bit_exact(bounce):
     ids = np.arange(200)
     jkeys = jrng.keys_for_pixels(jax.random.key(3), jnp.asarray(ids), 2)
-    keys = rng.keys_for_pixels(rng.key(3), torch.from_numpy(ids), 2)
+    keys = rng.keys_for_pixels(rng.key(3, "cpu"), torch.from_numpy(ids), 2)
     for tag in range(9):
         for n in (1, 2):
             want = np.asarray(jrng.bounce_uniform(jkeys, bounce, n, tag=tag))
@@ -48,7 +48,7 @@ def test_bounce_uniform_bit_exact(bounce):
 
 
 def test_bounce_uniforms_is_the_stacked_draws():
-    keys = rng.keys_for_pixels(rng.key(5), torch.arange(100), 4)
+    keys = rng.keys_for_pixels(rng.key(5, "cpu"), torch.arange(100), 4)
     batched = rng.bounce_uniforms(keys, 2, 5, 2)
     for tag in range(5):
         assert torch.equal(batched[tag], rng.bounce_uniform(keys, 2, 2, tag=tag))
@@ -59,7 +59,7 @@ def test_bounce_uniforms_is_the_stacked_draws():
 def test_qmc_jitter_bit_exact(sample, spp):
     ids = np.arange(0, 4000, 13)
     want = np.asarray(jrng.qmc_jitter(jax.random.key(0), jnp.asarray(ids), sample, spp))
-    got = rng.qmc_jitter(rng.key(0), torch.from_numpy(ids), sample, spp).numpy()
+    got = rng.qmc_jitter(rng.key(0, "cpu"), torch.from_numpy(ids), sample, spp).numpy()
     np.testing.assert_array_equal(got, want)
 
 

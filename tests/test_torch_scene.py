@@ -37,10 +37,11 @@ def _assert_scene_equal(a: types.DeviceScene, b: types.DeviceScene):
 @pytest.mark.parametrize("light_kind", ["quad", "point"])
 def test_cornell_box_equals_jax(variant, light_kind):
     js, jc = jbuiltins.cornell_box(resolution=(24, 16), variant=variant, light_kind=light_kind)
-    ts, tc = builtins.cornell_box(resolution=(24, 16), variant=variant, light_kind=light_kind)
-    _assert_scene_equal(ts, types.scene_from_numpy(js))
+    ts, tc = builtins.cornell_box(resolution=(24, 16), variant=variant, light_kind=light_kind,
+                                  device="cpu")
+    _assert_scene_equal(ts, types.scene_from_numpy(js, device="cpu"))
     assert cshade.full_fuse_eligible(ts) == jshade.full_fuse_eligible(js)
-    ref = cam_mod.camera_from_numpy(jc)
+    ref = cam_mod.camera_from_numpy(jc, device="cpu")
     for f in ("position", "axis_x", "axis_y", "axis_z", "bottom_left"):
         assert torch.equal(getattr(tc, f), getattr(ref, f)), f
     assert (tc.pixel_size, tc.aperture, tc.focus_distance, tc.resolution, tc.use_dof) == \
@@ -50,7 +51,7 @@ def test_cornell_box_equals_jax(variant, light_kind):
 @pytest.mark.parametrize("variant", ["diffuse", "glossy"])
 def test_tables_equal_jax_packs(variant):
     js, _ = jbuiltins.cornell_box(resolution=(8, 8), variant=variant)
-    ts, _ = builtins.cornell_box(resolution=(8, 8), variant=variant)
+    ts, _ = builtins.cornell_box(resolution=(8, 8), variant=variant, device="cpu")
     pairs = ((cshade.pack_tris_table(ts.tris), jshade.pack_tris_smem(js.tris)),
              (cshade.pack_mats_table(ts.materials), jshade.pack_mats_smem(js.materials)),
              (cshade.pack_lights_table(ts.lights), jshade.pack_lights_smem(js.lights)))
@@ -63,7 +64,7 @@ def test_rays_from_pixels_match(use_dof):
     kw = dict(position=(0.1, 0.2, 3.0), look_at=(0.05, -0.1, -1.0), up=(0.0, 1.0, 0.0),
               resolution=(40, 30), use_dof=use_dof)
     jc = jcam.make_camera(**kw)
-    tc = cam_mod.make_camera(**kw)
+    tc = cam_mod.make_camera(**kw, device="cpu")
     rs = np.random.default_rng(1)
     px = rs.integers(0, 40, 500).astype(np.float32)
     py = rs.integers(0, 30, 500).astype(np.float32)
@@ -84,17 +85,62 @@ def test_pixel_grid_matches():
     np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
 
 
-def test_scene_with_bvh_is_refused():
-    js, _ = jbuiltins.cornell_box(resolution=(8, 8))
-    with pytest.raises(NotImplementedError, match="M7"):
-        types.scene_from_numpy(dataclasses.replace(js, tri_bvh=object()))
+@pytest.mark.parametrize("method", ["sah", "grid", "morton"])
+def test_scene_with_bvh_is_refused(method):
+    """Scenes with a median BVH now render (test_torch_traverse.py); the
+    BVH builds that are not ported yet are refused, naming their ROADMAP
+    item."""
+    from ba_pathtracing_fur_torch.ops import traverse
+
+    ts, _ = builtins.fur_patch(resolution=(4, 4), fibers_per_face=4, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        traverse.attach_bvh(ts, method=method, min_prims=1)
 
 
-def test_ineligible_scene_is_refused():
+@pytest.mark.parametrize("change,item", [(dict(compact=True), "M6"), (dict(bdpt=True), "M11")])
+def test_ineligible_scene_is_refused(change, item):
+    """Fur scenes render through the general bounce now; the render modes
+    it does not run yet are refused on them, naming their ROADMAP item."""
     from ba_pathtracing_fur_torch.core import rng
     from ba_pathtracing_fur_torch.models import pathtracer as pt
 
-    ts, tc = builtins.cornell_box(resolution=(4, 4))
+    ts, tc = builtins.fur_patch(resolution=(4, 4), fibers_per_face=4, device="cpu")
+    cfg = pt.RenderConfig(**{**dict(depth=1, spp=1, compact=False, fused_shading=True),
+                             **change})
+    with pytest.raises(NotImplementedError, match=item):
+        pt.render_image(ts, tc, rng.key(0, "cpu"), cfg)
+
+
+def test_textured_scene_is_refused():
+    from ba_pathtracing_fur_torch.core import rng
+    from ba_pathtracing_fur_torch.models import pathtracer as pt
+
+    ts, tc = builtins.fur_patch(resolution=(4, 4), fibers_per_face=4, device="cpu")
+    ts = dataclasses.replace(ts, textures=torch.zeros((1, 2, 2, 3)))
     cfg = pt.RenderConfig(depth=1, spp=1, compact=False, fused_shading=True)
-    with pytest.raises(NotImplementedError, match="K1"):
-        pt.render_image(dataclasses.replace(ts, has_hair=True), tc, rng.key(0), cfg)
+    with pytest.raises(NotImplementedError, match="M3/M5"):
+        pt.render_image(ts, tc, rng.key(0, "cpu"), cfg)
+
+
+def test_entry_points_default_to_the_card():
+    """Entry points put their tensors on CUDA unless the caller asks for
+    another device: without a card they raise torch's error instead of
+    returning CPU tensors."""
+    from ba_pathtracing_fur_torch.core import rng
+    from ba_pathtracing_fur_torch.core.camera import make_camera
+
+    for fn in (lambda: builtins.cornell_box(resolution=(4, 4)),
+               lambda: builtins.fur_patch(resolution=(4, 4), fibers_per_face=2),
+               lambda: types.scene_from_numpy(jbuiltins.cornell_box(resolution=(4, 4))[0]),
+               lambda: cam_mod.camera_from_numpy(jbuiltins.cornell_box(resolution=(4, 4))[1]),
+               lambda: make_camera(), lambda: rng.key(0)):
+        if torch.cuda.is_available():
+            assert fn() is not None
+        else:
+            with pytest.raises((AssertionError, RuntimeError), match="CUDA|cuda"):
+                fn()
+    # on the meta device (no data) the default is visible without a card
+    import inspect
+    for fn in (builtins.cornell_box, builtins.fur_patch, types.scene_from_numpy,
+               cam_mod.camera_from_numpy, make_camera, rng.key):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn

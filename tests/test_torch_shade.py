@@ -138,14 +138,28 @@ def test_shade_core_matches_jax_xla(name, mis, rr):
         _gate(want[f], getattr(got, f).numpy(), f"{name} {f}")
 
 
-def test_hair_raises_naming_roadmap():
-    with pytest.raises(NotImplementedError, match="K1"):
-        sc.shade_bounce_core(
-            origin=None, direction=None, radiance=None, color=None, flags=None,
-            theta_i=None, prev_pdf=None, hit_t=None, hit_valid=None, hit_pos=None,
-            hit_normal=None, mp=None, env_color=None, env_ambient=None, lights=[],
-            u_bsdf1=None, u_bsdf2=None, u_pick=None, u_light1=None, u_light2=None,
-            u_rr=None, rr_gate=False, cfg=sc.CoreCfg(n_lights=0, has_hair=True))
+def test_hair_switch_leaves_surface_materials_alone():
+    """The hair automaton (tests/test_torch_fur.py) only changes rays on
+    hair-shader materials: with `has_hair` on, a Cornell bounce is the same
+    as with it off, bit for bit."""
+    import dataclasses
+
+    from ba_pathtracing_fur_torch.core import rng
+    from ba_pathtracing_fur_torch.models import pathtracer as pt
+    from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.scene import builtins
+
+    scene, cam = builtins.cornell_box(resolution=RES, variant="glossy", device="cpu")
+    cfg = pt.RenderConfig(depth=2, spp=1, compact=False, fused_shading=True, mis=True)
+    state, keys = pt.camera_wavefront(cam, torch.arange(RES[0] * RES[1]), rng.key(0, "cpu"),
+                                      [0], cfg)
+    hit = traverse.closest_hit(state.origin, state.direction, scene)
+    kw = pt.shade_inputs(state, scene, keys, 0, cfg, hit, pt.BounceTables.of(scene))
+    off = cshade.shade_bounce_ref(**kw)
+    on = cshade.shade_bounce_ref(**{**kw, "cfg": dataclasses.replace(kw["cfg"], has_hair=True)})
+    assert hit.valid.float().mean() > 0.5
+    for f, a in off.items():
+        assert torch.equal(a, on[f]), f
 
 
 def test_full_bounce_ref_matches_jax_pallas():
@@ -157,7 +171,7 @@ def test_full_bounce_ref_matches_jax_pallas():
     from ba_pathtracing_fur_torch.models import pathtracer as pt
 
     js, jc = jbuiltins.cornell_box(resolution=(12, 12), variant="glossy")
-    ts = scene_from_numpy(js)
+    ts = scene_from_numpy(js, device="cpu")
     r = 144
     ids = jnp.arange(r)
     keys = jrng.keys_for_pixels(jax.random.key(3), ids, 0)
@@ -167,7 +181,7 @@ def test_full_bounce_ref_matches_jax_pallas():
     st = jpt.init_state(o, d)
     kw = dict(depth=3, spp=1, compact=False, fused_shading=True, mis=True, rr=True)
     cfg, tcfg = jpt.RenderConfig(**kw), pt.RenderConfig(**kw)
-    tkeys = rng.keys_for_pixels(rng.key(3), torch.arange(r), 0)
+    tkeys = rng.keys_for_pixels(rng.key(3, "cpu"), torch.arange(r), 0)
     # the Pallas kernel; a traced bounce compiles the interpret-mode kernel once
     jax_bounce = jax.jit(lambda s, b: jpt.trace_bounce_fused(s, js, keys, b, cfg))
     for bounce in range(3):
