@@ -6,9 +6,14 @@ Counterpart of `ba_pathtracing_fur_tpu/core/rng.py`. A key is a pair of
 derivations reproduce jax 0.9 with `jax_threefry_partitionable=True`:
 
   * `fold_in(key, d)` is `threefry2x32(key, (0, d))`;
-  * `uniform(key, (n,))` takes `x0 ^ x1` of `threefry2x32(key, (i >> 32,
-    i & 0xffffffff))` for `i = 0..n-1`, and the float is
-    `f32((bits >> 9) | 0x3f800000) - 1`;
+  * `split(key, n)[i]` is `threefry2x32(key, (0, i))`, i.e. `fold_in(key, i)`;
+  * `uniform(key, shape)` takes `x0 ^ x1` of `threefry2x32(key, (i >> 32,
+    i & 0xffffffff))` for the row-major flat index `i` of each element,
+    and the float is `f32((bits >> 9) | 0x3f800000) - 1`;
+  * `normal(key, shape)` is `sqrt(2) * erfinv(u)` with `u` uniform on
+    `[nextafter(-1, 0), 1)`, scaled as jax scales it. torch's `erfinv` and
+    XLA's polynomial differ by ulps, so `normal` is close to jax, not
+    bit-equal;
   * `key(seed)` has key data `(seed >> 32, seed & 0xffffffff)`.
 
 Everything is batched over rays: no vmap, no global generator.
@@ -66,12 +71,30 @@ def bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
     return word.view(torch.float32) - 1.0
 
 
-def uniform(keys: torch.Tensor, n: int) -> torch.Tensor:
-    """`jax.random.uniform(k, (n,), float32)` for every key: `[..., n]`."""
+def split(key: torch.Tensor, n: int = 2) -> torch.Tensor:
+    """`jax.random.split(key, n)` key data: `[n, 2]`."""
+    return fold_in(key[None], torch.arange(n, dtype=torch.int64, device=key.device))
+
+
+def uniform(keys: torch.Tensor, shape) -> torch.Tensor:
+    """`jax.random.uniform(k, shape, float32)` for every key: `[..., *shape]`
+    (`shape` an int or a tuple)."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    n = 1
+    for s in shape:
+        n *= s
     i = torch.arange(n, dtype=torch.int64, device=keys.device)
     k0, k1 = keys[..., 0:1], keys[..., 1:2]
     y0, y1 = threefry2x32(k0, k1, i >> 32, i & _MASK)
-    return bits_to_unit_float(y0 ^ y1)
+    return bits_to_unit_float(y0 ^ y1).reshape(*keys.shape[:-1], *shape)
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """`jax.random.normal(key, shape, float32)` up to erfinv's ulps."""
+    lo = torch.tensor(-0.99999994, dtype=torch.float32)  # nextafter(-1, 0)
+    span = (1.0 - lo).to(key.device)  # float32 (hi - lo), as jax rounds it
+    u = torch.clamp(uniform(key, shape) * span + lo.to(key.device), min=lo.item())
+    return torch.erfinv(u) * 1.4142135381698608  # float32(sqrt(2))
 
 
 def keys_for_pixels(base_key: torch.Tensor, pixel_ids: torch.Tensor,

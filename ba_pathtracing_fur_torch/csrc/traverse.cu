@@ -16,9 +16,8 @@
 // patch), which L2 (50 MB) holds after the first touch. The TPU kernel's
 // [8, R] ray packing, 128-lane K padding, dense [T, C] entry grid and
 // shared per-tile schedule are not carried over: each ray has its own
-// schedule. A heap walk does not care about the JAX BVH's `fanout`, so the
-// same kernel is meant to serve the streaming traversal (traverse_stream)
-// of the hair ball as well.
+// schedule. Two-level BVHs (fanout > 0: the hair ball's, whose leaves do
+// not fit in L2) go to csrc/traverse_stream.cu instead.
 //
 // What bounds it: operations and latency. The work is data dependent: the
 // box tests of the inner nodes a ray opens and ~90 flops per cone row of

@@ -35,10 +35,12 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
-#: per-source flags on top of NVCC_FLAGS. The traversal kernel is built
-#: without FMA contraction, so its leaf and box tests round like the plain
-#: torch version's separate ops: the two agree bit for bit on t and found.
-SOURCE_FLAGS = {"traverse.cu": ("-fmad=false",)}
+#: per-source flags on top of NVCC_FLAGS. The traversal and brute-force
+#: kernels are built without FMA contraction, so their ray-primitive tests
+#: round like the plain torch versions' separate ops: each agrees with its
+#: twin bit for bit on t, rows and found.
+SOURCE_FLAGS = {name: ("-fmad=false",)
+                for name in ("traverse.cu", "traverse_stream.cu", "bruteforce.cu")}
 
 _C_VOID_P, _C_INT, _C_FLOAT, _C_UINT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                                        ctypes.c_uint)
@@ -56,6 +58,16 @@ SIGNATURES = {
         [_C_INT] + [_C_VOID_P] * 6             # n_rays, o d t_max bmin bmax packed
         + [_C_INT, _C_INT, _C_INT, _C_INT, _C_FLOAT]  # n_leaves leaf_k cone any_hit t_min
         + [_C_VOID_P] * 3                      # t row found
+        + [_C_VOID_P])),                       # cudaStream_t
+    "stream_launch": ("traverse_stream.cu", (
+        [_C_INT] + [_C_VOID_P] * 8             # n_rays, o d t_max bmin bmax sboxes cboxes packed
+        + [_C_INT] * 5 + [_C_FLOAT]            # n_sup fanout leaf_k cone any_hit t_min
+        + [_C_VOID_P] * 3                      # t row found
+        + [_C_VOID_P])),                       # cudaStream_t
+    "bruteforce_launch": ("bruteforce.cu", (
+        [_C_INT] + [_C_VOID_P] * 4             # n_rays, o d t_max prims
+        + [_C_INT, _C_INT, _C_FLOAT]           # n_prims cone t_min
+        + [_C_VOID_P] * 2                      # t idx
         + [_C_VOID_P])),                       # cudaStream_t
     "shade_launch": ("shade.cu", (
         [_C_INT, _C_VOID_P, _C_VOID_P]         # n_rays, &ShadeIn, &ShadeOut

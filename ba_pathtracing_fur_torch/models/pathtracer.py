@@ -10,8 +10,9 @@ bounce is `trace_bounce_fused`:
     scenes without a BVH: the Cornell class) one call of
     `ops/cuda/shade.shade_bounce_full`, the whole bounce in one kernel;
   * on every other scene (fur, BVHs) the JAX package's general branch, step
-    for step: the closest hit (`ops/traverse.closest_hit`: the traversal
-    kernel for BVH packs, the dense grid otherwise) and the Hit assembly,
+    for step: the closest hit (`ops/traverse.closest_hit`: a traversal
+    kernel for BVH packs, the brute-force kernel or the dense grid
+    otherwise) and the Hit assembly,
     the material gather, environment colour and threefry draws in torch,
     the shade kernel (`ops/cuda/shade.shade_bounce`), the shadow any-hit,
     and the masked add of the NEE term.

@@ -1,4 +1,4 @@
-"""The LBVH container, its host-side median build, and the leaf tests.
+"""The LBVH container, its median build, and the leaf tests.
 
 Counterpart of `ba_pathtracing_fur_tpu/ops/bvh.py`. Every build targets the
 same implicit complete binary tree over fixed-size leaf clusters:
@@ -12,11 +12,14 @@ same implicit complete binary tree over fixed-size leaf clusters:
     major within each cluster (W = 9 for triangles: v0, e1, e2; W = 16 for
     cones: base, u, v, w, slope, r_base, min_d, max_d).
 
-The median build runs on the host with the numpy lexsort splitter of the
-JAX package (bit-identical partitions); its native C++ splitter is not
-ported (ROADMAP M9). Padding rows are inert: zero triangles (det = 0) and
-cones with an empty axis slab (min_d = 1 > max_d = -1). Padding leaves carry
-inverted boxes.
+`build_median` runs the JAX package's numpy lexsort split level by level in
+torch on the bounds' device (segment min/max, longest axis, stable sort by
+key then by segment), so on the same bounds it is bit-identical to the
+numpy build, at any size and on any device; it takes the place of the JAX
+package's native C++ splitter, whose `nth_element` leaves the same leaf
+membership up to ties. Padding rows are inert: zero triangles (det = 0)
+and cones with an empty axis slab (min_d = 1 > max_d = -1). Padding leaves
+carry inverted boxes.
 """
 
 from __future__ import annotations
@@ -24,7 +27,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-import numpy as np
 import torch
 
 from ..scene.types import ConePack, TrianglePack
@@ -43,9 +45,16 @@ class BVH:
     packed: Optional[torch.Tensor]  # [n_leaves, W, leaf_size] f32
     n_leaves: int  # a power of two
     leaf_size: int
-    # leaf clusters per super-cluster of the JAX two-level traversal; 0 =
-    # flat. The heap walk of the port does not read it (ROADMAP K3).
+    # leaf clusters per super-cluster of the two-level traversal (K3,
+    # ops/cuda/stream.py); 0 = flat (K2, ops/cuda/traverse.py)
     fanout: int = 0
+    # kernel layouts cached at attach time (ops/traverse._cache_kernel_
+    # layouts): the super-cluster boxes [6, S] and the leaf boxes grouped
+    # per super [S, 6, F] of a two-level BVH, and the winner-row AoS table
+    # of the reordered pack
+    sboxes: Optional[torch.Tensor] = None
+    cboxes: Optional[torch.Tensor] = None
+    aos_rows: Optional[torch.Tensor] = None
 
     @property
     def depth(self) -> int:
@@ -56,73 +65,83 @@ def _next_pow2(n: int) -> int:
     return 1 if n <= 1 else 1 << (n - 1).bit_length()
 
 
+def _seg_ids(bounds: torch.Tensor, n: int) -> torch.Tensor:
+    """The segment of each of `n` rows, for segments [bounds[i], bounds[i+1])."""
+    counts = bounds[1:] - bounds[:-1]
+    return torch.repeat_interleave(torch.arange(counts.shape[0], device=bounds.device),
+                                   counts, output_size=n)
+
+
+def median_split(cent: torch.Tensor, n_leaves: int):
+    """The median split of `cent` [N,3] float32, in torch on its device ->
+    (order [N] int64, bounds [n_leaves+1] int64). Each level takes
+    every segment's centroid min/max (scatter_reduce), its longest axis
+    (argmax: the first on ties, as numpy) and a stable sort by the key then
+    by the segment: numpy's lexsort((key, seg_of)). The key is
+    canonicalised (key + 0.0) first, since a radix sort orders -0.0 before
+    +0.0 where numpy keeps index order."""
+    n = cent.shape[0]
+    dev = cent.device
+    order = torch.arange(n, device=dev)
+    bounds = torch.tensor([0, n], device=dev)
+    for _ in range(n_leaves.bit_length() - 1):
+        n_seg = bounds.shape[0] - 1
+        seg_of = _seg_ids(bounds, n)
+        c = cent[order]
+        idx3 = seg_of[:, None].expand(n, 3)
+        lo = torch.full((n_seg, 3), BIG, device=dev).scatter_reduce(0, idx3, c, "amin")
+        hi = torch.full((n_seg, 3), -BIG, device=dev).scatter_reduce(0, idx3, c, "amax")
+        axis = torch.argmax(hi - lo, dim=1)
+        key = c.gather(1, axis[seg_of][:, None])[:, 0] + 0.0
+        by_key = torch.sort(key, stable=True).indices
+        idx = by_key[torch.sort(seg_of[by_key], stable=True).indices]
+        order = order[idx]
+        mids = bounds[:-1] + (bounds[1:] - bounds[:-1] + 1) // 2
+        bounds = torch.cat([torch.stack([bounds[:-1], mids], 1).reshape(-1), bounds[-1:]])
+    return order, bounds
+
+
 def _ranges_to_perm(order, bounds, n_leaves, leaf_size):
     """Scatter per-leaf index ranges into padded leaf slots: row i of
     `order` goes to slot leaf*leaf_size + (i - leaf_start)."""
-    order = np.asarray(order, np.int64)
-    bounds = np.asarray(bounds, np.int64)
-    counts = np.diff(bounds)
-    if counts.max(initial=0) > leaf_size:
+    counts = bounds[1:] - bounds[:-1]
+    if int(counts.max()) > leaf_size:
         raise AssertionError("median split produced oversized leaf")
     n = order.shape[0]
-    leaf_of = np.repeat(np.arange(n_leaves, dtype=np.int64), counts)
-    within = np.arange(n, dtype=np.int64) - bounds[leaf_of]
-    perm = np.full((n_leaves * leaf_size,), -1, np.int64)
+    leaf_of = _seg_ids(bounds, n)
+    within = torch.arange(n, device=order.device) - bounds[leaf_of]
+    perm = torch.full((n_leaves * leaf_size,), -1, dtype=torch.int64, device=order.device)
     perm[leaf_of * leaf_size + within] = order
     return perm
 
 
-def _finalize_host(perm, bmin, bmax, n_leaves, leaf_size) -> BVH:
-    """Leaf AABBs over the slot permutation, reduced bottom-up into heap
-    order (padding rows take inverted boxes)."""
-    keep = perm >= 0
-    safe = np.maximum(perm, 0)
-    sbmin = bmin[safe]
-    sbmax = bmax[safe]
-    sbmin[~keep] = np.float32(BIG)
-    sbmax[~keep] = np.float32(-BIG)
-    lmin = sbmin.reshape(n_leaves, leaf_size, 3).min(axis=1)
-    lmax = sbmax.reshape(n_leaves, leaf_size, 3).max(axis=1)
-    levels_min, levels_max = [lmin], [lmax]
+def _finalize(perm, bmin, bmax, n_leaves, leaf_size):
+    """Leaf AABBs over the slot permutation (padding rows take inverted
+    boxes), reduced bottom-up into heap order -> (heap bmin, heap bmax)."""
+    keep = (perm >= 0)[:, None]
+    safe = torch.clamp(perm, min=0)
+    sbmin = torch.where(keep, bmin[safe], BIG)
+    sbmax = torch.where(keep, bmax[safe], -BIG)
+    levels_min = [sbmin.reshape(n_leaves, leaf_size, 3).amin(1)]
+    levels_max = [sbmax.reshape(n_leaves, leaf_size, 3).amax(1)]
     while levels_min[0].shape[0] > 1:
-        levels_min.insert(0, levels_min[0].reshape(-1, 2, 3).min(axis=1))
-        levels_max.insert(0, levels_max[0].reshape(-1, 2, 3).max(axis=1))
-    return BVH(bmin=torch.from_numpy(np.concatenate(levels_min, 0)),
-               bmax=torch.from_numpy(np.concatenate(levels_max, 0)),
-               perm=torch.from_numpy(perm.astype(np.int32)), packed=None,
-               n_leaves=n_leaves, leaf_size=leaf_size)
+        levels_min.insert(0, levels_min[0].reshape(-1, 2, 3).amin(1))
+        levels_max.insert(0, levels_max[0].reshape(-1, 2, 3).amax(1))
+    return torch.cat(levels_min), torch.cat(levels_max)
 
 
-def build_median(prim_bmin, prim_bmax, leaf_size: int = 256) -> BVH:
-    """Host-side median-split build: split prim ranges at the centroid
-    median of their longest axis, level by level (one vectorized lexsort
-    pass per level). prim_bmin/prim_bmax: [N,3] float32 (numpy or CPU
-    tensors)."""
-    bmin = np.asarray(prim_bmin, np.float32)
-    bmax = np.asarray(prim_bmax, np.float32)
-    n = bmin.shape[0]
-    cent = 0.5 * (bmin + bmax)
+def build_median(prim_bmin: torch.Tensor, prim_bmax: torch.Tensor,
+                 leaf_size: int = 256) -> BVH:
+    """Median-split build on the bounds' device: split prim ranges at the
+    centroid median of their longest axis, level by level. prim_bmin /
+    prim_bmax: [N,3] float32 tensors."""
+    n = prim_bmin.shape[0]
     n_leaves = _next_pow2(max(-(-n // leaf_size), 1))
-
-    order = np.arange(n, dtype=np.int64)
-    bounds = np.array([0, n], dtype=np.int64)
-    for _ in range(n_leaves.bit_length() - 1):
-        counts = np.diff(bounds)
-        seg_of = np.repeat(np.arange(counts.shape[0]), counts)
-        c = cent[order]
-        n_seg = counts.shape[0]
-        lo = np.full((n_seg, 3), np.float32(BIG))
-        hi = np.full((n_seg, 3), np.float32(-BIG))
-        np.minimum.at(lo, seg_of, c)
-        np.maximum.at(hi, seg_of, c)
-        axis = np.argmax(hi - lo, axis=1)
-        key = c[np.arange(n), axis[seg_of]]
-        idx = np.lexsort((key, seg_of))  # sorted within each segment
-        order = order[idx]
-        mids = bounds[:-1] + (counts + 1) // 2
-        bounds = np.sort(np.concatenate([bounds, mids]))
+    order, bounds = median_split(0.5 * (prim_bmin + prim_bmax), n_leaves)
     perm = _ranges_to_perm(order, bounds, n_leaves, leaf_size)
-    return _finalize_host(perm, bmin, bmax, n_leaves, leaf_size)
+    hmin, hmax = _finalize(perm, prim_bmin, prim_bmax, n_leaves, leaf_size)
+    return BVH(bmin=hmin, bmax=hmax, perm=perm.to(torch.int32), packed=None,
+               n_leaves=n_leaves, leaf_size=leaf_size)
 
 
 def _take_padded(x: torch.Tensor, safe, keep, pad_val) -> torch.Tensor:

@@ -8,10 +8,11 @@ t is t_max on a miss, row = cluster * leaf_size + within (-1 on a miss).
 The any-hit mode stops at the first acceptance and returns t = 0 there.
 
 `traverse` dispatches on the device of its tensors: CPU tensors go to
-`traverse_ref` (brute force over every row of the reordered pack with the
+`traverse_ref` (`brute_force` over every row of the reordered pack with the
 leaf tests of `ops/bvh.py`: argmin of t with the lowest row on ties, any
 hit as t < t_max), CUDA tensors launch `csrc/traverse.cu` or raise.
-`KERNEL_LAUNCHES` and `REF_CALLS` count which of the two ran.
+`KERNEL_LAUNCHES` and `REF_CALLS` count which of the two ran. `brute_force`
+is the plain twin of the streaming traversal (`ops/cuda/stream.py`) too.
 
 Row ties: the kernel visits clusters in its own near-to-far order, so its
 rows equal the twin's except on exact t ties across clusters (within a leaf
@@ -56,11 +57,10 @@ def _rows_cm(bvh: bvh_mod.BVH) -> list:
     return [flat[i][None] for i in range(w)]
 
 
-def traverse_ref(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = False,
-                 t_min: float = 1e-4):
-    """Brute force over all rows of the reordered pack, chunked over rays."""
-    global REF_CALLS
-    REF_CALLS += 1
+def brute_force(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = False,
+                t_min: float = 1e-4):
+    """(t, row, found) by brute force over all rows of the reordered pack,
+    chunked over rays."""
     comp = _rows_cm(bvh)
     n_rows = comp[0].shape[1]
     leaf = _leaf_fn(kind)
@@ -85,6 +85,14 @@ def traverse_ref(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = False
     return torch.cat(ts), torch.cat(rows), torch.cat(founds)
 
 
+def traverse_ref(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = False,
+                 t_min: float = 1e-4):
+    """The kernel's plain version: `brute_force`, counted in REF_CALLS."""
+    global REF_CALLS
+    REF_CALLS += 1
+    return brute_force(o, d, t_max, bvh, kind, any_hit, t_min)
+
+
 def _slab_entry(o, d, bmin, bmax, t_best):
     """Entry distance of every ray into every box ([R,N], INF where the slab
     test fails or the entry is not below t_best): the kernel's box test."""
@@ -102,35 +110,49 @@ def _slab_entry(o, d, bmin, bmax, t_best):
 
 
 def work_ref(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = False,
-             t_min: float = 1e-4) -> dict:
+             t_min: float = 1e-4, hit=None) -> dict:
     """The tests that any near-to-far walk of this BVH, pruning a node when
-    its entry is not below the best hit, must make for these rays: the root
-    box, both child boxes of every inner node whose entry lies below the
-    ray's final t, and every row of every such leaf. For an any-hit ray that
-    finds a hit the need is one root-to-leaf path (2 depth + 1 boxes) and
-    one row test. Returns totals over the rays (lower bounds of the
-    kernel's work) with their flops."""
-    t, _, found = traverse_ref(o, d, t_max, bvh, kind, any_hit=False, t_min=t_min)
+    its entry is not below the best hit, must make for these rays: for each
+    live ray (t_max > 0; a dead one tests nothing) the root box, both child
+    boxes of every inner node whose entry lies below the ray's final t, and
+    every row of every such leaf. For an any-hit ray that finds a hit the
+    need is one root-to-leaf path (2 depth + 1 boxes) and one row test. Returns totals over the rays (lower bounds of the
+    kernel's work) with their flops, and the distinct leaves those tests
+    read (for an occluded any-hit ray, the leaf of its row) with their
+    bytes. `hit` = (t, row, found) of these rays, where already known (the
+    closest hits; for any hit, t of the closest and the accepted row), saves
+    the brute force."""
+    if hit is None:
+        t, row, found = brute_force(o, d, t_max, bvh, kind, any_hit=False, t_min=t_min)
+    else:
+        t, row, found = hit
     n_inner = bvh.n_leaves - 1
     step = max(1, _REF_ELEMS // bvh.bmin.shape[0])
     inner = leaves = 0
+    entered = torch.zeros((bvh.n_leaves,), dtype=torch.bool, device=o.device)
     for s in range(0, o.shape[0], step):
         t_fin = t[s:s + step]
         if any_hit:  # an occluded ray is counted below as one path
             t_fin = torch.where(found[s:s + step], -INF, t_max[s:s + step])
+        t_fin = torch.where(t_max[s:s + step] > 0.0, t_fin, -INF)
         e = _slab_entry(o[s:s + step], d[s:s + step], bvh.bmin, bvh.bmax, t_fin)
         opened = e < INF
         inner += int(opened[:, :n_inner].sum())
         leaves += int(opened[:, n_inner:].sum())
+        entered |= opened[:, n_inner:].any(0)
     n_rays = o.shape[0]
-    box_tests = n_rays + 2 * inner
+    box_tests = int((t_max > 0.0).sum()) + 2 * inner
     leaf_rows = leaves * bvh.leaf_size
     if any_hit:
         n_found = int(found.sum())
         box_tests += n_found * (2 * bvh.depth)
         leaf_rows += n_found
+        entered[row[found].long() // bvh.leaf_size] = True
+    n_entered = int(entered.sum())
     return dict(rays=n_rays, box_tests=box_tests, leaf_row_tests=leaf_rows,
-                flops=box_tests * BOX_TEST_FLOPS + leaf_rows * LEAF_TEST_FLOPS[kind])
+                flops=box_tests * BOX_TEST_FLOPS + leaf_rows * LEAF_TEST_FLOPS[kind],
+                leaves_entered=n_entered,
+                leaf_bytes=n_entered * KINDS[kind] * bvh.leaf_size * 4)
 
 
 def _check(name, x, shape, dtype, device):

@@ -2,12 +2,17 @@
 
 Counterpart of `ba_pathtracing_fur_tpu/ops/traverse.py`. A scene carries
 optional triangle and cone BVHs (attached by `attach_bvh`); `closest_hit`
-and `any_hit` run the traversal kernel (`ops/cuda/traverse.traverse`: the
-CUDA kernel on the card, its brute-force twin on the CPU) for packs with a
-BVH and the dense all-pairs grid (`ops/intersect.py`) for packs without
-one, and merge the two kinds per ray. On the card the grid takes only
-fewer than 2^24 ray-primitive pairs; beyond that the JAX package runs a
-brute-force kernel that is not ported yet, and the port raises.
+and `any_hit` run, per pack, and merge the two kinds per ray:
+
+  * a two-level BVH (`fanout > 0`): the streaming traversal kernel K3
+    (`ops/cuda/stream.traverse_stream`);
+  * a flat BVH: the heap-walk traversal kernel K2 (`ops/cuda/traverse.
+    traverse`);
+  * no BVH, at 2^24 or more ray-primitive pairs: the brute-force kernel K5
+    (`ops/cuda/intersect.closest`; any hit is its closest t below t_max);
+  * no BVH, fewer pairs: the dense all-pairs grid (`ops/intersect.py`).
+
+Each kernel is the CUDA launch on the card and its plain twin on the CPU.
 
 As in the JAX package, the traversal only selects the winning row; the
 winner's t is recomputed outside it from the gathered row, with the same
@@ -20,6 +25,7 @@ lists it as a perf candidate for the per-ray kernel).
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import torch
@@ -27,16 +33,26 @@ import torch
 from ..core import vecmath as vm
 from ..scene.types import ConePack, DeviceScene, TrianglePack
 from . import bruteforce, bvh as bvh_mod, intersect as isect
-from .cuda import traverse as ctraverse
+from .cuda import intersect as cisect, stream as cstream, traverse as ctraverse
 
 INF = isect.INF
 
 #: leaf targets of auto_leaf_size per primitive kind (the JAX package's
-#: values; the streaming-kernel cone target arrives with ROADMAP M9)
+#: values): cone packs of _STREAM_LEAF_MIN or more cones, whose leaves the
+#: two-level traversal streams from device memory, take the bigger target
 TRI_LEAF_TARGET = 256
 CONE_LEAF_TARGET = 128
+CONE_LEAF_TARGET_STREAM = 288
+_STREAM_LEAF_MIN = 1 << 20
 #: bound on the elements of one all-pairs grid chunk
 _GRID_ELEMS = 1 << 24
+#: ray-primitive pairs from which a BVH-less pack goes to the brute-force
+#: kernel (K5) instead of the dense grid (the JAX package's threshold)
+_BRUTE_MIN = 1 << 24
+
+#: stage seconds of the last build per kind ("tri", "cone"): the AABBs,
+#: the median split, the reorder + pack, and the kernel layouts
+LAST_BUILD_STATS: dict = {}
 
 
 def auto_leaf_size(n_prims: int, target: int = 256) -> int:
@@ -47,42 +63,87 @@ def auto_leaf_size(n_prims: int, target: int = 256) -> int:
     return max(-(-k // 8) * 8, 8)
 
 
-def _host_build(pack, aabb_fn, reorder_fn, pack_fn, leaf_size, target):
-    """Median build of one pack on the host; returns (reordered pack, BVH)
-    on the host."""
+def auto_fanout(n_leaves: int, max_supers: int = 1024) -> int:
+    """Leaf clusters per super-cluster of the two-level traversal: 0 (flat)
+    up to 512 leaves, else 64, doubled until there are at most
+    `max_supers` super-clusters (the JAX package's rule)."""
+    if n_leaves <= 512:
+        return 0
+    f = 64
+    while n_leaves // f > max_supers:
+        f *= 2
+    return min(f, n_leaves)
+
+
+def _clock(dev) -> float:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter()
+
+
+def _attach_one(pack, kind, aabb_fn, reorder_fn, pack_fn, leaf_size, fanout, target):
+    """Median build of one pack on its device -> (reordered pack, BVH)."""
+    dev = pack.mat_id.device
+    t0 = _clock(dev)
     k = leaf_size or auto_leaf_size(pack.count, target)
     bmin, bmax = aabb_fn(pack)
-    b = bvh_mod.build_median(bmin.numpy(), bmax.numpy(), k)
+    t1 = _clock(dev)
+    b = bvh_mod.build_median(bmin, bmax, k)
+    b.fanout = auto_fanout(b.n_leaves) if fanout is None else fanout
+    t2 = _clock(dev)
     pack = reorder_fn(pack, b)
-    return pack, pack_fn(pack, b)
+    b = pack_fn(pack, b)
+    t3 = _clock(dev)
+    b = _cache_kernel_layouts(b, kind, pack)
+    t4 = _clock(dev)
+    LAST_BUILD_STATS[kind] = dict(aabb=t1 - t0, split=t2 - t1, reorder_pack=t3 - t2,
+                                  layouts=t4 - t3)
+    return pack, b
+
+
+def _two_level(bvh) -> bool:
+    return bool(bvh.fanout) and bvh.fanout < bvh.n_leaves
+
+
+def _cache_kernel_layouts(bvh, kind: str, pack):
+    """The kernel layouts of `bvh` over its reordered `pack`, made once
+    instead of per call (None stays None): the winner-row AoS table (a
+    per-call `cone_aos` is a 697 MB copy at hair-ball scale) and, for a
+    two-level BVH, its super-cluster and child box tables."""
+    if bvh is None:
+        return None
+    out = {"aos_rows": (cone_aos if kind == "cone" else tri_aos)(pack)}
+    if _two_level(bvh):
+        out.update(sboxes=cstream.pack_super_boxes(bvh), cboxes=cstream.pack_child_boxes(bvh))
+    return dataclasses.replace(bvh, **out)
 
 
 def attach_bvh(scene: DeviceScene, leaf_size: Optional[int] = None, method: str = "median",
-               min_prims: int = 2048) -> DeviceScene:
+               min_prims: int = 2048, fanout: Optional[int] = None) -> DeviceScene:
     """Build median-split BVHs over the packs of at least `min_prims`
     primitives and reorder those packs so leaf clusters are contiguous.
-    Smaller packs stay BVH-less and go through the dense grid. The build
-    runs on host copies in numpy/CPU torch (bit-identical to the JAX
-    package's numpy build); the result lands on the scene's device."""
+    Smaller packs stay BVH-less (the dense grid or K5 takes them).
+    leaf_size/fanout default to `auto_leaf_size` / `auto_fanout`. Each
+    pack builds on its own device (bit-identical to the JAX package's numpy
+    build). LAST_BUILD_STATS gets the stage times."""
     if method == "none":
         return scene
     if method != "median":
         raise NotImplementedError(f"BVH method {method!r} is not ported yet: only the "
                                   "median build is (ROADMAP Queue 1 item 3)")
-    from ..scene.types import _to
-
-    dev = scene.device
     out = {}
     if scene.tris.count >= min_prims:
-        tris, tri_bvh = _host_build(_to(scene.tris, "cpu"), isect.triangle_aabbs,
-                                    bvh_mod.reorder_tris, bvh_mod.pack_tris, leaf_size,
+        tris, tri_bvh = _attach_one(scene.tris, "tri", isect.triangle_aabbs,
+                                    bvh_mod.reorder_tris, bvh_mod.pack_tris, leaf_size, fanout,
                                     TRI_LEAF_TARGET)
-        out.update(tris=_to(tris, dev), tri_bvh=_to(tri_bvh, dev))
+        out.update(tris=tris, tri_bvh=tri_bvh)
     if scene.cones.count >= min_prims:
-        cones, cone_bvh = _host_build(_to(scene.cones, "cpu"), isect.cone_aabbs,
+        target = (CONE_LEAF_TARGET_STREAM if scene.cones.count >= _STREAM_LEAF_MIN
+                  else CONE_LEAF_TARGET)
+        cones, cone_bvh = _attach_one(scene.cones, "cone", isect.cone_aabbs,
                                       bvh_mod.reorder_cones, bvh_mod.pack_cones, leaf_size,
-                                      CONE_LEAF_TARGET)
-        out.update(cones=_to(cones, dev), cone_bvh=_to(cone_bvh, dev))
+                                      fanout, target)
+        out.update(cones=cones, cone_bvh=cone_bvh)
     return dataclasses.replace(scene, **out)
 
 
@@ -114,17 +175,19 @@ def tri_aos(tris: TrianglePack) -> torch.Tensor:
                       tris.fiber_w, _i2f(tris.mat_id)[:, None]], dim=1)
 
 
-def take_cone_rows(cones: ConePack, rows: torch.Tensor) -> dict:
-    """One [R, 19] row gather of the winning cones' fields."""
-    g = cone_aos(cones)[rows.long()]
+def take_cone_rows(aos: torch.Tensor, rows: torch.Tensor) -> dict:
+    """One [R, 19] row gather of the winning cones' fields from `cone_aos`'s
+    table (the BVH's `aos_rows`)."""
+    g = aos[rows.long()]
     return {"base": g[:, 0:3], "u": g[:, 3:6], "v": g[:, 6:9], "w": g[:, 9:12],
             "slope": g[:, 12], "r_base": g[:, 13], "min_d": g[:, 14], "max_d": g[:, 15],
             "base_d": g[:, 16], "height": g[:, 17], "mat_id": _f2i(g[:, 18]), "_g": g}
 
 
-def take_tri_rows(tris: TrianglePack, rows: torch.Tensor) -> TrianglePack:
-    """One [R, 34] row gather of the winning triangles' fields."""
-    g = tri_aos(tris)[rows.long()]
+def take_tri_rows(aos: torch.Tensor, rows: torch.Tensor) -> TrianglePack:
+    """One [R, 34] row gather of the winning triangles' fields from
+    `tri_aos`'s table (the BVH's `aos_rows`)."""
+    g = aos[rows.long()]
     return TrianglePack(
         v0=g[:, 0:3], v1=g[:, 3:6], v2=g[:, 6:9], n0=g[:, 9:12], n1=g[:, 12:15],
         n2=g[:, 15:18], uv0=g[:, 18:20], uv1=g[:, 20:22], uv2=g[:, 22:24],
@@ -164,22 +227,26 @@ def _cone_enter_rows(base, u_ax, v_ax, w_ax, slope, r_base, o, d, t):
     return (t - t1).abs() <= (t - t2).abs()
 
 
-def _check_grid_size(o, pack):
-    """The dense grid serves small BVH-less packs and the CPU. On the card,
-    where the JAX package switches to its brute-force kernels
-    (`ops/pallas/intersect.py` tri_closest / cone_closest) at R*P >= 2^24,
-    the port raises until that kernel is ported."""
-    if o.device.type == "cuda" and o.shape[0] * pack.count >= _GRID_ELEMS:
-        raise NotImplementedError(
-            f"a BVH-less pack of {pack.count} primitives against {o.shape[0]} rays needs the "
-            "brute-force kernel (K5, ROADMAP M9), which is not ported yet; attach a BVH "
-            "(ops/traverse.attach_bvh) or lower min_prims")
+def _use_brute(o, pack) -> bool:
+    return o.shape[0] * pack.count >= _BRUTE_MIN
+
+
+def _brute_rows(o, d, t_max, pack, kind, t_min):
+    """K5 over a BVH-less pack -> (winner row [R], 0 on a miss; whether it
+    lies below t_max [R])."""
+    t_k, row = cisect.closest(o, d, t_max, cisect.pack_cm(pack, kind), kind, t_min)
+    return torch.clamp(row, min=0), t_k < t_max
+
+
+def _traverse(o, d, t_max, bvh, kind, any_hit, t_min):
+    """K3 for a two-level BVH, K2 for a flat one -> (t, row, found)."""
+    fn = cstream.traverse_stream if _two_level(bvh) else ctraverse.traverse
+    return fn(o, d, t_max, bvh, kind, any_hit=any_hit, t_min=t_min)
 
 
 def _grid_closest(o, d, pack, grid_fn, t_min, t_max):
     """Nearest hit over a BVH-less pack by the dense grid, chunked over
     rays -> (t [R] INF where none, row [R])."""
-    _check_grid_size(o, pack)
     r, p = o.shape[0], pack.count
     step = max(1, _GRID_ELEMS // max(p, 1))
     ts, rows = [], []
@@ -193,7 +260,6 @@ def _grid_closest(o, d, pack, grid_fn, t_min, t_max):
 
 def _grid_any(o, d, pack, grid_fn, t_min, t_max):
     """Does any primitive of a BVH-less pack lie in (t_min, t_max)? -> [R]."""
-    _check_grid_size(o, pack)
     r, p = o.shape[0], pack.count
     step = max(1, _GRID_ELEMS // max(p, 1))
     return torch.cat([grid_fn(o[s:s + step], d[s:s + step], pack, t_min,
@@ -228,7 +294,7 @@ def _assemble_hit(o, d, scene: DeviceScene, t_tri, tri_row, t_cone, cone_row, t_
 
     if tris.count:
         if tri_rp is None:
-            tri_rp = take_tri_rows(tris, tri_row)
+            tri_rp = take_tri_rows(tri_aos(tris), tri_row)
         tn, tuv, _ = isect.triangle_interpolate_rows(tri_rp, position, o, d)
         is_tri = prim_type == bruteforce.PRIM_TRI
         n, uv = w3(is_tri, tn, n), w3(is_tri, tuv, uv)
@@ -239,7 +305,7 @@ def _assemble_hit(o, d, scene: DeviceScene, t_tri, tri_row, t_cone, cone_row, t_
         prim_id = torch.where(is_tri, orig, prim_id)
     if cones.count:
         if cone_rc is None:
-            cone_rc = take_cone_rows(cones, cone_row)
+            cone_rc = take_cone_rows(cone_aos(cones), cone_row)
         cn = isect.cone_normal_rows(cone_rc["v"], cone_rc["base"], cone_rc["base_d"],
                                     cone_rc["slope"], position)
         cuv = isect.cone_texcoord_rows(cone_rc["base"], cone_rc["u"], cone_rc["v"],
@@ -268,9 +334,9 @@ def _t_max_of(t_max, r, like):
 
 
 def closest_hit(o, d, scene: DeviceScene, t_min=1e-4, t_max=INF) -> bruteforce.Hit:
-    """Nearest hit per ray: the traversal kernel for packs with a BVH (then
-    the winner's t recomputed from its row), the dense grid for packs
-    without one. t_max may be per ray [R]."""
+    """Nearest hit per ray: a traversal kernel for packs with a BVH and K5
+    for big BVH-less packs (then the winner's t recomputed from its row),
+    the dense grid for small ones. t_max may be per ray [R]."""
     r = o.shape[0]
     t_max = _t_max_of(t_max, r, o)
     tris, cones = scene.tris, scene.cones
@@ -278,10 +344,13 @@ def closest_hit(o, d, scene: DeviceScene, t_min=1e-4, t_max=INF) -> bruteforce.H
     t_tri = torch.full((r,), INF, device=o.device)
     tri_row = torch.zeros((r,), dtype=torch.int32, device=o.device)
     tri_rp = None
-    if scene.tri_bvh is not None:
-        _, tri_row, found = ctraverse.traverse(o, d, t_max, scene.tri_bvh, "tri", t_min=t_min)
-        tri_row = torch.clamp(tri_row, min=0)
-        tri_rp = take_tri_rows(tris, tri_row)
+    if scene.tri_bvh is not None or (tris.count and _use_brute(o, tris)):
+        if scene.tri_bvh is not None:
+            _, tri_row, found = _traverse(o, d, t_max, scene.tri_bvh, "tri", False, t_min)
+            tri_row, aos = torch.clamp(tri_row, min=0), scene.tri_bvh.aos_rows
+        else:
+            (tri_row, found), aos = _brute_rows(o, d, t_max, tris, "tri", t_min), tri_aos(tris)
+        tri_rp = take_tri_rows(aos, tri_row)
         t_tri = torch.where(found, _recompute_t_tri(tri_rp, o, d, t_min, t_max), INF)
     elif tris.count:
         t_tri, tri_row = _grid_closest(o, d, tris, isect.triangle_hit_grid, t_min, t_max)
@@ -289,11 +358,14 @@ def closest_hit(o, d, scene: DeviceScene, t_min=1e-4, t_max=INF) -> bruteforce.H
     t_cone = torch.full((r,), INF, device=o.device)
     cone_row = torch.zeros((r,), dtype=torch.int32, device=o.device)
     cone_rc = None
-    if scene.cone_bvh is not None:
-        _, cone_row, found = ctraverse.traverse(o, d, t_max, scene.cone_bvh, "cone",
-                                                t_min=t_min)
-        cone_row = torch.clamp(cone_row, min=0)
-        cone_rc = take_cone_rows(cones, cone_row)
+    if scene.cone_bvh is not None or (cones.count and _use_brute(o, cones)):
+        if scene.cone_bvh is not None:
+            _, cone_row, found = _traverse(o, d, t_max, scene.cone_bvh, "cone", False, t_min)
+            cone_row, aos = torch.clamp(cone_row, min=0), scene.cone_bvh.aos_rows
+        else:
+            (cone_row, found), aos = (_brute_rows(o, d, t_max, cones, "cone", t_min),
+                                      cone_aos(cones))
+        cone_rc = take_cone_rows(aos, cone_row)
         t_cone = torch.where(found, _recompute_t_cone(cone_rc, o, d, t_min, t_max), INF)
     elif cones.count:
         t_cone, cone_row = _grid_closest(o, d, cones, isect.cone_hit_grid, t_min, t_max)
@@ -304,19 +376,19 @@ def closest_hit(o, d, scene: DeviceScene, t_min=1e-4, t_max=INF) -> bruteforce.H
 
 def any_hit(o, d, scene: DeviceScene, t_max, t_min=1e-4) -> torch.Tensor:
     """Shadow-ray occlusion: does any geometry lie in (t_min, t_max)? -> [R]
-    bool. The traversal kernel's any-hit mode for packs with a BVH, the
-    dense grid otherwise."""
+    bool. A traversal kernel's any-hit mode for packs with a BVH, K5's
+    closest t below t_max for big BVH-less packs, the dense grid for small
+    ones."""
     r = o.shape[0]
     t_max = _t_max_of(t_max, r, o)
     blocked = torch.zeros((r,), dtype=torch.bool, device=o.device)
-    if scene.tri_bvh is not None:
-        blocked |= ctraverse.traverse(o, d, t_max, scene.tri_bvh, "tri", any_hit=True,
-                                      t_min=t_min)[2]
-    elif scene.tris.count:
-        blocked |= _grid_any(o, d, scene.tris, isect.triangle_hit_grid, t_min, t_max)
-    if scene.cone_bvh is not None:
-        blocked |= ctraverse.traverse(o, d, t_max, scene.cone_bvh, "cone", any_hit=True,
-                                      t_min=t_min)[2]
-    elif scene.cones.count:
-        blocked |= _grid_any(o, d, scene.cones, isect.cone_hit_grid, t_min, t_max)
+    for kind, pack, bvh, grid_fn in (
+            ("tri", scene.tris, scene.tri_bvh, isect.triangle_hit_grid),
+            ("cone", scene.cones, scene.cone_bvh, isect.cone_hit_grid)):
+        if bvh is not None:
+            blocked |= _traverse(o, d, t_max, bvh, kind, True, t_min)[2]
+        elif pack.count and _use_brute(o, pack):
+            blocked |= _brute_rows(o, d, t_max, pack, kind, t_min)[1]
+        elif pack.count:
+            blocked |= _grid_any(o, d, pack, grid_fn, t_min, t_max)
     return blocked

@@ -1,9 +1,15 @@
 """Built-in validation scenes.
 
-Counterpart of `ba_pathtracing_fur_tpu/scene/builtins.py`: the Cornell box
-and the fur patch, with the same geometry, materials, lights and cameras.
-The scenes land on the card unless the caller asks for another device
-(`device="cpu"`). The terrain and the hair ball follow with ROADMAP M3/M9.
+Counterpart of `ba_pathtracing_fur_tpu/scene/builtins.py`: the Cornell box,
+the fur patch and the hair ball, with the same geometry, materials, lights
+and cameras. The scenes land on the card unless the caller asks for another
+device (`device="cpu"`). The terrain follows with ROADMAP M3.
+
+The hair ball's `on_device=True` fibers come from the port's threefry on
+the scene's device. The JAX package mirrors the draws' cone centroids on
+the host (`LAST_HAIRBALL_GEN`) so its TPU never pulls the pack over the
+host link for the BVH split; the port's build reads the centroids where
+the pack lies (`ops/traverse.attach_bvh`), so it has no such mirror.
 """
 
 from __future__ import annotations
@@ -11,12 +17,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import rng
 from ..core.camera import make_camera
 from . import mesh as mesh_mod
 from .types import (
     BSDF_GLASS, BSDF_LAMBERT, BSDF_SPECULAR_REFLECTION, DeviceScene, Environment,
-    empty_cone_pack, make_cone_pack, make_light_pack, make_material_table,
-    make_triangle_pack, scene_bsdfs_present, scene_has_hair, to_device,
+    empty_cone_pack, make_cone_pack, make_cone_pack_torch, make_light_pack,
+    make_material_table, make_triangle_pack, scene_bsdfs_present, scene_has_hair, to_device,
 )
 
 
@@ -130,5 +137,94 @@ def fur_patch(resolution=(256, 256), fibers_per_face=5, fiber_verts=10,
                         ambient=torch.tensor([0.08, 0.08, 0.08])),
         has_hair=scene_has_hair(mat_table), bsdfs_present=scene_bsdfs_present(mat_table))
     cam = make_camera(position=(0.0, 0.45, 1.1), look_at=(0.0, -0.35, -1.0),
+                      up=(0.0, 1.0, 0.0), resolution=resolution, device=device)
+    return to_device(scene, device), cam
+
+
+def _dirs_from_u(u, xp):
+    """Uniform sphere directions from [N,2] uniforms (numpy or torch)."""
+    phi = 2.0 * np.pi * u[:, 0]
+    cos_t = 2.0 * u[:, 1] - 1.0
+    if xp is np:
+        sin_t = np.sqrt(np.maximum(0.0, 1.0 - cos_t ** 2))
+    else:
+        sin_t = torch.sqrt(torch.clamp(1.0 - cos_t ** 2, min=0.0))
+    return xp.stack([sin_t * xp.cos(phi), cos_t, sin_t * xp.sin(phi)], -1)
+
+
+def _hair_ball_cones_on_device(n_fibers, fiber_verts, fiber_radius, sphere_radius, seed,
+                               device, lean: float = 0.25):
+    """The fiber cone pack generated on `device` from the threefry draws of
+    the JAX package's `_hair_ball_draws` (split key -> [N,2] sphere
+    uniforms, [N,3] gaussian lean)."""
+    ku, kl = rng.split(rng.key(seed, device), 2)
+    u = rng.uniform(ku, (n_fibers, 2))
+    lean_raw = rng.normal(kl, (n_fibers, 3)) * lean
+    dirs = _dirs_from_u(u, torch)
+    fibers = mesh_mod.grow_fur_fibers_along_torch(dirs * sphere_radius, dirs, lean_raw,
+                                                  fiber_verts, fiber_radius)
+    b, a, r0, r1 = mesh_mod.fibers_to_cone_chain(fibers)
+    return make_cone_pack_torch(b, a, r0, r1, torch.ones(b.shape[0], dtype=torch.int32,
+                                                          device=device))
+
+
+def hair_ball(resolution=(512, 512), n_fibers=10000, fiber_verts=10, fiber_radius=0.004,
+              sphere_radius=0.5, bsdf="MarschnerHairBSDF", seed=0, on_device=False,
+              device="cuda"):
+    """Hair ball (bench config 5): a UV-sphere scalp of 768 triangles and
+    radially grown fibers as cone chains, a quad light and a sun.
+
+    on_device=False grows the fibers on the host in numpy, bit-identical to
+    the JAX package; on_device=True grows them on `device` from the ported
+    threefry draws (another stream than numpy's, so other geometry at the
+    same seed). Returns (DeviceScene, Camera) on `device`."""
+    rs = np.random.RandomState(seed)
+    n_lat, n_lon = 16, 24
+    verts = []
+    for i in range(n_lat + 1):
+        th = np.pi * i / n_lat
+        for j in range(n_lon):
+            ph = 2 * np.pi * j / n_lon
+            verts.append((sphere_radius * np.sin(th) * np.cos(ph),
+                          sphere_radius * np.cos(th),
+                          sphere_radius * np.sin(th) * np.sin(ph)))
+    verts = np.asarray(verts, np.float32)
+    tris = []
+    for i in range(n_lat):
+        for j in range(n_lon):
+            a = i * n_lon + j
+            b = i * n_lon + (j + 1) % n_lon
+            c = (i + 1) * n_lon + j
+            d = (i + 1) * n_lon + (j + 1) % n_lon
+            tris.append((verts[a], verts[b], verts[c]))
+            tris.append((verts[b], verts[d], verts[c]))
+    v = np.asarray(tris, np.float32)
+
+    skin = dict(name="scalp", diffuse=(0.3, 0.2, 0.15), bsdf=BSDF_LAMBERT)
+    fur_mat = dict(name="Fiber_Mat", diffuse=(0.545, 0.353, 0.169), ior=1.55, bsdf=bsdf)
+    pack = make_triangle_pack(v[:, 0], v[:, 1], v[:, 2], mat_id=np.zeros(len(tris)))
+
+    if on_device:
+        cones = _hair_ball_cones_on_device(n_fibers, fiber_verts, fiber_radius,
+                                           sphere_radius, seed, device)
+    else:
+        dirs = _dirs_from_u(rs.rand(n_fibers, 2), np)
+        fibers = mesh_mod.grow_fur_fibers_along(dirs * sphere_radius, dirs, fiber_verts,
+                                                fiber_radius, seed=seed)
+        base, apex, r0, r1 = mesh_mod.fibers_to_cone_chain(fibers)
+        cones = make_cone_pack(base, apex, r0, r1, np.ones(base.shape[0]))
+
+    lights = make_light_pack([
+        dict(kind="quad", color=(12.0, 12.0, 12.0), position=(1.5, 2.0, 1.5),
+             direction=(-0.5, -0.7, -0.5), size=(1.0, 1.0)),
+        dict(kind="sun", color=(1.0, 1.0, 0.95), direction=(0.3, -1.0, 0.2), radius=0.05),
+    ])
+    mat_table = make_material_table([skin, fur_mat])
+    scene = DeviceScene(
+        tris=pack, cones=cones, materials=mat_table, lights=lights,
+        env=Environment(color=torch.tensor([0.1, 0.1, 0.12]),
+                        ambient=torch.tensor([0.05, 0.05, 0.05])),
+        has_hair=scene_has_hair(mat_table), bsdfs_present=scene_bsdfs_present(mat_table))
+    cam = make_camera(position=(0.0, 0.3, 2.2), look_at=(0.0, -0.1, -1.0),
                       up=(0.0, 1.0, 0.0), resolution=resolution, device=device)
     return to_device(scene, device), cam

@@ -2,7 +2,8 @@
 
 Counterpart of `ba_pathtracing_fur_tpu/scene/types.py`: the same ids and
 flag bits, and the same pack layouts. Packs are built on the host with
-numpy (`make_*`) and moved to a device in one call (`to_device`).
+numpy (`make_*`) and moved to a device in one call (`to_device`); the hair
+ball's cone pack is built on its device (`make_cone_pack_torch`).
 `scene_from_numpy` reads a host-built JAX-package scene field by field,
 BVHs included, so both packages can render the very same scene; like every
 entry point of the port it puts its tensors on the card unless the caller
@@ -305,6 +306,34 @@ def make_cone_pack(base, apex, r_base, r_apex, mat_id) -> ConePack:
         max_d=_f32(np.maximum(base_d, apex_d)), mat_id=_i32(mat_id))
 
 
+def make_cone_pack_torch(base, apex, r_base, r_apex, mat_id) -> ConePack:
+    """`make_cone_pack` on tensors, on their device (the JAX package's
+    `make_cone_pack_jnp`): the same Cylinder-ctor frame and w invariant in
+    float32 torch ops, so an on-card fiber pack never passes the host."""
+    def norm(x):
+        return torch.sqrt((x * x).sum(-1, keepdim=True))
+
+    local_v = apex - base
+    height = torch.clamp(norm(local_v)[:, 0], min=1e-12)
+    v = local_v / height[:, None]
+    up = torch.tensor([0.0, 1.0, 0.0], device=base.device)
+    zax = torch.tensor([0.0, 0.0, 1.0], device=base.device)
+    degenerate = (1.0 - v[:, 1].abs()) < 1e-4  # dot(up, v) = v.y
+    tmp = torch.where(degenerate[:, None], zax, up)
+    u = torch.linalg.cross(v, tmp)
+    u = u / torch.clamp(norm(u), min=1e-12)
+    w = torch.linalg.cross(u, v)
+    w = w / torch.clamp(norm(w), min=1e-12)
+    base_d = (base * v).sum(-1)
+    apex_d = (apex * v).sum(-1)
+    return ConePack(
+        base=base.contiguous(), apex=apex.contiguous(), r_base=r_base.contiguous(),
+        r_apex=r_apex.contiguous(), u=u, v=v, w=w, slope=(r_base - r_apex) / height,
+        height=height, base_d=base_d, min_d=torch.minimum(base_d, apex_d),
+        max_d=torch.maximum(base_d, apex_d),
+        mat_id=torch.as_tensor(mat_id, dtype=torch.int32, device=base.device))
+
+
 def empty_cone_pack() -> ConePack:
     z3 = _f32(np.zeros((0, 3)))
     z1 = _f32(np.zeros((0,)))
@@ -416,9 +445,12 @@ def _read_bvh(bvh):
 
 
 def scene_from_numpy(scene, device="cuda") -> DeviceScene:
-    """Read a JAX-package `DeviceScene` field by field, BVHs included, into
-    the port's scene on `device` (the card unless the caller asks for
-    another). The JAX object is passed in, so no jax import is needed."""
+    """Read a JAX-package `DeviceScene` field by field, BVHs included (with
+    the port's kernel layouts made on `device`), into the port's scene on
+    `device` (the card unless the caller asks for another). The JAX object
+    is passed in, so no jax import is needed."""
+    from ..ops.traverse import _cache_kernel_layouts
+
     env = scene.env
     out = DeviceScene(
         tris=_read_fields(TrianglePack, scene.tris),
@@ -431,4 +463,7 @@ def scene_from_numpy(scene, device="cuda") -> DeviceScene:
         textures=None if scene.textures is None else _f32(scene.textures),
         has_hair=bool(scene.has_hair), bsdfs_present=tuple(scene.bsdfs_present),
         tri_bvh=_read_bvh(scene.tri_bvh), cone_bvh=_read_bvh(scene.cone_bvh))
-    return to_device(out, device)
+    out = to_device(out, device)
+    return dataclasses.replace(
+        out, tri_bvh=_cache_kernel_layouts(out.tri_bvh, "tri", out.tris),
+        cone_bvh=_cache_kernel_layouts(out.cone_bvh, "cone", out.cones))

@@ -17,7 +17,18 @@ render_image`) and checks the images:
     render of the same box; the traversal is held against its plain
     version, timed and bounded on this box's camera wavefront and shadow
     rays. A soup of random triangles checks the triangle leaves on a deeper
-    BVH; its numbers go under `soup` in the traverse_tri entry.
+    BVH; its numbers go under `soup` in the traverse_tri entry;
+  * the hair ball (bench config 5: 1,000,000 fibers = 9,000,000 cones on a
+    768-triangle scalp, 1024x1024, depth 4; spp cut from 16 to 4),
+    generated and its BVH built on the card, through the streaming
+    traversal kernel (K3, two-level cone BVH), the brute-force kernel (K5,
+    the BVH-less scalp) and the shade kernel. K3 is held against its twin
+    on ray subsets and against the heap-walk kernel (K2) on whole
+    wavefronts, K5 against its twin on the camera wavefront; both are
+    timed and bounded. K5's cone variant runs on the fur patch without a
+    BVH (a render gated against the BVH render of the same patch), and a
+    mid-size hair ball renders through the kernels and through the plain
+    versions under the image gate.
 
 It exits non-zero, printing no result, when there is no CUDA device, when
 any phase fails, or when the package is missing. The last line of its
@@ -26,15 +37,16 @@ kernel with its launches on the main path, its error against the plain
 version, its time beside the plain version's and its bound; the line before
 that is the card's name and power limit. Before those lines it prints the
 render times (rays/s) through the kernels and through the plain versions,
-the BVH build time, the per-kernel work counts behind the bounds, and a
-torch.profiler breakdown of one config-0 and one config-4 sample. The
-images go to `smoke_out/smoke_config0.png` and `smoke_out/smoke_fur_patch.png`
-(git-ignored).
+the BVH build times, the per-kernel work counts behind the bounds, and a
+torch.profiler breakdown of one config-0, config-4 and config-5 sample. The
+images go to `smoke_out/smoke_config0.png`, `smoke_out/smoke_fur_patch.png`
+and `smoke_out/smoke_hair_ball.png` (git-ignored).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -59,6 +71,18 @@ CONFIG4 = dict(res=(512, 512), fibers_per_face=2500, depth=4, spp=8)
 TRI_BVH = dict(variant="diffuse", res=(512, 512), depth=4, mis=False, spp=4)
 # K2 on its triangle leaves: a soup of random triangles, rays into it.
 TRI_SOUP, SOUP_RAYS = 20_000, 262_144
+# Config 5: the hair ball (bench.py:318-324, bench_fur): 1,000,000 fibers x
+# 9 cones on a 768-triangle UV-sphere scalp, generated on the card, median
+# cone BVH (32,768 leaves x 280, fanout 64), 1024^2, depth 4; spp cut from
+# 16 to 4.
+CONFIG5 = dict(res=(1024, 1024), n_fibers=1_000_000, depth=4, spp=4, bvh=(32768, 280, 64))
+# K3's twin is a brute force over 9.2M rows: it runs on TWIN_RAYS rays spread
+# over each wavefront; K3's work count (for its bound) on WORK_RAYS, scaled.
+TWIN_RAYS, WORK_RAYS = 2048, 65_536
+# K5's cone variant: config 4's fur patch without a BVH, its twin on a subset.
+K5_CONE_RAYS = 16_384
+# The kernel-vs-plain image gate on a mid-size hair ball (two-level BVH).
+MID_HAIRBALL = dict(res=(256, 256), n_fibers=20_000, depth=4, spp=1)
 TIMED_REPS = 3
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -91,11 +115,14 @@ def card_line() -> str:
 def plain_bounces():
     """Route every kernel of a bounce through its plain torch version, on
     any device."""
-    from ba_pathtracing_fur_torch.ops.cuda import shade as cshade, traverse as ctraverse
+    from ba_pathtracing_fur_torch.ops.cuda import intersect as cisect, shade as cshade, \
+        stream as cstream, traverse as ctraverse
 
     swaps = ((cshade, "shade_bounce_full", cshade.shade_bounce_full_ref),
              (cshade, "shade_bounce", cshade.shade_bounce_ref),
-             (ctraverse, "traverse", ctraverse.traverse_ref))
+             (ctraverse, "traverse", ctraverse.traverse_ref),
+             (cstream, "traverse_stream", cstream.traverse_stream_ref),
+             (cisect, "closest", cisect.closest_ref))
     kernels_fns = [getattr(m, name) for m, name, _ in swaps]
     for m, name, ref in swaps:
         setattr(m, name, ref)
@@ -108,19 +135,35 @@ def plain_bounces():
 
 def reset_counts():
     """Every kernel wrapper's launch and plain-call counts to 0."""
-    from ba_pathtracing_fur_torch.ops.cuda import shade as cshade, traverse as ctraverse
+    from ba_pathtracing_fur_torch.ops.cuda import intersect as cisect, shade as cshade, \
+        stream as cstream, traverse as ctraverse
 
     cshade.KERNEL_LAUNCHES = cshade.REF_CALLS = 0
     cshade.SHADE_LAUNCHES = cshade.SHADE_REF_CALLS = 0
     ctraverse.KERNEL_LAUNCHES = ctraverse.REF_CALLS = 0
+    cstream.KERNEL_LAUNCHES = cstream.REF_CALLS = 0
+    cisect.TRI_LAUNCHES = cisect.CONE_LAUNCHES = cisect.REF_CALLS = 0
 
 
 def read_counts() -> dict:
-    from ba_pathtracing_fur_torch.ops.cuda import shade as cshade, traverse as ctraverse
+    from ba_pathtracing_fur_torch.ops.cuda import intersect as cisect, shade as cshade, \
+        stream as cstream, traverse as ctraverse
 
     return dict(full_bounce=cshade.KERNEL_LAUNCHES, full_bounce_ref=cshade.REF_CALLS,
                 shade=cshade.SHADE_LAUNCHES, shade_ref=cshade.SHADE_REF_CALLS,
-                traverse=ctraverse.KERNEL_LAUNCHES, traverse_ref=ctraverse.REF_CALLS)
+                traverse=ctraverse.KERNEL_LAUNCHES, traverse_ref=ctraverse.REF_CALLS,
+                stream=cstream.KERNEL_LAUNCHES, stream_ref=cstream.REF_CALLS,
+                bruteforce_tri=cisect.TRI_LAUNCHES, bruteforce_cone=cisect.CONE_LAUNCHES,
+                bruteforce_ref=cisect.REF_CALLS)
+
+
+def check_counts(counts: dict, what: str, **want) -> None:
+    """Fail unless each count equals `want` (0 where not named): the main
+    path ran on exactly these kernels and no plain version."""
+    bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
+    if bad:
+        raise AssertionError(f"{what}: the main path did not run on the kernels alone: "
+                             f"{counts}, expected {want}")
 
 
 def timed(fn, reps: int) -> float:
@@ -369,8 +412,6 @@ def phase_timing(scene, cam, key, cfg, name="config0", with_plain=True) -> dict:
 def phase_profile(scene, cam, key, cfg, name="config-0", marks=("full_bounce",)) -> None:
     """Where one sample's time goes: device time by kernel under
     torch.profiler, against the host wall clock of the same traced run."""
-    import dataclasses
-
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -413,10 +454,11 @@ def fur_scene(dev):
     scene = traverse.attach_bvh(scene, method="median")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    b = scene.cone_bvh
+    b, st = scene.cone_bvh, traverse.LAST_BUILD_STATS["cone"]
     log(f"config4: {n_cones} cones, {scene.tris.count} triangles; cone BVH "
-        f"{b.n_leaves} leaves x {b.leaf_size}, packed {tuple(b.packed.shape)}, built in "
-        f"{build_s:.3f} s (host numpy median split + reorder + pack + upload)")
+        f"{b.n_leaves} leaves x {b.leaf_size}, packed {tuple(b.packed.shape)}, built on the "
+        f"card in {build_s:.3f} s (aabb {st['aabb']:.3f}, split {st['split']:.3f}, reorder + "
+        f"pack {st['reorder_pack']:.3f}, layouts {st['layouts']:.3f} s)")
     if n_cones != 2 * CONFIG4["fibers_per_face"] * 9 or b is None or scene.tri_bvh is not None:
         raise AssertionError("config4: unexpected scene")
     cfg = pt.RenderConfig(depth=CONFIG4["depth"], spp=CONFIG4["spp"], compact=False,
@@ -447,18 +489,18 @@ def compare_traverse(o, d, t_max, bvh, kind, any_hit, what) -> dict:
 
 
 def traverse_bound(o, d, t_max, bvh, kind, any_hit) -> dict:
-    """The traversal's bound on these rays: the tests `work_ref` counts,
-    and the rays, boxes and leaf geometry read once, (t, row, found)
-    written once."""
+    """The traversal's bound on these rays: the tests `work_ref` counts;
+    the rays and boxes read once, the leaves those tests enter read once,
+    (t, row, found) written once."""
     from ba_pathtracing_fur_torch.ops.cuda import traverse as ctraverse
 
     w = ctraverse.work_ref(o, d, t_max, bvh, kind, any_hit=any_hit)
-    n_bytes = nbytes(o, d, t_max, bvh.bmin, bvh.bmax, bvh.packed) + o.shape[0] * 9
+    n_bytes = nbytes(o, d, t_max, bvh.bmin, bvh.bmax) + w["leaf_bytes"] + o.shape[0] * 9
     res = bound(w["flops"], n_bytes)
     log(f"traverse {kind} {'any' if any_hit else 'closest'} work: {w['rays']} rays, "
-        f"{w['box_tests']} box tests, {w['leaf_row_tests']} leaf-row tests -> "
-        f"{w['flops']:.4e} flops, {n_bytes:.4e} bytes, bound {res['bound_ms']:.4f} ms by "
-        f"{res['bound_by']}")
+        f"{w['box_tests']} box tests, {w['leaf_row_tests']} leaf-row tests, "
+        f"{w['leaves_entered']} of {bvh.n_leaves} leaves entered -> {w['flops']:.4e} flops, "
+        f"{n_bytes:.4e} bytes, bound {res['bound_ms']:.4f} ms by {res['bound_by']}")
     return res
 
 
@@ -567,8 +609,6 @@ def phase_fur_kernels(scene, cam, cfg, dev) -> dict:
 def phase_fur_main_path(scene, cam, cfg, dev) -> dict:
     """render_image of config 4 through the kernels: launch counts, the
     image, rays/s, and the spp-1 image against the plain path's."""
-    import dataclasses
-
     from ba_pathtracing_fur_torch.core import rng
     from ba_pathtracing_fur_torch.utils import film
 
@@ -579,9 +619,7 @@ def phase_fur_main_path(scene, cam, cfg, dev) -> dict:
     want = cfg.spp * cfg.depth
     log(f"config4: launches {counts} (expected traverse {2 * want} = spp x depth x "
         f"(closest + shadow), shade {want}, no plain calls)")
-    if counts != dict(full_bounce=0, full_bounce_ref=0, shade=want, shade_ref=0,
-                      traverse=2 * want, traverse_ref=0):
-        raise AssertionError("config4: the main path did not run on the kernels alone")
+    check_counts(counts, "config4", shade=want, traverse=2 * want)
     w, h = cam.resolution
     a = check_image(img, (h, w, 3), "config4")
     OUT_DIR.mkdir(exist_ok=True)
@@ -624,8 +662,6 @@ def phase_tri_bvh(dev) -> dict:
     rendered through the traversal and shade kernels and held against the
     full-bounce render of the same box. Off it: a soup of random triangles
     against the plain version, reported under its own name."""
-    import dataclasses
-
     from ba_pathtracing_fur_torch.core import rng
     from ba_pathtracing_fur_torch.ops import traverse
     from ba_pathtracing_fur_torch.ops.cuda import traverse as ctraverse
@@ -657,9 +693,7 @@ def phase_tri_bvh(dev) -> dict:
     want = cfg.spp * cfg.depth
     log(f"cornell with a triangle BVH ({bvh.n_leaves} leaves x {bvh.leaf_size}): "
         f"launches {counts}")
-    if counts != dict(full_bounce=0, full_bounce_ref=0, shade=want, shade_ref=0,
-                      traverse=2 * want, traverse_ref=0):
-        raise AssertionError("cornell tri BVH: the main path did not run on the kernels alone")
+    check_counts(counts, "cornell tri BVH", shade=want, traverse=2 * want)
     w, h = c["res"]
     a = check_image(img, (h, w, 3), "cornell tri BVH")
     ref = check_image(render(scene, cam, key, cfg), (h, w, 3), "cornell full bounce")
@@ -690,6 +724,300 @@ def phase_tri_bvh(dev) -> dict:
     return dict(launches=counts["traverse"], max_abs_err=max(x["max_abs_err"] for x in checks),
                 ms=times["ms"], plain_ms=times["plain_ms"], bound_ms=b["bound_ms"],
                 bound_by=b["bound_by"], soup=soup_res)
+
+
+def hair_ball_scene(dev):
+    """Config 5 through the entry points: the 1M fibers generated on the
+    card and the device median build of their cone BVH (the 768 scalp
+    triangles stay BVH-less: K5 takes them)."""
+    from ba_pathtracing_fur_torch.models import pathtracer as pt
+    from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.scene import builtins
+
+    c = CONFIG5
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scene, cam = builtins.hair_ball(resolution=c["res"], n_fibers=c["n_fibers"],
+                                    on_device=True, device=dev)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    n_cones = scene.cones.count
+    t0 = time.perf_counter()
+    scene = traverse.attach_bvh(scene, method="median")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    b, stats = scene.cone_bvh, traverse.LAST_BUILD_STATS["cone"]
+    log(f"config5: {n_cones} cones generated on the card in {gen_s:.3f} s; cone "
+        f"BVH {b.n_leaves} leaves x {b.leaf_size}, fanout {b.fanout}, built on the "
+        f"card in {build_s:.3f} s (aabb {stats['aabb']:.3f}, split "
+        f"{stats['split']:.3f}, reorder + pack {stats['reorder_pack']:.3f}, layouts "
+        f"{stats['layouts']:.3f} s); {scene.tris.count} scalp triangles without a BVH; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if (n_cones, (b.n_leaves, b.leaf_size, b.fanout)) != (9 * c["n_fibers"], c["bvh"]) \
+            or scene.tri_bvh is not None or b.perm.device != scene.cones.base.device:
+        raise AssertionError("config5: unexpected scene or BVH")
+    cfg = pt.RenderConfig(depth=c["depth"], spp=c["spp"], compact=False, fused_shading=True)
+    return scene, cam, cfg, dict(gen_s=gen_s, build_s=build_s, stages=stats)
+
+
+def spread(n: int, k: int, dev) -> torch.Tensor:
+    """k ray indices spread evenly over a wavefront of n."""
+    return torch.arange(k, device=dev) * (n // k)
+
+
+def compare_stream(o, d, t_max, bvh, any_hit, what) -> dict:
+    """K3 against its brute-force twin on TWIN_RAYS rays of the wavefront
+    (found and t bit for bit, and closest-hit rows) and against K2 on the
+    same BVH over the whole wavefront (found bit for bit; closest-hit rows
+    equal except where the two t are equal: K2 keeps the first of equal t
+    in its own visiting order, K3 and the twin the lowest row)."""
+    from ba_pathtracing_fur_torch.ops.cuda import stream as cstream, traverse as ctraverse
+
+    kind = "cone"
+    t3, r3, f3 = cstream.traverse_stream(o, d, t_max, bvh, kind, any_hit=any_hit)
+    t2, r2, f2 = ctraverse.traverse(o, d, t_max, dataclasses.replace(bvh, fanout=0), kind,
+                                    any_hit=any_hit)
+    sub = spread(o.shape[0], TWIN_RAYS, o.device)
+    t0, r0, f0 = cstream.traverse_stream_ref(o[sub], d[sub], t_max[sub], bvh, kind,
+                                             any_hit=any_hit)
+    torch.cuda.synchronize()
+    twin = dict(found=int((f0 != f3[sub]).sum()), t=int((t0 != t3[sub]).sum()))
+    if not any_hit:  # an any hit's row is whichever accepted row came first
+        twin["rows"] = int((r0 != r3[sub]).sum())
+    k2_found = int((f2 != f3).sum())
+    k2_rows = (f2 & (r2 != r3)) if not any_hit else torch.zeros_like(f2)
+    ties = int((k2_rows & (t2 == t3)).sum())
+    k2_non_tie = int(k2_rows.sum()) - ties
+    err = float((t0 - t3[sub]).abs().max())
+    log(f"traverse_stream cone {'any' if any_hit else 'closest'} hit, {what}: {o.shape[0]} "
+        f"rays, found {int(f3.sum())}; vs twin on {TWIN_RAYS} rays (found {int(f0.sum())}): "
+        f"found/row/t mismatches {twin}; vs traverse (K2) on all rays: found mismatches "
+        f"{k2_found}, row mismatches {k2_non_tie} (+ {ties} at equal t)")
+    if any(twin.values()) or k2_found or k2_non_tie:
+        raise AssertionError(f"traverse_stream {what}: kernel disagrees")
+    return dict(max_abs_err=err, k2_row_ties=ties, t=t3, row=r3, found=f3)
+
+
+def stream_bound(o, d, t_max, bvh, any_hit, t, row, found) -> dict:
+    """K3's bound on this wavefront: the tests `work_ref` counts on WORK_RAYS
+    rays spread over it (from K3's own hits, held to the twin above),
+    scaled to the whole wavefront; the rays, boxes and tables read once,
+    the distinct leaves the sampled rays enter read once (a lower count of
+    the whole wavefront's), (t, row, found) written once."""
+    from ba_pathtracing_fur_torch.ops.cuda import traverse as ctraverse
+
+    r = o.shape[0]
+    sub = spread(r, WORK_RAYS, o.device)
+    w = ctraverse.work_ref(o[sub], d[sub], t_max[sub], bvh, "cone", any_hit=any_hit,
+                           hit=(t[sub], row[sub], found[sub]))
+    scale = r / WORK_RAYS
+    n_bytes = nbytes(o, d, t_max, bvh.bmin, bvh.bmax, bvh.sboxes, bvh.cboxes) \
+        + w["leaf_bytes"] + r * 9
+    res = bound(w["flops"] * scale, n_bytes)
+    log(f"traverse_stream cone {'any' if any_hit else 'closest'} work on {WORK_RAYS} of {r} "
+        f"rays: {w['box_tests']} box tests, {w['leaf_row_tests']} leaf-row tests "
+        f"({w['leaf_row_tests'] / WORK_RAYS:.1f} a ray), {w['leaves_entered']} of "
+        f"{bvh.n_leaves} leaves entered ({w['leaf_bytes']:.4e} bytes) -> x{scale:.1f} = "
+        f"{res['flops']:.4e} flops, {n_bytes:.4e} bytes, bound {res['bound_ms']:.4f} ms by "
+        f"{res['bound_by']}")
+    return dict(res, row_tests_per_ray=w["leaf_row_tests"] / WORK_RAYS,
+                leaves_entered=w["leaves_entered"])
+
+
+def brute_bound(o, t_max, packed, kind) -> dict:
+    """K5's bound: every live ray tests every primitive (PAIR_FLOPS each);
+    rays, t_max and the pack read once, (t, idx) written once."""
+    from ba_pathtracing_fur_torch.ops.cuda import intersect as cisect
+
+    pairs = int((t_max > 0).sum()) * packed.shape[1]
+    res = bound(pairs * cisect.PAIR_FLOPS[kind], nbytes(o, o, t_max, packed) + o.shape[0] * 8)
+    log(f"bruteforce {kind} work: {pairs} pairs x {cisect.PAIR_FLOPS[kind]} flops -> "
+        f"{res['flops']:.4e} flops, {res['bytes']:.4e} bytes, bound {res['bound_ms']:.4f} ms "
+        f"by {res['bound_by']}")
+    return dict(res, pairs=pairs)
+
+
+def compare_brute(o, d, t_max, packed, kind, what) -> float:
+    """K5 against its twin on the same CUDA inputs: t and index bit for bit."""
+    from ba_pathtracing_fur_torch.ops.cuda import intersect as cisect
+
+    t1, i1 = cisect.closest(o, d, t_max, packed, kind)
+    t0, i0 = cisect.closest_ref(o, d, t_max, packed, kind)
+    torch.cuda.synchronize()
+    bad_t, bad_i = int((t0 != t1).sum()), int((i0 != i1).sum())
+    log(f"bruteforce {kind} vs plain, {what}: {o.shape[0]} rays x {packed.shape[1]} "
+        f"primitives, hits {int((i1 >= 0).sum())}, t mismatches {bad_t}, index mismatches "
+        f"{bad_i}")
+    if bad_t or bad_i:
+        raise AssertionError(f"bruteforce {kind} {what}: kernel disagrees with plain")
+    return float((t0 - t1).abs().max())
+
+
+def phase_hairball_kernels(scene, cam, cfg, dev) -> dict:
+    """Bounces 0-1 of config 5 through the kernels: K3 (closest hit on the
+    wavefront, any hit on its shadow rays) against its twin and K2, timed
+    beside K2 and bounded; K5 on the camera wavefront against the scalp,
+    against its twin, timed and bounded."""
+    from ba_pathtracing_fur_torch.core import rng
+    from ba_pathtracing_fur_torch.models import pathtracer as pt
+    from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.ops.cuda import intersect as cisect, shade as cshade, \
+        stream as cstream, traverse as ctraverse
+
+    bvh = scene.cone_bvh
+    flat = dataclasses.replace(bvh, fanout=0)
+    tables = pt.BounceTables.of(scene)
+    ids = torch.arange(cam.resolution[0] * cam.resolution[1], device=dev)
+    state, keys = pt.camera_wavefront(cam, ids, rng.key(0, dev), [0], cfg)
+    out = {}
+    for bounce in range(2):
+        alive = (state.radiance != 0.0).any(-1) & (state.direction != 0.0).any(-1)
+        t_cap = torch.where(alive, traverse.INF, 0.0)
+        o, d = state.origin, state.direction
+        what = "camera wavefront" if bounce == 0 else "bounce-1 wavefront"
+        closest = compare_stream(o, d, t_cap, bvh, False, what)
+        hit = traverse.closest_hit(o, d, scene, t_max=t_cap)
+        kw = pt.shade_inputs(state, scene, keys, bounce, cfg, hit, tables)
+        sh = cshade.shade_bounce(**kw)
+        so, sd, st_max = sh["shadow_o"], sh["shadow_d"], sh["shadow_tmax"]
+        shadow = compare_stream(so, sd, st_max, bvh, True, f"bounce-{bounce} shadow rays")
+        sub = spread(o.shape[0], TWIN_RAYS, dev)
+        times = dict(
+            closest_ms=timed(lambda: cstream.traverse_stream(o, d, t_cap, bvh, "cone"), 3),
+            closest_k2_ms=timed(lambda: ctraverse.traverse(o, d, t_cap, flat, "cone"), 3),
+            any_ms=timed(lambda: cstream.traverse_stream(so, sd, st_max, bvh, "cone",
+                                                         any_hit=True), 3),
+            any_k2_ms=timed(lambda: ctraverse.traverse(so, sd, st_max, flat, "cone",
+                                                       any_hit=True), 3))
+        if bounce == 0:
+            times["closest_plain_ms"] = timed(lambda: cstream.traverse_stream_ref(
+                o[sub], d[sub], t_cap[sub], bvh, "cone"), 1)
+        log(f"config5 bounce {bounce} K3 and K2 times ({o.shape[0]} rays; plain on "
+            f"{TWIN_RAYS}): " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+        out[bounce] = dict(
+            times=times, closest=closest, shadow=shadow, alive=int(alive.sum()),
+            closest_bound=stream_bound(o, d, t_cap, bvh, False, closest["t"], closest["row"],
+                                       closest["found"]),
+            any_bound=stream_bound(so, sd, st_max, bvh, True, shadow["t"], shadow["row"],
+                                   shadow["found"]))
+        if bounce == 0:
+            packed = cisect.pack_cm(scene.tris, "tri")
+            err = compare_brute(o, d, t_cap, packed, "tri", "config5 camera wavefront")
+            out["k5_tri"] = dict(
+                max_abs_err=err, bound=brute_bound(o, t_cap, packed, "tri"),
+                ms=timed(lambda: cisect.closest(o, d, t_cap, packed, "tri"), 20),
+                plain_ms=timed(lambda: cisect.closest_ref(o, d, t_cap, packed, "tri"), 2))
+            log(f"bruteforce tri, config5 camera wavefront: kernel "
+                f"{out['k5_tri']['ms']:.4f} ms, plain {out['k5_tri']['plain_ms']:.3f} ms")
+        blocked = traverse.any_hit(so, sd, scene, st_max)
+        color = sh["color"] + torch.where(blocked[:, None], 0.0, sh["direct_rgb"])
+        state = pt.RayState(origin=sh["origin"], direction=sh["direction"],
+                            radiance=sh["radiance"], color=color, flags=sh["flags"],
+                            theta_i=sh["theta_i"], prev_pdf=sh["prev_pdf"])
+    return out
+
+
+def phase_hairball_main_path(scene, cam, cfg, dev) -> dict:
+    """render_image of config 5 through the kernels: launch counts, the
+    image, rays/s (median of TIMED_REPS), peak device memory."""
+    from ba_pathtracing_fur_torch.core import rng
+    from ba_pathtracing_fur_torch.utils import film
+
+    key = rng.key(0, dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    img = render(scene, cam, key, cfg)
+    counts = read_counts()
+    want = cfg.spp * cfg.depth
+    log(f"config5: launches {counts} (expected stream and bruteforce_tri {2 * want} = spp x "
+        f"depth x (closest + shadow), shade {want}, no plain calls)")
+    check_counts(counts, "config5", shade=want, stream=2 * want, bruteforce_tri=2 * want)
+    w, h = cam.resolution
+    a = check_image(img, (h, w, 3), "config5")
+    log(f"config5 image: finite, max {a.max():.4f}, mean {a.mean():.5f}, std {a.std():.5f}; "
+        f"peak device memory of the render {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    OUT_DIR.mkdir(exist_ok=True)
+    film.write_png(OUT_DIR / "smoke_hair_ball.png", a)
+    times = phase_timing(scene, cam, key, cfg, name="config5", with_plain=False)
+    return dict(counts=counts, times=times)
+
+
+def phase_bruteforce_cone(dev) -> dict:
+    """K5's cone variant on a user path: config 4's fur patch without a BVH
+    (262,144 rays x 45,000 cones a call). Held against its twin on
+    K5_CONE_RAYS camera rays, timed and bounded on the whole wavefront;
+    then rendered through the kernels at spp 1 and gated against the render
+    of the same patch with a cone BVH (K2)."""
+    from ba_pathtracing_fur_torch.core import rng
+    from ba_pathtracing_fur_torch.models import pathtracer as pt
+    from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.ops.cuda import intersect as cisect
+    from ba_pathtracing_fur_torch.scene import builtins
+
+    scene, cam = builtins.fur_patch(resolution=CONFIG4["res"],
+                                    fibers_per_face=CONFIG4["fibers_per_face"], device=dev)
+    cfg = pt.RenderConfig(depth=CONFIG4["depth"], spp=1, compact=False, fused_shading=True)
+    ids = torch.arange(cam.resolution[0] * cam.resolution[1], device=dev)
+    state, _ = pt.camera_wavefront(cam, ids, rng.key(0, dev), [0], cfg)
+    o, d = state.origin, state.direction
+    t_cap = torch.full((o.shape[0],), traverse.INF, device=dev)
+    packed = cisect.pack_cm(scene.cones, "cone")
+    sub = spread(o.shape[0], K5_CONE_RAYS, dev)
+    os_, ds_, ts_ = o[sub].contiguous(), d[sub].contiguous(), t_cap[sub].contiguous()
+    err = compare_brute(os_, ds_, ts_, packed, "cone", "fur patch camera rays")
+    res = dict(max_abs_err=err, bound=brute_bound(o, t_cap, packed, "cone"),
+               ms=timed(lambda: cisect.closest(o, d, t_cap, packed, "cone"), 3),
+               sub_ms=timed(lambda: cisect.closest(os_, ds_, ts_, packed, "cone"), 10),
+               plain_ms=timed(lambda: cisect.closest_ref(os_, ds_, ts_, packed, "cone"), 1))
+    log(f"bruteforce cone, fur patch: kernel {res['ms']:.4f} ms on {o.shape[0]} rays, "
+        f"{res['sub_ms']:.4f} ms on {K5_CONE_RAYS}; plain {res['plain_ms']:.3f} ms on "
+        f"{K5_CONE_RAYS}")
+    key = rng.key(0, dev)
+    shape = (cam.resolution[1], cam.resolution[0], 3)
+    reset_counts()
+    a = check_image(render(scene, cam, key, cfg), shape, "fur patch without a BVH")
+    counts = read_counts()
+    want = cfg.spp * cfg.depth
+    log(f"fur patch without a BVH: launches {counts}")
+    check_counts(counts, "fur patch without a BVH", shade=want, bruteforce_cone=2 * want)
+    b = check_image(render(traverse.attach_bvh(scene), cam, key, cfg), shape,
+                    "fur patch with a BVH")
+    res["gate"] = image_gate(b, a, "fur patch spp 1: BVH-less (K5) vs BVH (K2) image")
+    res["launches"] = counts["bruteforce_cone"]
+    return res
+
+
+def phase_mid_hairball(dev) -> dict:
+    """A mid-size hair ball with a two-level cone BVH (so K3 runs) through
+    the kernels and through their plain versions, under the image gate."""
+    from ba_pathtracing_fur_torch.core import rng
+    from ba_pathtracing_fur_torch.models import pathtracer as pt
+    from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.scene import builtins
+
+    c = MID_HAIRBALL
+    scene, cam = builtins.hair_ball(resolution=c["res"], n_fibers=c["n_fibers"],
+                                    on_device=True, device=dev)
+    scene = traverse.attach_bvh(scene, method="median", fanout=64)
+    b = scene.cone_bvh
+    if not 0 < b.fanout < b.n_leaves:
+        raise AssertionError(f"mid hair ball: the BVH of {b.n_leaves} leaves is not two-level")
+    cfg = pt.RenderConfig(depth=c["depth"], spp=c["spp"], compact=False, fused_shading=True)
+    key = rng.key(0, dev)
+    w, h = c["res"]
+    reset_counts()
+    a = check_image(render(scene, cam, key, cfg), (h, w, 3), "mid hair ball")
+    counts = read_counts()
+    want = cfg.spp * cfg.depth
+    log(f"mid hair ball ({scene.cones.count} cones, BVH {b.n_leaves} leaves x {b.leaf_size}, "
+        f"fanout {b.fanout}, {w}x{h}): launches {counts}")
+    check_counts(counts, "mid hair ball", shade=want, stream=2 * want, bruteforce_tri=2 * want)
+    t0 = time.perf_counter()
+    with plain_bounces():
+        p = check_image(render(scene, cam, key, cfg), (h, w, 3), "mid hair ball plain")
+    log(f"mid hair ball render via plain: {time.perf_counter() - t0:.2f} s")
+    return image_gate(p, a, "mid hair ball spp 1: kernels vs plain image")
 
 
 def main() -> int:
@@ -743,8 +1071,22 @@ def main() -> int:
         f"on {card}")
     tri = phase_tri_bvh(dev)
 
+    scene5, cam5, cfg5, build5 = hair_ball_scene(dev)
+    hb = phase_hairball_kernels(scene5, cam5, cfg5, dev)
+    hb_main = phase_hairball_main_path(scene5, cam5, cfg5, dev)
+    phase_profile(scene5, cam5, rng.key(0, dev), cfg5, name="config-5",
+                  marks=("stream_kernel", "brute_kernel", "shade_kernel"))
+    rays5 = cam5.resolution[0] * cam5.resolution[1] * cfg5.spp * cfg5.depth
+    log(f"config5 end to end: kernel path {hb_main['times']['kernel']:.4f} s = "
+        f"{rays5 / hb_main['times']['kernel']:.4e} rays/s, generation {build5['gen_s']:.3f} s, "
+        f"BVH build {build5['build_s']:.3f} s, on {card}")
+    del scene5
+    k5_cone = phase_bruteforce_cone(dev)
+    phase_mid_hairball(dev)
+
     t0 = fur[0]["times"]
     b0 = fur[0]["closest_bound"]
+    h0, k5t = hb[0], hb["k5_tri"]
     kernels_line = [
         dict(name="full_bounce", route="cuda",
              source="ba_pathtracing_fur_torch/csrc/full_bounce.cu",
@@ -773,6 +1115,31 @@ def main() -> int:
              ms=t0["shade_ms"],
              plain_ms=t0["shade_plain_ms"], bound_ms=fur["shade_bound"]["bound_ms"],
              bound_by=fur["shade_bound"]["bound_by"], library_ms=None),
+        dict(name="traverse_stream_cone", route="cuda",
+             source="ba_pathtracing_fur_torch/csrc/traverse_stream.cu",
+             replaces="ba_pathtracing_fur_tpu/ops/pallas/stream.py:464",
+             launches=hb_main["counts"]["stream"],
+             max_abs_err=max(hb[b][k]["max_abs_err"] for b in (0, 1)
+                             for k in ("closest", "shadow")),
+             ms=h0["times"]["closest_ms"], plain_ms=h0["times"]["closest_plain_ms"],
+             plain_rays=TWIN_RAYS, bound_ms=h0["closest_bound"]["bound_ms"],
+             bound_by=h0["closest_bound"]["bound_by"], library_ms=None,
+             k2_ms=h0["times"]["closest_k2_ms"], any_ms=h0["times"]["any_ms"],
+             any_k2_ms=h0["times"]["any_k2_ms"], any_bound_ms=h0["any_bound"]["bound_ms"],
+             any_bound_by=h0["any_bound"]["bound_by"]),
+        dict(name="bruteforce_tri", route="cuda",
+             source="ba_pathtracing_fur_torch/csrc/bruteforce.cu",
+             replaces="ba_pathtracing_fur_tpu/ops/pallas/intersect.py:220",
+             launches=hb_main["counts"]["bruteforce_tri"], max_abs_err=k5t["max_abs_err"],
+             ms=k5t["ms"], plain_ms=k5t["plain_ms"], bound_ms=k5t["bound"]["bound_ms"],
+             bound_by=k5t["bound"]["bound_by"], library_ms=None),
+        dict(name="bruteforce_cone", route="cuda",
+             source="ba_pathtracing_fur_torch/csrc/bruteforce.cu",
+             replaces="ba_pathtracing_fur_tpu/ops/pallas/intersect.py:220",
+             launches=k5_cone["launches"], max_abs_err=k5_cone["max_abs_err"],
+             ms=k5_cone["ms"], plain_ms=k5_cone["plain_ms"], plain_rays=K5_CONE_RAYS,
+             sub_ms=k5_cone["sub_ms"], bound_ms=k5_cone["bound"]["bound_ms"],
+             bound_by=k5_cone["bound"]["bound_by"], library_ms=None),
     ]
     log(card)
     log(json.dumps({"kernels": kernels_line}))

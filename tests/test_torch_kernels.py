@@ -44,13 +44,16 @@ def test_device_without_kernel_raises():
 
 def test_nvcc_command_targets_hopper_without_fast_math(tmp_path):
     srcs = kernels.sources()
-    assert [s.name for s in srcs] == ["full_bounce.cu", "shade.cu", "traverse.cu"]
+    assert [s.name for s in srcs] == ["bruteforce.cu", "full_bounce.cu", "shade.cu",
+                                      "traverse.cu", "traverse_stream.cu"]
     for src in srcs:  # one nvcc per source, each into its own library
         cmd = kernels.build_command(src, tmp_path / f"lib{src.stem}.so")
         assert "arch=compute_90a,code=sm_90a" in cmd and "-O3" in cmd
         assert not any("fast_math" in c or "fast-math" in c for c in cmd)
         assert [Path(c).name for c in cmd if c.endswith(".cu")] == [src.name]
-        assert ("-fmad=false" in cmd) == (src.name == "traverse.cu")
+        # the ray-primitive tests round as their twins: no FMA contraction
+        assert ("-fmad=false" in cmd) == (src.name in ("bruteforce.cu", "traverse.cu",
+                                                         "traverse_stream.cu"))
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):
@@ -302,19 +305,111 @@ def test_shade_kernel_takes_a_per_ray_environment_on_the_card():
 
 
 @pytest.mark.cuda
-def test_large_bvh_less_pack_raises_on_the_card():
-    """On the card a BVH-less pack of 2^24 or more ray-primitive pairs needs
-    the unported brute-force kernel (K5): closest and any hit raise."""
+@pytest.mark.parametrize("kind", ["cone", "tri"])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_stream_kernel_matches_plain_on_the_card(kind, any_hit):
+    """K3 against its brute-force twin and against K2 on the same two-level
+    BVH: the same found rays and, on closest hits, the same rows and t, bit
+    for bit (all three evaluate the leaf tests without FMA contraction)."""
+    import dataclasses
+
     from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.ops.cuda import stream as cstream, traverse as ctraverse
+    from ba_pathtracing_fur_torch.scene import types
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card with -m cuda)")
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(2)
+    if kind == "cone":
+        scene, _ = builtins.hair_ball(resolution=(4, 4), n_fibers=3000, on_device=True,
+                                      device=dev)
+        bvh = traverse.attach_bvh(scene, leaf_size=24, fanout=16).cone_bvh
+        o = (torch.rand((4096, 3), generator=g) * 3 - 1.5).to(dev)
+        d = torch.nn.functional.normalize(torch.randn((4096, 3), generator=g), dim=-1).to(dev)
+    else:
+        v = torch.rand((20000, 3, 3), generator=g) * 2 - 1
+        v[:, 1:] = v[:, :1] + 0.05 * v[:, 1:]
+        soup = types.make_triangle_pack(v[:, 0].numpy(), v[:, 1].numpy(), v[:, 2].numpy())
+        scene, _ = builtins.cornell_box(resolution=(4, 4), device="cpu")
+        scene = types.to_device(dataclasses.replace(scene, tris=soup), dev)
+        bvh = traverse.attach_bvh(scene, leaf_size=16, fanout=8, min_prims=1).tri_bvh
+        o = (torch.rand((4096, 3), generator=g) * 4 - 2).to(dev)
+        d = torch.nn.functional.normalize(torch.randn((4096, 3), generator=g), dim=-1).to(dev)
+    assert 0 < bvh.fanout < bvh.n_leaves and bvh.cboxes is not None
+    t_max = torch.full((o.shape[0],), 1.0 if any_hit else 3.4e38, device=dev)
+    t_max[::9] = 0.0
+    launches = cstream.KERNEL_LAUNCHES
+    t1, r1, f1 = cstream.traverse_stream(o, d, t_max, bvh, kind, any_hit=any_hit)
+    assert cstream.KERNEL_LAUNCHES == launches + 1
+    t0, r0, f0 = cstream.traverse_stream_ref(o, d, t_max, bvh, kind, any_hit=any_hit)
+    t2, r2, f2 = ctraverse.traverse(o, d, t_max, dataclasses.replace(bvh, fanout=0), kind,
+                                    any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert torch.equal(f0, f1) and torch.equal(f2, f1) and f0.any() and not f0.all()
+    if any_hit:
+        assert (t1[f1] == 0).all() and torch.equal(t1[~f1], t_max[~f1])
+    else:
+        assert torch.equal(r0, r1) and torch.equal(t0, t1)
+        tie = f2 & (r2 != r1)  # K2 keeps the first of equal t in its own order
+        assert torch.equal(t2[tie], t1[tie])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["tri", "cone"])
+def test_bruteforce_kernel_matches_plain_on_the_card(kind):
+    """K5 against its twin: t and index bit for bit, dead rays missed."""
+    from ba_pathtracing_fur_torch.ops.cuda import intersect as cisect
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card with -m cuda)")
+    dev = torch.device("cuda")
+    if kind == "tri":
+        scene, _ = builtins.hair_ball(resolution=(4, 4), n_fibers=10, device=dev)
+        pack = scene.tris
+    else:
+        scene, _ = builtins.fur_patch(resolution=(4, 4), fibers_per_face=300, device=dev)
+        pack = scene.cones
+    g = torch.Generator().manual_seed(3)
+    o = (torch.rand((5000, 3), generator=g) * 2 - 1).to(dev) + torch.tensor([0.0, 0.6, 0.0],
+                                                                            device=dev)
+    d = torch.nn.functional.normalize(torch.randn((5000, 3), generator=g), dim=-1).to(dev)
+    t_max = torch.full((5000,), 3.4e38, device=dev)
+    t_max[::13] = 0.0
+    packed = cisect.pack_cm(pack, kind)
+    launches = cisect.TRI_LAUNCHES + cisect.CONE_LAUNCHES
+    t1, i1 = cisect.closest(o, d, t_max, packed, kind)
+    assert cisect.TRI_LAUNCHES + cisect.CONE_LAUNCHES == launches + 1
+    t0, i0 = cisect.closest_ref(o, d, t_max, packed, kind)
+    torch.cuda.synchronize()
+    assert torch.equal(t0, t1) and torch.equal(i0, i1) and (i1 >= 0).any()
+    assert (i1[::13] == -1).all()
+
+
+@pytest.mark.cuda
+def test_large_bvh_less_pack_runs_k5_on_the_card():
+    """On the card a BVH-less pack of 2^24 or more ray-primitive pairs goes
+    through the brute-force kernel (K5): closest and any hit launch it and
+    agree with the CPU twin's dispatch."""
+    from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.ops.cuda import intersect as cisect
+    from ba_pathtracing_fur_torch.scene import types
 
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (run on the card with -m cuda)")
     dev = torch.device("cuda")
     scene, _ = builtins.fur_patch(resolution=(4, 4), fibers_per_face=2000, device=dev)
     r = -(-(1 << 24) // scene.cones.count)
-    o = torch.zeros((r, 3), device=dev)
-    d = torch.tensor([0.0, -1.0, 0.0], device=dev).expand(r, 3).contiguous()
-    with pytest.raises(NotImplementedError, match="K5"):
-        traverse.closest_hit(o, d, scene)
-    with pytest.raises(NotImplementedError, match="K5"):
-        traverse.any_hit(o, d, scene, 1.0)
+    g = torch.Generator().manual_seed(4)
+    o = (torch.rand((r, 3), generator=g) - 0.5) * torch.tensor([1.0, 0.0, 1.0]) \
+        + torch.tensor([0.0, 0.3, 0.0])
+    d = torch.nn.functional.normalize(torch.randn((r, 3), generator=g) * 0.3
+                                      + torch.tensor([0.0, -1.0, 0.0]), dim=-1)
+    launches = cisect.CONE_LAUNCHES
+    hit = traverse.closest_hit(o.to(dev), d.to(dev), scene)
+    blocked = traverse.any_hit(o.to(dev), d.to(dev), scene, 0.2)
+    assert cisect.CONE_LAUNCHES == launches + 2
+    cpu_scene = types.to_device(scene, "cpu")
+    want = traverse.closest_hit(o, d, cpu_scene)
+    assert torch.equal(hit.prim_id.cpu(), want.prim_id) and hit.valid.any()
+    assert torch.equal(blocked.cpu(), traverse.any_hit(o, d, cpu_scene, 0.2))
