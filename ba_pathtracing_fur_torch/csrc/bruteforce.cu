@@ -26,43 +26,24 @@
 // built with -fmad=false (kernels/__init__.py SOURCE_FLAGS) so t and the
 // index agree bit for bit with the plain twin (ops/cuda/intersect.py).
 
-#include <cuda_runtime.h>
+#include "leaf_tests.cuh"
 
 namespace {
 
-constexpr float INF = 3.4e38f;
-constexpr float TRI_EPS = 1.1920929e-7f;
+using fur::INF;
+using fur::Ray;
 constexpr int BLOCK = 128;
 constexpr int TILE = 256;
 
-struct Ray {
-  float ox, oy, oz, dx, dy, dz;
-};
-
-// _tri_kernel's test of one primitive in column k of a [9, TILE] tile.
-__device__ __forceinline__ float tri_test(const Ray& r, const float* p, int k,
-                                          float t_min) {
-  float v0x = p[0 * TILE + k], v0y = p[1 * TILE + k], v0z = p[2 * TILE + k];
-  float e1x = p[3 * TILE + k], e1y = p[4 * TILE + k], e1z = p[5 * TILE + k];
-  float e2x = p[6 * TILE + k], e2y = p[7 * TILE + k], e2z = p[8 * TILE + k];
-  float px = r.dy * e2z - r.dz * e2y;
-  float py = r.dz * e2x - r.dx * e2z;
-  float pz = r.dx * e2y - r.dy * e2x;
-  float det = e1x * px + e1y * py + e1z * pz;
-  if (fabsf(det) < TRI_EPS) return INF;
-  float inv_det = 1.0f / det;
-  float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
-  float u = (tx * px + ty * py + tz * pz) * inv_det;
-  float qx = ty * e1z - tz * e1y;
-  float qy = tz * e1x - tx * e1z;
-  float qz = tx * e1y - ty * e1x;
-  float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-  float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-  bool ok = u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f && t > t_min;
-  return ok ? t : INF;
+// _tri_kernel's test of one primitive in column k of a [9, TILE] tile: the
+// shared Möller-Trumbore row with no cap (a t at or beyond INF never wins).
+__device__ __forceinline__ float tri_test(const Ray& r, const float* p, int k, float t_min) {
+  return fur::tri_row(r, p + k, TILE, t_min, INF);
 }
 
-// _cone_kernel's test of one primitive in column k of a [16, TILE] tile.
+// _cone_kernel's test of one primitive in column k of a [16, TILE] tile. It
+// sums o.v in the order x, y, z (the Pallas kernel's), where the traversal
+// twins' fur::cone_row sums y, x, z, so it keeps its own arithmetic.
 __device__ __forceinline__ float cone_test(const Ray& r, const float* p, int k,
                                            float t_min) {
   float bx = p[0 * TILE + k], by = p[1 * TILE + k], bz = p[2 * TILE + k];

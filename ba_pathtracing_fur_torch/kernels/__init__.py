@@ -55,12 +55,13 @@ SIGNATURES = {
         + [_C_VOID_P] * 7                      # outputs
         + [_C_VOID_P])),                       # cudaStream_t
     "traverse_launch": ("traverse.cu", (
-        [_C_INT] + [_C_VOID_P] * 6             # n_rays, o d t_max bmin bmax packed
+        [_C_INT] + [_C_VOID_P] * 7             # n_rays, o d t_max bmin bmax packed uboxes
         + [_C_INT, _C_INT, _C_INT, _C_INT, _C_FLOAT]  # n_leaves leaf_k cone any_hit t_min
         + [_C_VOID_P] * 3                      # t row found
         + [_C_VOID_P])),                       # cudaStream_t
     "stream_launch": ("traverse_stream.cu", (
-        [_C_INT] + [_C_VOID_P] * 8             # n_rays, o d t_max bmin bmax sboxes cboxes packed
+        [_C_INT] + [_C_VOID_P] * 9             # n_rays, o d t_max bmin bmax sboxes cboxes
+                                               # packed uboxes
         + [_C_INT] * 5 + [_C_FLOAT]            # n_sup fanout leaf_k cone any_hit t_min
         + [_C_VOID_P] * 3                      # t row found
         + [_C_VOID_P])),                       # cudaStream_t

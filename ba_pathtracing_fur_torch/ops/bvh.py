@@ -33,6 +33,8 @@ from ..scene.types import ConePack, TrianglePack
 from .intersect import INF, TRI_EPS
 
 BIG = 3.0e37  # inverted-box fill of padding leaves
+#: rows of a leaf under one unit box (unit_boxes): a warp's width
+UNIT = 32
 
 
 @dataclasses.dataclass
@@ -55,6 +57,9 @@ class BVH:
     sboxes: Optional[torch.Tensor] = None
     cboxes: Optional[torch.Tensor] = None
     aos_rows: Optional[torch.Tensor] = None
+    # the boxes of each leaf's runs of UNIT rows [n_leaves, 6, U] (unit_boxes),
+    # which the traversal kernels test before a run's rows
+    uboxes: Optional[torch.Tensor] = None
 
     @property
     def depth(self) -> int:
@@ -63,6 +68,40 @@ class BVH:
 
 def _next_pow2(n: int) -> int:
     return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+
+# ---------------------------------------------------------------------------
+# Morton codes (the JAX package's uint32 arithmetic, in int64: every mask is
+# below 2^32, so `& mask` also takes the product modulo 2^32)
+# ---------------------------------------------------------------------------
+
+def _expand_bits_10(v: torch.Tensor) -> torch.Tensor:
+    """Spread the low 10 bits of v (int64, any shape) so they occupy every
+    3rd bit."""
+    v = (v * 0x00010001) & 0xFF0000FF
+    v = (v * 0x00000101) & 0x0F00F00F
+    v = (v * 0x00000011) & 0xC30C30C3
+    return (v * 0x00000005) & 0x49249249
+
+
+#: per device: [1024, 3] table of _expand_bits_10(i) << (2, 1, 0)
+_MORTON_LUT: dict = {}
+
+
+def morton_codes(points: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """30-bit 3D morton codes [N] (int32, as the JAX package's sort keys)
+    of points [N,3] normalized into [lo, hi]. The spread of each 10-bit
+    coordinate comes from a table, and the three spread words, whose bits
+    do not overlap, are summed: two launches where the bit arithmetic takes
+    twelve."""
+    lut = _MORTON_LUT.get(points.device)
+    if lut is None:
+        e = _expand_bits_10(torch.arange(1024, dtype=torch.int64))
+        lut = torch.stack([e << 2, e << 1, e], 1).to(device=points.device, dtype=torch.int32)
+        _MORTON_LUT[points.device] = lut
+    extent = torch.clamp(hi - lo, min=1e-12)
+    q = torch.clamp((points - lo) / extent, 0.0, 1.0 - 1e-7)
+    return lut.gather(0, (q * 1024.0).to(torch.int64)).sum(1, dtype=torch.int32)
 
 
 def _seg_ids(bounds: torch.Tensor, n: int) -> torch.Tensor:
@@ -142,6 +181,25 @@ def build_median(prim_bmin: torch.Tensor, prim_bmax: torch.Tensor,
     hmin, hmax = _finalize(perm, prim_bmin, prim_bmax, n_leaves, leaf_size)
     return BVH(bmin=hmin, bmax=hmax, perm=perm.to(torch.int32), packed=None,
                n_leaves=n_leaves, leaf_size=leaf_size)
+
+
+def unit_boxes(lo: torch.Tensor, hi: torch.Tensor, bvh: BVH) -> torch.Tensor:
+    """The boxes of each leaf's runs of UNIT rows, [n_leaves, 6, U] (lo xyz,
+    hi xyz; U = ceil(leaf_size / UNIT)), from the AABBs lo/hi [N, 3] of the
+    reordered pack's rows; padding rows and the rows past leaf_size in the
+    last run take inverted boxes."""
+    c, k = bvh.n_leaves, bvh.leaf_size
+    u = -(-k // UNIT)
+    keep = (bvh.perm >= 0)[:, None]
+
+    def runs(x, fill, reduce):
+        x = torch.where(keep, x, fill).reshape(c, k, 3)
+        x = torch.nn.functional.pad(x, (0, 0, 0, u * UNIT - k), value=fill)
+        return reduce(x.reshape(c, u, UNIT, 3), 2)
+
+    lo_u = runs(lo, BIG, lambda x, dim: x.amin(dim))
+    hi_u = runs(hi, -BIG, lambda x, dim: x.amax(dim))
+    return torch.cat([lo_u, hi_u], dim=2).permute(0, 2, 1).contiguous()
 
 
 def _take_padded(x: torch.Tensor, safe, keep, pad_val) -> torch.Tensor:

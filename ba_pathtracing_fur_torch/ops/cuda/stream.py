@@ -13,9 +13,13 @@ super-clusters, each the parent of `fanout` consecutive leaf clusters.
 to `traverse_stream_ref` (the brute force of `ops/cuda/traverse.py` over the
 same reordered pack: the lowest row among the nearest hits), CUDA tensors
 launch `csrc/traverse_stream.cu` or raise. `KERNEL_LAUNCHES` and
-`REF_CALLS` count which of the two ran. The kernel returns the twin's rows
-on every ray, exact t ties across clusters included: it keeps the lowest
-row among equal t and visits a node whose entry equals the best t.
+`REF_CALLS` count which of the two ran. The kernel (the leaf-tile core of
+`csrc/leaf_tiles.cuh`: a tile of 128 consecutive rays reads each leaf it
+enters once into shared memory) returns the twin's rows on every ray,
+exact t ties across clusters included: it keeps the lowest row among equal
+t and visits a node whose entry equals the best t. It is fastest on rays
+sorted by `ops/traverse._entry_morton_perms`, as `closest_hit`/`any_hit`
+feed it.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ import torch
 from .. import bvh as bvh_mod
 from . import traverse as ctraverse
 
-#: children per lane of the kernel's child-box registers (8) x warp width
+#: the largest fanout the kernel is held to its twin at (it tests the
+#: children of a super 64 at a time, so any power of two would run)
 MAX_FANOUT = 256
 
 KERNEL_LAUNCHES = 0
@@ -65,9 +70,9 @@ def _traverse_stream_cuda(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: boo
     dev = o.device
     r = o.shape[0]
     c, k, f = bvh.n_leaves, bvh.leaf_size, bvh.fanout
-    if not 0 < f < c or f > MAX_FANOUT:
-        raise ValueError(f"traverse_stream: needs 0 < fanout < n_leaves and fanout <= "
-                         f"{MAX_FANOUT}; got fanout {f} over {c} leaves")
+    if not 0 < f < c or f > MAX_FANOUT or f & (f - 1):
+        raise ValueError(f"traverse_stream: needs a power-of-two fanout with 0 < fanout < "
+                         f"n_leaves and fanout <= {MAX_FANOUT}; got fanout {f} over {c} leaves")
     s = c // f
     sboxes = bvh.sboxes if bvh.sboxes is not None else pack_super_boxes(bvh)
     cboxes = bvh.cboxes if bvh.cboxes is not None else pack_child_boxes(bvh)
@@ -76,7 +81,8 @@ def _traverse_stream_cuda(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: boo
             ("o", o, (r, 3), f32), ("d", d, (r, 3), f32), ("t_max", t_max, (r,), f32),
             ("bmin", bvh.bmin, (2 * c - 1, 3), f32), ("bmax", bvh.bmax, (2 * c - 1, 3), f32),
             ("sboxes", sboxes, (6, s), f32), ("cboxes", cboxes, (s, 6, f), f32),
-            ("packed", bvh.packed, (c, ctraverse.KINDS[kind], k), f32)):
+            ("packed", bvh.packed, (c, ctraverse.KINDS[kind], k), f32),
+            ("uboxes", bvh.uboxes, (c, 6, -(-k // bvh_mod.UNIT)), f32)):
         ctraverse._check(name, x, shape, dt, dev)
     t_out = torch.empty((r,), dtype=f32, device=dev)
     row_out = torch.empty((r,), dtype=torch.int32, device=dev)
@@ -84,7 +90,7 @@ def _traverse_stream_cuda(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: boo
     p = lambda x: ctypes.c_void_p(x.data_ptr())  # noqa: E731
     err = load_library().stream_launch(
         ctypes.c_int(r), p(o), p(d), p(t_max), p(bvh.bmin), p(bvh.bmax), p(sboxes), p(cboxes),
-        p(bvh.packed), ctypes.c_int(s), ctypes.c_int(f), ctypes.c_int(k),
+        p(bvh.packed), p(bvh.uboxes), ctypes.c_int(s), ctypes.c_int(f), ctypes.c_int(k),
         ctypes.c_int(int(kind == "cone")), ctypes.c_int(int(any_hit)), ctypes.c_float(t_min),
         p(t_out), p(row_out), p(found_out),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))

@@ -14,9 +14,10 @@ hit as t < t_max), CUDA tensors launch `csrc/traverse.cu` or raise.
 `KERNEL_LAUNCHES` and `REF_CALLS` count which of the two ran. `brute_force`
 is the plain twin of the streaming traversal (`ops/cuda/stream.py`) too.
 
-Row ties: the kernel visits clusters in its own near-to-far order, so its
-rows equal the twin's except on exact t ties across clusters (within a leaf
-the lowest index wins; across clusters the strictly smaller t does).
+Rows: the kernel (the leaf-tile core of `csrc/leaf_tiles.cuh` on the flat
+heap: a tile of 128 consecutive rays reads each leaf it enters once into
+shared memory) returns the lexicographic minimum (t, row), so its rows
+equal the twin's on every ray, exact t ties across clusters included.
 `work_ref` counts the box and leaf tests any near-to-far walk of the BVH
 must make for given rays: the measure of the kernel's bound.
 """
@@ -109,26 +110,43 @@ def _slab_entry(o, d, bmin, bmax, t_best):
     return torch.where(hit, torch.clamp(tnear, min=0.0), INF)
 
 
+def _units_entered(o, d, ub, t_best):
+    """Which unit boxes ub [P, 6, U] the rays o, d [P, 3] enter below t_best
+    [P] (the slab test of `_slab_entry`) -> [P, U] bool."""
+    eps = 1e-20
+    inv = (1.0 / torch.where(d.abs() < eps, torch.where(d < 0, -eps, eps), d))[:, :, None]
+    t0 = (ub[:, 0:3] - o[:, :, None]) * inv
+    t1 = (ub[:, 3:6] - o[:, :, None]) * inv
+    tnear = torch.minimum(t0, t1).amax(1)
+    tfar = torch.maximum(t0, t1).amin(1)
+    return (tnear <= tfar) & (tfar >= 0.0) & (tnear < t_best[:, None])
+
+
 def work_ref(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = False,
              t_min: float = 1e-4, hit=None) -> dict:
     """The tests that any near-to-far walk of this BVH, pruning a node when
     its entry is not below the best hit, must make for these rays: for each
     live ray (t_max > 0; a dead one tests nothing) the root box, both child
-    boxes of every inner node whose entry lies below the ray's final t, and
-    every row of every such leaf. For an any-hit ray that finds a hit the
-    need is one root-to-leaf path (2 depth + 1 boxes) and one row test. Returns totals over the rays (lower bounds of the
-    kernel's work) with their flops, and the distinct leaves those tests
-    read (for an occluded any-hit ray, the leaf of its row) with their
-    bytes. `hit` = (t, row, found) of these rays, where already known (the
-    closest hits; for any hit, t of the closest and the accepted row), saves
-    the brute force."""
+    boxes of every inner node whose entry lies below the ray's final t, the
+    unit boxes (`bvh.uboxes`, UNIT rows each) of every such leaf, and every
+    row of every such unit. For an any-hit ray that finds a hit the need is
+    one root-to-leaf path (2 depth + 1 boxes), the leaf's unit boxes and one
+    row test. Returns totals over the rays (lower bounds of the kernel's
+    work) with their flops, and the distinct leaves those tests read (for an
+    occluded any-hit ray, the leaf of its row) with their bytes (rows and
+    unit boxes). `hit` = (t, row, found) of these rays, where already known
+    (the closest hits; for any hit, t of the closest and the accepted row),
+    saves the brute force."""
     if hit is None:
         t, row, found = brute_force(o, d, t_max, bvh, kind, any_hit=False, t_min=t_min)
     else:
         t, row, found = hit
     n_inner = bvh.n_leaves - 1
+    n_units = bvh.uboxes.shape[2]
+    unit_rows = torch.full((n_units,), bvh_mod.UNIT, device=o.device)
+    unit_rows[-1] = bvh.leaf_size - bvh_mod.UNIT * (n_units - 1)
     step = max(1, _REF_ELEMS // bvh.bmin.shape[0])
-    inner = leaves = 0
+    inner = leaves = rows = 0
     entered = torch.zeros((bvh.n_leaves,), dtype=torch.bool, device=o.device)
     for s in range(0, o.shape[0], step):
         t_fin = t[s:s + step]
@@ -140,22 +158,27 @@ def work_ref(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = False,
         inner += int(opened[:, :n_inner].sum())
         leaves += int(opened[:, n_inner:].sum())
         entered |= opened[:, n_inner:].any(0)
+        ri, li = opened[:, n_inner:].nonzero(as_tuple=True)
+        units = _units_entered(o[s:s + step][ri], d[s:s + step][ri], bvh.uboxes[li], t_fin[ri])
+        rows += int((units * unit_rows).sum())
     n_rays = o.shape[0]
-    box_tests = int((t_max > 0.0).sum()) + 2 * inner
-    leaf_rows = leaves * bvh.leaf_size
+    box_tests = int((t_max > 0.0).sum()) + 2 * inner + leaves * n_units
     if any_hit:
         n_found = int(found.sum())
-        box_tests += n_found * (2 * bvh.depth)
-        leaf_rows += n_found
+        box_tests += n_found * (2 * bvh.depth + n_units)
+        rows += n_found
         entered[row[found].long() // bvh.leaf_size] = True
     n_entered = int(entered.sum())
-    return dict(rays=n_rays, box_tests=box_tests, leaf_row_tests=leaf_rows,
-                flops=box_tests * BOX_TEST_FLOPS + leaf_rows * LEAF_TEST_FLOPS[kind],
+    return dict(rays=n_rays, box_tests=box_tests, leaf_row_tests=rows,
+                flops=box_tests * BOX_TEST_FLOPS + rows * LEAF_TEST_FLOPS[kind],
                 leaves_entered=n_entered,
-                leaf_bytes=n_entered * KINDS[kind] * bvh.leaf_size * 4)
+                leaf_bytes=n_entered * (KINDS[kind] * bvh.leaf_size + 6 * n_units) * 4)
 
 
 def _check(name, x, shape, dtype, device):
+    if x is None:
+        raise ValueError(f"traverse: the BVH has no {name} table (attach_bvh and "
+                         f"scene_from_numpy make it)")
     if x.device != device or x.dtype != dtype or tuple(x.shape) != shape \
             or not x.is_contiguous():
         raise ValueError(f"traverse: {name} must be a contiguous {dtype} {shape} tensor "
@@ -173,7 +196,8 @@ def _traverse_cuda(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool, t_mi
     for name, x, shape, dt in (
             ("o", o, (r, 3), f32), ("d", d, (r, 3), f32), ("t_max", t_max, (r,), f32),
             ("bmin", bvh.bmin, (2 * c - 1, 3), f32), ("bmax", bvh.bmax, (2 * c - 1, 3), f32),
-            ("packed", bvh.packed, (c, KINDS[kind], k), f32)):
+            ("packed", bvh.packed, (c, KINDS[kind], k), f32),
+            ("uboxes", bvh.uboxes, (c, 6, -(-k // bvh_mod.UNIT)), f32)):
         _check(name, x, shape, dt, dev)
     t_out = torch.empty((r,), dtype=f32, device=dev)
     row_out = torch.empty((r,), dtype=torch.int32, device=dev)
@@ -181,7 +205,7 @@ def _traverse_cuda(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool, t_mi
     p = lambda x: ctypes.c_void_p(x.data_ptr())  # noqa: E731
     err = load_library().traverse_launch(
         ctypes.c_int(r), p(o), p(d), p(t_max), p(bvh.bmin), p(bvh.bmax), p(bvh.packed),
-        ctypes.c_int(c), ctypes.c_int(k), ctypes.c_int(int(kind == "cone")),
+        p(bvh.uboxes), ctypes.c_int(c), ctypes.c_int(k), ctypes.c_int(int(kind == "cone")),
         ctypes.c_int(int(any_hit)), ctypes.c_float(t_min), p(t_out), p(row_out),
         p(found_out), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:

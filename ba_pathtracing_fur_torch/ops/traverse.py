@@ -16,10 +16,11 @@ Each kernel is the CUDA launch on the card and its plain twin on the CPU.
 
 As in the JAX package, the traversal only selects the winning row; the
 winner's t is recomputed outside it from the gathered row, with the same
-arithmetic as the leaf test. The JAX package's entry-morton ray sort is
-left out: it is a pure permutation that exists for the TPU's shared
-per-tile schedule, and the Hit is the same per ray without it (ROADMAP
-lists it as a perf candidate for the per-ray kernel).
+arithmetic as the leaf test. Before a traversal the rays are sorted by the
+JAX package's entry-morton key (`_entry_morton_perms`, position only), so
+the tiles of K2 and K3 hold rays that enter the same leaves; the sort is a
+pure permutation, undone on the rows (closest hit) or the blocked flags
+(any hit), so the Hit is the same per ray with it or without it.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import torch
 from ..core import vecmath as vm
 from ..scene.types import ConePack, DeviceScene, TrianglePack
 from . import bruteforce, bvh as bvh_mod, intersect as isect
+from .compact import invert_permutation
 from .cuda import intersect as cisect, stream as cstream, traverse as ctraverse
 
 INF = isect.INF
@@ -49,6 +51,11 @@ _GRID_ELEMS = 1 << 24
 #: ray-primitive pairs from which a BVH-less pack goes to the brute-force
 #: kernel (K5) instead of the dense grid (the JAX package's threshold)
 _BRUTE_MIN = 1 << 24
+
+#: sort the rays of closest_hit / any_hit by their entry-morton key when
+#: the scene has a BVH: the JAX package's default wherever a traversal
+#: kernel runs (False measures the traversal without it)
+SORT_RAYS = True
 
 #: stage seconds of the last build per kind ("tri", "cone"): the AABBs,
 #: the median split, the reorder + pack, and the kernel layouts
@@ -108,11 +115,14 @@ def _two_level(bvh) -> bool:
 def _cache_kernel_layouts(bvh, kind: str, pack):
     """The kernel layouts of `bvh` over its reordered `pack`, made once
     instead of per call (None stays None): the winner-row AoS table (a
-    per-call `cone_aos` is a 697 MB copy at hair-ball scale) and, for a
-    two-level BVH, its super-cluster and child box tables."""
+    per-call `cone_aos` is a 697 MB copy at hair-ball scale), the unit boxes
+    of the leaves' row runs and, for a two-level BVH, its super-cluster and
+    child box tables."""
     if bvh is None:
         return None
-    out = {"aos_rows": (cone_aos if kind == "cone" else tri_aos)(pack)}
+    aabbs = isect.cone_aabbs if kind == "cone" else isect.triangle_aabbs
+    out = {"aos_rows": (cone_aos if kind == "cone" else tri_aos)(pack),
+           "uboxes": bvh_mod.unit_boxes(*aabbs(pack), bvh)}
     if _two_level(bvh):
         out.update(sboxes=cstream.pack_super_boxes(bvh), cboxes=cstream.pack_child_boxes(bvh))
     return dataclasses.replace(bvh, **out)
@@ -244,6 +254,47 @@ def _traverse(o, d, t_max, bvh, kind, any_hit, t_min):
     return fn(o, d, t_max, bvh, kind, any_hit=any_hit, t_min=t_min)
 
 
+def _entry_morton_perms(o, d, t_max, bvh):
+    """Stable permutation grouping rays by the 3D morton cell of their
+    entry point into the BVH's root box (o + max(t_enter, 0) * d, clipped
+    to the box), dead rays (t_max <= 0) last -> (perm, inverse). The JAX
+    package's `_entry_morton_perms` with the position-only key: a bounce
+    ray (origin inside the box) sorts by its origin, a camera ray by where
+    it enters the scene."""
+    lo = bvh.bmin[0] - 1e-3
+    hi = bvh.bmax[0] + 1e-3
+    eps = 1e-20
+    inv = 1.0 / torch.where(d.abs() < eps, torch.where(d < 0, -eps, eps), d)
+    tn = torch.minimum((lo - o) * inv, (hi - o) * inv).amax(1)
+    p = torch.clamp(o + torch.clamp(tn, min=0.0)[:, None] * d, lo, hi)
+    key = torch.where(t_max <= 0.0, 1 << 30, bvh_mod.morton_codes(p, lo, hi))
+    perm = torch.argsort(key, stable=True)
+    return perm, invert_permutation(perm)
+
+
+def _sorted_rays(o, d, t_max, scene: DeviceScene):
+    """(o, d, t_max, inverse) in the entry-morton order of the scene's
+    cone BVH, else of its triangle BVH (the JAX package's choice); None when
+    it has no BVH or SORT_RAYS is off."""
+    bvh = scene.cone_bvh if scene.cone_bvh is not None else scene.tri_bvh
+    if bvh is None or not SORT_RAYS:
+        return None
+    perm, inv = _entry_morton_perms(o, d, t_max, bvh)
+    return o[perm], d[perm], t_max[perm], inv
+
+
+def _traverse_rows(o, d, t_max, bvh, kind, t_min, sort):
+    """Closest-hit winner rows [R] (0 on a miss) and found [R] in the
+    callers' ray order, the traversal run on the sorted rays when `sort`
+    holds them."""
+    if sort is None:
+        _, row, found = _traverse(o, d, t_max, bvh, kind, False, t_min)
+    else:
+        row = _traverse(*sort[:3], bvh, kind, False, t_min)[1][sort[3]]
+        found = row >= 0
+    return torch.clamp(row, min=0), found
+
+
 def _grid_closest(o, d, pack, grid_fn, t_min, t_max):
     """Nearest hit over a BVH-less pack by the dense grid, chunked over
     rays -> (t [R] INF where none, row [R])."""
@@ -334,20 +385,22 @@ def _t_max_of(t_max, r, like):
 
 
 def closest_hit(o, d, scene: DeviceScene, t_min=1e-4, t_max=INF) -> bruteforce.Hit:
-    """Nearest hit per ray: a traversal kernel for packs with a BVH and K5
-    for big BVH-less packs (then the winner's t recomputed from its row),
-    the dense grid for small ones. t_max may be per ray [R]."""
+    """Nearest hit per ray: a traversal kernel for packs with a BVH (on
+    the entry-morton sorted rays, see SORT_RAYS) and K5 for big BVH-less
+    packs (then the winner's t recomputed from its row), the dense grid for
+    small ones. t_max may be per ray [R]."""
     r = o.shape[0]
     t_max = _t_max_of(t_max, r, o)
     tris, cones = scene.tris, scene.cones
+    sort = _sorted_rays(o, d, t_max, scene)
 
     t_tri = torch.full((r,), INF, device=o.device)
     tri_row = torch.zeros((r,), dtype=torch.int32, device=o.device)
     tri_rp = None
     if scene.tri_bvh is not None or (tris.count and _use_brute(o, tris)):
         if scene.tri_bvh is not None:
-            _, tri_row, found = _traverse(o, d, t_max, scene.tri_bvh, "tri", False, t_min)
-            tri_row, aos = torch.clamp(tri_row, min=0), scene.tri_bvh.aos_rows
+            tri_row, found = _traverse_rows(o, d, t_max, scene.tri_bvh, "tri", t_min, sort)
+            aos = scene.tri_bvh.aos_rows
         else:
             (tri_row, found), aos = _brute_rows(o, d, t_max, tris, "tri", t_min), tri_aos(tris)
         tri_rp = take_tri_rows(aos, tri_row)
@@ -360,8 +413,8 @@ def closest_hit(o, d, scene: DeviceScene, t_min=1e-4, t_max=INF) -> bruteforce.H
     cone_rc = None
     if scene.cone_bvh is not None or (cones.count and _use_brute(o, cones)):
         if scene.cone_bvh is not None:
-            _, cone_row, found = _traverse(o, d, t_max, scene.cone_bvh, "cone", False, t_min)
-            cone_row, aos = torch.clamp(cone_row, min=0), scene.cone_bvh.aos_rows
+            cone_row, found = _traverse_rows(o, d, t_max, scene.cone_bvh, "cone", t_min, sort)
+            aos = scene.cone_bvh.aos_rows
         else:
             (cone_row, found), aos = (_brute_rows(o, d, t_max, cones, "cone", t_min),
                                       cone_aos(cones))
@@ -378,9 +431,13 @@ def any_hit(o, d, scene: DeviceScene, t_max, t_min=1e-4) -> torch.Tensor:
     """Shadow-ray occlusion: does any geometry lie in (t_min, t_max)? -> [R]
     bool. A traversal kernel's any-hit mode for packs with a BVH, K5's
     closest t below t_max for big BVH-less packs, the dense grid for small
-    ones."""
+    ones. With a BVH (and SORT_RAYS) every pack runs on the entry-morton
+    sorted rays and the flags are unsorted once."""
     r = o.shape[0]
     t_max = _t_max_of(t_max, r, o)
+    sort = _sorted_rays(o, d, t_max, scene)
+    if sort is not None:
+        o, d, t_max, inv = sort
     blocked = torch.zeros((r,), dtype=torch.bool, device=o.device)
     for kind, pack, bvh, grid_fn in (
             ("tri", scene.tris, scene.tri_bvh, isect.triangle_hit_grid),
@@ -391,4 +448,4 @@ def any_hit(o, d, scene: DeviceScene, t_max, t_min=1e-4) -> torch.Tensor:
             blocked |= _brute_rows(o, d, t_max, pack, kind, t_min)[1]
         elif pack.count:
             blocked |= _grid_any(o, d, pack, grid_fn, t_min, t_max)
-    return blocked
+    return blocked if sort is None else blocked[inv]

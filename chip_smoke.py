@@ -30,6 +30,13 @@ render_image`) and checks the images:
     mid-size hair ball renders through the kernels and through the plain
     versions under the image gate.
 
+The traversal kernels (K2, K3) run, as on the main path, on rays sorted by
+the entry-morton key (`ops/traverse._entry_morton_perms`): each is held
+against its plain version on the sorted rays (found, t and closest-hit rows
+exact) and against itself on the unsorted rays, and timed on both; configs
+4 and 5 are also rendered and traced once without the sort, which gives the
+launches the sort adds a sample.
+
 It exits non-zero, printing no result, when there is no CUDA device, when
 any phase fails, or when the package is missing. The last line of its
 output is `{"ok": true, "device": {...}}`; the line before it lists each
@@ -131,6 +138,18 @@ def plain_bounces():
     finally:
         for (m, name, _), fn in zip(swaps, kernels_fns):
             setattr(m, name, fn)
+
+
+@contextlib.contextmanager
+def unsorted_rays():
+    """Run closest_hit / any_hit without the entry-morton ray sort."""
+    from ba_pathtracing_fur_torch.ops import traverse
+
+    traverse.SORT_RAYS = False
+    try:
+        yield
+    finally:
+        traverse.SORT_RAYS = True
 
 
 def reset_counts():
@@ -409,7 +428,7 @@ def phase_timing(scene, cam, key, cfg, name="config0", with_plain=True) -> dict:
     return out
 
 
-def phase_profile(scene, cam, key, cfg, name="config-0", marks=("full_bounce",)) -> None:
+def phase_profile(scene, cam, key, cfg, name="config-0", marks=("full_bounce",)) -> dict:
     """Where one sample's time goes: device time by kernel under
     torch.profiler, against the host wall clock of the same traced run."""
     from torch.autograd import DeviceType
@@ -437,6 +456,16 @@ def phase_profile(scene, cam, key, cfg, name="config-0", marks=("full_bounce",))
         + ", ".join(parts))
     for e in sorted(kernels, key=dev_us, reverse=True)[:6]:
         log(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:100]}")
+    return dict(wall=wall, busy=busy, launches=launches)
+
+
+def phase_sort_effect(scene, cam, key, cfg, name, marks) -> dict:
+    """The render and one traced sample without the ray sort, beside the
+    sorted ones measured before: rays/s and the launches the sort adds."""
+    with unsorted_rays():
+        times = phase_timing(scene, cam, key, cfg, name=f"{name} (unsorted)", with_plain=False)
+        prof = phase_profile(scene, cam, key, cfg, name=f"{name} (unsorted)", marks=marks)
+    return dict(times=times, profile=prof)
 
 
 def fur_scene(dev):
@@ -466,26 +495,47 @@ def fur_scene(dev):
     return scene, cam, cfg, build_s
 
 
+def sorted_rays(o, d, t_max, bvh):
+    """The rays in the entry-morton order closest_hit / any_hit feed the
+    traversal kernels -> (o, d, t_max, perm)."""
+    from ba_pathtracing_fur_torch.ops import traverse
+
+    perm, _ = traverse._entry_morton_perms(o, d, t_max, bvh)
+    return o[perm], d[perm], t_max[perm], perm
+
+
+def same_unsorted(fn, rays, perm, got, any_hit, what) -> None:
+    """`fn` on the unsorted rays gives `got` (its result on the sorted rays)
+    ray for ray, bit for bit: found and t, and rows on closest hits (an any
+    hit's row is whichever accepted row its tile met first)."""
+    t, row, found = (x[perm] for x in fn(*rays))
+    torch.cuda.synchronize()
+    if not (torch.equal(t, got[0]) and torch.equal(found, got[2])
+            and (any_hit or torch.equal(row, got[1]))):
+        raise AssertionError(f"{what}: unsorted rays give another result than sorted ones")
+
+
 def compare_traverse(o, d, t_max, bvh, kind, any_hit, what) -> dict:
-    """K2 against its twin on the same CUDA inputs: found mismatches, the
-    row-mismatch fraction among rays both found, max |dt| there."""
+    """K2 against its twin on the entry-morton sorted rays the main path
+    feeds it: found and t bit for bit, rows on closest hits; and K2 on the
+    unsorted rays equal to K2 on the sorted ones."""
     from ba_pathtracing_fur_torch.ops.cuda import traverse as ctraverse
 
-    t1, r1, f1 = ctraverse.traverse(o, d, t_max, bvh, kind, any_hit=any_hit)
-    t0, r0, f0 = ctraverse.traverse_ref(o, d, t_max, bvh, kind, any_hit=any_hit)
+    so, sd, st, perm = sorted_rays(o, d, t_max, bvh)
+    fn = lambda a, b, c: ctraverse.traverse(a, b, c, bvh, kind, any_hit=any_hit)  # noqa: E731
+    t1, r1, f1 = fn(so, sd, st)
+    t0, r0, f0 = ctraverse.traverse_ref(so, sd, st, bvh, kind, any_hit=any_hit)
     torch.cuda.synchronize()
-    both = f0 & f1
-    found_mis = int((f0 != f1).sum())
-    row_frac = float((r0[both] != r1[both]).double().mean()) if both.any() and not any_hit \
-        else 0.0
-    same = both & (r0 == r1)
-    max_dt = float((t0[same] - t1[same]).abs().max()) if same.any() else 0.0
-    log(f"traverse {kind} {'any' if any_hit else 'closest'} hit vs plain, {what}: "
-        f"{o.shape[0]} rays, found {int(f0.sum())}, found mismatches {found_mis}, "
-        f"row mismatch among found {row_frac:.6f}, max |dt| {max_dt:.3e}")
-    if found_mis > 1e-4 * o.shape[0] or row_frac > 1e-3 or max_dt > 1e-3:
+    found_mis, t_mis = int((f0 != f1).sum()), int((t0 != t1).sum())
+    row_mis = 0 if any_hit else int((r0 != r1).sum())
+    log(f"traverse {kind} {'any' if any_hit else 'closest'} hit vs plain, {what} (sorted): "
+        f"{o.shape[0]} rays, found {int(f0.sum())}, found/t/row mismatches {found_mis}/"
+        f"{t_mis}/{row_mis}")
+    if found_mis or t_mis or row_mis:
         raise AssertionError(f"traverse {kind} {what}: kernel disagrees with plain")
-    return dict(found_mismatches=found_mis, row_mismatch_frac=row_frac, max_abs_err=max_dt)
+    same_unsorted(fn, (o, d, t_max), perm, (t1, r1, f1), any_hit, f"traverse {kind} {what}")
+    return dict(found_mismatches=found_mis, t_mismatches=t_mis, row_mismatches=row_mis,
+                max_abs_err=float((t0 - t1).abs().max()), sorted=(so, sd, st))
 
 
 def traverse_bound(o, d, t_max, bvh, kind, any_hit) -> dict:
@@ -552,6 +602,7 @@ def phase_fur_kernels(scene, cam, cfg, dev) -> dict:
         what = "camera wavefront" if bounce == 0 else f"bounce-{bounce} wavefront"
         if bounce < 2:
             k2.append(compare_traverse(o, d, t_cap, bvh, "cone", False, what))
+            os_, ds_, ts_ = k2[-1]["sorted"]
         hit = traverse.closest_hit(o, d, scene, t_max=t_cap)
         kw = pt.shade_inputs(state, scene, keys, bounce, cfg, hit, tables)
         got = cshade.shade_bounce(**kw)
@@ -575,15 +626,21 @@ def phase_fur_kernels(scene, cam, cfg, dev) -> dict:
         if bounce < 2:
             k2.append(compare_traverse(so, sd, st_max, bvh, "cone", True,
                                        f"bounce-{bounce} shadow rays"))
+            sso, ssd, sst = k2[-1]["sorted"]
             reps = 20
             times = dict(
-                closest_ms=timed(lambda: ctraverse.traverse(o, d, t_cap, bvh, "cone"), reps),
-                closest_plain_ms=timed(lambda: ctraverse.traverse_ref(o, d, t_cap, bvh,
+                closest_ms=timed(lambda: ctraverse.traverse(os_, ds_, ts_, bvh, "cone"), reps),
+                closest_unsorted_ms=timed(lambda: ctraverse.traverse(o, d, t_cap, bvh, "cone"),
+                                          reps),
+                closest_plain_ms=timed(lambda: ctraverse.traverse_ref(os_, ds_, ts_, bvh,
                                                                       "cone"), 1),
-                any_ms=timed(lambda: ctraverse.traverse(so, sd, st_max, bvh, "cone",
+                any_ms=timed(lambda: ctraverse.traverse(sso, ssd, sst, bvh, "cone",
                                                         any_hit=True), reps),
-                any_plain_ms=timed(lambda: ctraverse.traverse_ref(so, sd, st_max, bvh, "cone",
+                any_unsorted_ms=timed(lambda: ctraverse.traverse(so, sd, st_max, bvh, "cone",
+                                                                 any_hit=True), reps),
+                any_plain_ms=timed(lambda: ctraverse.traverse_ref(sso, ssd, sst, bvh, "cone",
                                                                   any_hit=True), 1),
+                sort_ms=timed(lambda: sorted_rays(o, d, t_cap, bvh), reps),
                 shade_ms=timed(lambda: cshade.shade_bounce(**kw), 50),
                 shade_plain_ms=timed(lambda: cshade.shade_bounce_ref(**kw), 3))
             log(f"config4 bounce {bounce} times ({o.shape[0]} rays): " + ", ".join(
@@ -602,6 +659,8 @@ def phase_fur_kernels(scene, cam, cfg, dev) -> dict:
         f"(gate: below {FIELD_MAX_FRAC}), max |diff| {k1['max_abs_err']:.3e} (the sun's "
         f"shadow t_max is ~1e16, where an ulp is ~1e9), max |diff| / max(|plain|, 1) "
         f"{k1['max_rel_err']:.3e}")
+    for x in k2:
+        del x["sorted"]
     out.update(k2=k2, k1=k1)
     return out
 
@@ -675,11 +734,13 @@ def phase_tri_bvh(dev) -> dict:
     (o, d, t_cap), (so, sd, st_max) = camera_and_shadow_rays(with_bvh, cam, cfg, dev)
     checks = [compare_traverse(o, d, t_cap, bvh, "tri", False, "cornell camera wavefront"),
               compare_traverse(so, sd, st_max, bvh, "tri", True, "cornell shadow rays")]
-    times = dict(ms=timed(lambda: ctraverse.traverse(o, d, t_cap, bvh, "tri"), 20),
-                 plain_ms=timed(lambda: ctraverse.traverse_ref(o, d, t_cap, bvh, "tri"), 3),
-                 any_ms=timed(lambda: ctraverse.traverse(so, sd, st_max, bvh, "tri",
+    (o1, d1, t1), (o2, d2, t2) = checks[0].pop("sorted"), checks[1].pop("sorted")
+    times = dict(ms=timed(lambda: ctraverse.traverse(o1, d1, t1, bvh, "tri"), 20),
+                 unsorted_ms=timed(lambda: ctraverse.traverse(o, d, t_cap, bvh, "tri"), 20),
+                 plain_ms=timed(lambda: ctraverse.traverse_ref(o1, d1, t1, bvh, "tri"), 3),
+                 any_ms=timed(lambda: ctraverse.traverse(o2, d2, t2, bvh, "tri",
                                                          any_hit=True), 20),
-                 any_plain_ms=timed(lambda: ctraverse.traverse_ref(so, sd, st_max, bvh, "tri",
+                 any_plain_ms=timed(lambda: ctraverse.traverse_ref(o2, d2, t2, bvh, "tri",
                                                                    any_hit=True), 3))
     log(f"traverse tri, cornell bounce 0 ({o.shape[0]} rays, BVH {bvh.n_leaves} leaves x "
         f"{bvh.leaf_size}): " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
@@ -712,17 +773,20 @@ def phase_tri_bvh(dev) -> dict:
     log(f"triangle soup: {TRI_SOUP} triangles, BVH {soup.n_leaves} leaves x {soup.leaf_size}")
     soup_checks = [compare_traverse(so_, sd_, t_inf, soup, "tri", False, "soup"),
                    compare_traverse(so_, sd_, t_one, soup, "tri", True, "soup, t_max 1")]
-    soup_res = dict(ms=timed(lambda: ctraverse.traverse(so_, sd_, t_inf, soup, "tri"), 20),
-                    plain_ms=timed(lambda: ctraverse.traverse_ref(so_, sd_, t_inf, soup,
-                                                                  "tri"), 1))
-    log(f"traverse tri closest, soup ({SOUP_RAYS} rays): kernel {soup_res['ms']:.4f} ms, "
-        f"plain {soup_res['plain_ms']:.3f} ms")
+    (o3, d3, t3), _ = (x.pop("sorted") for x in soup_checks)
+    soup_res = dict(ms=timed(lambda: ctraverse.traverse(o3, d3, t3, soup, "tri"), 20),
+                    unsorted_ms=timed(lambda: ctraverse.traverse(so_, sd_, t_inf, soup, "tri"),
+                                      20),
+                    plain_ms=timed(lambda: ctraverse.traverse_ref(o3, d3, t3, soup, "tri"), 1))
+    log(f"traverse tri closest, soup ({SOUP_RAYS} rays): kernel {soup_res['ms']:.4f} ms "
+        f"sorted, {soup_res['unsorted_ms']:.4f} ms unsorted, plain {soup_res['plain_ms']:.3f} ms")
     sb = traverse_bound(so_, sd_, t_inf, soup, "tri", False)
     soup_res.update(bound_ms=sb["bound_ms"], bound_by=sb["bound_by"], rays=SOUP_RAYS,
                     triangles=TRI_SOUP,
                     max_abs_err=max(x["max_abs_err"] for x in soup_checks))
     return dict(launches=counts["traverse"], max_abs_err=max(x["max_abs_err"] for x in checks),
-                ms=times["ms"], plain_ms=times["plain_ms"], bound_ms=b["bound_ms"],
+                ms=times["ms"], unsorted_ms=times["unsorted_ms"], any_ms=times["any_ms"],
+                plain_ms=times["plain_ms"], bound_ms=b["bound_ms"],
                 bound_by=b["bound_by"], soup=soup_res)
 
 
@@ -767,36 +831,40 @@ def spread(n: int, k: int, dev) -> torch.Tensor:
 
 
 def compare_stream(o, d, t_max, bvh, any_hit, what) -> dict:
-    """K3 against its brute-force twin on TWIN_RAYS rays of the wavefront
-    (found and t bit for bit, and closest-hit rows) and against K2 on the
-    same BVH over the whole wavefront (found bit for bit; closest-hit rows
-    equal except where the two t are equal: K2 keeps the first of equal t
-    in its own visiting order, K3 and the twin the lowest row)."""
+    """On the entry-morton sorted wavefront the main path feeds it: K3
+    against its brute-force twin on TWIN_RAYS rays spread over it (found and
+    t bit for bit, and closest-hit rows) and against K2 on the same BVH over
+    the whole wavefront (found and t bit for bit, closest-hit rows: both
+    return the lexicographic minimum (t, row)); K3 and K2 on the unsorted
+    wavefront equal to themselves on the sorted one."""
     from ba_pathtracing_fur_torch.ops.cuda import stream as cstream, traverse as ctraverse
 
     kind = "cone"
-    t3, r3, f3 = cstream.traverse_stream(o, d, t_max, bvh, kind, any_hit=any_hit)
-    t2, r2, f2 = ctraverse.traverse(o, d, t_max, dataclasses.replace(bvh, fanout=0), kind,
-                                    any_hit=any_hit)
+    flat = dataclasses.replace(bvh, fanout=0)
+    so, sd, st, perm = sorted_rays(o, d, t_max, bvh)
+    k3 = lambda a, b, c: cstream.traverse_stream(a, b, c, bvh, kind, any_hit=any_hit)  # noqa
+    k2 = lambda a, b, c: ctraverse.traverse(a, b, c, flat, kind, any_hit=any_hit)  # noqa
+    t3, r3, f3 = k3(so, sd, st)
+    t2, r2, f2 = k2(so, sd, st)
     sub = spread(o.shape[0], TWIN_RAYS, o.device)
-    t0, r0, f0 = cstream.traverse_stream_ref(o[sub], d[sub], t_max[sub], bvh, kind,
+    t0, r0, f0 = cstream.traverse_stream_ref(so[sub], sd[sub], st[sub], bvh, kind,
                                              any_hit=any_hit)
     torch.cuda.synchronize()
     twin = dict(found=int((f0 != f3[sub]).sum()), t=int((t0 != t3[sub]).sum()))
+    vs_k2 = dict(found=int((f2 != f3).sum()), t=int((t2 != t3).sum()))
     if not any_hit:  # an any hit's row is whichever accepted row came first
         twin["rows"] = int((r0 != r3[sub]).sum())
-    k2_found = int((f2 != f3).sum())
-    k2_rows = (f2 & (r2 != r3)) if not any_hit else torch.zeros_like(f2)
-    ties = int((k2_rows & (t2 == t3)).sum())
-    k2_non_tie = int(k2_rows.sum()) - ties
+        vs_k2["rows"] = int((r2 != r3).sum())
     err = float((t0 - t3[sub]).abs().max())
-    log(f"traverse_stream cone {'any' if any_hit else 'closest'} hit, {what}: {o.shape[0]} "
-        f"rays, found {int(f3.sum())}; vs twin on {TWIN_RAYS} rays (found {int(f0.sum())}): "
-        f"found/row/t mismatches {twin}; vs traverse (K2) on all rays: found mismatches "
-        f"{k2_found}, row mismatches {k2_non_tie} (+ {ties} at equal t)")
-    if any(twin.values()) or k2_found or k2_non_tie:
+    log(f"traverse_stream cone {'any' if any_hit else 'closest'} hit, {what} (sorted): "
+        f"{o.shape[0]} rays, found {int(f3.sum())}; vs twin on {TWIN_RAYS} rays (found "
+        f"{int(f0.sum())}): found/t/row mismatches {twin}; vs traverse (K2) on all rays: "
+        f"{vs_k2}")
+    if any(twin.values()) or any(vs_k2.values()):
         raise AssertionError(f"traverse_stream {what}: kernel disagrees")
-    return dict(max_abs_err=err, k2_row_ties=ties, t=t3, row=r3, found=f3)
+    same_unsorted(k3, (o, d, t_max), perm, (t3, r3, f3), any_hit, f"traverse_stream {what}")
+    same_unsorted(k2, (o, d, t_max), perm, (t2, r2, f2), any_hit, f"traverse (K2) {what}")
+    return dict(max_abs_err=err, t=t3, row=r3, found=f3, sorted=(so, sd, st))
 
 
 def stream_bound(o, d, t_max, bvh, any_hit, t, row, found) -> dict:
@@ -883,23 +951,35 @@ def phase_hairball_kernels(scene, cam, cfg, dev) -> dict:
         so, sd, st_max = sh["shadow_o"], sh["shadow_d"], sh["shadow_tmax"]
         shadow = compare_stream(so, sd, st_max, bvh, True, f"bounce-{bounce} shadow rays")
         sub = spread(o.shape[0], TWIN_RAYS, dev)
+        (o1, d1, t1), (o2, d2, t2) = closest.pop("sorted"), shadow.pop("sorted")
         times = dict(
-            closest_ms=timed(lambda: cstream.traverse_stream(o, d, t_cap, bvh, "cone"), 3),
-            closest_k2_ms=timed(lambda: ctraverse.traverse(o, d, t_cap, flat, "cone"), 3),
-            any_ms=timed(lambda: cstream.traverse_stream(so, sd, st_max, bvh, "cone",
+            closest_ms=timed(lambda: cstream.traverse_stream(o1, d1, t1, bvh, "cone"), 3),
+            closest_k2_ms=timed(lambda: ctraverse.traverse(o1, d1, t1, flat, "cone"), 3),
+            any_ms=timed(lambda: cstream.traverse_stream(o2, d2, t2, bvh, "cone",
                                                          any_hit=True), 3),
-            any_k2_ms=timed(lambda: ctraverse.traverse(so, sd, st_max, flat, "cone",
-                                                       any_hit=True), 3))
+            any_k2_ms=timed(lambda: ctraverse.traverse(o2, d2, t2, flat, "cone",
+                                                       any_hit=True), 3),
+            sort_ms=timed(lambda: sorted_rays(o, d, t_cap, bvh), 3))
         if bounce == 0:
-            times["closest_plain_ms"] = timed(lambda: cstream.traverse_stream_ref(
-                o[sub], d[sub], t_cap[sub], bvh, "cone"), 1)
-        log(f"config5 bounce {bounce} K3 and K2 times ({o.shape[0]} rays; plain on "
-            f"{TWIN_RAYS}): " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+            times.update(
+                closest_unsorted_ms=timed(lambda: cstream.traverse_stream(o, d, t_cap, bvh,
+                                                                          "cone"), 3),
+                closest_k2_unsorted_ms=timed(lambda: ctraverse.traverse(o, d, t_cap, flat,
+                                                                        "cone"), 3),
+                any_unsorted_ms=timed(lambda: cstream.traverse_stream(
+                    so, sd, st_max, bvh, "cone", any_hit=True), 3),
+                any_k2_unsorted_ms=timed(lambda: ctraverse.traverse(
+                    so, sd, st_max, flat, "cone", any_hit=True), 3),
+                closest_plain_ms=timed(lambda: cstream.traverse_stream_ref(
+                    o1[sub], d1[sub], t1[sub], bvh, "cone"), 1))
+        log(f"config5 bounce {bounce} K3 and K2 times ({o.shape[0]} rays, entry-morton "
+            f"sorted unless named unsorted; plain on {TWIN_RAYS}): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
         out[bounce] = dict(
             times=times, closest=closest, shadow=shadow, alive=int(alive.sum()),
-            closest_bound=stream_bound(o, d, t_cap, bvh, False, closest["t"], closest["row"],
+            closest_bound=stream_bound(o1, d1, t1, bvh, False, closest["t"], closest["row"],
                                        closest["found"]),
-            any_bound=stream_bound(so, sd, st_max, bvh, True, shadow["t"], shadow["row"],
+            any_bound=stream_bound(o2, d2, t2, bvh, True, shadow["t"], shadow["row"],
                                    shadow["found"]))
         if bounce == 0:
             packed = cisect.pack_cm(scene.tris, "tri")
@@ -1040,7 +1120,17 @@ def main() -> int:
     for line in kernels.LAST_BUILD_LOG.splitlines():
         if "registers" in line or "Compiling entry" in line or "stack frame" in line:
             log("ptxas:", line.strip())
+    kernels_line = drive(dev, card)
+    log(card)
+    log(json.dumps({"kernels": kernels_line}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
+
+def drive(dev, card: str) -> list:
+    """Every phase on `dev`, in order -> the `kernels` line's entries."""
     # threefry on the card is bit-exact with the CPU
     from ba_pathtracing_fur_torch.core import rng
     ids = torch.arange(4096)
@@ -1063,23 +1153,29 @@ def main() -> int:
     fur = phase_fur_kernels(scene4, cam4, cfg4, dev)
     fur_main = phase_fur_main_path(scene4, cam4, cfg4, dev)
     from ba_pathtracing_fur_torch.core import rng
-    phase_profile(scene4, cam4, rng.key(0, dev), cfg4, name="config-4",
-                  marks=("traverse_kernel", "shade_kernel"))
+    marks4 = ("traverse_kernel", "shade_kernel")
+    prof4 = phase_profile(scene4, cam4, rng.key(0, dev), cfg4, name="config-4", marks=marks4)
+    un4 = phase_sort_effect(scene4, cam4, rng.key(0, dev), cfg4, "config4", marks4)
     rays4 = cam4.resolution[0] * cam4.resolution[1] * cfg4.spp * cfg4.depth
     log(f"config4 end to end: kernel path {fur_main['times']['kernel']:.4f} s = "
-        f"{rays4 / fur_main['times']['kernel']:.4e} rays/s, BVH build {build_s:.3f} s, "
-        f"on {card}")
+        f"{rays4 / fur_main['times']['kernel']:.4e} rays/s sorted, "
+        f"{rays4 / un4['times']['kernel']:.4e} rays/s unsorted; the sort adds "
+        f"{prof4['launches'] - un4['profile']['launches']} launches a sample; BVH build "
+        f"{build_s:.3f} s, on {card}")
     tri = phase_tri_bvh(dev)
 
     scene5, cam5, cfg5, build5 = hair_ball_scene(dev)
     hb = phase_hairball_kernels(scene5, cam5, cfg5, dev)
     hb_main = phase_hairball_main_path(scene5, cam5, cfg5, dev)
-    phase_profile(scene5, cam5, rng.key(0, dev), cfg5, name="config-5",
-                  marks=("stream_kernel", "brute_kernel", "shade_kernel"))
+    marks5 = ("stream_kernel", "brute_kernel", "shade_kernel")
+    prof5 = phase_profile(scene5, cam5, rng.key(0, dev), cfg5, name="config-5", marks=marks5)
+    un5 = phase_sort_effect(scene5, cam5, rng.key(0, dev), cfg5, "config5", marks5)
     rays5 = cam5.resolution[0] * cam5.resolution[1] * cfg5.spp * cfg5.depth
     log(f"config5 end to end: kernel path {hb_main['times']['kernel']:.4f} s = "
-        f"{rays5 / hb_main['times']['kernel']:.4e} rays/s, generation {build5['gen_s']:.3f} s, "
-        f"BVH build {build5['build_s']:.3f} s, on {card}")
+        f"{rays5 / hb_main['times']['kernel']:.4e} rays/s sorted, "
+        f"{rays5 / un5['times']['kernel']:.4e} rays/s unsorted; the sort adds "
+        f"{prof5['launches'] - un5['profile']['launches']} launches a sample; generation "
+        f"{build5['gen_s']:.3f} s, BVH build {build5['build_s']:.3f} s, on {card}")
     del scene5
     k5_cone = phase_bruteforce_cone(dev)
     phase_mid_hairball(dev)
@@ -1101,13 +1197,18 @@ def main() -> int:
              launches=fur_main["counts"]["traverse"],
              max_abs_err=max(x["max_abs_err"] for x in fur["k2"]), ms=t0["closest_ms"],
              plain_ms=t0["closest_plain_ms"], bound_ms=b0["bound_ms"],
-             bound_by=b0["bound_by"], library_ms=None),
+             bound_by=b0["bound_by"], library_ms=None,
+             unsorted_ms=t0["closest_unsorted_ms"], any_ms=t0["any_ms"],
+             any_unsorted_ms=t0["any_unsorted_ms"], any_plain_ms=t0["any_plain_ms"],
+             any_bound_ms=fur[0]["any_bound"]["bound_ms"],
+             any_bound_by=fur[0]["any_bound"]["bound_by"], sort_ms=t0["sort_ms"]),
         dict(name="traverse_tri", route="cuda",
              source="ba_pathtracing_fur_torch/csrc/traverse.cu",
              replaces="ba_pathtracing_fur_tpu/ops/pallas/traverse.py:247",
              launches=tri["launches"], max_abs_err=tri["max_abs_err"], ms=tri["ms"],
              plain_ms=tri["plain_ms"], bound_ms=tri["bound_ms"], bound_by=tri["bound_by"],
-             library_ms=None, soup=tri["soup"]),
+             library_ms=None, unsorted_ms=tri["unsorted_ms"], any_ms=tri["any_ms"],
+             soup=tri["soup"]),
         dict(name="shade", route="cuda", source="ba_pathtracing_fur_torch/csrc/shade.cu",
              replaces="ba_pathtracing_fur_tpu/ops/pallas/shade.py:92",
              launches=fur_main["counts"]["shade"], max_abs_err=fur["k1"]["max_abs_err"],
@@ -1126,7 +1227,14 @@ def main() -> int:
              bound_by=h0["closest_bound"]["bound_by"], library_ms=None,
              k2_ms=h0["times"]["closest_k2_ms"], any_ms=h0["times"]["any_ms"],
              any_k2_ms=h0["times"]["any_k2_ms"], any_bound_ms=h0["any_bound"]["bound_ms"],
-             any_bound_by=h0["any_bound"]["bound_by"]),
+             any_bound_by=h0["any_bound"]["bound_by"],
+             unsorted_ms=h0["times"]["closest_unsorted_ms"],
+             k2_unsorted_ms=h0["times"]["closest_k2_unsorted_ms"],
+             any_unsorted_ms=h0["times"]["any_unsorted_ms"],
+             any_k2_unsorted_ms=h0["times"]["any_k2_unsorted_ms"],
+             sort_ms=h0["times"]["sort_ms"], bounce1_ms=hb[1]["times"]["closest_ms"],
+             bounce1_bound_ms=hb[1]["closest_bound"]["bound_ms"],
+             bounce1_bound_by=hb[1]["closest_bound"]["bound_by"]),
         dict(name="bruteforce_tri", route="cuda",
              source="ba_pathtracing_fur_torch/csrc/bruteforce.cu",
              replaces="ba_pathtracing_fur_tpu/ops/pallas/intersect.py:220",
@@ -1141,12 +1249,7 @@ def main() -> int:
              sub_ms=k5_cone["sub_ms"], bound_ms=k5_cone["bound"]["bound_ms"],
              bound_by=k5_cone["bound"]["bound_by"], library_ms=None),
     ]
-    log(card)
-    log(json.dumps({"kernels": kernels_line}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return kernels_line
 
 
 if __name__ == "__main__":

@@ -211,8 +211,8 @@ def _fur_wavefront(dev, res=(48, 48), bounces=1):
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_traverse_kernel_matches_plain_on_the_card(kind, any_hit):
     """K2 against its brute-force twin on the same CUDA inputs: the same
-    found rays, the same rows on found closest-hit rays (up to exact t ties
-    across clusters) and t within FMA ulps."""
+    found rays and t bit for bit, and on closest hits the same rows (the
+    lexicographic minimum (t, row), exact t ties across clusters included)."""
     from ba_pathtracing_fur_torch.ops import traverse
     from ba_pathtracing_fur_torch.ops.cuda import traverse as ctraverse
     from ba_pathtracing_fur_torch.scene import types
@@ -241,11 +241,9 @@ def test_traverse_kernel_matches_plain_on_the_card(kind, any_hit):
     t0, r0, f0 = ctraverse.traverse_ref(o, d, t_max, bvh, kind, any_hit=any_hit)
     torch.cuda.synchronize()
     # built without FMA contraction, the kernel rounds as the twin does
-    assert torch.equal(f0, f1) and f0.any()
+    assert torch.equal(f0, f1) and torch.equal(t0, t1) and f0.any()
     if not any_hit:
-        m = f0 & (r0 == r1)  # rows differ only on exact t ties across clusters
-        assert (r0[f0] != r1[f0]).double().mean() < 1e-3
-        assert torch.equal(t0[m], t1[m])
+        assert torch.equal(r0, r1)
 
 
 @pytest.mark.cuda
@@ -309,8 +307,9 @@ def test_shade_kernel_takes_a_per_ray_environment_on_the_card():
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_stream_kernel_matches_plain_on_the_card(kind, any_hit):
     """K3 against its brute-force twin and against K2 on the same two-level
-    BVH: the same found rays and, on closest hits, the same rows and t, bit
-    for bit (all three evaluate the leaf tests without FMA contraction)."""
+    BVH: the same found rays and t and, on closest hits, the same rows, bit
+    for bit (all three evaluate the leaf tests without FMA contraction and
+    return the lexicographic minimum (t, row))."""
     import dataclasses
 
     from ba_pathtracing_fur_torch.ops import traverse
@@ -347,12 +346,106 @@ def test_stream_kernel_matches_plain_on_the_card(kind, any_hit):
                                     any_hit=any_hit)
     torch.cuda.synchronize()
     assert torch.equal(f0, f1) and torch.equal(f2, f1) and f0.any() and not f0.all()
+    assert torch.equal(t0, t1) and torch.equal(t2, t1)
     if any_hit:
         assert (t1[f1] == 0).all() and torch.equal(t1[~f1], t_max[~f1])
     else:
-        assert torch.equal(r0, r1) and torch.equal(t0, t1)
-        tie = f2 & (r2 != r1)  # K2 keeps the first of equal t in its own order
-        assert torch.equal(t2[tie], t1[tie])
+        assert torch.equal(r0, r1) and torch.equal(r2, r1)
+
+
+def _tile_case(case, dev):
+    """(bvh, kind, o, d, t_max) on `dev` for one edge case of the leaf-tile
+    kernels; the BVH is two-level except for `tri_leaf_13`."""
+    import dataclasses
+
+    from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.scene import types
+
+    g = torch.Generator().manual_seed(5)
+    n = 4096
+    o = (torch.rand((n, 3), generator=g) * 3 - 1.5)
+    d = torch.nn.functional.normalize(torch.randn((n, 3), generator=g), dim=-1)
+    if case == "tri_leaf_13":  # leaf_k neither a multiple of 32 nor of 4 floats a block
+        v = torch.rand((3000, 3, 3), generator=g) * 2 - 1
+        v[:, 1:] = v[:, :1] + 0.1 * v[:, 1:]
+        soup = types.make_triangle_pack(v[:, 0].numpy(), v[:, 1].numpy(), v[:, 2].numpy())
+        scene, _ = builtins.cornell_box(resolution=(4, 4), device="cpu")
+        scene = traverse.attach_bvh(dataclasses.replace(scene, tris=soup), leaf_size=13,
+                                    min_prims=1)
+        bvh, kind = scene.tri_bvh, "tri"
+    else:
+        scene, _ = builtins.hair_ball(resolution=(4, 4), n_fibers=3000, device="cpu")
+        if case == "ties":  # every cone twice: equal t in different leaves
+            scene = dataclasses.replace(scene, cones=types.ConePack(**{
+                f.name: torch.cat([getattr(scene.cones, f.name)] * 2)
+                for f in dataclasses.fields(types.ConePack)}))
+        fanout = {"fanout_2": 2, "fanout_256": 256}.get(case, 16)
+        bvh, kind = traverse.attach_bvh(scene, leaf_size=24, fanout=fanout).cone_bvh, "cone"
+        assert bvh.fanout == fanout < bvh.n_leaves
+        if case == "one_leaf":  # every ray of a tile enters the same leaves
+            o = torch.tensor([0.0, 0.0, 1.6]) + 1e-3 * o
+            d = torch.nn.functional.normalize(torch.tensor([0.0, 0.0, -1.0]) + 0.01 * d,
+                                              dim=-1)
+    t_max = torch.full((n,), 3.4e38)
+    t_max[::9] = 0.0
+    return bvh, kind, o.to(dev), d.to(dev), t_max.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("case", ["tri_leaf_13", "fanout_2", "fanout_256", "ties", "one_leaf",
+                                  "shuffled"])
+def test_tile_kernels_edge_cases_on_the_card(case, any_hit):
+    """K3 (two-level BVH) and K2 (the same BVH flat) against the twin on
+    the leaf-tile kernels' edge cases: found and t bit for bit, rows on
+    closest hits, dead rays (t_max = 0) missed; and the same results on the
+    entry-morton sorted and on shuffled ray orders."""
+    import dataclasses
+
+    from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.ops.cuda import stream as cstream, traverse as ctraverse
+    from ba_pathtracing_fur_torch.scene import types
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card with -m cuda)")
+    dev = torch.device("cuda")
+    bvh, kind, o, d, t_max = _tile_case(case, dev)
+    bvh = types._to(bvh, dev)
+    if any_hit:
+        t_max = torch.where(t_max > 0, 1.0, 0.0)
+    want = ctraverse.traverse_ref(o, d, t_max, bvh, kind, any_hit=any_hit)
+    assert want[2].any() and not want[2].all() and not want[2][::9].any()
+    fns = [lambda *a: ctraverse.traverse(*a[:3], dataclasses.replace(bvh, fanout=0), kind,
+                                         any_hit=any_hit)]
+    if traverse._two_level(bvh):
+        fns.append(lambda *a: cstream.traverse_stream(*a, bvh, kind, any_hit=any_hit))
+    orders = [None]
+    if case == "shuffled":
+        perm, _ = traverse._entry_morton_perms(o, d, t_max, bvh)
+        orders = [perm, torch.randperm(o.shape[0], generator=torch.Generator().manual_seed(6))
+                  .to(dev)]
+    for fn in fns:
+        for p in orders:
+            if p is None:
+                got = fn(o, d, t_max)
+            else:
+                inv = torch.empty_like(p)
+                inv[p] = torch.arange(p.shape[0], device=dev)
+                got = [x[inv] for x in fn(o[p].contiguous(), d[p].contiguous(),
+                                          t_max[p].contiguous())]
+            torch.cuda.synchronize()
+            assert torch.equal(got[2], want[2]) and torch.equal(got[0], want[0])
+            if not any_hit:
+                assert torch.equal(got[1], want[1])
+    if case == "ties" and not any_hit:  # the winner's copy lies in another leaf
+        n = bvh.perm.shape[0]
+        where = torch.empty(n, dtype=torch.long, device=dev)
+        valid = bvh.perm >= 0
+        where[bvh.perm[valid].long()] = torch.arange(n, device=dev)[valid]
+        half = int(valid.sum()) // 2
+        orig = bvh.perm[want[1][want[2]].long()].long()
+        other = where[(orig + half) % (2 * half)]
+        assert (other // bvh.leaf_size != want[1][want[2]].long() // bvh.leaf_size).any()
 
 
 @pytest.mark.cuda

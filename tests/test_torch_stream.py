@@ -162,7 +162,9 @@ def test_dispatch_two_level_to_k3_and_flat_to_k2(two_level):
 def test_work_ref_counts_the_leaves_it_enters(two_level, any_hit):
     """The leaves of the bound's byte count: every leaf that holds a ray's
     winning row is entered, no more leaves than the BVH has, their bytes
-    are the packed [W, K] blocks, and dead rays enter none."""
+    are the packed [W, K] blocks and their unit boxes, the rows tested lie
+    in the entered units (fewer than the entered leaves hold), and dead
+    rays enter none."""
     _, ts, o, d = two_level
     b = ts.cone_bvh
     o, d = torch.from_numpy(o), torch.from_numpy(d)
@@ -171,9 +173,38 @@ def test_work_ref_counts_the_leaves_it_enters(two_level, any_hit):
     _, row, found = ctraverse.brute_force(o, d, t_max, b, "cone", any_hit=False)
     winners = torch.unique(row[found].long() // b.leaf_size).numel()
     assert 0 < winners <= w["leaves_entered"] <= b.n_leaves
-    assert w["leaf_bytes"] == w["leaves_entered"] * 16 * b.leaf_size * 4
+    assert w["leaf_bytes"] == w["leaves_entered"] * (16 * b.leaf_size + 6 * 1) * 4
+    assert int(found.sum()) <= w["leaf_row_tests"]
     dead = ctraverse.work_ref(o, d, torch.zeros(N_RAYS), b, "cone", any_hit=any_hit)
     assert dead["leaves_entered"] == 0 and dead["leaf_row_tests"] == 0
+
+
+@pytest.mark.parametrize("leaf", [16, 40, 88])
+def test_unit_boxes_bound_their_rows(leaf):
+    """attach_bvh caches the boxes of each leaf's runs of UNIT rows: each
+    run's box is the union of its real rows' AABBs (padding rows and rows
+    past the leaf inverted), and the runs of a leaf make up its box."""
+    from ba_pathtracing_fur_torch.ops import bvh as bvh_mod, intersect
+
+    ts, _ = builtins.fur_patch(resolution=(4, 4), fibers_per_face=60, device=CPU)
+    ts = traverse.attach_bvh(ts, leaf_size=leaf, min_prims=1)
+    b = ts.cone_bvh
+    u = -(-leaf // bvh_mod.UNIT)
+    assert b.uboxes.shape == (b.n_leaves, 6, u) and b.uboxes.is_contiguous()
+    lo, hi = intersect.cone_aabbs(ts.cones)
+    for j in (0, b.n_leaves // 2, b.n_leaves - 1):
+        for k in range(u):
+            rows = torch.arange(j * leaf + k * bvh_mod.UNIT, min(j * leaf + (k + 1) *
+                                                                 bvh_mod.UNIT, (j + 1) * leaf))
+            rows = rows[b.perm[rows] >= 0]
+            if rows.numel():
+                assert torch.equal(b.uboxes[j, :3, k], lo[rows].amin(0))
+                assert torch.equal(b.uboxes[j, 3:, k], hi[rows].amax(0))
+            else:
+                assert (b.uboxes[j, :3, k] > b.uboxes[j, 3:, k]).all()
+        leaf_node = b.n_leaves - 1 + j
+        assert torch.equal(b.uboxes[j, :3].amin(1), b.bmin[leaf_node])
+        assert torch.equal(b.uboxes[j, 3:].amax(1), b.bmax[leaf_node])
 
 
 def test_child_and_super_tables_match_the_heap():
