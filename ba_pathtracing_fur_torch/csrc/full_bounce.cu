@@ -12,17 +12,29 @@
 // directly; the TPU kernel's [C, R/128, 128] packing and 1024-ray padding
 // are not carried over.
 //
-// What bounds it: compute and latency. Each ray runs ~60 flops per triangle
-// per pass over ~34 Cornell triangles, twice (closest + shadow), plus the
-// shading body, against ~130 bytes of ray state in and out. Every thread of
-// a block reads the same triangle row in the same loop step, so the tables
-// (tris [T<=512,19], mats [M,20], lights [L,29], <= 39 KB for 512
-// triangles) are staged once per block in shared memory, where such a read
-// is a broadcast. This first version is kept simple: no BVH, no warp-level
-// tricks, no RNG fusion.
+// What bounds it: compute and latency. Each ray tests every triangle row
+// of the table (~34 Cornell triangles) for its closest hit and, until the
+// first blocker, for its shadow ray, plus the shading body, against ~130
+// bytes of ray state in and out. Every thread of a block reads the same
+// triangle row in the same loop step, so the tables (tris [T<=512,19], mats
+// [M,20], lights [L,29]) are staged once per block in shared memory, where
+// such a read is a broadcast. The design keeps the row loops short:
+//   * division-free row tests: the closest-hit loop keeps the numerators
+//     (t, u and v times det) and |det| of its best row; u.det >= 0,
+//     v.det >= 0 and (u+v).det <= |det| are compared after a sign flip by
+//     det, t against the best by cross-multiplying, and one division is
+//     made, for the winner; the shadow loop needs none (T_MIN |det| <
+//     t.det.sgn < tmax |det|);
+//   * 16-byte shared loads: the block stages each row's v0, e1 and e2 as
+//     two float4s and a float (3 loads instead of 9); the normals and the
+//     material stay in the [T,19] rows, read once for the winner.
+// The row test drops the TPU kernel's u <= 1 (implied by v >= 0 and
+// u + v <= 1) and compares scaled values, so a row on a boundary may be
+// decided the other way than the plain version's: the tests hold the two to
+// the per-field and image gates.
 //
 // Built without --use_fast_math (approximate division and denormal flush
-// would move 1/det against the 1.19e-7 threshold). FMA contraction stays
+// would move the determinant test against 1.19e-7). FMA contraction stays
 // on: it moves t and u/v by ulps against the plain torch version, so the
 // tests compare with image gates, never bit equality.
 
@@ -36,22 +48,36 @@ using namespace sc;  // float3 operators
 
 constexpr int TRI_COLS = 19;  // v0 e1 e2 n0 n1 n2 mat_id
 constexpr float T_MIN = 1e-4f;
+constexpr float DET_EPS = 1.1920929e-7f;
 constexpr int BLOCK = 128;
 
-// Candidate hit of ONE triangle row (the arithmetic of _tri_scalar_t).
-__device__ __forceinline__ bool tri_hit(float3 o, float3 d, const float* row, float t_max,
-                                        float& t, float& u, float& v) {
-  float3 v0 = sc::ld3(row), e1 = sc::ld3(row + 3), e2 = sc::ld3(row + 6);
-  float3 p = sc::cross(d, e2);
-  float det = sc::dot(e1, p);
-  if (fabsf(det) < 1.1920929e-7f) return false;
-  float inv_det = 1.0f / det;
-  float3 tv = o - v0;
-  u = sc::dot(tv, p) * inv_det;
-  float3 q = sc::cross(tv, e1);
-  v = sc::dot(d, q) * inv_det;
-  t = sc::dot(e2, q) * inv_det;
-  return u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f && t > T_MIN && t < t_max;
+// One row's geometry from the staged float4 layout: a = (v0, e1.x),
+// b = (e1.y, e1.z, e2.x, e2.y), c = e2.z.
+struct Row {
+  float3 v0, e1, e2;
+};
+
+__device__ __forceinline__ Row load_row(const float4* a, const float4* b, const float* c, int j) {
+  const float4 x = a[j], y = b[j];
+  return {make_float3(x.x, x.y, x.z), make_float3(x.w, y.x, y.y), make_float3(y.z, y.w, c[j])};
+}
+
+// The Möller-Trumbore numerators of one row (the arithmetic of
+// _tri_scalar_t without its division), sign-flipped by det: us = u|det|,
+// vs = v|det|, ts = t|det|, ad = |det|. Returns whether u >= 0, v >= 0,
+// u + v <= 1, t > T_MIN and |det| >= DET_EPS hold.
+__device__ __forceinline__ bool row_test(float3 o, float3 d, const Row& w, float& us,
+                                         float& vs, float& ts, float& ad) {
+  const float3 p = sc::cross(d, w.e2);
+  const float det = sc::dot(w.e1, p);
+  ad = fabsf(det);
+  const float3 tv = o - w.v0;
+  const float3 q = sc::cross(tv, w.e1);
+  const float un = sc::dot(tv, p), vn = sc::dot(d, q), tn = sc::dot(w.e2, q);
+  us = det < 0.0f ? -un : un;
+  vs = det < 0.0f ? -vn : vn;
+  ts = det < 0.0f ? -tn : tn;
+  return ad >= DET_EPS && us >= 0.0f && vs >= 0.0f && us + vs <= ad && ts > T_MIN * ad;
 }
 
 __global__ void __launch_bounds__(BLOCK) full_bounce_kernel(
@@ -66,13 +92,22 @@ __global__ void __launch_bounds__(BLOCK) full_bounce_kernel(
     float* __restrict__ direction_out, float* __restrict__ radiance_out,
     float* __restrict__ color_out, int* __restrict__ flags_out,
     float* __restrict__ theta_out, float* __restrict__ prev_pdf_out) {
-  extern __shared__ float smem[];
-  float* s_tris = smem;
+  extern __shared__ float4 smem4[];
+  float4* s_a = smem4;  // [T] (v0, e1.x)
+  float4* s_b = s_a + n_tris;  // [T] (e1.y, e1.z, e2.x, e2.y)
+  float* s_c = reinterpret_cast<float*>(s_b + n_tris);  // [T] e2.z
+  float* s_tris = s_c + n_tris;  // [T,19] rows: the winner's normals and material
   float* s_mats = s_tris + n_tris * TRI_COLS;
   float* s_lights = s_mats + n_mats * sc::MAT_COLS;
   for (int k = threadIdx.x; k < n_tris * TRI_COLS; k += blockDim.x) s_tris[k] = tris[k];
   for (int k = threadIdx.x; k < n_mats * sc::MAT_COLS; k += blockDim.x) s_mats[k] = mats[k];
   for (int k = threadIdx.x; k < n_lights * sc::LIGHT_COLS; k += blockDim.x) s_lights[k] = lights[k];
+  for (int j = threadIdx.x; j < n_tris; j += blockDim.x) {
+    const float* r = tris + j * TRI_COLS;
+    s_a[j] = make_float4(r[0], r[1], r[2], r[3]);
+    s_b[j] = make_float4(r[4], r[5], r[6], r[7]);
+    s_c[j] = r[8];
+  }
   __syncthreads();
 
   int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -87,17 +122,22 @@ __global__ void __launch_bounds__(BLOCK) full_bounce_kernel(
   st.theta_i = theta_i[i];
   st.prev_pdf = prev_pdf[i];
 
-  // closest hit (bruteforce._closest_chunk semantics); dead rays trace nothing
+  // closest hit (bruteforce._closest_chunk semantics); dead rays trace
+  // nothing. The best row is kept as (t|det|, |det|): a row wins when
+  // ts / ad < tb / adb, compared as ts * adb < tb * ad; the first row wins
+  // ties. The cap t_cap enters as the initial best (t_cap, 1).
   bool do_trace = !sc::is_zero(st.radiance) && !sc::is_zero(st.direction);
-  float t_cap = do_trace ? sc::INF : 0.0f;
-  float t_best = sc::INF, u_b = 0.0f, v_b = 0.0f;
+  float tb = do_trace ? sc::INF : 0.0f, adb = 1.0f, ub = 0.0f, vb = 0.0f;
   int best = -1;
   for (int j = 0; j < n_tris; ++j) {
-    float t, u, v;
-    if (tri_hit(st.origin, st.direction, s_tris + j * TRI_COLS, t_cap, t, u, v) && t < t_best) {
-      t_best = t; u_b = u; v_b = v; best = j;
+    float us, vs, ts, ad;
+    if (row_test(st.origin, st.direction, load_row(s_a, s_b, s_c, j), us, vs, ts, ad)
+        && ts * adb < tb * ad) {
+      tb = ts; adb = ad; ub = us; vb = vs; best = j;
     }
   }
+  const float inv = 1.0f / adb;  // the one division, for the winner
+  const float t_best = tb * inv, u_b = ub * inv, v_b = vb * inv;
   sc::Hit hit;
   hit.valid = best >= 0;
   hit.t = hit.valid ? t_best : sc::INF;
@@ -131,8 +171,9 @@ __global__ void __launch_bounds__(BLOCK) full_bounce_kernel(
   bool blocked = false;
   if (sh.tmax > T_MIN) {
     for (int j = 0; j < n_tris && !blocked; ++j) {
-      float t, u, v;
-      blocked = tri_hit(sh.o, sh.d, s_tris + j * TRI_COLS, sh.tmax, t, u, v);
+      float us, vs, ts, ad;
+      blocked = row_test(sh.o, sh.d, load_row(s_a, s_b, s_c, j), us, vs, ts, ad)
+                && ts < sh.tmax * ad;
     }
   }
   if (!blocked) st.color = st.color + sh.direct_rgb;
@@ -165,7 +206,7 @@ extern "C" int full_bounce_launch(
   cfg.rr_gate = rr_gate != 0;
   cfg.clamp_throughput = clamp_throughput;
   cfg.bsdfs_present = bsdfs_present;
-  size_t smem = sizeof(float) * (static_cast<size_t>(n_tris) * TRI_COLS
+  size_t smem = sizeof(float) * (static_cast<size_t>(n_tris) * (TRI_COLS + 9)
                                  + static_cast<size_t>(n_mats) * sc::MAT_COLS
                                  + static_cast<size_t>(n_lights) * sc::LIGHT_COLS);
   if (smem > 48 * 1024) {

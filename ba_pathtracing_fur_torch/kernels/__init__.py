@@ -66,7 +66,7 @@ SIGNATURES = {
         + [_C_VOID_P] * 3                      # t row found
         + [_C_VOID_P])),                       # cudaStream_t
     "bruteforce_launch": ("bruteforce.cu", (
-        [_C_INT] + [_C_VOID_P] * 4             # n_rays, o d t_max prims
+        [_C_INT] + [_C_VOID_P] * 5             # n_rays, o d t_max prims boxes
         + [_C_INT, _C_INT, _C_FLOAT]           # n_prims cone t_min
         + [_C_VOID_P] * 2                      # t idx
         + [_C_VOID_P])),                       # cudaStream_t

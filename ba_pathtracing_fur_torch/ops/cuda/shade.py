@@ -241,7 +241,8 @@ def _shade_bounce_full_cuda(*, origin, direction, radiance, color, flags, theta_
     if not (0 < n_tris <= min(tris_table.shape[0], MAX_FULL_FUSE_TRIS)
             and 0 < n_mats <= mats_table.shape[0] and 0 <= n_lights <= lights_table.shape[0]):
         raise ValueError(f"full_bounce: bad table counts T={n_tris} M={n_mats} L={n_lights}")
-    table_bytes = 4 * (n_tris * TRI_COLS + n_mats * MAT_COLS + n_lights * LIGHT_COLS)
+    # the kernel stages each row twice: the [T,19] rows and its float4 geometry
+    table_bytes = 4 * (n_tris * (TRI_COLS + 9) + n_mats * MAT_COLS + n_lights * LIGHT_COLS)
     if table_bytes > MAX_TABLE_BYTES:
         raise ValueError(f"full_bounce: tables of {table_bytes} B exceed shared memory")
 

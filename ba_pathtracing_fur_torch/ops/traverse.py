@@ -16,11 +16,14 @@ Each kernel is the CUDA launch on the card and its plain twin on the CPU.
 
 As in the JAX package, the traversal only selects the winning row; the
 winner's t is recomputed outside it from the gathered row, with the same
-arithmetic as the leaf test. Before a traversal the rays are sorted by the
-JAX package's entry-morton key (`_entry_morton_perms`, position only), so
-the tiles of K2 and K3 hold rays that enter the same leaves; the sort is a
-pure permutation, undone on the rows (closest hit) or the blocked flags
-(any hit), so the Hit is the same per ray with it or without it.
+arithmetic as the leaf test. When the scene has a BVH the rays are sorted
+by the JAX package's entry-morton key (`_entry_morton_perms`, position
+only) before every kernel of the call, K5 on a BVH-less pack beside the BVH
+included (the JAX package's order), so the tiles of K2, K3 and K5 hold rays
+that enter the same leaves or primitives; the sort is a pure permutation,
+undone on the rows (closest hit) or the blocked flags (any hit), so the Hit
+is the same per ray with it or without it. K5's tables are made once per
+pack (`cisect.tables_of`), not per call.
 """
 
 from __future__ import annotations
@@ -241,11 +244,15 @@ def _use_brute(o, pack) -> bool:
     return o.shape[0] * pack.count >= _BRUTE_MIN
 
 
-def _brute_rows(o, d, t_max, pack, kind, t_min):
-    """K5 over a BVH-less pack -> (winner row [R], 0 on a miss; whether it
-    lies below t_max [R])."""
-    t_k, row = cisect.closest(o, d, t_max, cisect.pack_cm(pack, kind), kind, t_min)
-    return torch.clamp(row, min=0), t_k < t_max
+def _brute_rows(o, d, t_max, tables, kind, t_min, sort=None):
+    """K5 over a BVH-less pack -> (winner row [R], 0 on a miss; found [R])
+    in the callers' ray order, the kernel run on the sorted rays when `sort`
+    holds them. K5 keeps only t below t_max, so found is row >= 0."""
+    if sort is None:
+        row = cisect.closest(o, d, t_max, tables, kind, t_min)[1]
+    else:
+        row = cisect.closest(*sort[:3], tables, kind, t_min)[1][sort[3]]
+    return torch.clamp(row, min=0), row >= 0
 
 
 def _traverse(o, d, t_max, bvh, kind, any_hit, t_min):
@@ -385,10 +392,11 @@ def _t_max_of(t_max, r, like):
 
 
 def closest_hit(o, d, scene: DeviceScene, t_min=1e-4, t_max=INF) -> bruteforce.Hit:
-    """Nearest hit per ray: a traversal kernel for packs with a BVH (on
-    the entry-morton sorted rays, see SORT_RAYS) and K5 for big BVH-less
-    packs (then the winner's t recomputed from its row), the dense grid for
-    small ones. t_max may be per ray [R]."""
+    """Nearest hit per ray: a traversal kernel for packs with a BVH and K5
+    for big BVH-less packs (then the winner's t recomputed from its row),
+    both on the entry-morton sorted rays when the scene has a BVH (see
+    SORT_RAYS), the dense grid for small BVH-less packs. t_max may be per
+    ray [R]."""
     r = o.shape[0]
     t_max = _t_max_of(t_max, r, o)
     tris, cones = scene.tris, scene.cones
@@ -402,7 +410,9 @@ def closest_hit(o, d, scene: DeviceScene, t_min=1e-4, t_max=INF) -> bruteforce.H
             tri_row, found = _traverse_rows(o, d, t_max, scene.tri_bvh, "tri", t_min, sort)
             aos = scene.tri_bvh.aos_rows
         else:
-            (tri_row, found), aos = _brute_rows(o, d, t_max, tris, "tri", t_min), tri_aos(tris)
+            tri_row, found = _brute_rows(o, d, t_max, cisect.tables_of(tris, "tri"), "tri",
+                                         t_min, sort)
+            aos = tri_aos(tris)
         tri_rp = take_tri_rows(aos, tri_row)
         t_tri = torch.where(found, _recompute_t_tri(tri_rp, o, d, t_min, t_max), INF)
     elif tris.count:
@@ -416,8 +426,9 @@ def closest_hit(o, d, scene: DeviceScene, t_min=1e-4, t_max=INF) -> bruteforce.H
             cone_row, found = _traverse_rows(o, d, t_max, scene.cone_bvh, "cone", t_min, sort)
             aos = scene.cone_bvh.aos_rows
         else:
-            (cone_row, found), aos = (_brute_rows(o, d, t_max, cones, "cone", t_min),
-                                      cone_aos(cones))
+            cone_row, found = _brute_rows(o, d, t_max, cisect.tables_of(cones, "cone"), "cone",
+                                          t_min, sort)
+            aos = cone_aos(cones)
         cone_rc = take_cone_rows(aos, cone_row)
         t_cone = torch.where(found, _recompute_t_cone(cone_rc, o, d, t_min, t_max), INF)
     elif cones.count:
@@ -445,7 +456,7 @@ def any_hit(o, d, scene: DeviceScene, t_max, t_min=1e-4) -> torch.Tensor:
         if bvh is not None:
             blocked |= _traverse(o, d, t_max, bvh, kind, True, t_min)[2]
         elif pack.count and _use_brute(o, pack):
-            blocked |= _brute_rows(o, d, t_max, pack, kind, t_min)[1]
+            blocked |= _brute_rows(o, d, t_max, cisect.tables_of(pack, kind), kind, t_min)[1]
         elif pack.count:
             blocked |= _grid_any(o, d, pack, grid_fn, t_min, t_max)
     return blocked if sort is None else blocked[inv]

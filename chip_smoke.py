@@ -9,7 +9,8 @@ calls (`scene/builtins` -> `ops/traverse.attach_bvh` -> `models/pathtracer.
 render_image`) and checks the images:
 
   * the Cornell path (the JAX package's bench configs 0 and 2) through the
-    full-bounce kernel;
+    full-bounce kernel (K4), timed and bounded on config-0 bounces 0-3 and
+    config-2 bounce 0;
   * the fur patch (bench config 4: 512x512, 45,000 cones, depth 4, spp 8,
     no cut) through the traversal kernel (cone BVH) and the shade kernel;
   * a Cornell box with a triangle BVH through the traversal kernel's
@@ -24,11 +25,15 @@ render_image`) and checks the images:
     traversal kernel (K3, two-level cone BVH), the brute-force kernel (K5,
     the BVH-less scalp) and the shade kernel. K3 is held against its twin
     on ray subsets and against the heap-walk kernel (K2) on whole
-    wavefronts, K5 against its twin on the camera wavefront; both are
-    timed and bounded. K5's cone variant runs on the fur patch without a
-    BVH (a render gated against the BVH render of the same patch), and a
-    mid-size hair ball renders through the kernels and through the plain
-    versions under the image gate.
+    wavefronts, K5 against its twin on the camera and bounce-1 wavefronts
+    and the bounce-0 shadow rays, each sorted and unsorted; both are timed
+    and bounded (K5's bound from the exact tests these rays need, beside
+    the TPU kernel's all-pairs work; its cull's margin measured on every
+    wavefront). K5's cone variant runs on the fur patch without a BVH (its
+    camera and bounce-1 wavefronts held whole, timed and bounded, then a
+    render gated against the BVH render of the same patch),
+    and a mid-size hair ball renders through the kernels and through the
+    plain versions under the image gate.
 
 The traversal kernels (K2, K3) run, as on the main path, on rays sorted by
 the entry-morton key (`ops/traverse._entry_morton_perms`): each is held
@@ -86,8 +91,9 @@ CONFIG5 = dict(res=(1024, 1024), n_fibers=1_000_000, depth=4, spp=4, bvh=(32768,
 # K3's twin is a brute force over 9.2M rows: it runs on TWIN_RAYS rays spread
 # over each wavefront; K3's work count (for its bound) on WORK_RAYS, scaled.
 TWIN_RAYS, WORK_RAYS = 2048, 65_536
-# K5's cone variant: config 4's fur patch without a BVH, its twin on a subset.
-K5_CONE_RAYS = 16_384
+# K5's cone variant: config 4's fur patch without a BVH; its work count (for
+# its bound) on K5_CONE_TILES tiles of each wavefront, scaled.
+K5_CONE_TILES = 256
 # The kernel-vs-plain image gate on a mid-size hair ball (two-level BVH).
 MID_HAIRBALL = dict(res=(256, 256), n_fibers=20_000, depth=4, spp=1)
 TIMED_REPS = 3
@@ -97,8 +103,11 @@ PEAK_FP32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # sample and pdf, one BSDF sample, throughput update; the hair automaton
 # adds its trig): used only where bytes bind, which they do for both.
 SHADE_FLOPS_PER_RAY = 400
-# Möller-Trumbore flops of one triangle row in full_bounce.cu (as traverse.cu)
-TRI_ROW_FLOPS = 55
+# flops of one triangle row of full_bounce.cu's division-free test: the
+# Möller-Trumbore numerators 45, |det| 1, sign flips 3, acceptance 7, and the
+# cross-multiplied compare with the best row 3 (closest hit) or the scaled
+# t_max compare 2 (shadow ray)
+TRI_ROW_FLOPS, SHADOW_ROW_FLOPS = 55, 54
 # Per-field gate of tests/test_fused_shade.py::test_fused_single_bounce_exact.
 FIELD_ATOL, FIELD_RTOL, FIELD_MAX_FRAC = 1e-4, 1e-4, 0.02
 # Image gate of tests/test_fused_shade.py::_compare.
@@ -287,32 +296,43 @@ def phase_kernel_vs_plain(dev) -> dict:
     return dict(max_abs_err=worst_abs, mismatch_frac=worst_frac)
 
 
-def time_one_bounce(dev) -> dict:
-    """Kernel and plain time of one config-0 bounce (bounce 0, 921,600 rays)."""
+def time_bounces(dev) -> dict:
+    """Kernel time and bound of config-0 bounces 0-3 (921,600 rays, each
+    wavefront from the plain version's last bounce) and of config-2 bounce
+    0; the plain version's time on config-0 bounce 0."""
     from ba_pathtracing_fur_torch.core import rng
     from ba_pathtracing_fur_torch.models import pathtracer as pt
     from ba_pathtracing_fur_torch.ops.cuda import shade as cshade
     from ba_pathtracing_fur_torch.scene import builtins
 
-    scene, cam = builtins.cornell_box(resolution=CONFIG0["res"], device=dev)
-    cfg = render_cfg(CONFIG0, 1)
-    ids = torch.arange(cam.resolution[0] * cam.resolution[1], device=dev)
-    state, keys = pt.camera_wavefront(cam, ids, rng.key(0, dev), [0], cfg)
-    kw = pt.full_bounce_inputs(state, scene, keys, 0, cfg, pt.BounceTables.of(scene))
-
-    ms = timed(lambda: cshade.shade_bounce_full(**kw), 50)
-    plain_ms = timed(lambda: cshade.shade_bounce_full_ref(**kw), 5)
-    log(f"one config-0 bounce ({CONFIG0['res'][0] * CONFIG0['res'][1]} rays): kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.3f} ms")
-    return dict(ms=ms, plain_ms=plain_ms, **full_bounce_bound(kw))
+    out = {}
+    for name, c, bounces in (("config0", CONFIG0, 4), ("config2", CONFIG2, 1)):
+        scene, cam = builtins.cornell_box(resolution=c["res"], variant=c["variant"], device=dev)
+        cfg = render_cfg(c, 1)
+        tables = pt.BounceTables.of(scene)
+        ids = torch.arange(cam.resolution[0] * cam.resolution[1], device=dev)
+        state, keys = pt.camera_wavefront(cam, ids, rng.key(0, dev), [0], cfg)
+        for bounce in range(bounces):
+            kw = pt.full_bounce_inputs(state, scene, keys, bounce, cfg, tables)
+            res = dict(ms=timed(lambda: cshade.shade_bounce_full(**kw), 50),
+                       **full_bounce_bound(kw))
+            if (name, bounce) == ("config0", 0):
+                res["plain_ms"] = timed(lambda: cshade.shade_bounce_full_ref(**kw), 5)
+            log(f"full_bounce {name} bounce {bounce} ({ids.shape[0]} rays): kernel "
+                f"{res['ms']:.4f} ms, bound {res['bound_ms']:.4f} ms"
+                + (f", plain {res['plain_ms']:.3f} ms" if "plain_ms" in res else ""))
+            out[f"{name}_b{bounce}"] = res
+            state = pt.RayState(**cshade.shade_bounce_full_ref(**kw))
+    return out
 
 
 def full_bounce_bound(kw) -> dict:
     """The full-bounce kernel's bound on these inputs: the triangle rows its
-    closest hit must test (every row, for every ray that traces) and those
-    its shadow any-hit must test (rows up to the first blocker, or all), at
-    TRI_ROW_FLOPS each, plus SHADE_FLOPS_PER_RAY; bytes are the per-ray
-    state and draws read once and the new state written once."""
+    closest hit must test (every row, for every ray that traces) at
+    TRI_ROW_FLOPS and those its shadow any-hit must test (rows up to the
+    first blocker, or all) at SHADOW_ROW_FLOPS, plus SHADE_FLOPS_PER_RAY;
+    bytes are the per-ray state and draws read once and the new state
+    written once."""
     from ba_pathtracing_fur_torch.ops.cuda import shade as cshade
 
     n_tris = kw["n_tris"]
@@ -334,7 +354,7 @@ def full_bounce_bound(kw) -> dict:
     has_shadow = shadow_tmax > cshade.T_MIN
     first = torch.where(shadow_valid.any(-1), shadow_valid.int().argmax(-1) + 1, n_tris)
     shadow_rows = int(first[has_shadow].sum())
-    flops = (tracing * n_tris + shadow_rows) * TRI_ROW_FLOPS \
+    flops = tracing * n_tris * TRI_ROW_FLOPS + shadow_rows * SHADOW_ROW_FLOPS \
         + kw["origin"].shape[0] * SHADE_FLOPS_PER_RAY
     io = [kw[k] for k in ("origin", "direction", "radiance", "color", "flags", "theta_i",
                           "prev_pdf", "u_bsdf", "u_pick", "u_light")] + list(out.values())
@@ -893,45 +913,92 @@ def stream_bound(o, d, t_max, bvh, any_hit, t, row, found) -> dict:
                 leaves_entered=w["leaves_entered"])
 
 
-def brute_bound(o, t_max, packed, kind) -> dict:
-    """K5's bound: every live ray tests every primitive (PAIR_FLOPS each);
-    rays, t_max and the pack read once, (t, idx) written once."""
+def brute_bound(o, d, t_max, tables, kind, t, idx, max_tiles=0) -> dict:
+    """K5's bound on these rays (`cisect.work_ref`): an exact test per pair
+    whose padded box the ray enters by its final t, each input read once
+    and each output written once. Beside it, the cull's own tests and the
+    tiles' L2 re-reads (diagnostics, not in the bound), and the TPU
+    kernel's work (every live ray against every primitive) and its bound."""
     from ba_pathtracing_fur_torch.ops.cuda import intersect as cisect
 
-    pairs = int((t_max > 0).sum()) * packed.shape[1]
-    res = bound(pairs * cisect.PAIR_FLOPS[kind], nbytes(o, o, t_max, packed) + o.shape[0] * 8)
-    log(f"bruteforce {kind} work: {pairs} pairs x {cisect.PAIR_FLOPS[kind]} flops -> "
-        f"{res['flops']:.4e} flops, {res['bytes']:.4e} bytes, bound {res['bound_ms']:.4f} ms "
-        f"by {res['bound_by']}")
-    return dict(res, pairs=pairs)
+    t_fin = torch.where(idx >= 0, t, t_max)
+    w = cisect.work_ref(o, d, t_max, tables, kind, t_fin, max_tiles=max_tiles)
+    res = bound(w["flops"], w["bytes"])
+    old = bound(w["all_pairs_flops"], w["all_pairs_bytes"])
+    log(f"bruteforce {kind} work ({w['counted_tiles']} of {w['tiles']} tiles counted): "
+        f"{w['exact_tests']:.4e} exact tests = {w['exact_per_ray']:.3f} a live ray -> "
+        f"{w['flops']:.4e} flops, {w['bytes']:.4e} bytes, bound {res['bound_ms']:.4f} ms by "
+        f"{res['bound_by']}; the cull's own work: {w['live_tiles']:.0f} live tiles, "
+        f"{w['survivors_per_tile']:.2f} survivors a tile of {tables.cm.shape[1]}, "
+        f"{w['bundle_tests']:.4e} bundle and {w['slab_tests']:.4e} slab tests = "
+        f"{w['cull_flops']:.4e} flops, {w['reread_bytes']:.4e} bytes re-read from L2; the "
+        f"TPU kernel's work: {w['all_pairs']} pairs x {cisect.PAIR_FLOPS[kind]} flops, bound "
+        f"{old['bound_ms']:.4f} ms by {old['bound_by']}")
+    return dict(res, survivors_per_tile=w["survivors_per_tile"],
+                exact_per_ray=w["exact_per_ray"], cull_flops=w["cull_flops"],
+                reread_bytes=w["reread_bytes"], all_pairs_bound_ms=old["bound_ms"])
 
 
-def compare_brute(o, d, t_max, packed, kind, what) -> float:
-    """K5 against its twin on the same CUDA inputs: t and index bit for bit."""
+def k5_wavefront(o, d, t_max, pack, kind, bvh, what, max_tiles=0, plain=False) -> dict:
+    """K5 on one wavefront as the main path feeds it: on the entry-morton
+    sorted rays when the scene has a BVH (`bvh`), else as they come. Held
+    against its twin on every ray (t and index bit for bit), the unsorted
+    rays' result equal to the sorted rays' ray for ray; the cull's margin
+    (`cisect.cull_margin`) over every accepted pair; timed sorted and
+    unsorted; bounded by `brute_bound`."""
     from ba_pathtracing_fur_torch.ops.cuda import intersect as cisect
 
-    t1, i1 = cisect.closest(o, d, t_max, packed, kind)
-    t0, i0 = cisect.closest_ref(o, d, t_max, packed, kind)
+    tables = cisect.tables_of(pack, kind)
+    rays = (o, d, t_max)
+    if bvh is not None:
+        *rays, perm = sorted_rays(o, d, t_max, bvh)
+    so, sd, st = rays
+    t1, i1 = cisect.closest(so, sd, st, tables, kind)
+    t0, i0 = cisect.closest_ref(so, sd, st, tables, kind)
     torch.cuda.synchronize()
     bad_t, bad_i = int((t0 != t1).sum()), int((i0 != i1).sum())
-    log(f"bruteforce {kind} vs plain, {what}: {o.shape[0]} rays x {packed.shape[1]} "
-        f"primitives, hits {int((i1 >= 0).sum())}, t mismatches {bad_t}, index mismatches "
-        f"{bad_i}")
+    log(f"bruteforce {kind} vs plain, {what}{' (sorted)' if bvh is not None else ''}: "
+        f"{o.shape[0]} rays x {tables.cm.shape[1]} primitives, hits {int((i1 >= 0).sum())}; "
+        f"t mismatches {bad_t}, index mismatches {bad_i}")
     if bad_t or bad_i:
         raise AssertionError(f"bruteforce {kind} {what}: kernel disagrees with plain")
-    return float((t0 - t1).abs().max())
+    margin = cisect.cull_margin(so, sd, st, pack, kind)
+    log(f"bruteforce {kind} cull margin, {what}: {margin['pairs']} accepted pairs, largest "
+        f"entry into the padded box / t {margin['entry_ratio']:.7f} (pruned beyond "
+        f"{cisect.PRUNE_SLACK}), boxes missed {margin['missed']}, furthest hit point outside "
+        f"its unpadded box {margin['pad_needed']:.3e} of the pack's extent (padded by "
+        f"{cisect.BOX_PAD_EXT} of it + {cisect.BOX_PAD_REL} of each coordinate)")
+    if margin["missed"] or margin["entry_ratio"] > cisect.PRUNE_SLACK:
+        raise AssertionError(f"bruteforce {kind} {what}: the cull could drop an accepted pair")
+    reps = 20 if kind == "tri" else 3
+    res = dict(max_abs_err=float((t0 - t1).abs().max()), margin=margin,
+               ms=timed(lambda: cisect.closest(so, sd, st, tables, kind), reps))
+    if bvh is not None:
+        tu, iu = cisect.closest(o, d, t_max, tables, kind)
+        torch.cuda.synchronize()
+        if not (torch.equal(tu[perm], t1) and torch.equal(iu[perm], i1)):
+            raise AssertionError(f"bruteforce {kind} {what}: unsorted rays give another result")
+        res["unsorted_ms"] = timed(lambda: cisect.closest(o, d, t_max, tables, kind), reps)
+    if plain:
+        res["plain_ms"] = timed(lambda: cisect.closest_ref(so, sd, st, tables, kind), 1)
+    res["bound"] = brute_bound(so, sd, st, tables, kind, t1, i1, max_tiles)
+    log(f"bruteforce {kind}, {what}: kernel {res['ms']:.4f} ms"
+        + (f" sorted, {res['unsorted_ms']:.4f} ms unsorted" if "unsorted_ms" in res else "")
+        + (f"; plain {res['plain_ms']:.3f} ms" if plain else ""))
+    return res
 
 
 def phase_hairball_kernels(scene, cam, cfg, dev) -> dict:
     """Bounces 0-1 of config 5 through the kernels: K3 (closest hit on the
     wavefront, any hit on its shadow rays) against its twin and K2, timed
-    beside K2 and bounded; K5 on the camera wavefront against the scalp,
-    against its twin, timed and bounded."""
+    beside K2 and bounded; K5 on the scalp (the camera and bounce-1
+    wavefronts and the bounce-0 shadow rays, sorted as the main path feeds
+    it and unsorted) against its twin, timed and bounded."""
     from ba_pathtracing_fur_torch.core import rng
     from ba_pathtracing_fur_torch.models import pathtracer as pt
     from ba_pathtracing_fur_torch.ops import traverse
-    from ba_pathtracing_fur_torch.ops.cuda import intersect as cisect, shade as cshade, \
-        stream as cstream, traverse as ctraverse
+    from ba_pathtracing_fur_torch.ops.cuda import shade as cshade, stream as cstream, \
+        traverse as ctraverse
 
     bvh = scene.cone_bvh
     flat = dataclasses.replace(bvh, fanout=0)
@@ -981,15 +1048,11 @@ def phase_hairball_kernels(scene, cam, cfg, dev) -> dict:
                                        closest["found"]),
             any_bound=stream_bound(o2, d2, t2, bvh, True, shadow["t"], shadow["row"],
                                    shadow["found"]))
+        out[f"k5_tri_{bounce}"] = k5_wavefront(o, d, t_cap, scene.tris, "tri", bvh,
+                                               f"config5 {what}", plain=bounce == 0)
         if bounce == 0:
-            packed = cisect.pack_cm(scene.tris, "tri")
-            err = compare_brute(o, d, t_cap, packed, "tri", "config5 camera wavefront")
-            out["k5_tri"] = dict(
-                max_abs_err=err, bound=brute_bound(o, t_cap, packed, "tri"),
-                ms=timed(lambda: cisect.closest(o, d, t_cap, packed, "tri"), 20),
-                plain_ms=timed(lambda: cisect.closest_ref(o, d, t_cap, packed, "tri"), 2))
-            log(f"bruteforce tri, config5 camera wavefront: kernel "
-                f"{out['k5_tri']['ms']:.4f} ms, plain {out['k5_tri']['plain_ms']:.3f} ms")
+            out["k5_tri_shadow"] = k5_wavefront(so, sd, st_max, scene.tris, "tri", bvh,
+                                                "config5 bounce-0 shadow rays")
         blocked = traverse.any_hit(so, sd, scene, st_max)
         color = sh["color"] + torch.where(blocked[:, None], 0.0, sh["direct_rgb"])
         state = pt.RayState(origin=sh["origin"], direction=sh["direction"],
@@ -1025,34 +1088,37 @@ def phase_hairball_main_path(scene, cam, cfg, dev) -> dict:
 
 def phase_bruteforce_cone(dev) -> dict:
     """K5's cone variant on a user path: config 4's fur patch without a BVH
-    (262,144 rays x 45,000 cones a call). Held against its twin on
-    K5_CONE_RAYS camera rays, timed and bounded on the whole wavefront;
-    then rendered through the kernels at spp 1 and gated against the render
-    of the same patch with a cone BVH (K2)."""
+    (262,144 rays x 45,000 cones a call; no BVH, so no ray sort). On its
+    camera and bounce-1 wavefronts: held against its twin on every ray,
+    timed and bounded (the cull's work counted on K5_CONE_TILES tiles);
+    then rendered through the kernels at spp 1 and
+    gated against the render of the same patch with a cone BVH (K2)."""
     from ba_pathtracing_fur_torch.core import rng
     from ba_pathtracing_fur_torch.models import pathtracer as pt
     from ba_pathtracing_fur_torch.ops import traverse
-    from ba_pathtracing_fur_torch.ops.cuda import intersect as cisect
+    from ba_pathtracing_fur_torch.ops.cuda import shade as cshade
     from ba_pathtracing_fur_torch.scene import builtins
 
     scene, cam = builtins.fur_patch(resolution=CONFIG4["res"],
                                     fibers_per_face=CONFIG4["fibers_per_face"], device=dev)
     cfg = pt.RenderConfig(depth=CONFIG4["depth"], spp=1, compact=False, fused_shading=True)
     ids = torch.arange(cam.resolution[0] * cam.resolution[1], device=dev)
-    state, _ = pt.camera_wavefront(cam, ids, rng.key(0, dev), [0], cfg)
-    o, d = state.origin, state.direction
-    t_cap = torch.full((o.shape[0],), traverse.INF, device=dev)
-    packed = cisect.pack_cm(scene.cones, "cone")
-    sub = spread(o.shape[0], K5_CONE_RAYS, dev)
-    os_, ds_, ts_ = o[sub].contiguous(), d[sub].contiguous(), t_cap[sub].contiguous()
-    err = compare_brute(os_, ds_, ts_, packed, "cone", "fur patch camera rays")
-    res = dict(max_abs_err=err, bound=brute_bound(o, t_cap, packed, "cone"),
-               ms=timed(lambda: cisect.closest(o, d, t_cap, packed, "cone"), 3),
-               sub_ms=timed(lambda: cisect.closest(os_, ds_, ts_, packed, "cone"), 10),
-               plain_ms=timed(lambda: cisect.closest_ref(os_, ds_, ts_, packed, "cone"), 1))
-    log(f"bruteforce cone, fur patch: kernel {res['ms']:.4f} ms on {o.shape[0]} rays, "
-        f"{res['sub_ms']:.4f} ms on {K5_CONE_RAYS}; plain {res['plain_ms']:.3f} ms on "
-        f"{K5_CONE_RAYS}")
+    state, keys = pt.camera_wavefront(cam, ids, rng.key(0, dev), [0], cfg)
+    res = {}
+    for bounce in range(2):
+        alive = (state.radiance != 0.0).any(-1) & (state.direction != 0.0).any(-1)
+        t_cap = torch.where(alive, traverse.INF, 0.0)
+        o, d = state.origin, state.direction
+        what = "camera wavefront" if bounce == 0 else "bounce-1 wavefront"
+        res[bounce] = k5_wavefront(o, d, t_cap, scene.cones, "cone", None,
+                                   f"fur patch {what}", max_tiles=K5_CONE_TILES,
+                                   plain=bounce == 0)
+        hit = traverse.closest_hit(o, d, scene, t_max=t_cap)
+        sh = cshade.shade_bounce(**pt.shade_inputs(state, scene, keys, bounce, cfg, hit,
+                                                   pt.BounceTables.of(scene)))
+        state = pt.RayState(origin=sh["origin"], direction=sh["direction"],
+                            radiance=sh["radiance"], color=sh["color"], flags=sh["flags"],
+                            theta_i=sh["theta_i"], prev_pdf=sh["prev_pdf"])
     key = rng.key(0, dev)
     shape = (cam.resolution[1], cam.resolution[0], 3)
     reset_counts()
@@ -1141,7 +1207,7 @@ def drive(dev, card: str) -> list:
     log("threefry: card uniforms bit-identical to CPU")
 
     check = phase_kernel_vs_plain(dev)
-    timing_bounce = time_one_bounce(dev)
+    k4 = time_bounces(dev)
     phase_small_reference(dev)
     main_res = phase_main_path(dev)
     times = phase_timing(*main_res["config0_scene"])
@@ -1182,15 +1248,16 @@ def drive(dev, card: str) -> list:
 
     t0 = fur[0]["times"]
     b0 = fur[0]["closest_bound"]
-    h0, k5t = hb[0], hb["k5_tri"]
+    h0, k5t, k4b = hb[0], hb["k5_tri_0"], k4["config0_b0"]
+    k5c = k5_cone[0]
     kernels_line = [
         dict(name="full_bounce", route="cuda",
              source="ba_pathtracing_fur_torch/csrc/full_bounce.cu",
              replaces="ba_pathtracing_fur_tpu/ops/pallas/shade.py:359",
              launches=main_res["launches"], max_abs_err=check["max_abs_err"],
-             mismatch_frac=check["mismatch_frac"], ms=timing_bounce["ms"],
-             plain_ms=timing_bounce["plain_ms"], bound_ms=timing_bounce["bound_ms"],
-             bound_by=timing_bounce["bound_by"], library_ms=None),
+             mismatch_frac=check["mismatch_frac"], ms=k4b["ms"], plain_ms=k4b["plain_ms"],
+             bound_ms=k4b["bound_ms"], bound_by=k4b["bound_by"], library_ms=None,
+             bounces={k: dict(ms=v["ms"], bound_ms=v["bound_ms"]) for k, v in k4.items()}),
         dict(name="traverse_cone", route="cuda",
              source="ba_pathtracing_fur_torch/csrc/traverse.cu",
              replaces="ba_pathtracing_fur_tpu/ops/pallas/traverse.py:247",
@@ -1238,16 +1305,32 @@ def drive(dev, card: str) -> list:
         dict(name="bruteforce_tri", route="cuda",
              source="ba_pathtracing_fur_torch/csrc/bruteforce.cu",
              replaces="ba_pathtracing_fur_tpu/ops/pallas/intersect.py:220",
-             launches=hb_main["counts"]["bruteforce_tri"], max_abs_err=k5t["max_abs_err"],
+             launches=hb_main["counts"]["bruteforce_tri"],
+             max_abs_err=max(hb[k]["max_abs_err"] for k in ("k5_tri_0", "k5_tri_1",
+                                                             "k5_tri_shadow")),
              ms=k5t["ms"], plain_ms=k5t["plain_ms"], bound_ms=k5t["bound"]["bound_ms"],
-             bound_by=k5t["bound"]["bound_by"], library_ms=None),
+             bound_by=k5t["bound"]["bound_by"], library_ms=None,
+             unsorted_ms=k5t["unsorted_ms"], all_pairs_bound_ms=k5t["bound"]["all_pairs_bound_ms"],
+             survivors_per_tile=k5t["bound"]["survivors_per_tile"],
+             exact_per_ray=k5t["bound"]["exact_per_ray"],
+             entry_ratio=max(hb[k]["margin"]["entry_ratio"] for k in ("k5_tri_0", "k5_tri_1",
+                                                                       "k5_tri_shadow")),
+             **{f"{w}_{k}": hb[f"k5_tri_{w}"][k] for w in ("1", "shadow")
+                for k in ("ms", "unsorted_ms")},
+             **{f"{w}_bound_ms": hb[f"k5_tri_{w}"]["bound"]["bound_ms"] for w in ("1", "shadow")}),
         dict(name="bruteforce_cone", route="cuda",
              source="ba_pathtracing_fur_torch/csrc/bruteforce.cu",
              replaces="ba_pathtracing_fur_tpu/ops/pallas/intersect.py:220",
-             launches=k5_cone["launches"], max_abs_err=k5_cone["max_abs_err"],
-             ms=k5_cone["ms"], plain_ms=k5_cone["plain_ms"], plain_rays=K5_CONE_RAYS,
-             sub_ms=k5_cone["sub_ms"], bound_ms=k5_cone["bound"]["bound_ms"],
-             bound_by=k5_cone["bound"]["bound_by"], library_ms=None),
+             launches=k5_cone["launches"],
+             max_abs_err=max(k5_cone[b]["max_abs_err"] for b in (0, 1)),
+             ms=k5c["ms"], plain_ms=k5c["plain_ms"],
+             bound_ms=k5c["bound"]["bound_ms"], bound_by=k5c["bound"]["bound_by"],
+             library_ms=None, all_pairs_bound_ms=k5c["bound"]["all_pairs_bound_ms"],
+             survivors_per_tile=k5c["bound"]["survivors_per_tile"],
+             exact_per_ray=k5c["bound"]["exact_per_ray"],
+             entry_ratio=max(k5_cone[b]["margin"]["entry_ratio"] for b in (0, 1)),
+             bounce1_ms=k5_cone[1]["ms"],
+             bounce1_bound_ms=k5_cone[1]["bound"]["bound_ms"]),
     ]
     return kernels_line
 

@@ -448,35 +448,137 @@ def test_tile_kernels_edge_cases_on_the_card(case, any_hit):
         assert (other // bvh.leaf_size != want[1][want[2]].long() // bvh.leaf_size).any()
 
 
+def _brute_case(case):
+    """(pack, kind, o, d, t_max) on the CPU for one edge case of K5."""
+    import dataclasses
+
+    from test_torch_bruteforce import _case
+
+    from ba_pathtracing_fur_torch.scene import types
+
+    g = torch.Generator().manual_seed(3)
+    if case in ("edges", "grazing", "axial", "shadow", "walls", "ties"):
+        name = {"edges": "scalp_edges", "grazing": "fur_grazing", "axial": "fur_axial",
+                "shadow": "scalp_shadow", "walls": "cornell_walls",
+                "ties": "fur_duplicated"}[case]
+        return _case(name)
+    if case == "cone":
+        scene, _ = builtins.fur_patch(resolution=(4, 4), fibers_per_face=300, device="cpu")
+        pack, kind = scene.cones, "cone"
+    else:
+        scene, _ = builtins.hair_ball(resolution=(4, 4), n_fibers=10, device="cpu")
+        pack, kind = scene.tris, "tri"
+    if case == "p_1":  # one primitive
+        pack = types.TrianglePack(**{f.name: getattr(pack, f.name)[300:301]
+                                     for f in dataclasses.fields(types.TrianglePack)})
+    if case == "p_ragged":  # not a multiple of the chunk of boxes
+        pack = types.TrianglePack(**{f.name: getattr(pack, f.name)[:300]
+                                     for f in dataclasses.fields(types.TrianglePack)})
+    n = 5000
+    o = torch.rand((n, 3), generator=g) * 2 - 1 + torch.tensor([0.0, 0.6 if kind == "cone"
+                                                                  else 0.0, 0.0])
+    d = torch.nn.functional.normalize(torch.randn((n, 3), generator=g), dim=-1)
+    if case == "p_1":  # aimed at the triangle
+        d = torch.nn.functional.normalize(pack.v0 * 0.9 + pack.v1 * 0.05 + pack.v2 * 0.05 - o
+                                          + 0.05 * d, dim=-1)
+    if case == "coherent":  # tiles of one direction sign, one mixed tile
+        o = torch.tensor([0.0, 0.1, 2.0]) + 0.01 * o
+        d = torch.nn.functional.normalize(torch.tensor([0.0, 0.0, -1.0]) + 0.2 * d, dim=-1)
+        d[128:256] = torch.nn.functional.normalize(torch.randn((128, 3), generator=g), dim=-1)
+    t_max = torch.full((n,), 3.4e38)
+    t_max[::13] = 0.0
+    if case == "all_dead":
+        t_max[:] = 0.0
+    return pack, kind, o, d, t_max
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["tri", "cone"])
+@pytest.mark.parametrize("kind", ["tri", "cone", "p_1", "p_ragged", "all_dead", "coherent",
+                                  "ties", "edges", "grazing", "axial", "shadow", "walls",
+                                  "shuffled"])
 def test_bruteforce_kernel_matches_plain_on_the_card(kind):
-    """K5 against its twin: t and index bit for bit, dead rays missed."""
+    """K5 against its twin on its edge cases (a pack of one primitive, one
+    not a multiple of the box chunk, all rays dead, coherent tiles and a
+    tile of mixed direction signs, duplicated cones tied, rays at triangle
+    edges and vertices, grazing cone silhouettes, rays nearly along cone
+    axes, shadow rays with a finite
+    t_max, the flat Cornell walls from inside, and a shuffled order against
+    the sorted one): t and index bit for bit, dead rays missed."""
     from ba_pathtracing_fur_torch.ops.cuda import intersect as cisect
+    from ba_pathtracing_fur_torch.scene import types
 
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (run on the card with -m cuda)")
     dev = torch.device("cuda")
-    if kind == "tri":
-        scene, _ = builtins.hair_ball(resolution=(4, 4), n_fibers=10, device=dev)
-        pack = scene.tris
-    else:
-        scene, _ = builtins.fur_patch(resolution=(4, 4), fibers_per_face=300, device=dev)
-        pack = scene.cones
-    g = torch.Generator().manual_seed(3)
-    o = (torch.rand((5000, 3), generator=g) * 2 - 1).to(dev) + torch.tensor([0.0, 0.6, 0.0],
-                                                                            device=dev)
-    d = torch.nn.functional.normalize(torch.randn((5000, 3), generator=g), dim=-1).to(dev)
-    t_max = torch.full((5000,), 3.4e38, device=dev)
-    t_max[::13] = 0.0
-    packed = cisect.pack_cm(pack, kind)
+    pack, kind_, o, d, t_max = _brute_case("edges" if kind == "shuffled" else kind)
+    tables = cisect.brute_tables(types._to(pack, dev), kind_)
+    o, d, t_max = o.to(dev), d.to(dev), t_max.to(dev)
     launches = cisect.TRI_LAUNCHES + cisect.CONE_LAUNCHES
-    t1, i1 = cisect.closest(o, d, t_max, packed, kind)
+    t1, i1 = cisect.closest(o, d, t_max, tables, kind_)
     assert cisect.TRI_LAUNCHES + cisect.CONE_LAUNCHES == launches + 1
-    t0, i0 = cisect.closest_ref(o, d, t_max, packed, kind)
+    t0, i0 = cisect.closest_ref(o, d, t_max, tables, kind_)
     torch.cuda.synchronize()
-    assert torch.equal(t0, t1) and torch.equal(i0, i1) and (i1 >= 0).any()
-    assert (i1[::13] == -1).all()
+    assert torch.equal(t0, t1) and torch.equal(i0, i1)
+    assert (i1[t_max <= 0] == -1).all()
+    assert (i1 >= 0).any() == (kind != "all_dead")
+    if kind == "shuffled":  # a morton order and a random one give the same rays' results
+        from ba_pathtracing_fur_torch.ops import bvh
+
+        lo, hi = o.amin(0), o.amax(0)
+        for perm in (torch.argsort(bvh.morton_codes(o, lo, hi)),
+                     torch.randperm(o.shape[0], generator=torch.Generator().manual_seed(6))
+                     .to(dev)):
+            t2, i2 = cisect.closest(o[perm].contiguous(), d[perm].contiguous(),
+                                    t_max[perm].contiguous(), tables, kind_)
+            torch.cuda.synchronize()
+            assert torch.equal(t2, t1[perm]) and torch.equal(i2, i1[perm])
+
+
+@pytest.mark.cuda
+def test_full_bounce_division_free_rows_on_the_card():
+    """K4's division-free row tests on their edges, against the plain
+    version under the per-field gate: back faces, rays nearly parallel to a
+    wall (det near 1.19e-7), hits at t near T_MIN, and shadow rays that end
+    on the ceiling (a point light in its plane)."""
+    import dataclasses
+
+    from ba_pathtracing_fur_torch.scene import types
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card with -m cuda)")
+    dev = torch.device("cuda")
+    scene, cam = builtins.cornell_box(resolution=(64, 64), device="cpu")
+    scene = types.to_device(dataclasses.replace(scene, lights=types.make_light_pack([
+        dict(kind="point", color=(4.0, 4.0, 4.0), position=(0.3, 1.0, 0.2), radius=0.0)])),
+        dev)
+    _, cam = builtins.cornell_box(resolution=(64, 64), device=dev)
+    cfg = pt.RenderConfig(**KW)
+    n = 64 * 64
+    g = torch.Generator().manual_seed(8)
+    u = torch.rand((n, 3), generator=g) * 1.8 - 0.9
+    q = n // 4
+    o, dirs = u.clone(), torch.nn.functional.normalize(torch.randn((n, 3), generator=g), dim=-1)
+    o[:q] = u[:q] * torch.tensor([1.0, 1.0, 0.0]) + torch.tensor([0.0, 0.0, -3.0])  # behind
+    dirs[:q] = torch.nn.functional.normalize(torch.tensor([0.0, 0.0, 1.0]) + 0.1 * dirs[:q])
+    tilt = torch.linspace(1e-8, 6e-8, q)  # nearly parallel to the floor: |det| ~ 4 tilt
+    dirs[q:2 * q] = torch.nn.functional.normalize(
+        torch.stack([torch.ones(q), -tilt, 0.3 * u[q:2 * q, 2]], -1), dim=-1)
+    o[q:2 * q, 1] = -1.0 + 1e-6
+    o[2 * q:3 * q, 1] = -1.0 + torch.linspace(0.5e-4, 2e-4, q)  # t near T_MIN
+    dirs[2 * q:3 * q] = torch.tensor([0.0, -1.0, 0.0])
+    state, keys = pt.camera_wavefront(cam, torch.arange(n, device=dev), rng.key(0, dev), [0],
+                                      cfg)
+    state = dataclasses.replace(state, origin=o.to(dev), direction=dirs.to(dev))
+    tables = pt.BounceTables.of(scene)
+    for bounce in range(3):
+        kw = pt.full_bounce_inputs(state, scene, keys, bounce, cfg, tables)
+        got = cshade.shade_bounce_full(**kw)
+        want = cshade.shade_bounce_full_ref(**kw)
+        for f, a in want.items():
+            a, b = a.double().reshape(len(a), -1), got[f].double().reshape(len(a), -1)
+            bad = ((a - b).abs() > 1e-4 + 1e-4 * a.abs()).any(-1).double().mean().item()
+            assert bad < 0.02, f"bounce {bounce} {f}: {bad:.4f} of rows mismatched"
+        state = pt.RayState(**want)
 
 
 @pytest.mark.cuda
@@ -500,8 +602,9 @@ def test_large_bvh_less_pack_runs_k5_on_the_card():
                                       + torch.tensor([0.0, -1.0, 0.0]), dim=-1)
     launches = cisect.CONE_LAUNCHES
     hit = traverse.closest_hit(o.to(dev), d.to(dev), scene)
+    tables = cisect.tables_of(scene.cones, "cone")  # made at the first call, then kept
     blocked = traverse.any_hit(o.to(dev), d.to(dev), scene, 0.2)
-    assert cisect.CONE_LAUNCHES == launches + 2
+    assert cisect.CONE_LAUNCHES == launches + 2 and cisect.tables_of(scene.cones, "cone") is tables
     cpu_scene = types.to_device(scene, "cpu")
     want = traverse.closest_hit(o, d, cpu_scene)
     assert torch.equal(hit.prim_id.cpu(), want.prim_id) and hit.valid.any()

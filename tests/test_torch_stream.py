@@ -118,12 +118,12 @@ def test_bruteforce_twin_matches_jax_kernels(kind):
         jfn, rtol = jpk.cone_closest, 2e-3
     tpack = getattr(types.scene_from_numpy(js, device=CPU), "tris" if kind == "tri"
                     else "cones")
-    packed = cisect.pack_cm(tpack, kind)
-    np.testing.assert_array_equal(packed.numpy(), np.asarray(jpacked)[:, :pack.count])
+    tables = cisect.brute_tables(tpack, kind)
+    np.testing.assert_array_equal(tables.cm.numpy(), np.asarray(jpacked)[:, :pack.count])
     t_max = torch.full((400,), 3.4e38)
     refs = cisect.REF_CALLS
     t, idx = (x.numpy() for x in cisect.closest(torch.from_numpy(o), torch.from_numpy(d),
-                                                  t_max, packed, kind))
+                                                  t_max, tables, kind))
     assert cisect.REF_CALLS == refs + 1
     t1, i1 = (np.asarray(x) for x in jfn(jnp.asarray(o), jnp.asarray(d), jpacked))
     hit = t < 1e30
@@ -134,9 +134,14 @@ def test_bruteforce_twin_matches_jax_kernels(kind):
     np.testing.assert_array_equal(idx[hit], i1[hit])
     # a dead ray (t_max <= 0) is a miss
     t_max[::7] = 0.0
-    t2, i2 = cisect.closest(torch.from_numpy(o), torch.from_numpy(d), t_max, packed, kind)
+    t2, i2 = cisect.closest(torch.from_numpy(o), torch.from_numpy(d), t_max, tables, kind)
     assert (t2[::7] == 3.4e38).all() and (i2[::7] == -1).all()
     assert torch.equal(t2[1::7], torch.from_numpy(t[1::7]))
+    # a hit at or beyond t_max is a miss (the port's kernel takes t_max)
+    cut = torch.from_numpy(np.where(hit, t * 0.999, 3.4e38).astype(np.float32))
+    t3, i3 = cisect.closest(torch.from_numpy(o), torch.from_numpy(d), cut, tables, kind)
+    assert (i3[torch.from_numpy(hit)] != torch.from_numpy(idx[hit])).all()
+    assert ((t3 < cut) | (i3 == -1)).all()
 
 
 def test_dispatch_two_level_to_k3_and_flat_to_k2(two_level):
