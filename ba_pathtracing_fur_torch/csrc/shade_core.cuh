@@ -812,9 +812,26 @@ struct Hit {
   float3 pos, normal;
 };
 
+// The draws of a bounce, made beforehand (full_bounce.cu).
 struct Uniforms {
   float bsdf1, bsdf2, pick, light1, light2, rr;
+  float hairp = 0.0f;  // the hair walk's choice (no hair in the full bounce)
 };
+
+// shade_bounce_core reads its draws through these, each on the one branch
+// that needs it: u_pick and u_light on a geometry hit with lights, u_bsdf
+// on surface BSDFs, u_hairp on hair with hair_p_random, u_rr under RR and
+// its gate. A draws type that makes them on demand (shade.cu's, from the
+// ray's threefry key) overloads the same five functions.
+__device__ __forceinline__ float draw_pick(const Uniforms& u) { return u.pick; }
+__device__ __forceinline__ float2 draw_light(const Uniforms& u) {
+  return make_float2(u.light1, u.light2);
+}
+__device__ __forceinline__ float2 draw_bsdf(const Uniforms& u) {
+  return make_float2(u.bsdf1, u.bsdf2);
+}
+__device__ __forceinline__ float draw_hairp(const Uniforms& u) { return u.hairp; }
+__device__ __forceinline__ float draw_rr(const Uniforms& u) { return u.rr; }
 
 // The NEE shadow ray and the unoccluded direct term it gates.
 struct Shadow {
@@ -826,13 +843,14 @@ struct Shadow {
 // One bounce after the traversal (models/shade_core.py::shade_bounce_core).
 // `lights` holds n_lights rows of LIGHT_COLS floats. With kHair, materials
 // of the hair shader take the Marschner/d'Eon automaton in the fiber frame
-// `fib` (walk choice from `u_hairp` when `hair_p_random`); without it the
-// function is the hair-free body the full-bounce kernel runs.
-template <bool kHair = false>
+// `fib` (walk choice from u_hairp when `hair_p_random`); without it the
+// function is the hair-free body the full-bounce kernel runs. `u` gives
+// the draws (see draw_pick and its siblings above).
+template <bool kHair = false, class Draws = Uniforms>
 __device__ inline Shadow shade_bounce_core(PathState& st, const Hit& hit, const Mat& mp, float3 env_color,
-                                    float3 env_ambient, const float* lights, const Uniforms& u,
+                                    float3 env_ambient, const float* lights, const Draws& u,
                                     const Cfg& cfg, const Fiber& fib = Fiber{},
-                                    float u_hairp = 0.0f, bool hair_p_random = false) {
+                                    bool hair_p_random = false) {
   Shadow sh;
   sh.o = f3(0.0f);
   sh.d = f3(0.0f, 1.0f, 0.0f);
@@ -877,10 +895,12 @@ __device__ inline Shadow shade_bounce_core(PathState& st, const Hit& hit, const 
   // NEE (calcDirectLight / calc_direct_light_mis), occlusion by the caller
   float3 direct = f3(0.0f);
   if (cfg.n_lights > 0) {
-    int pick = min(static_cast<int>(u.pick * static_cast<float>(cfg.n_lights)), cfg.n_lights - 1);
+    int pick = min(static_cast<int>(draw_pick(u) * static_cast<float>(cfg.n_lights)),
+                   cfg.n_lights - 1);
     Light lp = load_light(lights + pick * LIGHT_COLS);
     float att;
-    float3 target = light_sample_dir(lp, pos, u.light1, u.light2, att);
+    float2 ul = draw_light(u);
+    float3 target = light_sample_dir(lp, pos, ul.x, ul.y, att);
     float3 direction_l = target - pos;
     float dist = length(direction_l);
     float3 wi = normalize(direction_l);
@@ -931,7 +951,7 @@ __device__ inline Shadow shade_bounce_core(PathState& st, const Hit& hit, const 
   float hair_theta_i = st.theta_i;
   BsdfSample bs;
   if (is_hair) {
-    int p_choice = hair_p_random ? min(static_cast<int>(u_hairp * 3.0f), 2) : 0;
+    int p_choice = hair_p_random ? min(static_cast<int>(draw_hairp(u) * 3.0f), 2) : 0;
     float3 nin = normalize(counter);
     HairSample hs = mp.bsdf_id == BSDF_DEON_HAIR
         ? deon_sample(mp, nin, n, fib, st.flags, p_choice)
@@ -942,7 +962,8 @@ __device__ inline Shadow shade_bounce_core(PathState& st, const Hit& hit, const 
     bs.flags = hs.flags;
     hair_theta_i = hs.theta_i;
   } else {
-    bs = sample_surface(mp, counter, n, u.bsdf1, u.bsdf2, st.flags, cfg.bsdfs_present);
+    float2 ub = draw_bsdf(u);
+    bs = sample_surface(mp, counter, n, ub.x, ub.y, st.flags, cfg.bsdfs_present);
   }
   bool kill = is_zero(bs.refl) || bs.pdf <= 1e-4f || (!cfg.rr && max3(st.radiance) < 0.01f);
   bool emissive = (bs.flags & MATFLAG_EMISSIVE_BOUNCE) != 0;
@@ -975,7 +996,7 @@ __device__ inline Shadow shade_bounce_core(PathState& st, const Hit& hit, const 
            fminf(rad.z, cfg.clamp_throughput));
   if (cfg.rr && cfg.rr_gate && !mid_walk) {
     float q = clampf(max3(rad), 0.05f, 1.0f);
-    rad = u.rr >= q ? f3(0.0f) : rad * (1.0f / q);
+    rad = draw_rr(u) >= q ? f3(0.0f) : rad * (1.0f / q);
   }
   st.radiance = rad;
 

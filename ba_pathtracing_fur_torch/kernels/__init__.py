@@ -72,10 +72,14 @@ SIGNATURES = {
         + [_C_VOID_P])),                       # cudaStream_t
     "shade_launch": ("shade.cu", (
         [_C_INT, _C_VOID_P, _C_VOID_P]         # n_rays, &ShadeIn, &ShadeOut
-        + [_C_VOID_P, _C_INT]                  # lights table + count
+        + [_C_VOID_P, _C_INT, _C_VOID_P, _C_INT]  # lights and materials tables + counts
+        + [_C_INT]                             # bounce
         + [_C_INT, _C_INT, _C_INT, _C_FLOAT, _C_UINT]  # mis rr rr_gate clamp present
         + [_C_INT, _C_INT, _C_INT]             # has_hair hair_p_random env_per_ray
         + [_C_VOID_P])),                       # cudaStream_t
+    "shade_draws_launch": ("shade.cu", (
+        [_C_INT, _C_VOID_P, _C_INT, _C_INT]    # n_rays, keys, bounce, n_tags
+        + [_C_VOID_P, _C_VOID_P])),            # out, cudaStream_t
 }
 
 _lock = threading.Lock()

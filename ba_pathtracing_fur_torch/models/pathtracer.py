@@ -12,10 +12,10 @@ bounce is `trace_bounce_fused`:
   * on every other scene (fur, BVHs) the JAX package's general branch, step
     for step: the closest hit (`ops/traverse.closest_hit`: a traversal
     kernel for BVH packs, the brute-force kernel or the dense grid
-    otherwise) and the Hit assembly,
-    the material gather, environment colour and threefry draws in torch,
-    the shade kernel (`ops/cuda/shade.shade_bounce`), the shadow any-hit,
-    and the masked add of the NEE term.
+    otherwise) and the Hit assembly, the environment colour, the shade
+    kernel (`ops/cuda/shade.shade_bounce`, which draws the bounce's
+    uniforms from each ray's key and gathers its material row itself), the
+    shadow any-hit, and the masked add of the NEE term.
 
 On the card each kernel is a CUDA launch; on the CPU its plain twin runs.
 Only `fused_shading=True, compact=False` on untextured scenes is ported so
@@ -146,31 +146,29 @@ def core_cfg(scene: DeviceScene, cfg: RenderConfig) -> CoreCfg:
 def shade_inputs(state: RayState, scene: DeviceScene, keys: torch.Tensor, bounce: int,
                  cfg: RenderConfig, hit, tables: BounceTables) -> dict:
     """The keyword arguments of `shade_bounce` for this bounce: the ray
-    state, the hit, the material gather, the environment colour and the
-    draws u_bsdf/u_pick/u_light/u_hairp (and u_rr when `cfg.rr`) with the
-    tags 0-4 of the JAX package."""
-    u = rng.bounce_uniforms(keys, bounce, 5 if cfg.rr else 4, 2)  # [tags, R, 2]
-    u_pick = u[1, :, 0].contiguous()
+    state, the hit with its material id, the material and light tables,
+    the environment colour, and the per-sample keys with the bounce, from
+    which the shade stage draws u_bsdf/u_pick/u_light/u_hairp (and u_rr
+    when `cfg.rr`) with the tags 0-4 of the JAX package. No draw and no
+    material gather happens here."""
+    bsdf.require_untextured(scene.textures)
     return dict(
         origin=state.origin, direction=state.direction, radiance=state.radiance,
         color=state.color, flags=state.flags, theta_i=state.theta_i, prev_pdf=state.prev_pdf,
         hit_t=hit.t, hit_valid=hit.valid, hit_pos=hit.position, hit_normal=hit.normal,
-        fib_u=hit.fiber_u, fib_v=hit.fiber_v, fib_w=hit.fiber_w,
-        mp=bsdf.gather_materials(scene.materials, hit.mat_id, scene.textures),
+        fib_u=hit.fiber_u, fib_v=hit.fiber_v, fib_w=hit.fiber_w, mat_id=hit.mat_id,
+        mats_table=tables.mats, keys=keys, bounce=bounce,
         env_color=shading.environment_color(scene.env, state.direction),
         env_ambient=scene.env.ambient, lights_table=tables.lights,
-        n_lights=scene.lights.count, u_bsdf=u[0], u_pick=u_pick, u_light=u[2],
-        u_hairp=u[3, :, 0].contiguous(),
-        u_rr=u[4, :, 0].contiguous() if cfg.rr else None,
-        rr_gate=bounce >= cfg.rr_start, cfg=core_cfg(scene, cfg))
+        n_lights=scene.lights.count, rr_gate=bounce >= cfg.rr_start, cfg=core_cfg(scene, cfg))
 
 
 def trace_bounce_fused(state: RayState, scene: DeviceScene, keys: torch.Tensor,
                        bounce: int, cfg: RenderConfig,
                        tables: Optional[BounceTables] = None) -> RayState:
     """One bounce. Level-2 scenes run it as one full-bounce pass; every
-    other scene runs closest hit -> Hit assembly -> material gather, env
-    colour and draws -> shade kernel -> shadow any-hit -> NEE add."""
+    other scene runs closest hit -> Hit assembly -> env colour -> shade
+    kernel (draws and material rows inside) -> shadow any-hit -> NEE add."""
     check_supported(scene, cfg)
     tables = BounceTables.of(scene) if tables is None else tables
     if cshade.full_fuse_eligible(scene):

@@ -12,7 +12,10 @@ Counterparts of `ba_pathtracing_fur_tpu/ops/pallas/shade.py`:
   * `shade_bounce` (`csrc/shade.cu`): the shade stage alone, after the
     traversal, for every other scene (fur, BVHs): light hits, NEE (it emits
     the shadow ray and the unoccluded direct term), the surface BSDFs or the
-    hair automaton, and the throughput update. `SHADE_LAUNCHES` and
+    hair automaton, and the throughput update. It takes each ray's threefry
+    key and material id: the kernel draws the bounce's uniforms and reads
+    the material row itself, the twin draws with `core/rng.bounce_uniforms`
+    and gathers with `models/bsdf.gather_materials`. `SHADE_LAUNCHES` and
     `SHADE_REF_CALLS` count which of kernel and twin ran.
 
 Both dispatch on the device of their tensors: CPU tensors go to the plain
@@ -22,13 +25,12 @@ version, CUDA tensors launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 
 import torch
 
-from ...core import vecmath as vm
-from ...models import shade_core as sc
-from ...models.shade_core import CoreCfg, CoreLight, CoreMat
+from ...core import rng, vecmath as vm
+from ...models import bsdf, shade_core as sc
+from ...models.shade_core import CoreCfg, CoreLight
 from ...scene.types import ENV_COLOR, DeviceScene, LightPack, MaterialTable, TrianglePack
 
 MAX_FULL_FUSE_TRIS = 512
@@ -46,13 +48,10 @@ SHADE_REF_CALLS = 0
 #: ShadeOut structs of csrc/shade.cu
 SHADE_IN_FIELDS = (
     "origin", "direction", "radiance", "color", "theta_i", "prev_pdf", "flags", "hit_t",
-    "hit_valid", "hit_pos", "hit_normal", "fib_u", "fib_v", "fib_w", "diffuse", "specular",
-    "volume", "emission", "ior", "transparency", "reflectivity", "roughness", "hair_alpha",
-    "hair_beta", "bsdf_id", "shader_id", "env_color", "env_ambient", "u_bsdf", "u_pick",
-    "u_light", "u_hairp", "u_rr")
+    "hit_valid", "hit_pos", "hit_normal", "fib_u", "fib_v", "fib_w", "mat_id", "keys",
+    "env_color", "env_ambient")
 SHADE_OUT_FIELDS = ("origin", "direction", "radiance", "color", "theta_i", "prev_pdf",
                     "flags", "shadow_o", "shadow_d", "shadow_tmax", "direct_rgb")
-MAT_FIELDS = tuple(f.name for f in dataclasses.fields(CoreMat))
 
 
 # ---------------------------------------------------------------------------
@@ -179,12 +178,8 @@ def shade_bounce_full_ref(*, origin, direction, radiance, color, flags, theta_i,
     # the material row; ids outside the table take row 0, as the one-hot
     # select of the TPU kernel does
     mat_id = row[:, 18].to(torch.int64)
-    m = mats_table[torch.where((mat_id >= 0) & (mat_id < n_mats), mat_id, 0)]
-    mp = CoreMat(diffuse=m[:, 0:3], specular=m[:, 3:6], volume=m[:, 6:9],
-                 emission=m[:, 9:12], ior=m[:, 12], transparency=m[:, 13],
-                 reflectivity=m[:, 14], roughness=m[:, 15],
-                 bsdf_id=m[:, 16].to(torch.int32), shader_id=m[:, 17].to(torch.int32),
-                 hair_alpha=m[:, 18], hair_beta=m[:, 19])
+    mp = bsdf.material_rows(mats_table[torch.where((mat_id >= 0) & (mat_id < n_mats),
+                                                   mat_id, 0)])
 
     out = sc.shade_bounce_core(
         origin=origin, direction=direction, radiance=radiance, color=color, flags=flags,
@@ -286,21 +281,25 @@ def shade_bounce_full(*, origin, u_hairp=None, **kw) -> dict:
 # ---------------------------------------------------------------------------
 
 def shade_bounce_ref(*, origin, direction, radiance, color, flags, theta_i, prev_pdf, hit_t,
-                     hit_valid, hit_pos, hit_normal, fib_u, fib_v, fib_w, mp: CoreMat,
-                     env_color, env_ambient, lights_table, n_lights: int, u_bsdf, u_pick,
-                     u_light, u_hairp, u_rr, rr_gate: bool, cfg: CoreCfg) -> dict:
-    """The shade stage in plain torch (`models/shade_core.py`) -> the
-    CoreOut fields as a dict."""
+                     hit_valid, hit_pos, hit_normal, fib_u, fib_v, fib_w, mat_id, mats_table,
+                     keys, bounce: int, env_color, env_ambient, lights_table, n_lights: int,
+                     rr_gate: bool, cfg: CoreCfg) -> dict:
+    """The shade stage in plain torch -> the CoreOut fields as a dict: the
+    bounce's draws of tags 0-4 (`rng.bounce_uniforms`, u_rr only with RR),
+    the material rows as the JAX package gathers them, and
+    `models/shade_core.shade_bounce_core`."""
     global SHADE_REF_CALLS
     SHADE_REF_CALLS += 1
+    u = rng.bounce_uniforms(keys, bounce, 5 if cfg.rr else 4, 2)  # [tags, R, 2]
     out = sc.shade_bounce_core(
         origin=origin, direction=direction, radiance=radiance, color=color, flags=flags,
         theta_i=theta_i, prev_pdf=prev_pdf, hit_t=hit_t, hit_valid=hit_valid,
-        hit_pos=hit_pos, hit_normal=hit_normal, mp=mp, env_color=env_color,
-        env_ambient=env_ambient, lights=core_lights(lights_table[:n_lights]),
-        u_bsdf1=u_bsdf[:, 0], u_bsdf2=u_bsdf[:, 1], u_pick=u_pick, u_light1=u_light[:, 0],
-        u_light2=u_light[:, 1], u_rr=u_rr, rr_gate=rr_gate, cfg=cfg, fib_u=fib_u,
-        fib_v=fib_v, fib_w=fib_w, u_hairp=u_hairp)
+        hit_pos=hit_pos, hit_normal=hit_normal, mp=bsdf.gather_materials(mats_table, mat_id),
+        env_color=env_color, env_ambient=env_ambient,
+        lights=core_lights(lights_table[:n_lights]), u_bsdf1=u[0, :, 0],
+        u_bsdf2=u[0, :, 1], u_pick=u[1, :, 0], u_light1=u[2, :, 0], u_light2=u[2, :, 1],
+        u_rr=u[4, :, 0] if cfg.rr else None, rr_gate=rr_gate, cfg=cfg, fib_u=fib_u,
+        fib_v=fib_v, fib_w=fib_w, u_hairp=u[3, :, 0])
     return {f: getattr(out, f) for f in SHADE_OUT_FIELDS}
 
 
@@ -322,15 +321,15 @@ class _ShadeOut(_Ptrs):
     _fields_ = [(f, ctypes.c_void_p) for f in SHADE_OUT_FIELDS]
 
 
-def _shade_bounce_cuda(*, origin, n_lights: int, lights_table, mp: CoreMat, rr_gate: bool,
-                       cfg: CoreCfg, **rays) -> dict:
+def _shade_bounce_cuda(*, origin, mats_table, bounce: int, n_lights: int, lights_table,
+                       rr_gate: bool, cfg: CoreCfg, **rays) -> dict:
     from ...kernels import load_library
 
     global SHADE_LAUNCHES
     dev = origin.device
     r = origin.shape[0]
     f32, i32 = torch.float32, torch.int32
-    ins = dict(rays, origin=origin, **{f: getattr(mp, f) for f in MAT_FIELDS})
+    ins = dict(rays, origin=origin)
     # a constant environment colour ([3], or [R,3] broadcast from it) goes
     # to the kernel as its 3 floats
     env = ins["env_color"]
@@ -338,25 +337,26 @@ def _shade_bounce_cuda(*, origin, n_lights: int, lights_table, mp: CoreMat, rr_g
     if not env_per_ray:
         ins["env_color"] = env.reshape(-1, 3)[0].to(dev, f32).contiguous()
     ins["env_ambient"] = ins["env_ambient"].reshape(3).to(dev, f32).contiguous()
-    if not cfg.rr:
-        ins["u_rr"] = None
+    hair_only = () if cfg.has_hair else ("fib_u", "fib_v", "fib_w")  # read on hair only
+    ins.update({f: None for f in hair_only})
     vec3 = {"origin", "direction", "radiance", "color", "hit_pos", "hit_normal", "fib_u",
-            "fib_v", "fib_w", "diffuse", "specular", "volume", "emission", "env_color"}
+            "fib_v", "fib_w", "env_color"}
     for f in SHADE_IN_FIELDS:
         if f == "env_ambient" or (f == "env_color" and not env_per_ray):
             _check(f, ins[f], (3,), f32, dev)
-            continue
-        if f == "u_rr" and not cfg.rr:
-            continue
-        shape = (r, 3) if f in vec3 else (r, 2) if f in ("u_bsdf", "u_light") else (r,)
-        dtype = (i32 if f in ("flags", "bsdf_id", "shader_id")
-                 else torch.bool if f == "hit_valid" else f32)
-        _check(f, ins[f], shape, dtype, dev)
+        elif f not in hair_only:
+            shape = (r, 3) if f in vec3 else (r, 2) if f == "keys" else (r,)
+            dtype = (i32 if f in ("flags", "mat_id") else torch.int64 if f == "keys"
+                     else torch.bool if f == "hit_valid" else f32)
+            _check(f, ins[f], shape, dtype, dev)
+    n_mats = mats_table.shape[0]
+    _check("mats_table", mats_table, (n_mats, MAT_COLS), f32, dev)
     _check("lights_table", lights_table, (lights_table.shape[0], LIGHT_COLS), f32, dev)
-    if not 0 <= n_lights <= lights_table.shape[0]:
-        raise ValueError(f"shade: bad light count {n_lights}")
-    if 4 * n_lights * LIGHT_COLS > 48 * 1024:
-        raise ValueError(f"shade: a light table of {n_lights} lights exceeds shared memory")
+    if not (0 <= n_lights <= lights_table.shape[0] and n_mats > 0):
+        raise ValueError(f"shade: bad table counts M={n_mats} L={n_lights}")
+    table_bytes = 4 * (n_lights * LIGHT_COLS + n_mats * MAT_COLS)
+    if table_bytes > MAX_TABLE_BYTES:
+        raise ValueError(f"shade: tables of {table_bytes} B exceed shared memory")
 
     outs = {f: torch.empty_like(ins[f]) for f in SHADE_OUT_FIELDS if f in ins}
     outs.update(shadow_o=torch.empty_like(origin), shadow_d=torch.empty_like(origin),
@@ -366,6 +366,7 @@ def _shade_bounce_cuda(*, origin, n_lights: int, lights_table, mp: CoreMat, rr_g
     err = load_library().shade_launch(
         ctypes.c_int(r), ctypes.byref(s_in), ctypes.byref(s_out),
         ctypes.c_void_p(lights_table.data_ptr()), ctypes.c_int(n_lights),
+        ctypes.c_void_p(mats_table.data_ptr()), ctypes.c_int(n_mats), ctypes.c_int(bounce),
         ctypes.c_int(int(cfg.mis)), ctypes.c_int(int(cfg.rr)), ctypes.c_int(int(rr_gate)),
         ctypes.c_float(cfg.clamp_throughput),
         ctypes.c_uint(bsdfs_present_mask(cfg.bsdfs_present)), ctypes.c_int(int(cfg.has_hair)),
@@ -378,11 +379,268 @@ def _shade_bounce_cuda(*, origin, n_lights: int, lights_table, mp: CoreMat, rr_g
 
 
 def shade_bounce(*, origin, **kw) -> dict:
-    """The shade stage of one bounce after the traversal. CPU tensors run
-    the plain version; CUDA tensors launch the kernel (or raise). Returns
-    the new ray state and the NEE shadow ray with its direct term."""
+    """The shade stage of one bounce after the traversal, from the ray
+    state, the hit, each ray's material id (`mat_id` [R] int32, into
+    `mats_table` [M, 20]) and threefry key (`keys` [R, 2] int64) at
+    `bounce`. CPU tensors run the plain version; CUDA tensors launch the
+    kernel (or raise). Returns the new ray state and the NEE shadow ray
+    with its direct term."""
     if origin.device.type == "cpu":
         return shade_bounce_ref(origin=origin, **kw)
     if origin.device.type == "cuda":
         return _shade_bounce_cuda(origin=origin, **kw)
     raise ValueError(f"shade_bounce: no kernel for device {origin.device}")
+
+
+def kernel_draws(keys: torch.Tensor, bounce: int, n_tags: int) -> torch.Tensor:
+    """`[n_tags, R, 2]`: the first two draws of tags 0..n_tags-1 as the
+    shade kernel makes them from `keys` [R, 2] int64, for holding them to
+    their plain version `rng.bounce_uniforms(keys, bounce, n_tags, 2)`
+    (what CPU tensors get) bit for bit. A test and check launch: no path
+    calls it."""
+    from ...kernels import load_library
+
+    if keys.device.type == "cpu":
+        return rng.bounce_uniforms(keys, bounce, n_tags, 2)
+    if keys.device.type != "cuda":
+        raise ValueError(f"kernel_draws: no kernel for device {keys.device}")
+    r = keys.shape[0]
+    _check("keys", keys, (r, 2), torch.int64, keys.device)
+    out = torch.empty((n_tags, r, 2), dtype=torch.float32, device=keys.device)
+    err = load_library().shade_draws_launch(
+        ctypes.c_int(r), ctypes.c_void_p(keys.data_ptr()), ctypes.c_int(bounce),
+        ctypes.c_int(n_tags), ctypes.c_void_p(out.data_ptr()),
+        ctypes.c_void_p(torch.cuda.current_stream(keys.device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"shade draws kernel launch failed: CUDA error {err}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The shade kernel's work (for its bound): operations per branch
+# ---------------------------------------------------------------------------
+
+#: Operations of csrc/shade_core.cuh, counted by hand per branch in FP32
+#: operations: an add, multiply, compare, select, min, max or abs is 1 (an
+#: FMA 2); a division, sqrtf or reciprocal DIV_OPS, a sinf, cosf, expf or
+#: logf TRIG_OPS, an acosf, asinf or atan2f ATRIG_OPS (the non-fast-math
+#: instruction sequences, rounded down).
+DIV_OPS, TRIG_OPS, ATRIG_OPS = 4, 8, 16
+#: integer operations of one threefry2x32 (csrc/threefry.cuh: 20 rounds of
+#: add, rotate and xor, 5 key injections of 3 adds, 4 more) and the extra
+#: ones of a draw (xor, shift, or)
+THREEFRY_INT_OPS, DRAW_INT_OPS = 79, 3
+
+_D, _T, _A = DIV_OPS, TRIG_OPS, ATRIG_OPS
+_DOT, _CROSS = 5, 9
+_LEN = _DOT + 1 + _D
+_NORM = _LEN + 1 + 3 * _D
+_REFLECT = _DOT + 7
+_FACEFWD = _DOT + 4
+_REFRACT = _DOT + 18 + _D
+_ONB = 8 + 2 * _D + _CROSS  # orthonormal_basis
+_L2W = 4 + 2 * _NORM + _CROSS + 15  # local_to_world_normal
+_FRESNEL = 36 + 5 * _D
+_SPHERE = 9 + _D + 2 * _T  # uniform_sphere_sample
+_COSHEMI = 15 + 2 * _D + 2 * _T
+_ANGLE_SAMPLE = 10 + _D + 3 * _T
+_TRI = 59 + _D
+_ATT = 8 + _D  # distance_attenuation
+_GAUSS = 5 + 2 * _D + _T
+_ROTATE = 2 * _T + _NORM + _CROSS + _DOT + 14
+_THETA = 4 + _D + _A  # hair_theta
+_PHI = 3 + _A
+_CYL = 3 * _DOT
+_ANGLE = 2 * _NORM + _DOT + 2 + _A  # angle_between
+_SAFE_DIV = 3 + _D
+_BESSEL = 28 + _D
+_DEON_M = 12 + 4 * _T + 2 * _D + _BESSEL + 2 * _T
+_DETECTOR = 21 * (_GAUSS + 3)
+# light kinds 0 point, 1 quad, 2 spot, 3 sun
+_LIGHT_HIT = (48 + 2 * _D, 2 * _TRI + 2, 49 + _D + _ONB + 2 * _CROSS, 3)
+_LIGHT_EMIT = (4, _NORM + 13, _NORM + 13, 0)
+_LIGHT_PDF = (9 + 2 * _D, _NORM + 11 + 2 * _D, 0, 0)  # light_solid_angle_pdf
+_LIGHT_SAMPLE = (  # light_sample_dir
+    _SPHERE + 9 + _NORM + 7 + _LEN + 3 + _ATT + 1,
+    33 + _NORM + 7 + _LEN + _ATT + 1,
+    3 + _D + _ONB + 16 + 2 * _T + 3 + _NORM + 7 + _A + 9 + _D + 2 + _LEN + _ATT,
+    _SPHERE + 6 + _NORM + 3)
+_POWER = 4 + _D
+# surface BSDF samples by id (sample_surface), the grazing test included
+_SURFACE = (_COSHEMI + 3 + _L2W + 6 + _D + 4,  # Lambert
+            _FACEFWD + _REFLECT + 10 + _D,  # specular reflection
+            _FRESNEL + _REFRACT + _NORM + _FACEFWD + 20 + _D,  # specular transmission
+            _FACEFWD + _REFLECT + 6 + _ANGLE_SAMPLE + _L2W + 6 + 8 + _D,  # glossy
+            _NORM + _FRESNEL + _FACEFWD + _REFRACT + 25 + 2 * _D,  # glass
+            _NORM + _FRESNEL + _FACEFWD + _REFRACT + 25 + 2 * _D
+            + 6 + _ANGLE_SAMPLE + _L2W + 6,  # milk glass
+            _COSHEMI + 3 + _L2W + 6 + _D + 4,  # Lambert transmission
+            0,  # emission
+            10 + _D)  # transparent
+_EVAL_PDF = 2 * _NORM + 2 * _DOT + 4 + 4 + _D
+_GLOSSY_PDF = _FACEFWD + 2 * _NORM + _REFLECT + _T + 6 + _D + _DOT
+# the hair walk by state: 0 R, 1 enter, 2 TR, 3 TT, 4 TRT
+_M_COMMON = _CYL + _THETA + _FACEFWD + _ANGLE + _T + (2 * _T + 7 + 3 * _D) + _FRESNEL
+_M_EXIT = 4 * _D + 2 * _A + 18 + _ROTATE + _REFRACT + 1 + _CYL + _THETA + 4 + _GAUSS + 12 \
+    + 2 * _T + 14 + _D + 3 * _T + 12
+_MARSCHNER = (_M_COMMON + _REFLECT + _ROTATE + _CYL + _THETA + 4 + _GAUSS + 2 * _SAFE_DIV
+              + 6 + 2 * _T + 4,
+              _M_COMMON + _REFRACT + 5,
+              _M_COMMON + _REFLECT,
+              _M_COMMON + _M_EXIT,
+              _M_COMMON + _M_EXIT + _D + _A + 2 + _FRESNEL + 6)
+_D_COMMON = _CYL + _THETA + _PHI + _ANGLE + _T + _FACEFWD
+_D_EXIT = 1 + _ROTATE + _REFRACT + 1 + _CYL + _THETA + 2 + _DEON_M + _PHI + 1 + 2 * _T \
+    + 13 + 2 * _D + _DETECTOR + _T + 3 + _A + _FRESNEL + 7 + _D + _A + _T + 13 + _D + 3 * _T \
+    + 15
+_DEON = (_D_COMMON + _REFLECT + _ROTATE + _CYL + _DEON_M + _THETA + _PHI + 3 + _T
+         + _NORM + _DOT + 3 + _A + _FRESNEL + 4,
+         _D_COMMON + _REFRACT + 5,
+         _D_COMMON + _REFLECT,
+         _D_COMMON + _D_EXIT,
+         _D_COMMON + _D_EXIT + 3)
+#: ray classes of `branch_classes`
+DEAD, MISS, LIGHT_HIT, SURFACE, MARSCHNER, DEON = 0, 1, 2, 8, 20, 25
+HAIR_STATES = ("R", "enter", "TR", "TT", "TRT")
+
+
+def branch_classes(kw: dict) -> torch.Tensor:
+    """The shading branch of every ray of `shade_bounce`'s inputs `kw`, as
+    shade_core.cuh takes it: DEAD, MISS, LIGHT_HIT, SURFACE + bsdf id, or
+    MARSCHNER / DEON + the walk state (HAIR_STATES; "enter" is the first
+    step drawn into the fiber under hair_p_random)."""
+    cfg = kw["cfg"]
+    o, d = kw["origin"], kw["direction"]
+    do_trace = (kw["radiance"] != 0.0).any(-1) & (d != 0.0).any(-1)
+    t_light = torch.full_like(kw["hit_t"], sc.INF)
+    for li in core_lights(kw["lights_table"][:kw["n_lights"]]):
+        t_light = torch.minimum(t_light, sc.light_hit(o, d, li)[0])
+    light_wins = t_light < kw["hit_t"]
+    mp = bsdf.gather_materials(kw["mats_table"], kw["mat_id"])
+    present = cfg.bsdfs_present
+    bid = mp.bsdf_id.long()
+    in_set = (bid >= 1) & (bid <= 8)
+    if present:
+        in_set &= torch.isin(bid, torch.tensor(present, device=bid.device))
+    cls = SURFACE + torch.where(in_set, bid, 0)
+    if cfg.has_hair:
+        flags = kw["flags"]
+        t_set, tr_set = (flags & sc.MATFLAG_CYLINDER_T_BOUNCE) != 0, \
+            (flags & sc.MATFLAG_CYLINDER_TR_BOUNCE) != 0
+        enter = torch.zeros_like(t_set)
+        if cfg.hair_p_random:
+            u = rng.bounce_uniform(kw["keys"], kw["bounce"], 1, tag=3)[:, 0]
+            enter = (u * 3).to(torch.int32) != 0
+        state = torch.where(tr_set & ~t_set, 2, torch.where(
+            t_set & ~tr_set, 3, torch.where(t_set & tr_set, 4, torch.where(enter, 1, 0))))
+        hair = (mp.shader_id == sc.SHADER_MARSCHNER_HAIR) & kw["hit_valid"]
+        cls = torch.where(hair, torch.where(bid == sc.BSDF_DEON_HAIR, DEON, MARSCHNER) + state,
+                          cls)
+    cls = torch.where(kw["hit_valid"], cls, MISS)
+    cls = torch.where(light_wins & (kw["n_lights"] > 0), LIGHT_HIT, cls)
+    return torch.where(do_trace, cls, DEAD)
+
+
+def work_ref(kw: dict, out: dict) -> dict:
+    """The work `shade_bounce` must do on these inputs (`out` its plain
+    outputs): FP32 operations per branch each ray takes (the per-branch
+    counts above; the light loops over this scene's light kinds), the
+    integer operations of the draws those branches read (a fold_in a tag,
+    a threefry a draw), and the bytes these rays need: the ray state and
+    the outputs of every ray once, the hit's t and valid flag of the live
+    rays, its point, normal, material id, key and fiber frame of the
+    geometry hits (a dead ray's or a miss's result does not depend on
+    them), the tables once. `all_bytes` count every per-ray input of every
+    ray; `old_bytes` are those of the interface before the kernel drew and
+    gathered itself (the 12 material fields and the draws per ray in place
+    of the key and the id)."""
+    cfg = kw["cfg"]
+    cls = branch_classes(kw)
+    r = cls.shape[0]
+    lights = core_lights(kw["lights_table"][:kw["n_lights"]])
+    kinds = [li.kind for li in lights]
+    n_l = len(lights)
+    live = cls != DEAD
+    geom = cls >= SURFACE
+    hair = cls >= MARSCHNER
+    counts = torch.bincount(cls, minlength=DEON + 5).tolist()
+    loop = sum(_LIGHT_HIT[k] + 2 for k in kinds)
+    flops = int(live.sum()) * (6 + loop + 4) + counts[MISS] * 6
+    # light hits: the emitted radiance of the nearest light (and its MIS weight)
+    if counts[LIGHT_HIT]:
+        t_best = torch.full((r,), sc.INF, device=cls.device)
+        best = torch.zeros((r,), dtype=torch.long, device=cls.device)
+        for l, li in enumerate(lights):
+            t = sc.light_hit(kw["origin"], kw["direction"], li)[0]
+            best = torch.where(t < t_best, l, best)
+            t_best = torch.minimum(t, t_best)
+        for l, k in enumerate(kinds):
+            n = int(((cls == LIGHT_HIT) & (best == l)).sum())
+            flops += n * (_LIGHT_EMIT[k] + 6 + ((_POWER + _LIGHT_PDF[k]) if cfg.mis else 0))
+    n_geom = int(geom.sum())
+    # every geometry hit: -normalize(direction), ambient, the throughput,
+    # colour and ray update, the clamp
+    flops += n_geom * (_NORM + 24 + 40 + 3)
+    picks = torch.zeros((r,), dtype=torch.long, device=cls.device)
+    if n_l:
+        u = rng.bounce_uniform(kw["keys"], kw["bounce"], 1, tag=1)[:, 0]
+        picks = torch.clamp((u * n_l).long(), max=n_l - 1)
+        nee = (2 * _FACEFWD + 6 + _EVAL_PDF + _NORM + 6) if cfg.mis \
+            else (3 + _FACEFWD + 6 + 15 + _NORM + 12 + 3 + _LEN)
+        for l, k in enumerate(kinds):
+            n = int((geom & (picks == l)).sum())
+            pdf = (_LIGHT_PDF[k] + _POWER + _LIGHT_EMIT[k] + 13) if cfg.mis and k in (0, 1) \
+                else 10
+            flops += n * (3 + _LIGHT_SAMPLE[k] + 3 + _LEN + _NORM + nee + (pdf if cfg.mis else 0)
+                          + loop + 9)
+    for b, c in enumerate(_SURFACE):
+        n = counts[SURFACE + b]
+        flops += n * (c + 6 + ((_EVAL_PDF + 4 + (_GLOSSY_PDF if b == 3 else 0))
+                               if cfg.mis else 0))
+    for s in range(5):
+        flops += (counts[MARSCHNER + s] * _MARSCHNER[s] + counts[DEON + s] * _DEON[s]
+                  + (counts[MARSCHNER + s] + counts[DEON + s]) * (_NORM + 20))
+    mid_walk = hair & (((cls - MARSCHNER) % 5 == 1) | ((cls - MARSCHNER) % 5 == 2))
+    rr_rays = int((geom & ~mid_walk).sum()) if (cfg.rr and kw["rr_gate"]) else 0
+    flops += rr_rays * 12
+    # the draws these branches read: (fold_in + draws) threefry calls a tag
+    tf, draws = 0, 0
+    if n_l:
+        tf, draws = tf + 5 * n_geom, draws + 3 * n_geom  # u_pick (1), u_light (2)
+    n_surf = int((geom & ~hair).sum())
+    tf, draws = tf + 3 * n_surf, draws + 2 * n_surf  # u_bsdf
+    if cfg.hair_p_random:
+        n_hair = int(hair.sum())
+        tf, draws = tf + 2 * n_hair, draws + n_hair  # u_hairp
+    tf, draws = tf + 2 * rr_rays, draws + rr_rays  # u_rr
+    int_ops = tf * THREEFRY_INT_OPS + draws * DRAW_INT_OPS
+
+    def nb(*xs):
+        return sum(x.numel() * x.element_size() for x in xs if x is not None)
+
+    def row(f):  # bytes of one ray's row of input f
+        return kw[f].numel() * kw[f].element_size() // r
+
+    state = ["origin", "direction", "radiance", "color", "theta_i", "prev_pdf", "flags"]
+    on_live = ["hit_t", "hit_valid"]
+    on_geom = ["hit_pos", "hit_normal", "mat_id", "keys"]
+    if cfg.has_hair:
+        on_geom += ["fib_u", "fib_v", "fib_w"]
+    env = kw["env_color"]
+    env = env if env.dim() == 2 and env.stride(0) != 0 else env.reshape(-1, 3)[0]
+    once = nb(*(kw[f] for f in state), env, kw["env_ambient"].reshape(-1)[:3],
+              kw["lights_table"][:kw["n_lights"]], kw["mats_table"], *out.values())
+    n_bytes = once + int(live.sum()) * sum(map(row, on_live)) \
+        + n_geom * sum(map(row, on_geom))
+    all_bytes = once + r * sum(map(row, on_live + on_geom))
+    old = nb(kw["mat_id"], kw["keys"])
+    new = r * 4 * (12 + 8 + 5 + (1 if cfg.has_hair else 0) + (1 if cfg.rr else 0))
+    return dict(flops=flops, int_ops=int_ops, bytes=n_bytes, all_bytes=all_bytes,
+                old_bytes=all_bytes - nb(kw["mats_table"]) - old + new, threefry=tf,
+                draws=draws,
+                classes={name: counts[c] for name, c in (
+                    ("dead", DEAD), ("miss", MISS), ("light", LIGHT_HIT))} | {
+                    f"surface_{b}": counts[SURFACE + b] for b in range(9) if counts[SURFACE + b]}
+                | {f"{h}_{HAIR_STATES[s]}": counts[base + s] for h, base in (
+                    ("marschner", MARSCHNER), ("deon", DEON)) for s in range(5)
+                    if counts[base + s]})

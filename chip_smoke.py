@@ -12,7 +12,11 @@ render_image`) and checks the images:
     full-bounce kernel (K4), timed and bounded on config-0 bounces 0-3 and
     config-2 bounce 0;
   * the fur patch (bench config 4: 512x512, 45,000 cones, depth 4, spp 8,
-    no cut) through the traversal kernel (cone BVH) and the shade kernel;
+    no cut) through the traversal kernel (cone BVH) and the shade kernel
+    (K1), which draws its uniforms from each ray's key and reads its
+    material rows itself: its draws are held to the torch threefry bit for
+    bit, the kernel to its plain version on bounces 0-3, timed and bounded
+    per shading branch;
   * a Cornell box with a triangle BVH through the traversal kernel's
     triangle leaves and the shade kernel, gated against the full-bounce
     render of the same box; the traversal is held against its plain
@@ -23,7 +27,8 @@ render_image`) and checks the images:
     768-triangle scalp, 1024x1024, depth 4; spp cut from 16 to 4),
     generated and its BVH built on the card, through the streaming
     traversal kernel (K3, two-level cone BVH), the brute-force kernel (K5,
-    the BVH-less scalp) and the shade kernel. K3 is held against its twin
+    the BVH-less scalp) and the shade kernel (held to its plain version
+    and its draws bit for bit on bounces 0-1, timed). K3 is held against its twin
     on ray subsets and against the heap-walk kernel (K2) on whole
     wavefronts, K5 against its twin on the camera and bounce-1 wavefronts
     and the bounce-0 shadow rays, each sorted and unsorted; both are timed
@@ -97,12 +102,13 @@ K5_CONE_TILES = 256
 # The kernel-vs-plain image gate on a mid-size hair ball (two-level BVH).
 MID_HAIRBALL = dict(res=(256, 256), n_fibers=20_000, depth=4, spp=1)
 TIMED_REPS = 3
-# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3.
-PEAK_FP32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
-# Shading flops per ray, counted roughly on shade_core.cuh (light hits, NEE
-# sample and pdf, one BSDF sample, throughput update; the hair automaton
-# adds its trig): used only where bytes bind, which they do for both.
-SHADE_FLOPS_PER_RAY = 400
+# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3;
+# INT32 (the Hopper architecture white paper), for the shade kernel's threefry.
+PEAK_FP32_FLOPS, PEAK_BYTES, PEAK_INT32_OPS = 67e12, 3.35e12, 33.5e12
+# The full-bounce kernel's shading flops per ray, a rough count on
+# shade_core.cuh: its bound is set by the triangle rows (config 0) or the
+# bytes. The shade kernel's bound counts its branches (`cshade.work_ref`).
+FULL_BOUNCE_SHADE_FLOPS = 400
 # flops of one triangle row of full_bounce.cu's division-free test: the
 # Möller-Trumbore numerators 45, |det| 1, sign flips 3, acceptance 7, and the
 # cross-multiplied compare with the best row 3 (closest hit) or the scaled
@@ -207,13 +213,20 @@ def timed(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def bound(flops: float, n_bytes: float) -> dict:
-    """The least time the card could take: the larger of the operations
-    over the FP32 peak and the bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
+def dev_us(e) -> float:
+    """Device microseconds of a torch.profiler key_averages() entry."""
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def bound(flops: float, n_bytes: float, int_ops: float = 0.0) -> dict:
+    """The least time the card could take: the largest of the FP32
+    operations over the FP32 peak, the integer operations over the INT32
+    peak and the bytes over the memory rate."""
+    t_ops = max(flops / PEAK_FP32_FLOPS, int_ops / PEAK_INT32_OPS) * 1e3
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
     return dict(bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                flops=flops, bytes=n_bytes)
+                flops=flops, int_ops=int_ops, bytes=n_bytes)
 
 
 def nbytes(*xs) -> int:
@@ -330,7 +343,7 @@ def full_bounce_bound(kw) -> dict:
     """The full-bounce kernel's bound on these inputs: the triangle rows its
     closest hit must test (every row, for every ray that traces) at
     TRI_ROW_FLOPS and those its shadow any-hit must test (rows up to the
-    first blocker, or all) at SHADOW_ROW_FLOPS, plus SHADE_FLOPS_PER_RAY;
+    first blocker, or all) at SHADOW_ROW_FLOPS, plus FULL_BOUNCE_SHADE_FLOPS;
     bytes are the per-ray state and draws read once and the new state
     written once."""
     from ba_pathtracing_fur_torch.ops.cuda import shade as cshade
@@ -355,7 +368,7 @@ def full_bounce_bound(kw) -> dict:
     first = torch.where(shadow_valid.any(-1), shadow_valid.int().argmax(-1) + 1, n_tris)
     shadow_rows = int(first[has_shadow].sum())
     flops = tracing * n_tris * TRI_ROW_FLOPS + shadow_rows * SHADOW_ROW_FLOPS \
-        + kw["origin"].shape[0] * SHADE_FLOPS_PER_RAY
+        + kw["origin"].shape[0] * FULL_BOUNCE_SHADE_FLOPS
     io = [kw[k] for k in ("origin", "direction", "radiance", "color", "flags", "theta_i",
                           "prev_pdf", "u_bsdf", "u_pick", "u_light")] + list(out.values())
     res = bound(flops, nbytes(*io))
@@ -450,7 +463,9 @@ def phase_timing(scene, cam, key, cfg, name="config0", with_plain=True) -> dict:
 
 def phase_profile(scene, cam, key, cfg, name="config-0", marks=("full_bounce",)) -> dict:
     """Where one sample's time goes: device time by kernel under
-    torch.profiler, against the host wall clock of the same traced run."""
+    torch.profiler, against the host wall clock of the same traced run;
+    `kernel_ms` / `kernel_launches` are the device milliseconds and launches
+    of the kernels whose names hold each of `marks`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -461,22 +476,28 @@ def phase_profile(scene, cam, key, cfg, name="config-0", marks=("full_bounce",))
         render(scene, cam, key, cfg)
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
     busy = sum(dev_us(e) for e in kernels) / 1e6
     launches = sum(e.count for e in kernels)
-    parts = []
+    parts, kernel_ms, kernel_launches = [], {}, {}
     for mark in marks:
         t = sum(dev_us(e) for e in kernels if mark in e.key) / 1e6
-        parts.append(f"{mark} {t:.5f} s = {t / max(busy, 1e-12):.4f} of device time")
+        kernel_ms[mark] = t * 1e3
+        kernel_launches[mark] = sum(e.count for e in kernels if mark in e.key)
+        parts.append(f"{mark} {t:.5f} s = {t / max(busy, 1e-12):.4f} of device time "
+                     f"({kernel_launches[mark]} launches)")
     log(f"profile, one {name} sample (traced): wall {wall:.4f} s, device busy {busy:.4f} s "
         f"(idle share {max(0.0, 1.0 - busy / wall):.3f}), {launches} kernel launches, "
         + ", ".join(parts))
     for e in sorted(kernels, key=dev_us, reverse=True)[:6]:
         log(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:100]}")
-    return dict(wall=wall, busy=busy, launches=launches)
+    return dict(wall=wall, busy=busy, launches=launches, kernel_ms=kernel_ms,
+                kernel_launches=kernel_launches)
+
+
+def per_launch(prof: dict, mark: str) -> float:
+    """Device milliseconds a launch of the `mark` kernels in a traced sample
+    (`phase_profile`)."""
+    return prof["kernel_ms"][mark] / max(prof["kernel_launches"][mark], 1)
 
 
 def phase_sort_effect(scene, cam, key, cfg, name, marks) -> dict:
@@ -574,36 +595,92 @@ def traverse_bound(o, d, t_max, bvh, kind, any_hit) -> dict:
     return res
 
 
-def shade_bound(kw, got) -> dict:
-    """The shade kernel's bound on these inputs: the per-ray tensors it
-    reads (the fiber frame and hair draw only with hair, the RR draw only
-    with RR, a constant environment colour as its 3 floats, the ambient and
-    the n_lights rows of the light table once) and its outputs written
-    once; SHADE_FLOPS_PER_RAY a ray."""
+def shade_bound(kw, got, what) -> dict:
+    """The shade kernel's bound on these inputs (`cshade.work_ref`): the
+    FP32 operations of the branches these rays take, counted on
+    shade_core.cuh, the integer operations of the draws those branches
+    read at the INT32 rate, the inputs these rays need (the hit's fields,
+    key and material id only where the branch reads them) and the tables
+    read once and the outputs written once. Beside it, the byte bound of
+    every per-ray input of every ray, and of the interface before the
+    kernel drew and gathered itself."""
     from ba_pathtracing_fur_torch.ops.cuda import shade as cshade
 
-    cfg = kw["cfg"]
-    skip = {"env_color", "env_ambient", "mp"}
-    skip |= set() if cfg.rr else {"u_rr"}
-    skip |= set() if cfg.has_hair else {"fib_u", "fib_v", "fib_w", "u_hairp"}
-    io = [kw[f] for f in cshade.SHADE_IN_FIELDS if f in kw and f not in skip]
-    io += [getattr(kw["mp"], f) for f in cshade.MAT_FIELDS]
-    env = kw["env_color"]
-    io.append(env[0] if env.dim() == 2 and env.stride(0) == 0 else env)
-    io += [kw["env_ambient"], kw["lights_table"][:kw["n_lights"]]]
+    w = cshade.work_ref(kw, got)
+    res = bound(w["flops"], w["bytes"], w["int_ops"])
     r = kw["origin"].shape[0]
-    res = bound(r * SHADE_FLOPS_PER_RAY, nbytes(*io, *got.values()))
-    log(f"shade work: {r} rays, {len(io)} inputs and {len(got)} outputs -> "
-        f"{res['bytes']:.4e} bytes, {res['flops']:.4e} flops, bound {res['bound_ms']:.4f} ms "
-        f"by {res['bound_by']}")
-    return res
+    old_ms, all_ms = (w[k] / PEAK_BYTES * 1e3 for k in ("old_bytes", "all_bytes"))
+    log(f"shade work, {what}: {r} rays by branch {w['classes']}; {w['flops']:.4e} flops "
+        f"({w['flops'] / r:.1f} a ray), {w['threefry']} threefry calls and {w['draws']} "
+        f"draws = {w['int_ops']:.4e} integer ops, {w['bytes']:.4e} bytes -> bound "
+        f"{res['bound_ms']:.4f} ms by {res['bound_by']}; every input of every ray: "
+        f"{w['all_bytes']:.4e} bytes = {all_ms:.4f} ms; the drawn-and-gathered interface "
+        f"before: {w['old_bytes']:.4e} bytes = {old_ms:.4f} ms")
+    return dict(res, all_bytes_ms=all_ms, old_bound_ms=old_ms, classes=w["classes"])
+
+
+def check_draws(keys, bounce, what) -> None:
+    """The shade kernel's draws from every ray's key equal the torch
+    threefry's bit for bit (tags 0-4)."""
+    from ba_pathtracing_fur_torch.core import rng
+    from ba_pathtracing_fur_torch.ops.cuda import shade as cshade
+
+    got = cshade.kernel_draws(keys, bounce, 5)
+    want = rng.bounce_uniforms(keys, bounce, 5, 2)
+    torch.cuda.synchronize()
+    bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    log(f"shade draws, {what}: {keys.shape[0]} rays x 5 tags x 2, {bad} differ from "
+        f"rng.bounce_uniforms")
+    if bad:
+        raise AssertionError(f"shade draws {what}: the kernel's threefry differs")
+
+
+def compare_shade(got, want, what, k1) -> None:
+    """K1 against its plain version on the same inputs under the per-field
+    gate (shadow rays where they are traced); worst values into `k1`."""
+    live = want["shadow_tmax"] > 0
+    for f in SHADE_FIELDS + ("shadow_o", "shadow_d"):
+        a, b = want[f], got[f]
+        if f in ("shadow_o", "shadow_d"):
+            a, b = a[live], b[live]
+        frac, mx, rel = row_mismatch(a, b, rel=True)
+        k1["worst_frac"], k1["max_abs_err"] = max(k1["worst_frac"], frac), \
+            max(k1["max_abs_err"], mx)
+        k1["max_rel_err"] = max(k1["max_rel_err"], rel)
+        if frac >= FIELD_MAX_FRAC:
+            raise AssertionError(f"shade {what} {f}: {frac:.4f} of rows mismatched (max "
+                                 f"|diff| {mx:.3e})")
+
+
+def shade_times(kw, what) -> dict:
+    """K1's time on these inputs, its plain version's, and the time of the
+    draws and the material gather that fed K1 before it made them itself
+    (`rng.bounce_uniforms` of 4 or 5 tags and the gather, as the plain
+    version runs them)."""
+    from ba_pathtracing_fur_torch.core import rng
+    from ba_pathtracing_fur_torch.models import bsdf
+    from ba_pathtracing_fur_torch.ops.cuda import shade as cshade
+
+    n_tags = 5 if kw["cfg"].rr else 4
+
+    def glue():
+        rng.bounce_uniforms(kw["keys"], kw["bounce"], n_tags, 2)
+        bsdf.gather_materials(kw["mats_table"], kw["mat_id"])
+
+    out = dict(ms=timed(lambda: cshade.shade_bounce(**kw), 50),
+               plain_ms=timed(lambda: cshade.shade_bounce_ref(**kw), 3),
+               glue_ms=timed(glue, 10))
+    log(f"shade times, {what} ({kw['origin'].shape[0]} rays): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in out.items()))
+    return out
 
 
 def phase_fur_kernels(scene, cam, cfg, dev) -> dict:
     """Bounces 0-3 of config 4: K2 (cone closest and shadow any-hit) and K1
     against their plain versions on the same CUDA inputs, with the times of
     both kernels beside their plain versions at the bounce-0 and bounce-1
-    shapes."""
+    shapes; there also K1's draws held to the torch threefry bit for bit,
+    K1 against its plain version with hair_p_random, and K1's bound."""
     from ba_pathtracing_fur_torch.core import rng
     from ba_pathtracing_fur_torch.models import pathtracer as pt
     from ba_pathtracing_fur_torch.ops import traverse
@@ -628,18 +705,8 @@ def phase_fur_kernels(scene, cam, cfg, dev) -> dict:
         got = cshade.shade_bounce(**kw)
         want = cshade.shade_bounce_ref(**kw)
         torch.cuda.synchronize()
+        compare_shade(got, want, f"config4 bounce {bounce}", k1)
         live = want["shadow_tmax"] > 0
-        for f in SHADE_FIELDS + ("shadow_o", "shadow_d"):
-            a, b = want[f], got[f]
-            if f in ("shadow_o", "shadow_d"):
-                a, b = a[live], b[live]
-            frac, mx, rel = row_mismatch(a, b, rel=True)
-            k1["worst_frac"], k1["max_abs_err"] = max(k1["worst_frac"], frac), \
-                max(k1["max_abs_err"], mx)
-            k1["max_rel_err"] = max(k1["max_rel_err"], rel)
-            if frac >= FIELD_MAX_FRAC:
-                raise AssertionError(f"shade config4 bounce {bounce} {f}: {frac:.4f} of rows "
-                                     f"mismatched (max |diff| {mx:.3e})")
         log(f"shade vs plain, config4 bounce {bounce}: ok, {int(alive.sum())} rays alive, "
             f"{int((hit.prim_type == 1).sum())} cone hits, {int(live.sum())} shadow rays")
         so, sd, st_max = want["shadow_o"], want["shadow_d"], want["shadow_tmax"]
@@ -660,16 +727,20 @@ def phase_fur_kernels(scene, cam, cfg, dev) -> dict:
                                                                  any_hit=True), reps),
                 any_plain_ms=timed(lambda: ctraverse.traverse_ref(sso, ssd, sst, bvh, "cone",
                                                                   any_hit=True), 1),
-                sort_ms=timed(lambda: sorted_rays(o, d, t_cap, bvh), reps),
-                shade_ms=timed(lambda: cshade.shade_bounce(**kw), 50),
-                shade_plain_ms=timed(lambda: cshade.shade_bounce_ref(**kw), 3))
+                sort_ms=timed(lambda: sorted_rays(o, d, t_cap, bvh), reps))
             log(f"config4 bounce {bounce} times ({o.shape[0]} rays): " + ", ".join(
                 f"{k} {v:.4f}" for k, v in times.items()))
+            what = f"config4 bounce {bounce}"
+            check_draws(keys, bounce, what)
+            kw_p = pt.shade_inputs(state, scene, keys, bounce,
+                                   dataclasses.replace(cfg, hair_p_random=True), hit, tables)
+            compare_shade(cshade.shade_bounce(**kw_p), cshade.shade_bounce_ref(**kw_p),
+                          f"{what} hair_p_random", k1)
             out[bounce] = dict(times=times,
                                closest_bound=traverse_bound(o, d, t_cap, bvh, "cone", False),
-                               any_bound=traverse_bound(so, sd, st_max, bvh, "cone", True))
-            if bounce == 0:
-                out["shade_bound"] = shade_bound(kw, got)
+                               any_bound=traverse_bound(so, sd, st_max, bvh, "cone", True),
+                               shade=shade_times(kw, what),
+                               shade_bound=shade_bound(kw, got, what))
         blocked = traverse.any_hit(so, sd, scene, st_max)
         color = want["color"] + torch.where(blocked[:, None], 0.0, want["direct_rgb"])
         state = pt.RayState(origin=want["origin"], direction=want["direction"],
@@ -993,7 +1064,9 @@ def phase_hairball_kernels(scene, cam, cfg, dev) -> dict:
     wavefront, any hit on its shadow rays) against its twin and K2, timed
     beside K2 and bounded; K5 on the scalp (the camera and bounce-1
     wavefronts and the bounce-0 shadow rays, sorted as the main path feeds
-    it and unsorted) against its twin, timed and bounded."""
+    it and unsorted) against its twin, timed and bounded; K1 against its
+    plain version on every ray (per-field gate), its draws held to the torch
+    threefry bit for bit, timed and bounded."""
     from ba_pathtracing_fur_torch.core import rng
     from ba_pathtracing_fur_torch.models import pathtracer as pt
     from ba_pathtracing_fur_torch.ops import traverse
@@ -1005,7 +1078,7 @@ def phase_hairball_kernels(scene, cam, cfg, dev) -> dict:
     tables = pt.BounceTables.of(scene)
     ids = torch.arange(cam.resolution[0] * cam.resolution[1], device=dev)
     state, keys = pt.camera_wavefront(cam, ids, rng.key(0, dev), [0], cfg)
-    out = {}
+    out = dict(k1=dict(worst_frac=0.0, max_abs_err=0.0, max_rel_err=0.0))
     for bounce in range(2):
         alive = (state.radiance != 0.0).any(-1) & (state.direction != 0.0).any(-1)
         t_cap = torch.where(alive, traverse.INF, 0.0)
@@ -1015,6 +1088,11 @@ def phase_hairball_kernels(scene, cam, cfg, dev) -> dict:
         hit = traverse.closest_hit(o, d, scene, t_max=t_cap)
         kw = pt.shade_inputs(state, scene, keys, bounce, cfg, hit, tables)
         sh = cshade.shade_bounce(**kw)
+        compare_shade(sh, cshade.shade_bounce_ref(**kw), f"config5 bounce {bounce}", out["k1"])
+        log(f"shade vs plain, config5 bounce {bounce}: ok, {o.shape[0]} rays")
+        check_draws(keys, bounce, f"config5 bounce {bounce}")
+        shade = dict(shade_times(kw, f"config5 bounce {bounce}"),
+                     bound=shade_bound(kw, sh, f"config5 bounce {bounce}"))
         so, sd, st_max = sh["shadow_o"], sh["shadow_d"], sh["shadow_tmax"]
         shadow = compare_stream(so, sd, st_max, bvh, True, f"bounce-{bounce} shadow rays")
         sub = spread(o.shape[0], TWIN_RAYS, dev)
@@ -1043,7 +1121,7 @@ def phase_hairball_kernels(scene, cam, cfg, dev) -> dict:
             f"sorted unless named unsorted; plain on {TWIN_RAYS}): "
             + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
         out[bounce] = dict(
-            times=times, closest=closest, shadow=shadow, alive=int(alive.sum()),
+            times=times, closest=closest, shadow=shadow, alive=int(alive.sum()), shade=shade,
             closest_bound=stream_bound(o1, d1, t1, bvh, False, closest["t"], closest["row"],
                                        closest["found"]),
             any_bound=stream_bound(o2, d2, t2, bvh, True, shadow["t"], shadow["row"],
@@ -1246,7 +1324,7 @@ def drive(dev, card: str) -> list:
     k5_cone = phase_bruteforce_cone(dev)
     phase_mid_hairball(dev)
 
-    t0 = fur[0]["times"]
+    t0, s0 = fur[0]["times"], fur[0]["shade"]
     b0 = fur[0]["closest_bound"]
     h0, k5t, k4b = hb[0], hb["k5_tri_0"], k4["config0_b0"]
     k5c = k5_cone[0]
@@ -1278,11 +1356,25 @@ def drive(dev, card: str) -> list:
              soup=tri["soup"]),
         dict(name="shade", route="cuda", source="ba_pathtracing_fur_torch/csrc/shade.cu",
              replaces="ba_pathtracing_fur_tpu/ops/pallas/shade.py:92",
-             launches=fur_main["counts"]["shade"], max_abs_err=fur["k1"]["max_abs_err"],
-             mismatch_frac=fur["k1"]["worst_frac"], max_rel_err=fur["k1"]["max_rel_err"],
-             ms=t0["shade_ms"],
-             plain_ms=t0["shade_plain_ms"], bound_ms=fur["shade_bound"]["bound_ms"],
-             bound_by=fur["shade_bound"]["bound_by"], library_ms=None),
+             launches=fur_main["counts"]["shade"],
+             max_abs_err=max(fur["k1"]["max_abs_err"], hb["k1"]["max_abs_err"]),
+             mismatch_frac=max(fur["k1"]["worst_frac"], hb["k1"]["worst_frac"]),
+             max_rel_err=max(fur["k1"]["max_rel_err"], hb["k1"]["max_rel_err"]),
+             ms=s0["ms"], plain_ms=s0["plain_ms"], bound_ms=fur[0]["shade_bound"]["bound_ms"],
+             bound_by=fur[0]["shade_bound"]["bound_by"], library_ms=None,
+             old_bound_ms=fur[0]["shade_bound"]["old_bound_ms"],
+             all_inputs_bound_ms=fur[0]["shade_bound"]["all_bytes_ms"], glue_ms=s0["glue_ms"],
+             traced_ms_per_launch=per_launch(prof4, "shade_kernel"),
+             bounce1_ms=fur[1]["shade"]["ms"],
+             bounce1_bound_ms=fur[1]["shade_bound"]["bound_ms"],
+             config5={k: dict(ms=hb[b]["shade"]["ms"],
+                              plain_ms=hb[b]["shade"]["plain_ms"],
+                              glue_ms=hb[b]["shade"]["glue_ms"],
+                              bound_ms=hb[b]["shade"]["bound"]["bound_ms"],
+                              bound_by=hb[b]["shade"]["bound"]["bound_by"])
+                      for k, b in (("bounce0", 0), ("bounce1", 1))},
+             config5_launches=hb_main["counts"]["shade"],
+             config5_traced_ms_per_launch=per_launch(prof5, "shade_kernel")),
         dict(name="traverse_stream_cone", route="cuda",
              source="ba_pathtracing_fur_torch/csrc/traverse_stream.cu",
              replaces="ba_pathtracing_fur_tpu/ops/pallas/stream.py:464",

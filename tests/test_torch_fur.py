@@ -6,7 +6,9 @@
   against JAX `shade_bounce(mode="xla")` and the Pallas `_shade_kernel`
   (`mode="kernel"`, interpret mode) on fur-patch hits, Marschner and
   d'Eon, with `hair_p_random` and MIS on and off, under the per-field gate
-  of tests/test_fused_shade.py::test_fused_single_bounce_exact.
+  of tests/test_fused_shade.py::test_fused_single_bounce_exact. The port
+  takes each ray's key and material id; JAX takes the draws
+  `rng.bounce_uniform` makes from the same keys and its own gather.
 * The slice end to end: a BVH-less fur-patch render against JAX
   `render_image(fused_shading=True)` under the image gate of
   tests/test_fused_shade.py::_compare (the BVH render is in
@@ -19,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from ba_pathtracing_fur_tpu.core import camera as jcam
+from ba_pathtracing_fur_tpu.core import camera as jcam, rng as jrng
 from ba_pathtracing_fur_tpu.models import bsdf as jbsdf, pathtracer as jpt
 from ba_pathtracing_fur_tpu.models.shade_core import CoreCfg as JCoreCfg
 from ba_pathtracing_fur_tpu.ops import traverse as jtraverse
@@ -97,10 +99,12 @@ def test_fur_patch_equals_jax(bsdf):
 
 def _hair_cases(bsdf, mis, p_random, bounces=3):
     """Bounces of a hair walk over fur-patch hits: JAX inputs for the shade
-    stage of each bounce, made from a numpy seed. Bounce 0 starts from a
-    mid-path state in every walk state; later bounces start from JAX's
-    outputs of the bounce before, so rays that entered a fiber meet its
-    inside as the walk does."""
+    stage of each bounce, made from a numpy seed, with the draws of tags
+    0-4 from per-pixel keys (the port gets the keys, the bounce, the hits'
+    material ids and its material table). Bounce 0 starts from a mid-path
+    state in every walk state; later bounces start from JAX's outputs of
+    the bounce before, so rays that entered a fiber meet its inside as the
+    walk does."""
     js, jc = jbuiltins.fur_patch(resolution=RES, fibers_per_face=150, fiber_verts=6,
                                  fiber_radius=0.012, bsdf=bsdf)
     w, h = RES
@@ -118,11 +122,15 @@ def _hair_cases(bsdf, mis, p_random, bounces=3):
         flags=rs.choice([0, 0, 8, 16, 24, 2], r).astype(np.int32),
         theta_i=rs.random(r, np.float32),
         prev_pdf=np.where(rs.random(r) < 0.3, -1.0, rs.random(r) * 3.0).astype(np.float32))
+    jkeys = jrng.keys_for_pixels(jax.random.key(11), jnp.asarray(ids), 0)
+    keys = rng.keys_for_pixels(rng.key(11, CPU), torch.from_numpy(ids), 0)
+    mats = cshade.pack_mats_table(types.scene_from_numpy(js, device=CPU).materials)
     cases = []
-    for _ in range(bounces):
-        u = {k: rs.random(shape, np.float32) for k, shape in (
-            ("u_bsdf", (r, 2)), ("u_pick", (r,)), ("u_light", (r, 2)), ("u_hairp", (r,)),
-            ("u_rr", (r,)))}
+    for bounce in range(bounces):
+        u = {k: np.asarray(jrng.bounce_uniform(jkeys, bounce, n, tag=tag)).reshape(r, -1)
+             .squeeze(-1 if n == 1 else ()) for k, n, tag in (
+                 ("u_bsdf", 2, 0), ("u_pick", 1, 1), ("u_light", 2, 2), ("u_hairp", 1, 3),
+                 ("u_rr", 1, 4))}
         alive = np.any(state["radiance"] != 0, -1) & np.any(state["direction"] != 0, -1)
         hit = jtraverse.closest_hit(jnp.asarray(state["origin"]),
                                     jnp.asarray(state["direction"]), js,
@@ -136,6 +144,7 @@ def _hair_cases(bsdf, mis, p_random, bounces=3):
             lights=np.array(jshade.pack_lights_smem(js.lights)),
             env_color=np.broadcast_to(np.asarray(js.env.color, np.float32), (r, 3)).copy(),
             env_ambient=np.asarray(js.env.ambient, np.float32), u=u,
+            keys=keys, bounce=bounce, mat_id=np.asarray(hit.mat_id), mats=mats,
             n_lights=js.lights.count,
             cfg=dict(n_lights=js.lights.count, mis=mis, rr=mis, has_hair=True,
                      hair_p_random=p_random, bsdfs_present=js.bsdfs_present),
@@ -171,10 +180,10 @@ def _port_shade(a):
         **{k: t(v) for k, v in a["state"].items()}, hit_t=h["t"], hit_valid=h["valid"],
         hit_pos=h["position"], hit_normal=h["normal"], fib_u=h["fiber_u"],
         fib_v=h["fiber_v"], fib_w=h["fiber_w"],
-        mp=sc.CoreMat(**{k: t(v) for k, v in a["mp"].items()}),
+        mat_id=t(a["mat_id"]), mats_table=a["mats"], keys=a["keys"], bounce=a["bounce"],
         env_color=t(a["env_color"]), env_ambient=t(a["env_ambient"]),
-        lights_table=t(a["lights"]), n_lights=a["n_lights"],
-        **{k: t(v) for k, v in a["u"].items()}, rr_gate=True, cfg=sc.CoreCfg(**a["cfg"]))
+        lights_table=t(a["lights"]), n_lights=a["n_lights"], rr_gate=True,
+        cfg=sc.CoreCfg(**a["cfg"]))
 
 
 def _compare_shade(want, got, what, case=None):

@@ -246,11 +246,26 @@ def test_traverse_kernel_matches_plain_on_the_card(kind, any_hit):
         assert torch.equal(r0, r1)
 
 
+def _shade_gate(want, got, what):
+    """K1 against its twin under the per-field gate (shadow rays compared
+    where they are traced)."""
+    live = want["shadow_tmax"] > 0
+    for f, a in want.items():
+        b = got[f]
+        if f in ("shadow_o", "shadow_d"):
+            a, b = a[live], b[live]
+        a, b = a.double().reshape(len(a), -1), b.double().reshape(len(b), -1)
+        bad = ((a - b).abs() > 1e-4 + 1e-4 * a.abs()).any(-1).double().mean().item()
+        assert bad < 0.02, f"{what} {f}: {bad:.4f} of rows mismatched"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("p_random", [False, True])
-def test_shade_kernel_matches_plain_on_the_card(p_random):
-    """K1 against its twin on fur-patch hits, bounce by bounce, under the
-    per-field gate (shadow rays compared where they are traced)."""
+@pytest.mark.parametrize("mis,rr", [(False, False), (True, False), (False, True),
+                                    (True, True)])
+def test_shade_kernel_matches_plain_on_the_card(p_random, mis, rr):
+    """K1 against its twin on fur-patch hits, bounce by bounce, from the
+    same keys and material ids (RR gated on from bounce 1)."""
     import dataclasses
 
     from ba_pathtracing_fur_torch.ops import traverse
@@ -259,7 +274,7 @@ def test_shade_kernel_matches_plain_on_the_card(p_random):
         pytest.skip("needs an NVIDIA GPU (run on the card with -m cuda)")
     dev = torch.device("cuda")
     scene, state, keys, cfg = _fur_wavefront(dev)
-    cfg = dataclasses.replace(cfg, hair_p_random=p_random, mis=p_random, rr=p_random)
+    cfg = dataclasses.replace(cfg, hair_p_random=p_random, mis=mis, rr=rr, rr_start=1)
     tables = pt.BounceTables.of(scene)
     for bounce in range(3):
         hit = traverse.closest_hit(state.origin, state.direction, scene)
@@ -268,22 +283,90 @@ def test_shade_kernel_matches_plain_on_the_card(p_random):
         got = cshade.shade_bounce(**kw)
         assert cshade.SHADE_LAUNCHES == launches + 1
         want = cshade.shade_bounce_ref(**kw)
-        live = want["shadow_tmax"] > 0
-        for f, a in want.items():
-            b = got[f]
-            if f in ("shadow_o", "shadow_d"):
-                a, b = a[live], b[live]
-            a, b = a.double().reshape(len(a), -1), b.double().reshape(len(b), -1)
-            bad = ((a - b).abs() > 1e-4 + 1e-4 * a.abs()).any(-1).double().mean().item()
-            assert bad < 0.02, f"bounce {bounce} {f}: {bad:.4f} of rows mismatched"
+        _shade_gate(want, got, f"bounce {bounce}")
         state = pt.RayState(**{f: want[f] for f in cshade.SHADE_OUT_FIELDS
                                if f in pt.RayState.__dataclass_fields__})
+
+
+def test_kernel_draws_take_the_plain_version_on_the_cpu():
+    """The draws of K1's test launch come, for CPU tensors, from its plain
+    version, the torch threefry."""
+    keys = rng.keys_for_pixels(rng.key(3, "cpu"), torch.arange(77), 2)
+    assert torch.equal(cshade.kernel_draws(keys, 1, 5), rng.bounce_uniforms(keys, 1, 5, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rays", [1, 127, 1000, 4096])
+def test_shade_kernel_draws_equal_threefry_on_the_card(n_rays):
+    """The draws K1 makes from each ray's key (through the test-only
+    launch of csrc/shade.cu, on the same threefry.cuh functions and tag
+    keys) equal `rng.bounce_uniforms` bit for bit, for every tag and
+    bounce, on wavefronts that are not a multiple of the block."""
+    import numpy as np
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card with -m cuda)")
+    dev = torch.device("cuda")
+    ids = torch.from_numpy(np.random.default_rng(n_rays).integers(0, 1 << 22, n_rays)).to(dev)
+    keys = rng.keys_for_pixels(rng.key(n_rays, dev), ids, 3)
+    for bounce in range(5):
+        got = cshade.kernel_draws(keys, bounce, 5)
+        want = rng.bounce_uniforms(keys, bounce, 5, 2)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), bounce
+
+
+@pytest.mark.cuda
+def test_shade_kernel_edge_material_ids_on_the_card():
+    """Ids -1, 0, M-1 and M read the rows the twin reads (jnp's gather: a
+    negative id wraps, one past the end clamps)."""
+    import dataclasses
+
+    from ba_pathtracing_fur_torch.ops import traverse
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card with -m cuda)")
+    dev = torch.device("cuda")
+    scene, state, keys, cfg = _fur_wavefront(dev)
+    cfg = dataclasses.replace(cfg, mis=True)
+    tables = pt.BounceTables.of(scene)
+    m = tables.mats.shape[0]
+    hit = traverse.closest_hit(state.origin, state.direction, scene)
+    ids = torch.tensor([-1, 0, m - 1, m], dtype=torch.int32, device=dev)
+    hit = dataclasses.replace(hit, mat_id=ids.repeat(state.origin.shape[0] // 4))
+    kw = pt.shade_inputs(state, scene, keys, 0, cfg, hit, tables)
+    _shade_gate(cshade.shade_bounce_ref(**kw), cshade.shade_bounce(**kw), "edge ids")
+
+
+@pytest.mark.cuda
+def test_shade_kernel_large_material_table_on_the_card():
+    """A material table beyond 48 KB of shared memory (1,000 rows: the
+    launch raises the kernel's dynamic shared-memory limit) against the
+    twin, each ray on a random row."""
+    import dataclasses
+
+    from ba_pathtracing_fur_torch.ops import traverse
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card with -m cuda)")
+    dev = torch.device("cuda")
+    scene, state, keys, cfg = _fur_wavefront(dev)
+    tables = pt.BounceTables.of(scene)
+    g = torch.Generator().manual_seed(2)
+    mats = tables.mats.repeat(500, 1)[:1000].contiguous()
+    mats[:, 0:3] *= torch.rand((1000, 3), generator=g).to(dev)
+    hit = traverse.closest_hit(state.origin, state.direction, scene)
+    hit = dataclasses.replace(hit, mat_id=torch.randint(0, 1000, hit.mat_id.shape, generator=g,
+                                                        dtype=torch.int32).to(dev))
+    kw = dict(pt.shade_inputs(state, scene, keys, 0, cfg, hit, tables), mats_table=mats)
+    assert 4 * mats.numel() > 48 * 1024
+    _shade_gate(cshade.shade_bounce_ref(**kw), cshade.shade_bounce(**kw), "1,000 materials")
 
 
 @pytest.mark.cuda
 def test_shade_kernel_takes_a_per_ray_environment_on_the_card():
     """The environment colour reaches K1 either once (a constant: 3 floats)
-    or per ray ([R,3] rows); both agree with the plain version."""
+    or per ray ([R,3] rows), beside the keys and material ids; both agree
+    with the plain version."""
     from ba_pathtracing_fur_torch.ops import traverse
 
     if not torch.cuda.is_available():
