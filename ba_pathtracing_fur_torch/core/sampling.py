@@ -1,7 +1,7 @@
 """Sampling and Fresnel helpers on tensors.
 
 Counterpart of `ba_pathtracing_fur_tpu/core/sampling.py`, holding what the
-shading body and the hair automaton use. Uniform random numbers come in as
+shading body, the hair automaton and the light sampler use. Uniform random numbers come in as
 explicit arguments.
 """
 
@@ -82,3 +82,15 @@ def sample_angle(u1: torch.Tensor, u2: torch.Tensor, max_angle) -> torch.Tensor:
     cos_t = 1.0 - u2 * (1.0 - torch.cos(max_angle))
     sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
     return torch.stack([torch.cos(phi) * sin_t, torch.sin(phi) * sin_t, cos_t], dim=-1)
+
+
+def sample_disk_about(u1: torch.Tensor, u2: torch.Tensor, normal: torch.Tensor,
+                      radius) -> torch.Tensor:
+    """A point offset on a disk of `radius` across `normal`, polar r =
+    sqrt(u1) (Light::sampleDisk, Light.cpp:94-110) -> `[..., 3]`."""
+    r = torch.sqrt(u1)
+    theta = 2.0 * math.pi * u2
+    x = r * torch.cos(theta) * radius
+    y = r * torch.sin(theta) * radius
+    s, t = vm.orthonormal_basis(normal)
+    return x[..., None] * s + y[..., None] * t

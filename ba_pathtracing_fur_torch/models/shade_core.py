@@ -29,6 +29,7 @@ import math
 import torch
 
 from ..core import vecmath as vm
+from ..ops.intersect import tri_t
 from ..core.sampling import (
     cosine_sample_hemisphere, dielectric_fresnel, normal_gauss_pdf, sample_angle,
     uniform_sphere_sample,
@@ -136,23 +137,6 @@ def _distance_attenuation(li: CoreLight, dist: torch.Tensor):
         return 1.0 / torch.clamp(li.const_att + li.lin_att * dist
                                  + li.quad_att * dist * dist, min=1e-12)
     return torch.ones_like(dist)
-
-
-def tri_t(o, d, a, b, c):
-    """Möller-Trumbore against one triangle (ops/intersect._tri_t). -> (t, ok)"""
-    e1 = b - a
-    e2 = c - a
-    p = vm.cross(d, e2)
-    det = vm.dot(e1, p)
-    ok = det.abs() > TRI_EPS
-    inv_det = 1.0 / torch.where(ok, det, 1.0)
-    tv = o - a
-    u = vm.dot(tv, p) * inv_det
-    q = vm.cross(tv, e1)
-    v = vm.dot(d, q) * inv_det
-    t = vm.dot(e2, q) * inv_det
-    ok = ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0) & (t > TRI_EPS)
-    return t, ok
 
 
 def light_hit(o, d, li: CoreLight):

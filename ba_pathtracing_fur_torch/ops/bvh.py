@@ -12,8 +12,11 @@ same implicit complete binary tree over fixed-size leaf clusters:
     major within each cluster (W = 9 for triangles: v0, e1, e2; W = 16 for
     cones: base, u, v, w, slope, r_base, min_d, max_d).
 
-`build_median` runs the JAX package's numpy lexsort split level by level in
-torch on the bounds' device (segment min/max, longest axis, stable sort by
+`build_sah` is the JAX package's capacity-clamped binned SAH split, a copy
+of its host numpy (the same numpy calls on the same float32 data, so the
+same permutation), finished on the bounds' device. `build_median` runs the
+JAX package's numpy lexsort split level by level in torch on the bounds'
+device (segment min/max, longest axis, stable sort by
 key then by segment), so on the same bounds it is bit-identical to the
 numpy build, at any size and on any device; it takes the place of the JAX
 package's native C++ splitter, whose `nth_element` leaves the same leaf
@@ -27,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..scene.types import ConePack, TrianglePack
@@ -178,6 +182,94 @@ def build_median(prim_bmin: torch.Tensor, prim_bmax: torch.Tensor,
     n_leaves = _next_pow2(max(-(-n // leaf_size), 1))
     order, bounds = median_split(0.5 * (prim_bmin + prim_bmax), n_leaves)
     perm = _ranges_to_perm(order, bounds, n_leaves, leaf_size)
+    hmin, hmax = _finalize(perm, prim_bmin, prim_bmax, n_leaves, leaf_size)
+    return BVH(bmin=hmin, bmax=hmax, perm=perm.to(torch.int32), packed=None,
+               n_leaves=n_leaves, leaf_size=leaf_size)
+
+
+def _sah_order(bmin: np.ndarray, bmax: np.ndarray, n_leaves: int, leaf_size: int,
+               n_bins: int):
+    """The JAX package's binned SAH split (16-bin centroid bins a segment
+    and axis, prefix and suffix AABB sweeps, cost SA_L N_L + SA_R N_R, each
+    side clamped to its subtree's slot capacity; the median plane when no
+    binned plane fits the clamp or the extent is degenerate), in the same
+    numpy calls -> (order [N] int64, leaf bounds)."""
+    n = bmin.shape[0]
+    cent = 0.5 * (bmin + bmax)
+    order = np.arange(n)
+    bounds = [0, n]
+    for level in range(n_leaves.bit_length() - 1):
+        cap = (n_leaves >> (level + 1)) * leaf_size  # slots per child subtree
+        new_bounds = [0]
+        for s, e in zip(bounds[:-1], bounds[1:]):
+            seg = order[s:e]
+            cnt = e - s
+            if cnt <= 1:
+                new_bounds.extend([s + (cnt + 1) // 2, e])
+                continue
+            c = cent[seg]
+            k_lo, k_hi = max(cnt - cap, 0), min(cnt, cap)
+            k = best = side = None
+            clo, chi = c.min(axis=0), c.max(axis=0)
+            for axis in range(3):
+                ext = chi[axis] - clo[axis]
+                if ext <= 0.0:
+                    continue
+                b = np.minimum((c[:, axis] - clo[axis]) / ext * n_bins,
+                               n_bins - 1).astype(np.int64)
+                counts = np.bincount(b, minlength=n_bins)
+                bb_lo = np.full((n_bins, 3), np.float32(BIG))
+                bb_hi = np.full((n_bins, 3), np.float32(-BIG))
+                np.minimum.at(bb_lo, b, bmin[seg])
+                np.maximum.at(bb_hi, b, bmax[seg])
+                lmin = np.minimum.accumulate(bb_lo, axis=0)
+                lmax = np.maximum.accumulate(bb_hi, axis=0)
+                rmin = np.minimum.accumulate(bb_lo[::-1], axis=0)[::-1]
+                rmax = np.maximum.accumulate(bb_hi[::-1], axis=0)[::-1]
+                n_l = np.cumsum(counts)[:-1]  # the plane after bin i
+                n_r = cnt - n_l
+
+                def area(lo, hi):
+                    d = np.maximum(hi - lo, 0.0)
+                    return d[:, 0] * d[:, 1] + d[:, 1] * d[:, 2] + d[:, 2] * d[:, 0]
+
+                cost = area(lmin[:-1], lmax[:-1]) * n_l + area(rmin[1:], rmax[1:]) * n_r
+                ok = (n_l >= k_lo) & (n_l <= k_hi)
+                if not ok.any():
+                    continue
+                cost = np.where(ok, cost, np.inf)
+                i = int(np.argmin(cost))
+                if best is None or cost[i] < best:
+                    best = cost[i]
+                    k = int(n_l[i])
+                    side = (b > i).astype(np.int8)
+            if k is None:  # degenerate extent or no clamped plane: the median
+                axis = int(np.argmax(chi - clo))
+                k = min(max((cnt + 1) // 2, k_lo), k_hi)
+                order[s:e] = seg[np.argpartition(c[:, axis], min(k, cnt - 1))]
+            else:
+                order[s:e] = seg[np.argsort(side, kind="stable")]
+            new_bounds.extend([s + k, e])
+        bounds = new_bounds
+    return order, bounds
+
+
+def build_sah(prim_bmin: torch.Tensor, prim_bmax: torch.Tensor, leaf_size: int = 256,
+              n_bins: int = 16) -> BVH:
+    """Binned-SAH build (KIRK's CPU_BVH.cpp:357-461 split family): the
+    split on the host in numpy, bit-identical to the JAX package's
+    `build_sah`; the slot permutation and the heap boxes on the bounds'
+    device. prim_bmin / prim_bmax: [N,3] float32 tensors."""
+    n = prim_bmin.shape[0]
+    n_leaves = _next_pow2(max(-(-n // leaf_size), 1))
+    order, bounds = _sah_order(prim_bmin.cpu().numpy(), prim_bmax.cpu().numpy(), n_leaves,
+                               leaf_size, n_bins)
+    perm = np.full((n_leaves * leaf_size,), -1, np.int64)
+    for li, (s, e) in enumerate(zip(bounds[:-1], bounds[1:])):
+        if e - s > leaf_size:
+            raise AssertionError("SAH split produced oversized leaf")
+        perm[li * leaf_size: li * leaf_size + e - s] = order[s:e]
+    perm = torch.from_numpy(perm).to(prim_bmin.device)
     hmin, hmax = _finalize(perm, prim_bmin, prim_bmax, n_leaves, leaf_size)
     return BVH(bmin=hmin, bmax=hmax, perm=perm.to(torch.int32), packed=None,
                n_leaves=n_leaves, leaf_size=leaf_size)

@@ -15,7 +15,7 @@ Counterparts of `ba_pathtracing_fur_tpu/ops/pallas/shade.py`:
     hair automaton, and the throughput update. It takes each ray's threefry
     key and material id: the kernel draws the bounce's uniforms and reads
     the material row itself, the twin draws with `core/rng.bounce_uniforms`
-    and gathers with `models/bsdf.gather_materials`. `SHADE_LAUNCHES` and
+    and gathers with `models/bsdf.gather_rows`. `SHADE_LAUNCHES` and
     `SHADE_REF_CALLS` count which of kernel and twin ran.
 
 Both dispatch on the device of their tensors: CPU tensors go to the plain
@@ -294,7 +294,7 @@ def shade_bounce_ref(*, origin, direction, radiance, color, flags, theta_i, prev
     out = sc.shade_bounce_core(
         origin=origin, direction=direction, radiance=radiance, color=color, flags=flags,
         theta_i=theta_i, prev_pdf=prev_pdf, hit_t=hit_t, hit_valid=hit_valid,
-        hit_pos=hit_pos, hit_normal=hit_normal, mp=bsdf.gather_materials(mats_table, mat_id),
+        hit_pos=hit_pos, hit_normal=hit_normal, mp=bsdf.gather_rows(mats_table, mat_id),
         env_color=env_color, env_ambient=env_ambient,
         lights=core_lights(lights_table[:n_lights]), u_bsdf1=u[0, :, 0],
         u_bsdf2=u[0, :, 1], u_pick=u[1, :, 0], u_light1=u[2, :, 0], u_light2=u[2, :, 1],
@@ -516,7 +516,7 @@ def branch_classes(kw: dict) -> torch.Tensor:
     for li in core_lights(kw["lights_table"][:kw["n_lights"]]):
         t_light = torch.minimum(t_light, sc.light_hit(o, d, li)[0])
     light_wins = t_light < kw["hit_t"]
-    mp = bsdf.gather_materials(kw["mats_table"], kw["mat_id"])
+    mp = bsdf.gather_rows(kw["mats_table"], kw["mat_id"])
     present = cfg.bsdfs_present
     bid = mp.bsdf_id.long()
     in_set = (bid >= 1) & (bid <= 8)

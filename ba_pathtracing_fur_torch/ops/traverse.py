@@ -61,8 +61,16 @@ _BRUTE_MIN = 1 << 24
 SORT_RAYS = True
 
 #: stage seconds of the last build per kind ("tri", "cone"): the AABBs,
-#: the median split, the reorder + pack, and the kernel layouts
+#: the split (the median split, or the SAH split on the host), the reorder +
+#: pack, and the kernel layouts
 LAST_BUILD_STATS: dict = {}
+
+#: the BVH builds the port runs (the JAX package's ACCEL_BUILDERS):
+#:   median - longest-axis centroid-median splits, in torch on the pack's device
+#:   sah    - capacity-clamped 16-bin SAH, split on the host in numpy
+ACCEL_BUILDERS = {"median": bvh_mod.build_median, "sah": bvh_mod.build_sah}
+#: the JAX package's builds the port does not run yet, with their ROADMAP item
+_UNPORTED_BUILDS = {"morton": "ROADMAP Queue 1 item 2", "grid": "ROADMAP Queue 1 item 2"}
 
 
 def auto_leaf_size(n_prims: int, target: int = 256) -> int:
@@ -91,14 +99,15 @@ def _clock(dev) -> float:
     return time.perf_counter()
 
 
-def _attach_one(pack, kind, aabb_fn, reorder_fn, pack_fn, leaf_size, fanout, target):
-    """Median build of one pack on its device -> (reordered pack, BVH)."""
+def _attach_one(pack, kind, aabb_fn, reorder_fn, pack_fn, leaf_size, fanout, target,
+                method):
+    """One pack's build on its device -> (reordered pack, BVH)."""
     dev = pack.mat_id.device
     t0 = _clock(dev)
     k = leaf_size or auto_leaf_size(pack.count, target)
     bmin, bmax = aabb_fn(pack)
     t1 = _clock(dev)
-    b = bvh_mod.build_median(bmin, bmax, k)
+    b = ACCEL_BUILDERS[method](bmin, bmax, k)
     b.fanout = auto_fanout(b.n_leaves) if fanout is None else fanout
     t2 = _clock(dev)
     pack = reorder_fn(pack, b)
@@ -133,29 +142,32 @@ def _cache_kernel_layouts(bvh, kind: str, pack):
 
 def attach_bvh(scene: DeviceScene, leaf_size: Optional[int] = None, method: str = "median",
                min_prims: int = 2048, fanout: Optional[int] = None) -> DeviceScene:
-    """Build median-split BVHs over the packs of at least `min_prims`
-    primitives and reorder those packs so leaf clusters are contiguous.
-    Smaller packs stay BVH-less (the dense grid or K5 takes them).
-    leaf_size/fanout default to `auto_leaf_size` / `auto_fanout`. Each
-    pack builds on its own device (bit-identical to the JAX package's numpy
-    build). LAST_BUILD_STATS gets the stage times."""
+    """Build BVHs by `method` (one of ACCEL_BUILDERS, or "none") over the
+    packs of at least `min_prims` primitives and reorder those packs so leaf
+    clusters are contiguous. Smaller packs stay BVH-less (the dense grid or
+    K5 takes them). leaf_size/fanout default to `auto_leaf_size` /
+    `auto_fanout`. Each BVH lands on its pack's device, bit-identical to
+    the JAX package's build by the same method. LAST_BUILD_STATS gets the
+    stage times."""
     if method == "none":
         return scene
-    if method != "median":
-        raise NotImplementedError(f"BVH method {method!r} is not ported yet: only the "
-                                  "median build is (ROADMAP Queue 1 item 3)")
+    if method in _UNPORTED_BUILDS:
+        raise NotImplementedError(f"BVH method {method!r} is not ported yet "
+                                  f"({_UNPORTED_BUILDS[method]})")
+    if method not in ACCEL_BUILDERS:
+        raise ValueError(f"unknown BVH method {method!r}: one of {sorted(ACCEL_BUILDERS)}")
     out = {}
     if scene.tris.count >= min_prims:
         tris, tri_bvh = _attach_one(scene.tris, "tri", isect.triangle_aabbs,
                                     bvh_mod.reorder_tris, bvh_mod.pack_tris, leaf_size, fanout,
-                                    TRI_LEAF_TARGET)
+                                    TRI_LEAF_TARGET, method)
         out.update(tris=tris, tri_bvh=tri_bvh)
     if scene.cones.count >= min_prims:
         target = (CONE_LEAF_TARGET_STREAM if scene.cones.count >= _STREAM_LEAF_MIN
                   else CONE_LEAF_TARGET)
         cones, cone_bvh = _attach_one(scene.cones, "cone", isect.cone_aabbs,
                                       bvh_mod.reorder_cones, bvh_mod.pack_cones, leaf_size,
-                                      fanout, target)
+                                      fanout, target, method)
         out.update(cones=cones, cone_bvh=cone_bvh)
     return dataclasses.replace(scene, **out)
 

@@ -1,9 +1,9 @@
 """Built-in validation scenes.
 
 Counterpart of `ba_pathtracing_fur_tpu/scene/builtins.py`: the Cornell box,
-the fur patch and the hair ball, with the same geometry, materials, lights
-and cameras. The scenes land on the card unless the caller asks for another
-device (`device="cpu"`). The terrain follows with ROADMAP M3.
+the textured terrain, the fur patch and the hair ball, with the same
+geometry, materials, textures, lights and cameras. The scenes land on the
+card unless the caller asks for another device (`device="cpu"`).
 
 The hair ball's `on_device=True` fibers come from the port's threefry on
 the scene's device. The JAX package mirrors the draws' cone centroids on
@@ -20,6 +20,7 @@ import torch
 from ..core import rng
 from ..core.camera import make_camera
 from . import mesh as mesh_mod
+from .texture import build_atlas
 from .types import (
     BSDF_GLASS, BSDF_LAMBERT, BSDF_SPECULAR_REFLECTION, DeviceScene, Environment,
     empty_cone_pack, make_cone_pack, make_cone_pack_torch, make_light_pack,
@@ -99,6 +100,68 @@ def cornell_box(resolution=(256, 256), variant="diffuse", light_kind="quad",
         env=Environment(color=torch.zeros(3), ambient=torch.zeros(3)),
         has_hair=False, bsdfs_present=scene_bsdfs_present(mat_table))
     cam = make_camera(position=(0.0, 0.0, 3.4), look_at=(0.0, 0.0, -1.0),
+                      up=(0.0, 1.0, 0.0), resolution=resolution, device=device)
+    return to_device(scene, device), cam
+
+
+def tri_terrain(resolution=(512, 512), n_tris=100_000, seed=0, device="cuda"):
+    """~n_tris-triangle fBm heightfield with a procedural diffuse texture on
+    one of its two checker materials (the JAX package's bench config 3).
+    Generated on the host in numpy exactly as the JAX package does it, then
+    moved to `device`. Returns (DeviceScene, Camera)."""
+    g = max(int(np.sqrt(n_tris / 2)), 2)  # g*g quads = 2g^2 triangles
+    xs = np.linspace(-1.0, 1.0, g + 1, dtype=np.float32)
+    zs = np.linspace(-1.0, 1.0, g + 1, dtype=np.float32)
+    xx, zz = np.meshgrid(xs, zs, indexing="ij")
+    # fBm heightfield from a sin lattice with random phases
+    rs = np.random.RandomState(seed)
+    yy = np.zeros_like(xx)
+    amp, freq = 1.0, 3.0
+    for _ in range(4):
+        px, py = rs.uniform(0, 2 * np.pi, 2)
+        yy += amp * np.sin(freq * xx + px) * np.cos(freq * zz + py)
+        amp *= 0.5
+        freq *= 2.0
+    yy = (0.25 * yy / 1.875).astype(np.float32)
+    v = np.stack([xx, yy, zz], axis=-1)  # [g+1, g+1, 3]
+
+    a = v[:-1, :-1].reshape(-1, 3)
+    b = v[1:, :-1].reshape(-1, 3)
+    c = v[1:, 1:].reshape(-1, 3)
+    d = v[:-1, 1:].reshape(-1, 3)
+    v0 = np.concatenate([a, a])
+    v1 = np.concatenate([b, c])
+    v2 = np.concatenate([c, d])
+
+    def uvs(p):  # uv from the xz position
+        return (p[:, [0, 2]] + 1.0) * 0.5
+
+    cx = ((v0[:, 0] + 1) * 4).astype(np.int64)
+    cz = ((v0[:, 2] + 1) * 4).astype(np.int64)
+    mat = ((cx + cz) % 2).astype(np.int64)  # checker material split
+
+    # the 256^2 procedural diffuse texture of material A
+    ty, tx = np.meshgrid(np.arange(256), np.arange(256), indexing="ij")
+    tex = np.stack([0.4 + 0.3 * np.sin(tx / 9.0) * np.sin(ty / 7.0),
+                    0.45 + 0.2 * np.sin(tx / 13.0 + 1.0),
+                    0.35 + 0.2 * np.sin(ty / 11.0 + 2.0)], axis=-1).astype(np.float32)
+    mats = [dict(name="ground_a", diffuse=(0.65, 0.55, 0.40), bsdf=BSDF_LAMBERT,
+                 diffuse_tex=0),
+            dict(name="ground_b", diffuse=(0.30, 0.45, 0.25), bsdf=BSDF_LAMBERT)]
+    pack = make_triangle_pack(v0, v1, v2, uv0=uvs(v0), uv1=uvs(v1), uv2=uvs(v2), mat_id=mat)
+    lights = make_light_pack([
+        dict(kind="sun", color=(2.2, 2.1, 1.9), direction=(-0.4, -1.0, -0.2), radius=0.05),
+        dict(kind="quad", color=(6.0, 6.0, 6.0), position=(0.0, 1.6, 0.0),
+             direction=(0.0, -1.0, 0.0), size=(0.8, 0.8)),
+    ])
+    mat_table = make_material_table(mats)
+    scene = DeviceScene(
+        tris=pack, cones=empty_cone_pack(), materials=mat_table, lights=lights,
+        env=Environment(color=torch.tensor([0.25, 0.3, 0.4]),
+                        ambient=torch.tensor([0.05, 0.05, 0.05])),
+        textures=build_atlas([tex]), tex_slots=("diffuse",), has_hair=False,
+        bsdfs_present=scene_bsdfs_present(mat_table))
+    cam = make_camera(position=(0.0, 0.9, 1.8), look_at=(0.0, -0.1, -1.0),
                       up=(0.0, 1.0, 0.0), resolution=resolution, device=device)
     return to_device(scene, device), cam
 

@@ -5,9 +5,9 @@ flag bits, and the same pack layouts. Packs are built on the host with
 numpy (`make_*`) and moved to a device in one call (`to_device`); the hair
 ball's cone pack is built on its device (`make_cone_pack_torch`).
 `scene_from_numpy` reads a host-built JAX-package scene field by field,
-BVHs included, so both packages can render the very same scene; like every
-entry point of the port it puts its tensors on the card unless the caller
-asks for another device.
+BVHs and texture atlas included, so both packages can render the very same
+scene; like every entry point of the port it puts its tensors on the card
+unless the caller asks for another device.
 
 BSDF ids: 0 Lambert, 1 specular reflection, 2 specular transmission,
 3 glossy, 4 glass, 5 milk glass, 6 Lambert transmission, 7 emission,
@@ -21,6 +21,8 @@ from typing import TYPE_CHECKING, Optional
 
 import numpy as np
 import torch
+
+from .texture import TextureAtlas
 
 if TYPE_CHECKING:
     from ..ops.bvh import BVH
@@ -201,11 +203,14 @@ class DeviceScene:
     materials: MaterialTable
     lights: LightPack
     env: Environment
-    textures: Optional[torch.Tensor] = None  # [NT,TH,TW,3] atlas, or None
+    textures: Optional[TextureAtlas] = None  # the scene's texture atlas, or None
     # any material routes to the hair shader (True is always safe)
     has_hair: bool = True
     # sorted tuple of the surface bsdf ids in the table; () = evaluate all
     bsdfs_present: tuple = ()
+    # the material slots textured in this scene (a subset of TEXTURE_SLOTS):
+    # only these pay the bilinear fetch in models/bsdf.gather_materials
+    tex_slots: tuple = ()
     tri_bvh: Optional["BVH"] = None  # ops/bvh.BVH over the (reordered) triangles
     cone_bvh: Optional["BVH"] = None  # ops/bvh.BVH over the (reordered) cones
 
@@ -444,11 +449,24 @@ def _read_bvh(bvh):
                fanout=int(bvh.fanout))
 
 
+def _read_atlas(textures) -> Optional[TextureAtlas]:
+    """The port's atlas from a JAX-package one: a `TextureAtlas(images,
+    sizes)`, a bare `[NT, H, W, C]` array (addressed at the atlas' own size)
+    or None."""
+    if textures is None:
+        return None
+    if hasattr(textures, "images"):
+        return TextureAtlas(images=_f32(textures.images),
+                            sizes=torch.from_numpy(np.ascontiguousarray(
+                                np.asarray(textures.sizes, dtype=np.int32).reshape(-1, 2))))
+    return TextureAtlas(images=_f32(textures), sizes=None)
+
+
 def scene_from_numpy(scene, device="cuda") -> DeviceScene:
-    """Read a JAX-package `DeviceScene` field by field, BVHs included (with
-    the port's kernel layouts made on `device`), into the port's scene on
-    `device` (the card unless the caller asks for another). The JAX object
-    is passed in, so no jax import is needed."""
+    """Read a JAX-package `DeviceScene` field by field, BVHs and texture
+    atlas included (with the port's kernel layouts made on `device`), into
+    the port's scene on `device` (the card unless the caller asks for
+    another). The JAX object is passed in, so no jax import is needed."""
     from ..ops.traverse import _cache_kernel_layouts
 
     env = scene.env
@@ -460,7 +478,7 @@ def scene_from_numpy(scene, device="cuda") -> DeviceScene:
         env=Environment(kind=int(env.kind), color=_f32(env.color, (3,)),
                         ambient=_f32(env.ambient, (3,)),
                         texture=None if env.texture is None else _f32(env.texture)),
-        textures=None if scene.textures is None else _f32(scene.textures),
+        textures=_read_atlas(scene.textures), tex_slots=tuple(scene.tex_slots),
         has_hair=bool(scene.has_hair), bsdfs_present=tuple(scene.bsdfs_present),
         tri_bvh=_read_bvh(scene.tri_bvh), cone_bvh=_read_bvh(scene.cone_bvh))
     out = to_device(out, device)

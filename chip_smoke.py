@@ -99,8 +99,23 @@ TWIN_RAYS, WORK_RAYS = 2048, 65_536
 # K5's cone variant: config 4's fur patch without a BVH; its work count (for
 # its bound) on K5_CONE_TILES tiles of each wavefront, scaled.
 K5_CONE_TILES = 256
+# Config 3: the textured terrain (bench.py:150-182): tri_terrain at 512^2
+# with 100,000 triangles (99,458 of its 223^2 grid), a SAH BVH (512 leaves x
+# 200 rows, flat: K2's triangle leaves), depth 4, spp 16, ray_chunk 2048 --
+# bench.py's own setting, no cut -- through the unfused trace_bounce
+# (fused_shading at its default, False).
+CONFIG3 = dict(res=(512, 512), n_tris=100_000, depth=4, spp=16, ray_chunk=2048,
+               bvh=(512, 200, 0))
+# The kernels-vs-plain image gate on a small terrain (K2's twin brute-forces
+# every row, so the full terrain is out of its reach).
+SMALL_TERRAIN = dict(res=(128, 128), n_tris=20_000, depth=4, spp=2)
+# The unfused bounce against the fused one on the card: the triangle-BVH
+# Cornell and the fur patch, each rendered both ways with the same streams.
+UNFUSED_VS_FUSED = dict(res=(256, 256), depth=4, spp=2)
 # The kernel-vs-plain image gate on a mid-size hair ball (two-level BVH).
-MID_HAIRBALL = dict(res=(256, 256), n_fibers=20_000, depth=4, spp=1)
+# Depth cut from 4 to 3 to make room for config 3's phases: its plain render
+# is the slowest gate of the run.
+MID_HAIRBALL = dict(res=(256, 256), n_fibers=20_000, depth=3, spp=1)
 TIMED_REPS = 3
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3;
 # INT32 (the Hopper architecture white paper), for the shade kernel's threefry.
@@ -455,6 +470,7 @@ def phase_timing(scene, cam, key, cfg, name="config0", with_plain=True) -> dict:
     for which, ts in times.items():
         med = float(np.median(ts))
         out[which] = med
+        out[f"{which}_reps"] = ts
         log(f"{name} render via {which}: median {med:.4f} s of {ts} "
             f"-> {rays / med:.4e} rays/s ({rays} rays: {w}x{h}, spp {cfg.spp}, "
             f"depth {cfg.depth})")
@@ -559,7 +575,8 @@ def same_unsorted(fn, rays, perm, got, any_hit, what) -> None:
 def compare_traverse(o, d, t_max, bvh, kind, any_hit, what) -> dict:
     """K2 against its twin on the entry-morton sorted rays the main path
     feeds it: found and t bit for bit, rows on closest hits; and K2 on the
-    unsorted rays equal to K2 on the sorted ones."""
+    unsorted rays equal to K2 on the sorted ones. Returns the sorted rays
+    and K2's (t, row, found) on them (`hit`, which `traverse_bound` takes)."""
     from ba_pathtracing_fur_torch.ops.cuda import traverse as ctraverse
 
     so, sd, st, perm = sorted_rays(o, d, t_max, bvh)
@@ -576,16 +593,18 @@ def compare_traverse(o, d, t_max, bvh, kind, any_hit, what) -> dict:
         raise AssertionError(f"traverse {kind} {what}: kernel disagrees with plain")
     same_unsorted(fn, (o, d, t_max), perm, (t1, r1, f1), any_hit, f"traverse {kind} {what}")
     return dict(found_mismatches=found_mis, t_mismatches=t_mis, row_mismatches=row_mis,
-                max_abs_err=float((t0 - t1).abs().max()), sorted=(so, sd, st))
+                max_abs_err=float((t0 - t1).abs().max()), sorted=(so, sd, st),
+                hit=(t1, r1, f1))
 
 
-def traverse_bound(o, d, t_max, bvh, kind, any_hit) -> dict:
+def traverse_bound(o, d, t_max, bvh, kind, any_hit, hit=None) -> dict:
     """The traversal's bound on these rays: the tests `work_ref` counts;
     the rays and boxes read once, the leaves those tests enter read once,
-    (t, row, found) written once."""
+    (t, row, found) written once. `hit`: these rays' closest (t, row, found)
+    where already known (work_ref's brute force is skipped)."""
     from ba_pathtracing_fur_torch.ops.cuda import traverse as ctraverse
 
-    w = ctraverse.work_ref(o, d, t_max, bvh, kind, any_hit=any_hit)
+    w = ctraverse.work_ref(o, d, t_max, bvh, kind, any_hit=any_hit, hit=hit)
     n_bytes = nbytes(o, d, t_max, bvh.bmin, bvh.bmax) + w["leaf_bytes"] + o.shape[0] * 9
     res = bound(w["flops"], n_bytes)
     log(f"traverse {kind} {'any' if any_hit else 'closest'} work: {w['rays']} rays, "
@@ -665,7 +684,7 @@ def shade_times(kw, what) -> dict:
 
     def glue():
         rng.bounce_uniforms(kw["keys"], kw["bounce"], n_tags, 2)
-        bsdf.gather_materials(kw["mats_table"], kw["mat_id"])
+        bsdf.gather_rows(kw["mats_table"], kw["mat_id"])
 
     out = dict(ms=timed(lambda: cshade.shade_bounce(**kw), 50),
                plain_ms=timed(lambda: cshade.shade_bounce_ref(**kw), 3),
@@ -737,8 +756,10 @@ def phase_fur_kernels(scene, cam, cfg, dev) -> dict:
             compare_shade(cshade.shade_bounce(**kw_p), cshade.shade_bounce_ref(**kw_p),
                           f"{what} hair_p_random", k1)
             out[bounce] = dict(times=times,
-                               closest_bound=traverse_bound(o, d, t_cap, bvh, "cone", False),
-                               any_bound=traverse_bound(so, sd, st_max, bvh, "cone", True),
+                               closest_bound=traverse_bound(os_, ds_, ts_, bvh, "cone", False,
+                                                            hit=k2[-2]["hit"]),
+                               any_bound=traverse_bound(sso, ssd, sst, bvh, "cone", True,
+                                                        hit=k2[-1]["hit"]),
                                shade=shade_times(kw, what),
                                shade_bound=shade_bound(kw, got, what))
         blocked = traverse.any_hit(so, sd, scene, st_max)
@@ -865,13 +886,14 @@ def phase_tri_bvh(dev) -> dict:
     soup_checks = [compare_traverse(so_, sd_, t_inf, soup, "tri", False, "soup"),
                    compare_traverse(so_, sd_, t_one, soup, "tri", True, "soup, t_max 1")]
     (o3, d3, t3), _ = (x.pop("sorted") for x in soup_checks)
+    soup_hit = soup_checks[0].pop("hit")
     soup_res = dict(ms=timed(lambda: ctraverse.traverse(o3, d3, t3, soup, "tri"), 20),
                     unsorted_ms=timed(lambda: ctraverse.traverse(so_, sd_, t_inf, soup, "tri"),
                                       20),
                     plain_ms=timed(lambda: ctraverse.traverse_ref(o3, d3, t3, soup, "tri"), 1))
     log(f"traverse tri closest, soup ({SOUP_RAYS} rays): kernel {soup_res['ms']:.4f} ms "
         f"sorted, {soup_res['unsorted_ms']:.4f} ms unsorted, plain {soup_res['plain_ms']:.3f} ms")
-    sb = traverse_bound(so_, sd_, t_inf, soup, "tri", False)
+    sb = traverse_bound(o3, d3, t3, soup, "tri", False, hit=soup_hit)
     soup_res.update(bound_ms=sb["bound_ms"], bound_by=sb["bound_by"], rays=SOUP_RAYS,
                     triangles=TRI_SOUP,
                     max_abs_err=max(x["max_abs_err"] for x in soup_checks))
@@ -1243,6 +1265,205 @@ def phase_mid_hairball(dev) -> dict:
     log(f"mid hair ball render via plain: {time.perf_counter() - t0:.2f} s")
     return image_gate(p, a, "mid hair ball spp 1: kernels vs plain image")
 
+def terrain_scene(dev, c):
+    """Config 3 (or the terrain of config `c`) through the entry points: the
+    textured terrain on the card and its SAH BVH (the split on the host in
+    numpy, the boxes, reorder and kernel layouts on the card)."""
+    from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.scene import builtins
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scene, cam = builtins.tri_terrain(resolution=c["res"], n_tris=c["n_tris"], device=dev)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    n_tris = scene.tris.count
+    t0 = time.perf_counter()
+    scene = traverse.attach_bvh(scene, method="sah")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    b, st = scene.tri_bvh, traverse.LAST_BUILD_STATS["tri"]
+    log(f"terrain: {n_tris} triangles, atlas {tuple(scene.textures.images.shape)}, "
+        f"slots {scene.tex_slots}, made in {gen_s:.3f} s; SAH BVH {b.n_leaves} leaves x "
+        f"{b.leaf_size}, fanout {b.fanout}, built in {build_s:.3f} s (aabb {st['aabb']:.3f}, "
+        f"SAH split on the host {st['split']:.3f}, reorder + pack {st['reorder_pack']:.3f}, "
+        f"layouts {st['layouts']:.3f} s)")
+    if b.perm.device != scene.tris.v0.device:
+        raise AssertionError("terrain: the BVH is not on the card")
+    return scene, cam, dict(gen_s=gen_s, build_s=build_s, stages=st)
+
+
+@contextlib.contextmanager
+def captured_shadow_rays(out: list):
+    """Record the (o, d, t_max) of every `traverse.any_hit` call (the NEE
+    shadow rays of the unfused bounce) into `out`."""
+    from ba_pathtracing_fur_torch.ops import traverse
+
+    fn = traverse.any_hit
+
+    def spy(o, d, scene, t_max, *a, **k):
+        out.append((o, d, t_max))
+        return fn(o, d, scene, t_max, *a, **k)
+
+    traverse.any_hit = spy
+    try:
+        yield
+    finally:
+        traverse.any_hit = fn
+
+
+def compare_k2_subset(o, d, t_max, bvh, any_hit, what) -> dict:
+    """K2 on a triangle BVH too big for its twin on a whole wavefront: on
+    the entry-morton sorted rays the main path feeds it, against the twin on
+    TWIN_RAYS rays spread over them (found, t bit for bit, rows on closest
+    hits), and on the unsorted wavefront equal to itself on the sorted one.
+    Times K2 sorted and unsorted, and the twin on the subset."""
+    from ba_pathtracing_fur_torch.ops.cuda import traverse as ctraverse
+
+    so, sd, st, perm = sorted_rays(o, d, t_max, bvh)
+    fn = lambda a, b, c: ctraverse.traverse(a, b, c, bvh, "tri", any_hit=any_hit)  # noqa: E731
+    t1, r1, f1 = fn(so, sd, st)
+    sub = spread(o.shape[0], TWIN_RAYS, o.device)
+    t0, r0, f0 = ctraverse.traverse_ref(so[sub], sd[sub], st[sub], bvh, "tri", any_hit=any_hit)
+    torch.cuda.synchronize()
+    mis = dict(found=int((f0 != f1[sub]).sum()), t=int((t0 != t1[sub]).sum()))
+    if not any_hit:
+        mis["rows"] = int((r0 != r1[sub]).sum())
+    log(f"traverse tri {'any' if any_hit else 'closest'} hit, {what} (sorted): {o.shape[0]} "
+        f"rays, found {int(f1.sum())}; vs twin on {TWIN_RAYS} spread rays (found "
+        f"{int(f0.sum())}): mismatches {mis}")
+    if any(mis.values()):
+        raise AssertionError(f"traverse tri {what}: kernel disagrees with plain")
+    same_unsorted(fn, (o, d, t_max), perm, (t1, r1, f1), any_hit, f"traverse tri {what}")
+    res = dict(max_abs_err=float((t0 - t1[sub]).abs().max()),
+               ms=timed(lambda: fn(so, sd, st), 20), unsorted_ms=timed(lambda: fn(o, d, t_max), 20),
+               plain_ms=timed(lambda: ctraverse.traverse_ref(so[sub], sd[sub], st[sub], bvh, "tri",
+                                                             any_hit=any_hit), 3),
+               plain_rays=TWIN_RAYS, found=int(f1.sum()))
+    # the bound counts the walk these rays need: their closest hits (for a
+    # shadow ray, whether one lies below t_max, and its row)
+    hit = (t1, r1, f1) if not any_hit else ctraverse.traverse(so, sd, st, bvh, "tri")
+    res.update(traverse_bound(so, sd, st, bvh, "tri", any_hit, hit=hit))
+    log(f"traverse tri, {what}: kernel {res['ms']:.4f} ms sorted, {res['unsorted_ms']:.4f} ms "
+        f"unsorted, plain {res['plain_ms']:.3f} ms on {TWIN_RAYS} rays, bound "
+        f"{res['bound_ms']:.4f} ms by {res['bound_by']}")
+    return res
+
+
+def phase_terrain_kernels(scene, cam, cfg, dev) -> dict:
+    """K2's triangle leaves on config 3's wavefronts: the camera wavefront,
+    the bounce-0 NEE shadow rays and the bounce-1 wavefront of the unfused
+    bounce, each held to the twin and timed (`compare_k2_subset`)."""
+    from ba_pathtracing_fur_torch.core import rng
+    from ba_pathtracing_fur_torch.models import pathtracer as pt
+    from ba_pathtracing_fur_torch.ops import traverse
+
+    bvh = scene.tri_bvh
+    ids = torch.arange(cam.resolution[0] * cam.resolution[1], device=dev)
+    state, keys = pt.camera_wavefront(cam, ids, rng.key(0, dev), [0], cfg)
+    out = {}
+    for bounce in range(2):
+        alive = (state.radiance != 0.0).any(-1) & (state.direction != 0.0).any(-1)
+        t_cap = torch.where(alive, traverse.INF, 0.0)
+        what = "config-3 camera wavefront" if bounce == 0 else "config-3 bounce-1 wavefront"
+        out[bounce] = compare_k2_subset(state.origin, state.direction, t_cap, bvh, False, what)
+        shadow = []
+        with captured_shadow_rays(shadow):
+            nxt = pt.trace_bounce(state, scene, keys, bounce, cfg)
+        if bounce == 0:
+            (so, sd, st), = shadow
+            out["shadow"] = compare_k2_subset(so, sd, st, bvh, True,
+                                              "config-3 bounce-0 shadow rays")
+        state = nxt
+    return out
+
+
+def phase_terrain_main_path(scene, cam, cfg, dev) -> dict:
+    """render_image of config 3 through the unfused bounce: the launch
+    counts (K2 alone, twice a bounce), the image, TIMED_REPS timed renders
+    and a traced sample."""
+    from ba_pathtracing_fur_torch.core import rng
+    from ba_pathtracing_fur_torch.utils import film
+
+    key = rng.key(0, dev)
+    reset_counts()
+    img = render(scene, cam, key, cfg)  # also the warm-up of the timed reps
+    counts = read_counts()
+    want = cfg.spp * cfg.depth
+    log(f"config3: launches {counts} (expected traverse {2 * want} = spp x depth x "
+        f"(closest + shadow), no plain calls)")
+    check_counts(counts, "config3", traverse=2 * want)
+    w, h = cam.resolution
+    a = check_image(img, (h, w, 3), "config3")
+    OUT_DIR.mkdir(exist_ok=True)
+    film.write_png(OUT_DIR / "smoke_config3.png", a)
+    times = phase_timing(scene, cam, key, cfg, name="config3", with_plain=False)
+    rays = w * h * cfg.spp * cfg.depth
+    rates = sorted(rays / t for t in times["kernel_reps"])
+    prof = phase_profile(scene, cam, key, cfg, name="config-3", marks=("traverse_kernel",))
+    log(f"config3 end to end: {rays / times['kernel']:.4e} rays/s (median of {TIMED_REPS}; "
+        f"reps {', '.join(f'{r:.4e}' for r in rates)}); traced sample: device busy "
+        f"{prof['busy'] * 1e3:.2f} ms, idle share {max(0.0, 1 - prof['busy'] / prof['wall']):.3f}, "
+        f"{prof['launches']} launches, K2 {prof['kernel_ms']['traverse_kernel']:.3f} ms = "
+        f"{prof['kernel_ms']['traverse_kernel'] / 1e3 / max(prof['busy'], 1e-12):.4f} of device "
+        f"time ({prof['kernel_launches']['traverse_kernel']} launches)")
+    return dict(counts=counts, times=times, rays_per_s=rays / times["kernel"], rates=rates,
+                profile=prof)
+
+
+def phase_terrain_gate(dev) -> dict:
+    """A small terrain (SAH BVH) through the kernels and through the plain
+    versions on the card, under the image gate."""
+    from ba_pathtracing_fur_torch.core import rng
+    from ba_pathtracing_fur_torch.models import pathtracer as pt
+
+    c = SMALL_TERRAIN
+    scene, cam, _ = terrain_scene(dev, c)
+    cfg = pt.RenderConfig(depth=c["depth"], spp=c["spp"], compact=False)
+    key = rng.key(0, dev)
+    w, h = c["res"]
+    reset_counts()
+    a = check_image(render(scene, cam, key, cfg), (h, w, 3), "small terrain")
+    counts = read_counts()
+    check_counts(counts, "small terrain", traverse=2 * cfg.spp * cfg.depth)
+    with plain_bounces():
+        b = check_image(render(scene, cam, key, cfg), (h, w, 3), "small terrain plain")
+    return image_gate(b, a, f"terrain {c['n_tris']} triangles {w}x{h} spp {cfg.spp}: kernels "
+                            "vs plain image")
+
+
+def phase_unfused_vs_fused(dev) -> dict:
+    """The unfused bounce against the fused one on the card, both through
+    the kernels, the same streams: the triangle-BVH Cornell (K2 on triangle
+    leaves, K1 on the fused side) and the fur patch with its cone BVH (K2
+    cones, K1 with the hair walk), under the image gate of
+    tests/test_fused_shade.py::_compare."""
+    from ba_pathtracing_fur_torch.core import rng
+    from ba_pathtracing_fur_torch.models import pathtracer as pt
+    from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.scene import builtins
+
+    c = UNFUSED_VS_FUSED
+    cornell, ccam = builtins.cornell_box(resolution=c["res"], device=dev)
+    fur, fcam = builtins.fur_patch(resolution=c["res"],
+                                   fibers_per_face=CONFIG4["fibers_per_face"], device=dev)
+    out = {}
+    for name, scene, cam in (("cornell tri BVH", traverse.attach_bvh(cornell, leaf_size=8,
+                                                                     min_prims=1), ccam),
+                             ("fur patch", traverse.attach_bvh(fur), fcam)):
+        imgs = {}
+        for fused in (False, True):
+            cfg = pt.RenderConfig(depth=c["depth"], spp=c["spp"], compact=False,
+                                  fused_shading=fused)
+            reset_counts()
+            imgs[fused] = check_image(render(scene, cam, rng.key(0, dev), cfg),
+                                      (c["res"][1], c["res"][0], 3), f"{name} fused={fused}")
+            want = cfg.spp * cfg.depth
+            check_counts(read_counts(), f"{name} fused={fused}", traverse=2 * want,
+                         shade=want if fused else 0)
+        out[name] = image_gate(imgs[True], imgs[False], f"{name}: unfused vs fused image")
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1308,6 +1529,7 @@ def drive(dev, card: str) -> list:
         f"{build_s:.3f} s, on {card}")
     tri = phase_tri_bvh(dev)
 
+    from ba_pathtracing_fur_torch.models import pathtracer as pt
     scene5, cam5, cfg5, build5 = hair_ball_scene(dev)
     hb = phase_hairball_kernels(scene5, cam5, cfg5, dev)
     hb_main = phase_hairball_main_path(scene5, cam5, cfg5, dev)
@@ -1323,6 +1545,20 @@ def drive(dev, card: str) -> list:
     del scene5
     k5_cone = phase_bruteforce_cone(dev)
     phase_mid_hairball(dev)
+
+    c3 = CONFIG3
+    scene3, cam3, build3 = terrain_scene(dev, c3)
+    cfg3 = pt.RenderConfig(depth=c3["depth"], spp=c3["spp"], ray_chunk=c3["ray_chunk"],
+                           compact=False)
+    if (scene3.tri_bvh.n_leaves, scene3.tri_bvh.leaf_size, scene3.tri_bvh.fanout) != c3["bvh"]:
+        raise AssertionError(f"config3: unexpected BVH, not {c3['bvh']}")
+    k2t = phase_terrain_kernels(scene3, cam3, cfg3, dev)
+    main3 = phase_terrain_main_path(scene3, cam3, cfg3, dev)
+    log(f"config3 end to end: {main3['rays_per_s']:.4e} rays/s; SAH build "
+        f"{build3['build_s']:.3f} s (split {build3['stages']['split']:.3f} s), on {card}")
+    del scene3
+    phase_terrain_gate(dev)
+    phase_unfused_vs_fused(dev)
 
     t0, s0 = fur[0]["times"], fur[0]["shade"]
     b0 = fur[0]["closest_bound"]
@@ -1353,7 +1589,20 @@ def drive(dev, card: str) -> list:
              launches=tri["launches"], max_abs_err=tri["max_abs_err"], ms=tri["ms"],
              plain_ms=tri["plain_ms"], bound_ms=tri["bound_ms"], bound_by=tri["bound_by"],
              library_ms=None, unsorted_ms=tri["unsorted_ms"], any_ms=tri["any_ms"],
-             soup=tri["soup"]),
+             soup=tri["soup"],
+             config3=dict(
+                 launches=main3["counts"]["traverse"],
+                 max_abs_err=max(k2t[k]["max_abs_err"] for k in (0, 1, "shadow")),
+                 **{k: k2t[0][k] for k in ("ms", "unsorted_ms", "plain_ms", "plain_rays",
+                                           "bound_ms", "bound_by")},
+                 any_ms=k2t["shadow"]["ms"], any_unsorted_ms=k2t["shadow"]["unsorted_ms"],
+                 any_plain_ms=k2t["shadow"]["plain_ms"],
+                 any_bound_ms=k2t["shadow"]["bound_ms"], any_bound_by=k2t["shadow"]["bound_by"],
+                 bounce1_ms=k2t[1]["ms"], bounce1_unsorted_ms=k2t[1]["unsorted_ms"],
+                 bounce1_bound_ms=k2t[1]["bound_ms"],
+                 traced_ms=main3["profile"]["kernel_ms"]["traverse_kernel"],
+                 traced_launches=main3["profile"]["kernel_launches"]["traverse_kernel"],
+                 leaves=c3["bvh"][0], leaf_rows=c3["bvh"][1])),
         dict(name="shade", route="cuda", source="ba_pathtracing_fur_torch/csrc/shade.cu",
              replaces="ba_pathtracing_fur_tpu/ops/pallas/shade.py:92",
              launches=fur_main["counts"]["shade"],

@@ -692,3 +692,98 @@ def test_large_bvh_less_pack_runs_k5_on_the_card():
     want = traverse.closest_hit(o, d, cpu_scene)
     assert torch.equal(hit.prim_id.cpu(), want.prim_id) and hit.valid.any()
     assert torch.equal(blocked.cpu(), traverse.any_hit(o, d, cpu_scene, 0.2))
+
+
+def _sah_terrain(dev, n_tris=20_000, res=(64, 64)):
+    """A SAH terrain on `dev` with config 3's 200-row leaves (forced: the
+    auto leaf size of 20,000 triangles is 160) and its camera rays."""
+    from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.scene import builtins as tb
+
+    scene, cam = tb.tri_terrain(resolution=res, n_tris=n_tris, device=dev)
+    scene = traverse.attach_bvh(scene, method="sah", leaf_size=200)
+    return scene, cam
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_traverse_kernel_on_sah_terrain_leaves_on_the_card(any_hit):
+    """K2 on config 3's kind of BVH (a SAH terrain, 200-row triangle
+    leaves) against its twin: camera rays and rays from the terrain toward
+    the sky (the NEE rays' kind), found and t bit for bit, rows on closest
+    hits."""
+    from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.ops.cuda import traverse as ctraverse
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card with -m cuda)")
+    dev = torch.device("cuda")
+    scene, cam = _sah_terrain(dev)
+    bvh = scene.tri_bvh
+    assert (bvh.leaf_size, bvh.fanout) == (200, 0)
+    cfg = pt.RenderConfig(depth=1, spp=1, compact=False)
+    state, _ = pt.camera_wavefront(cam, torch.arange(64 * 64, device=dev), rng.key(0, dev),
+                                   [0], cfg)
+    o, d = state.origin, state.direction
+    if any_hit:
+        hit = traverse.closest_hit(o, d, scene)
+        g = torch.Generator().manual_seed(1)
+        d = torch.nn.functional.normalize(torch.randn(o.shape, generator=g), dim=-1).to(dev)
+        o = torch.where(hit.valid[:, None], hit.position + 1e-4 * hit.normal, o)
+    t_max = torch.full((o.shape[0],), 2.0 if any_hit else 3.4e38, device=dev)
+    launches = ctraverse.KERNEL_LAUNCHES
+    t1, r1, f1 = ctraverse.traverse(o, d, t_max, bvh, "tri", any_hit=any_hit)
+    assert ctraverse.KERNEL_LAUNCHES == launches + 1
+    t0, r0, f0 = ctraverse.traverse_ref(o, d, t_max, bvh, "tri", any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert torch.equal(f0, f1) and torch.equal(t0, t1) and f0.any() and not f0.all()
+    if not any_hit:
+        assert torch.equal(r0, r1)
+
+
+@pytest.mark.cuda
+def test_textured_gather_on_the_card_equals_cpu():
+    """gather_materials with the bilinear fetch on the card equals the CPU
+    (ids -1 and M included, uv wrapping)."""
+    from ba_pathtracing_fur_torch.models import bsdf
+    from ba_pathtracing_fur_torch.scene import builtins as tb, types
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card with -m cuda)")
+    scene, _ = tb.tri_terrain(resolution=(4, 4), n_tris=200, device="cpu")
+    g = torch.Generator().manual_seed(2)
+    ids = torch.randint(-1, scene.materials.count + 1, (8192,), generator=g, dtype=torch.int32)
+    uv = torch.rand((8192, 2), generator=g) * 6 - 3
+    want = bsdf.gather_materials(scene.materials, ids, uv, scene.textures, scene.tex_slots)
+    gs = types.to_device(scene, "cuda")
+    got = bsdf.gather_materials(gs.materials, ids.cuda(), uv.cuda(), gs.textures, gs.tex_slots)
+    for f in ("diffuse", "specular", "roughness", "bsdf_id"):
+        torch.testing.assert_close(getattr(got, f).cpu(), getattr(want, f), rtol=0, atol=1e-6)
+    assert not torch.equal(want.diffuse, bsdf.gather_materials(scene.materials, ids).diffuse)
+
+
+@pytest.mark.cuda
+def test_unfused_render_kernels_match_plain_on_the_card():
+    """The unfused bounce on the card (K2 on a SAH terrain's triangle
+    leaves, closest and NEE any hit, the rest in torch) against the same
+    render through K2's twin on the card, under the image gate."""
+    from ba_pathtracing_fur_torch.ops.cuda import traverse as ctraverse
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card with -m cuda)")
+    dev = torch.device("cuda")
+    scene, cam = _sah_terrain(dev)
+    cfg = pt.RenderConfig(depth=4, spp=2, compact=False)
+    launches, refs = ctraverse.KERNEL_LAUNCHES, ctraverse.REF_CALLS
+    got = pt.render_image(scene, cam, rng.key(0, dev), cfg)
+    assert ctraverse.KERNEL_LAUNCHES - launches == 2 * cfg.spp * cfg.depth
+    assert ctraverse.REF_CALLS == refs
+    kernel = ctraverse.traverse
+    ctraverse.traverse = ctraverse.traverse_ref
+    try:
+        want = pt.render_image(scene, cam, rng.key(0, dev), cfg)
+    finally:
+        ctraverse.traverse = kernel
+    d = (got - want).abs()
+    assert torch.isfinite(got).all() and got.max() > 0.01
+    assert d.mean() < 5e-3 and (d.amax(-1) > 1e-3).double().mean() <= 0.02

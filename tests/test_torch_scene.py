@@ -85,16 +85,36 @@ def test_pixel_grid_matches():
     np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
 
 
-@pytest.mark.parametrize("method", ["sah", "grid", "morton"])
+@pytest.mark.parametrize("method", ["grid", "morton"])
 def test_scene_with_bvh_is_refused(method):
-    """Scenes with a median BVH now render (test_torch_traverse.py); the
-    BVH builds that are not ported yet are refused, naming their ROADMAP
-    item."""
+    """Scenes with a median or SAH BVH render (test_torch_traverse.py,
+    test_torch_sah.py); the BVH builds that are not ported yet are refused,
+    naming their ROADMAP item."""
     from ba_pathtracing_fur_torch.ops import traverse
 
     ts, _ = builtins.fur_patch(resolution=(4, 4), fibers_per_face=4, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         traverse.attach_bvh(ts, method=method, min_prims=1)
+
+
+def test_sah_bvh_attaches_as_jax():
+    """The SAH build, refused until it was ported, attaches on the fur
+    patch's cones and triangles as the JAX package's does: the same perm,
+    boxes and packed leaves per pack; an unknown method is an error."""
+    from ba_pathtracing_fur_tpu.ops import traverse as jtraverse
+    from ba_pathtracing_fur_torch.ops import traverse
+
+    js, _ = jbuiltins.fur_patch(resolution=(4, 4), fibers_per_face=4)
+    jb = jtraverse.attach_bvh(js, method="sah", min_prims=1, fanout=0)
+    ts = traverse.attach_bvh(types.scene_from_numpy(js, device="cpu"), method="sah",
+                             min_prims=1, fanout=0)
+    for kind in ("tri_bvh", "cone_bvh"):
+        a, b = getattr(ts, kind), getattr(jb, kind)
+        for f in ("perm", "bmin", "bmax", "packed"):
+            np.testing.assert_array_equal(getattr(a, f).numpy(), np.asarray(getattr(b, f)),
+                                          err_msg=f"{kind} {f}")
+    with pytest.raises(ValueError, match="unknown BVH method"):
+        traverse.attach_bvh(ts, method="octree", min_prims=1)
 
 
 @pytest.mark.parametrize("change,item", [(dict(compact=True), "M6"), (dict(bdpt=True), "M11")])
@@ -112,14 +132,22 @@ def test_ineligible_scene_is_refused(change, item):
 
 
 def test_textured_scene_is_refused():
+    """The fused path refuses a textured scene, naming K1's texture fetch
+    (the shade kernel reads material rows itself and fetches no texture);
+    the unfused path renders it."""
     from ba_pathtracing_fur_torch.core import rng
     from ba_pathtracing_fur_torch.models import pathtracer as pt
+    from ba_pathtracing_fur_torch.scene.texture import TextureAtlas
 
     ts, tc = builtins.fur_patch(resolution=(4, 4), fibers_per_face=4, device="cpu")
-    ts = dataclasses.replace(ts, textures=torch.zeros((1, 2, 2, 3)))
+    ts = dataclasses.replace(ts, textures=TextureAtlas(torch.zeros((1, 2, 2, 4)),
+                                                       torch.tensor([[2, 2]], dtype=torch.int32)),
+                             tex_slots=("diffuse",))
     cfg = pt.RenderConfig(depth=1, spp=1, compact=False, fused_shading=True)
-    with pytest.raises(NotImplementedError, match="M3/M5"):
+    with pytest.raises(NotImplementedError, match="K1's texture fetch"):
         pt.render_image(ts, tc, rng.key(0, "cpu"), cfg)
+    img = pt.render_image(ts, tc, rng.key(0, "cpu"), dataclasses.replace(cfg, fused_shading=False))
+    assert torch.isfinite(img).all()
 
 
 def test_entry_points_default_to_the_card():
@@ -130,6 +158,7 @@ def test_entry_points_default_to_the_card():
     from ba_pathtracing_fur_torch.core.camera import make_camera
 
     for fn in (lambda: builtins.cornell_box(resolution=(4, 4)),
+               lambda: builtins.tri_terrain(resolution=(4, 4), n_tris=200),
                lambda: builtins.fur_patch(resolution=(4, 4), fibers_per_face=2),
                lambda: types.scene_from_numpy(jbuiltins.cornell_box(resolution=(4, 4))[0]),
                lambda: cam_mod.camera_from_numpy(jbuiltins.cornell_box(resolution=(4, 4))[1]),
@@ -141,6 +170,7 @@ def test_entry_points_default_to_the_card():
                 fn()
     # on the meta device (no data) the default is visible without a card
     import inspect
-    for fn in (builtins.cornell_box, builtins.fur_patch, types.scene_from_numpy,
+    for fn in (builtins.cornell_box, builtins.tri_terrain, builtins.fur_patch,
+               types.scene_from_numpy,
                cam_mod.camera_from_numpy, make_camera, rng.key):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn

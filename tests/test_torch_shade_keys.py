@@ -8,8 +8,9 @@ against the JAX package on the CPU.
   `bsdf.gather_materials`: fur-patch wavefronts, bounces 0-2, Marschner and
   d'Eon, `hair_p_random`, MIS and RR on and off, under the per-field gate
   of tests/test_torch_shade.py::_gate.
-* Material ids at -1, 0, M-1 and M: the port's gather, and the shade stage
-  on them, against JAX's jnp gather (a negative id wraps, one past the end
+* Material ids at -1, 0, M-1 and M: the port's gathers (`gather_rows` of
+  the packed table, `gather_materials` of the MaterialTable), and the shade
+  stage on them, against JAX's jnp gather (a negative id wraps, one past the end
   clamps).
 * `models/pathtracer.shade_inputs` makes no threefry draw and no material
   gather: both happen inside the shade stage.
@@ -142,12 +143,12 @@ def test_material_ids_follow_jax_gather():
     js, ts, _ = _fur("MarschnerHairBSDF")
     table = pt.BounceTables.of(ts).mats
     ids = _edge_ids(table.shape[0])
-    got = bsdf.gather_materials(table, ids)
     want = JAX_GATHER(js.materials, jnp.asarray(ids.numpy()))
     assert table.shape[0] == js.materials.bsdf_id.shape[0] > 1
-    for f in MAT_FIELDS:
-        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
-                                      err_msg=f)
+    for got in (bsdf.gather_rows(table, ids), bsdf.gather_materials(ts.materials, ids)):
+        for f in MAT_FIELDS:
+            np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                          np.asarray(getattr(want, f)), err_msg=f)
     assert bsdf.material_index(ids, table.shape[0]).tolist()[:4] == [
         table.shape[0] - 1, 0, table.shape[0] - 1, table.shape[0] - 1]
 
@@ -183,7 +184,7 @@ def test_shade_inputs_make_no_draws_and_no_gather(monkeypatch):
         raise AssertionError("drawn or gathered before the shade stage")
 
     for mod, name in ((rng, "bounce_uniforms"), (rng, "bounce_uniform"), (rng, "uniform"),
-                      (bsdf, "gather_materials")):
+                      (bsdf, "gather_materials"), (bsdf, "gather_rows")):
         monkeypatch.setattr(mod, name, refuse)
     kw = pt.shade_inputs(state, ts, keys, 2, cfg, hit, tables)
     assert kw["keys"] is keys and kw["bounce"] == 2 and kw["mats_table"] is tables.mats
