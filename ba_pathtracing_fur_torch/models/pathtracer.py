@@ -25,9 +25,23 @@ kernels. With `fused_shading=True` each bounce is `trace_bounce_fused`:
     shadow any-hit, and the masked add of the NEE term.
 
 On the card each kernel is a CUDA launch; on the CPU its plain twin runs.
-Only `compact=False` is ported so far, and the fused path refuses textured
-scenes; other configurations raise `NotImplementedError` naming the ROADMAP
-item that brings them.
+
+With `compact=True` (the default, as in the JAX package) the wavefront is
+compacted after every bounce: the rays with a non-zero throughput move to
+the front in a stable order (`ops/compact`), the keys and each ray's pixel
+slot travel with them, and the colour is scattered back by slot at the end.
+Each ray's result does not depend on its position, so the image equals the
+`compact=False` image bit for bit; the dense grid skips its chunks past the
+live prefix `n_alive`.
+
+The unfused path is differentiable on torch autograd (`diff/fit.py`): the
+traversal kernels only pick rows from detached rays, and every value the
+image depends on is computed in torch. `remat` recomputes each bounce in
+the backward pass (`torch.utils.checkpoint`) instead of keeping its
+intermediates. The fused path runs kernels without a backward and raises
+under autograd. `tonemap` maps the finished image (`ops/tonemap`). The
+fused path refuses textured scenes; bidirectional mode raises
+`NotImplementedError` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -37,11 +51,12 @@ import math
 from typing import Optional, Sequence
 
 import torch
+import torch.utils.checkpoint
 
 from ..core import camera as cam_mod, rng, vecmath as vm
 from ..models import bsdf, fur, shading
 from ..models.shade_core import CoreCfg, _w3 as w3
-from ..ops import intersect as isect, traverse
+from ..ops import compact, intersect as isect, tonemap, traverse
 from ..ops.cuda import shade as cshade
 from ..scene.types import (
     LIGHT_POINT, LIGHT_QUAD, MATFLAG_CYLINDER_T_BOUNCE, MATFLAG_CYLINDER_TR_BOUNCE,
@@ -68,7 +83,7 @@ class RenderConfig:
     compact: bool = True
     spp_batch: int = 1  # samples per wavefront; must divide spp, else 1
     qmc: bool = False  # Hammersley subpixel jitter
-    remat: bool = False  # autodiff memory knob; no effect on the forward render
+    remat: bool = False  # recompute each bounce in the backward pass
     clamp_throughput: float = 1e4
     fused_shading: bool = False
     joint_shadows: bool = False
@@ -121,10 +136,19 @@ def check_supported(scene: DeviceScene, cfg: RenderConfig) -> None:
     if cfg.joint_shadows:
         raise NotImplementedError("joint closest+shadow traversal measured negative "
                                   "and is not ported (ROADMAP, do-not-port list)")
-    if cfg.compact:
-        raise NotImplementedError("stream compaction is not ported yet (ROADMAP M6)")
-    if cfg.tonemap:
-        raise NotImplementedError("tone mapping is not ported yet (ROADMAP M6)")
+
+
+def check_no_grad(scene: DeviceScene) -> None:
+    """Raise for the fused path while autograd records and a tensor of the
+    scene requires grad: its kernels (K1, K4) have no backward, and a
+    render through them would give zero gradients."""
+    parts = (scene.tris, scene.cones, scene.materials, scene.lights, scene.env)
+    if torch.is_grad_enabled() and any(isinstance(x, torch.Tensor) and x.requires_grad
+                                       for p in parts for x in vars(p).values()):
+        raise NotImplementedError(
+            "the fused shading path (fused_shading=True: the shade and full-bounce "
+            "kernels) is not differentiable: render with fused_shading=False (the unfused "
+            "trace_bounce) to take gradients, or under torch.no_grad()")
 
 
 def full_bounce_inputs(state: RayState, scene: DeviceScene, keys: torch.Tensor, bounce: int,
@@ -174,11 +198,14 @@ def shade_inputs(state: RayState, scene: DeviceScene, keys: torch.Tensor, bounce
 
 def trace_bounce_fused(state: RayState, scene: DeviceScene, keys: torch.Tensor,
                        bounce: int, cfg: RenderConfig,
-                       tables: Optional[BounceTables] = None) -> RayState:
+                       tables: Optional[BounceTables] = None, n_alive=None) -> RayState:
     """One bounce. Level-2 scenes run it as one full-bounce pass; every
     other scene runs closest hit -> Hit assembly -> env colour -> shade
-    kernel (draws and material rows inside) -> shadow any-hit -> NEE add."""
+    kernel (draws and material rows inside) -> shadow any-hit -> NEE add.
+    `n_alive`: the live prefix of a compacted wavefront (the traversal's
+    dense grid skips the chunks past it). Raises under autograd."""
     check_supported(scene, cfg)
+    check_no_grad(scene)
     tables = BounceTables.of(scene) if tables is None else tables
     if cshade.full_fuse_eligible(scene):
         return RayState(**cshade.shade_bounce_full(
@@ -186,12 +213,13 @@ def trace_bounce_fused(state: RayState, scene: DeviceScene, keys: torch.Tensor,
 
     do_trace = (state.radiance != 0.0).any(-1) & (state.direction != 0.0).any(-1)
     t_cap = torch.where(do_trace, traverse.INF, 0.0)
-    hit = traverse.closest_hit(state.origin, state.direction, scene, t_max=t_cap)
+    hit = traverse.closest_hit(state.origin, state.direction, scene, t_max=t_cap,
+                               n_alive=n_alive)
     out = cshade.shade_bounce(**shade_inputs(state, scene, keys, bounce, cfg, hit, tables))
     color = out["color"]
     if scene.lights.count:
         blocked = traverse.any_hit(out["shadow_o"], out["shadow_d"], scene,
-                                   out["shadow_tmax"])
+                                   out["shadow_tmax"], n_alive=n_alive)
         color = color + torch.where(blocked[:, None], 0.0, out["direct_rgb"])
     return RayState(origin=out["origin"], direction=out["direction"],
                     radiance=out["radiance"], color=color, flags=out["flags"],
@@ -199,18 +227,21 @@ def trace_bounce_fused(state: RayState, scene: DeviceScene, keys: torch.Tensor,
 
 
 def trace_bounce(state: RayState, scene: DeviceScene, keys: torch.Tensor, bounce: int,
-                 cfg: RenderConfig) -> RayState:
+                 cfg: RenderConfig, n_alive=None) -> RayState:
     """One unfused wavefront bounce (the JAX package's `trace_bounce`,
     traceRays' body): trace, then shade per shader in torch. The bounce's
     uniforms are tags 0-3 of `rng.bounce_uniforms` (and 4 under RR), the
     JAX package's draws. `cfg.ray_chunk` is not read: JAX chunks the
     traversal by it, but its ray sort permutes and its Hit is the same per
-    ray, so the port traces whole wavefronts."""
+    ray, so the port traces whole wavefronts. `n_alive`: the live prefix of
+    a compacted wavefront, passed to the closest hit and the NEE shadow
+    any-hit."""
     check_supported(scene, cfg)
     active = (state.radiance != 0.0).any(-1)
     do_trace = active & (state.direction != 0.0).any(-1)
     t_cap = torch.where(do_trace, traverse.INF, 0.0)  # dead lanes trace nothing
-    hit = traverse.closest_hit(state.origin, state.direction, scene, t_max=t_cap)
+    hit = traverse.closest_hit(state.origin, state.direction, scene, t_max=t_cap,
+                               n_alive=n_alive)
 
     # analytic light intersections (traceRay:185-208)
     n_lights = scene.lights.count
@@ -234,8 +265,10 @@ def trace_bounce(state: RayState, scene: DeviceScene, keys: torch.Tensor, bounce
         lrad = shading.light_emitted_radiance(scene.lights, light_idx, state.direction)
         if cfg.mis:
             p_b = state.prev_pdf
+            # the pdf only weighs rays that hit the light: a finite t on the
+            # others keeps inf * 0 out of the gradient
             p_l = shading.light_solid_angle_pdf(scene.lights, light_idx, state.direction,
-                                                t_light)
+                                                torch.where(light_wins, t_light, 1.0))
             kind = scene.lights.kind[light_idx]
             area_like = (kind == LIGHT_QUAD) | (kind == LIGHT_POINT)
             w = torch.where(p_b <= 0.0, 1.0,
@@ -262,7 +295,8 @@ def trace_bounce(state: RayState, scene: DeviceScene, keys: torch.Tensor, bounce
 
     # NEE, shared by both shaders (calcDirectLight)
     nee = shading.calc_direct_light_mis if cfg.mis else shading.calc_direct_light
-    direct = nee(scene, mp, hit, state.direction, u[1, :, 0], u[2], active=hit_geom)
+    direct = nee(scene, mp, hit, state.direction, u[1, :, 0], u[2], active=hit_geom,
+                 n_alive=n_alive)
     # ambient = env_ambient * evaluateLight(n, n) / pi (SimpleShader.h:47)
     ambient = scene.env.ambient * bsdf.evaluate_light(mp, n, n, n) / math.pi
     accum = (direct + ambient) * radiance
@@ -364,17 +398,37 @@ def _render_samples(scene: DeviceScene, camera: cam_mod.Camera, pixel_ids: torch
     """Samples `sample_ids` for the global `pixel_ids`, traced as one
     wavefront -> `[S, R, 3]`: `trace_bounce_fused` a bounce with
     `cfg.fused_shading`, else `trace_bounce` (the JAX package's
-    `render_sample_ids` dispatch)."""
+    `render_sample_ids` dispatch). With `cfg.compact` the whole wavefront is
+    compacted after each bounce (the live rays first, their keys and pixel
+    slots with them) and the colour scattered back by slot; with
+    `cfg.remat`, while autograd records, each bounce is recomputed in the
+    backward pass instead of keeping its intermediates."""
     check_supported(scene, cfg)
     state, keys = camera_wavefront(camera, pixel_ids, key, sample_ids, cfg)
     if cfg.fused_shading:
         tables = BounceTables.of(scene) if tables is None else tables
-        for b in range(cfg.depth):
-            state = trace_bounce_fused(state, scene, keys, b, cfg, tables)
-    else:
-        for b in range(cfg.depth):
-            state = trace_bounce(state, scene, keys, b, cfg)
-    return state.color.reshape(len(sample_ids), pixel_ids.shape[0], 3)
+
+    def step(st, ks, b, n_alive):
+        if cfg.fused_shading:
+            return trace_bounce_fused(st, scene, ks, b, cfg, tables, n_alive=n_alive)
+        return trace_bounce(st, scene, ks, b, cfg, n_alive=n_alive)
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    slot, n_alive = torch.arange(keys.shape[0], device=keys.device), None
+    for b in range(cfg.depth):
+        if remat:
+            state = torch.utils.checkpoint.checkpoint(step, state, keys, b, n_alive,
+                                                      use_reentrant=False)
+        else:
+            state = step(state, keys, b, n_alive)
+        if cfg.compact:
+            perm, n_alive = compact.compaction_permutation((state.radiance != 0.0).any(-1))
+            state = compact.gather_fields(state, perm)
+            keys, slot = keys[perm.long()], slot[perm.long()]
+    color = state.color
+    if cfg.compact:
+        color = torch.zeros_like(color).index_copy(0, slot, color)
+    return color.reshape(len(sample_ids), pixel_ids.shape[0], 3)
 
 
 def render_sample_ids(scene: DeviceScene, camera: cam_mod.Camera, pixel_ids: torch.Tensor,
@@ -398,7 +452,7 @@ def render_sample(scene: DeviceScene, camera: cam_mod.Camera, key: torch.Tensor,
 def render_image(scene: DeviceScene, camera: cam_mod.Camera, key: torch.Tensor,
                  cfg: RenderConfig) -> torch.Tensor:
     """Full render: the running mean of `cfg.spp` samples -> `[H, W, 3]`,
-    on the scene's device."""
+    on the scene's device, tone-mapped when `cfg.tonemap`."""
     check_supported(scene, cfg)
     w, h = camera.resolution
     bsz = cfg.spp_batch if cfg.spp_batch > 1 and cfg.spp % cfg.spp_batch == 0 else 1
@@ -409,4 +463,5 @@ def render_image(scene: DeviceScene, camera: cam_mod.Camera, key: torch.Tensor,
         cs = _render_samples(scene, camera, pixel_ids, key,
                              range(i * bsz, (i + 1) * bsz), cfg, tables)
         acc = acc + (cs.mean(0) - acc) / (i + 1.0)
-    return acc.reshape(h, w, 3)
+    img = acc.reshape(h, w, 3)
+    return tonemap.tonemap(img) if cfg.tonemap else img

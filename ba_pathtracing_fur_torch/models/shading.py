@@ -169,11 +169,16 @@ def light_solid_angle_pdf(lights: LightPack, idx, direction, dist):
     and sun 0."""
     idx = idx.long()
     kind = lights.kind[idx]
+    is_quad, is_point = kind == LIGHT_QUAD, kind == LIGHT_POINT
     cos_l = vm.dot(vm.normalize(direction), lights.direction[idx]).abs()
-    p_quad = dist * dist / (quad_area(lights, idx) * torch.clamp(cos_l, min=1e-4))
+    # each kind's density from a distance that is finite on the lanes of the
+    # other kinds (a sun's 1e16, a missed light's INF): the same values, and
+    # no inf * 0 in the gradient of the lanes that drop it
+    d_quad, d_point = torch.where(is_quad, dist, 1.0), torch.where(is_point, dist, 1.0)
+    p_quad = d_quad * d_quad / (quad_area(lights, idx) * torch.clamp(cos_l, min=1e-4))
     r = torch.clamp(lights.radius[idx], min=1e-6)
-    p_point = dist * dist / (math.pi * r * r)
-    p = torch.where(kind == LIGHT_QUAD, p_quad, torch.where(kind == LIGHT_POINT, p_point, 0.0))
+    p_point = d_point * d_point / (math.pi * r * r)
+    p = torch.where(is_quad, p_quad, torch.where(is_point, p_point, 0.0))
     return p / lights.count
 
 
@@ -182,13 +187,15 @@ def _pick(lights: LightPack, u_pick):
     return torch.clamp((u_pick * n).to(torch.int32), max=n - 1).long()
 
 
-def calc_direct_light_mis(scene: DeviceScene, mp, hit, ray_dir, u_pick, u_light, active=None):
+def calc_direct_light_mis(scene: DeviceScene, mp, hit, ray_dir, u_pick, u_light, active=None,
+                          n_alive=None):
     """MIS-mode NEE: a uniform pick with 1/N compensation; quad and point
     lights in solid-angle measure weighted by the power heuristic against
     the BSDF pdf; spot and sun in the reference's attenuation form at weight
     1. The emitted radiance is `light_emitted_radiance`, the same Le a BSDF
     path sees on hitting the light. Dead lanes (`active` False) get a
-    zero-length shadow ray."""
+    zero-length shadow ray; `n_alive` is the live prefix of a compacted
+    wavefront, passed to the shadow any-hit."""
     lights = scene.lights
     n_lights = lights.count
     if n_lights == 0:
@@ -216,7 +223,7 @@ def calc_direct_light_mis(scene: DeviceScene, mp, hit, ray_dir, u_pick, u_light,
     t_max = dist * (1.0 - 1e-3)  # stop short of the target itself
     if active is not None:
         t_max = torch.where(active, t_max, 0.0)
-    blocked = traverse.any_hit(origin, wi, scene, t_max)
+    blocked = traverse.any_hit(origin, wi, scene, t_max, n_alive=n_alive)
     t_l, valid_l = isect.light_hit_grid(origin, wi, lights)
     other = torch.arange(n_lights, device=idx.device)[None, :] != idx[:, None]
     blocked = blocked | (valid_l & other & (t_l < t_max[:, None])).any(-1)
@@ -224,11 +231,13 @@ def calc_direct_light_mis(scene: DeviceScene, mp, hit, ray_dir, u_pick, u_light,
     return _w3(has_color & ~blocked, contrib, 0.0)
 
 
-def calc_direct_light(scene: DeviceScene, mp, hit, ray_dir, u_pick, u_light, active=None):
+def calc_direct_light(scene: DeviceScene, mp, hit, ray_dir, u_pick, u_light, active=None,
+                      n_alive=None):
     """SimpleShader::calcDirectLight (SimpleShader.h:101-152): one light
     picked uniformly a ray, its contribution not divided by the pick
     probability; the shadow ray tests the scene and every analytic light.
-    Dead lanes (`active` False) get a zero-length shadow ray."""
+    Dead lanes (`active` False) get a zero-length shadow ray; `n_alive` as
+    in `calc_direct_light_mis`."""
     lights = scene.lights
     if lights.count == 0:
         return torch.zeros_like(hit.position)
@@ -249,7 +258,7 @@ def calc_direct_light(scene: DeviceScene, mp, hit, ray_dir, u_pick, u_light, act
     t_max = vm.length(lightpos - origin)
     if active is not None:
         t_max = torch.where(active, t_max, 0.0)
-    blocked = traverse.any_hit(origin, wi, scene, t_max)
+    blocked = traverse.any_hit(origin, wi, scene, t_max, n_alive=n_alive)
     # the light geometry occludes too (SimpleShader.h:135-144)
     t_l, valid_l = isect.light_hit_grid(origin, wi, lights)
     blocked = blocked | (valid_l & (t_l < t_max[:, None])).any(-1)

@@ -44,6 +44,7 @@ import torch
 from .. import bvh as bvh_mod
 from ..intersect import INF, cone_aabbs, triangle_aabbs
 from ...scene.types import ConePack, TrianglePack
+from .traverse import require_detached
 
 KINDS = {"cone": 16, "tri": 9}  # rows W of the component-major pack per kind
 #: bound on the elements of one [rays, prims] chunk of the plain version
@@ -426,6 +427,7 @@ def closest(o, d, t_max, tables: BruteTables, kind: str, t_min: float = 1e-4):
     CUDA tensors launch the kernel (or raise)."""
     if kind not in KINDS:
         raise ValueError(f"bruteforce: kind must be one of {sorted(KINDS)}, got {kind!r}")
+    require_detached("bruteforce", o, d, t_max)
     o, d, t_max = o.contiguous(), d.contiguous(), t_max.contiguous()
     if o.device.type == "cpu":
         return closest_ref(o, d, t_max, tables, kind, t_min)

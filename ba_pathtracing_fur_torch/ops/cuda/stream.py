@@ -108,6 +108,7 @@ def traverse_stream(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = Fa
     if kind not in ctraverse.KINDS:
         raise ValueError(f"traverse_stream: kind must be one of {sorted(ctraverse.KINDS)}, "
                          f"got {kind!r}")
+    ctraverse.require_detached("traverse_stream", o, d, t_max)
     o, d, t_max = o.contiguous(), d.contiguous(), t_max.contiguous()
     if o.device.type == "cpu":
         return traverse_stream_ref(o, d, t_max, bvh, kind, any_hit, t_min)

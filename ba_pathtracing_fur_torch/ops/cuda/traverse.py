@@ -175,6 +175,15 @@ def work_ref(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = False,
                 leaf_bytes=n_entered * (KINDS[kind] * bvh.leaf_size + 6 * n_units) * 4)
 
 
+def require_detached(name: str, *xs) -> None:
+    """Raise for rays that require grad: the traversal kernels only pick
+    rows and have no backward (`ops/traverse` passes them detached rays and
+    recomputes the winner's t in torch), so their outputs carry no grad."""
+    if any(x.requires_grad for x in xs):
+        raise ValueError(f"{name}: the rays must be detached (the kernel only picks rows "
+                         "and has no backward)")
+
+
 def _check(name, x, shape, dtype, device):
     if x is None:
         raise ValueError(f"traverse: the BVH has no {name} table (attach_bvh and "
@@ -221,6 +230,7 @@ def traverse(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = False,
     raise)."""
     if kind not in KINDS:
         raise ValueError(f"traverse: kind must be one of {sorted(KINDS)}, got {kind!r}")
+    require_detached("traverse", o, d, t_max)
     o, d, t_max = o.contiguous(), d.contiguous(), t_max.contiguous()
     if o.device.type == "cpu":
         return traverse_ref(o, d, t_max, bvh, kind, any_hit, t_min)

@@ -314,27 +314,40 @@ def _traverse_rows(o, d, t_max, bvh, kind, t_min, sort):
     return torch.clamp(row, min=0), found
 
 
-def _grid_closest(o, d, pack, grid_fn, t_min, t_max):
-    """Nearest hit over a BVH-less pack by the dense grid, chunked over
-    rays -> (t [R] INF where none, row [R])."""
-    r, p = o.shape[0], pack.count
+def _grid_chunks(r: int, p: int, n_alive):
+    """Ray chunks (start, stop) of the dense grid over a pack of p
+    primitives: chunks starting at or past `n_alive` (the live prefix of a
+    compacted wavefront) are left out, as the JAX package's chunked grid
+    skips them."""
     step = max(1, _GRID_ELEMS // max(p, 1))
-    ts, rows = [], []
-    for s in range(0, r, step):
-        g = grid_fn(o[s:s + step], d[s:s + step], pack, t_min, t_max[s:s + step, None])[0]
+    end = r if n_alive is None or r <= step else min(r, int(n_alive))
+    return [(s, min(s + step, r)) for s in range(0, end, step)]
+
+
+def _grid_closest(o, d, pack, grid_fn, t_min, t_max, n_alive=None):
+    """Nearest hit over a BVH-less pack by the dense grid, chunked over
+    rays -> (t [R] INF where none, row [R]); rays of skipped chunks get INF
+    and row 0, what the grid gives a dead ray."""
+    r = o.shape[0]
+    ts, rows, n = [], [], 0
+    for s, n in _grid_chunks(r, pack.count, n_alive):
+        g = grid_fn(o[s:n], d[s:n], pack, t_min, t_max[s:n, None])[0]
         row = g.argmin(-1)
         ts.append(g.gather(-1, row[:, None])[:, 0])
         rows.append(row.to(torch.int32))
+    if n < r:
+        ts.append(torch.full((r - n,), INF, device=o.device))
+        rows.append(torch.zeros((r - n,), dtype=torch.int32, device=o.device))
     return torch.cat(ts), torch.cat(rows)
 
 
-def _grid_any(o, d, pack, grid_fn, t_min, t_max):
-    """Does any primitive of a BVH-less pack lie in (t_min, t_max)? -> [R]."""
-    r, p = o.shape[0], pack.count
-    step = max(1, _GRID_ELEMS // max(p, 1))
-    return torch.cat([grid_fn(o[s:s + step], d[s:s + step], pack, t_min,
-                              t_max[s:s + step, None])[-1].any(-1)
-                      for s in range(0, r, step)])
+def _grid_any(o, d, pack, grid_fn, t_min, t_max, n_alive=None):
+    """Does any primitive of a BVH-less pack lie in (t_min, t_max)? -> [R];
+    rays of skipped chunks are not blocked."""
+    blocked = torch.zeros((o.shape[0],), dtype=torch.bool, device=o.device)
+    for s, e in _grid_chunks(o.shape[0], pack.count, n_alive):
+        blocked[s:e] = grid_fn(o[s:e], d[s:e], pack, t_min, t_max[s:e, None])[-1].any(-1)
+    return blocked
 
 
 def _assemble_hit(o, d, scene: DeviceScene, t_tri, tri_row, t_cone, cone_row, t_max,
@@ -403,61 +416,76 @@ def _t_max_of(t_max, r, like):
                                               device=like.device), (r,)).contiguous()
 
 
-def closest_hit(o, d, scene: DeviceScene, t_min=1e-4, t_max=INF) -> bruteforce.Hit:
+def closest_hit(o, d, scene: DeviceScene, t_min=1e-4, t_max=INF,
+                n_alive=None) -> bruteforce.Hit:
     """Nearest hit per ray: a traversal kernel for packs with a BVH and K5
     for big BVH-less packs (then the winner's t recomputed from its row),
     both on the entry-morton sorted rays when the scene has a BVH (see
     SORT_RAYS), the dense grid for small BVH-less packs. t_max may be per
-    ray [R]."""
+    ray [R]. With a compacted wavefront, `n_alive` (its live prefix) lets
+    the dense grid skip the chunks past it; the kernels take the whole
+    wavefront.
+
+    The kernels get detached rays and only pick rows; the winner's t and
+    the Hit are computed in torch from the live rays, so gradients reach
+    o, d and the scene through them (as the JAX package's stop_gradient'ed
+    traversal does)."""
     r = o.shape[0]
     t_max = _t_max_of(t_max, r, o)
+    o_s, d_s, t_s = o.detach(), d.detach(), t_max.detach()
     tris, cones = scene.tris, scene.cones
-    sort = _sorted_rays(o, d, t_max, scene)
+    sort = _sorted_rays(o_s, d_s, t_s, scene)
 
     t_tri = torch.full((r,), INF, device=o.device)
     tri_row = torch.zeros((r,), dtype=torch.int32, device=o.device)
     tri_rp = None
     if scene.tri_bvh is not None or (tris.count and _use_brute(o, tris)):
         if scene.tri_bvh is not None:
-            tri_row, found = _traverse_rows(o, d, t_max, scene.tri_bvh, "tri", t_min, sort)
+            tri_row, found = _traverse_rows(o_s, d_s, t_s, scene.tri_bvh, "tri", t_min, sort)
             aos = scene.tri_bvh.aos_rows
         else:
-            tri_row, found = _brute_rows(o, d, t_max, cisect.tables_of(tris, "tri"), "tri",
+            tri_row, found = _brute_rows(o_s, d_s, t_s, cisect.tables_of(tris, "tri"), "tri",
                                          t_min, sort)
             aos = tri_aos(tris)
         tri_rp = take_tri_rows(aos, tri_row)
         t_tri = torch.where(found, _recompute_t_tri(tri_rp, o, d, t_min, t_max), INF)
     elif tris.count:
-        t_tri, tri_row = _grid_closest(o, d, tris, isect.triangle_hit_grid, t_min, t_max)
+        t_tri, tri_row = _grid_closest(o, d, tris, isect.triangle_hit_grid, t_min, t_max,
+                                       n_alive)
 
     t_cone = torch.full((r,), INF, device=o.device)
     cone_row = torch.zeros((r,), dtype=torch.int32, device=o.device)
     cone_rc = None
     if scene.cone_bvh is not None or (cones.count and _use_brute(o, cones)):
         if scene.cone_bvh is not None:
-            cone_row, found = _traverse_rows(o, d, t_max, scene.cone_bvh, "cone", t_min, sort)
+            cone_row, found = _traverse_rows(o_s, d_s, t_s, scene.cone_bvh, "cone", t_min,
+                                             sort)
             aos = scene.cone_bvh.aos_rows
         else:
-            cone_row, found = _brute_rows(o, d, t_max, cisect.tables_of(cones, "cone"), "cone",
-                                          t_min, sort)
+            cone_row, found = _brute_rows(o_s, d_s, t_s, cisect.tables_of(cones, "cone"),
+                                          "cone", t_min, sort)
             aos = cone_aos(cones)
         cone_rc = take_cone_rows(aos, cone_row)
         t_cone = torch.where(found, _recompute_t_cone(cone_rc, o, d, t_min, t_max), INF)
     elif cones.count:
-        t_cone, cone_row = _grid_closest(o, d, cones, isect.cone_hit_grid, t_min, t_max)
+        t_cone, cone_row = _grid_closest(o, d, cones, isect.cone_hit_grid, t_min, t_max,
+                                         n_alive)
 
     return _assemble_hit(o, d, scene, t_tri, tri_row, t_cone, cone_row, t_max,
                          tri_rp=tri_rp, cone_rc=cone_rc)
 
 
-def any_hit(o, d, scene: DeviceScene, t_max, t_min=1e-4) -> torch.Tensor:
+def any_hit(o, d, scene: DeviceScene, t_max, t_min=1e-4, n_alive=None) -> torch.Tensor:
     """Shadow-ray occlusion: does any geometry lie in (t_min, t_max)? -> [R]
     bool. A traversal kernel's any-hit mode for packs with a BVH, K5's
     closest t below t_max for big BVH-less packs, the dense grid for small
-    ones. With a BVH (and SORT_RAYS) every pack runs on the entry-morton
-    sorted rays and the flags are unsorted once."""
+    ones (its chunks past `n_alive` skipped, as in closest_hit: the sort
+    puts dead rays last, so the live rays stay in the prefix). With a BVH
+    (and SORT_RAYS) every pack runs on the entry-morton sorted rays and the
+    flags are unsorted once. The answer is a flag, so every test runs on
+    detached rays."""
     r = o.shape[0]
-    t_max = _t_max_of(t_max, r, o)
+    o, d, t_max = o.detach(), d.detach(), _t_max_of(t_max, r, o).detach()
     sort = _sorted_rays(o, d, t_max, scene)
     if sort is not None:
         o, d, t_max, inv = sort
@@ -470,5 +498,5 @@ def any_hit(o, d, scene: DeviceScene, t_max, t_min=1e-4) -> torch.Tensor:
         elif pack.count and _use_brute(o, pack):
             blocked |= _brute_rows(o, d, t_max, cisect.tables_of(pack, kind), kind, t_min)[1]
         elif pack.count:
-            blocked |= _grid_any(o, d, pack, grid_fn, t_min, t_max)
+            blocked |= _grid_any(o, d, pack, grid_fn, t_min, t_max, n_alive)
     return blocked if sort is None else blocked[inv]

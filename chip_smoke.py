@@ -40,6 +40,17 @@ render_image`) and checks the images:
     and a mid-size hair ball renders through the kernels and through the
     plain versions under the image gate.
 
+Configs 0, 3, 4 and 5 also render one sample with the JAX package's default
+stream compaction (`compact=True`) and one without: the images must be
+equal bit for bit; both sample times and the live share n_alive / R after
+each bounce are printed. The gradient phase runs `diff.fit` on config 4's
+fur patch at full width through the unfused bounce (K2 picking rows under
+autograd, remat's recompute included, no plain version): every gradient
+finite, the hair parameters' not all 0, a finite-difference check, and the
+gradients with the kernels against those with the plain versions on the
+card at 128x128; it prints the seconds of a forward, a forward plus
+backward and a fit step, and the peak device memory with remat off and on.
+
 The traversal kernels (K2, K3) run, as on the main path, on rays sorted by
 the entry-morton key (`ops/traverse._entry_morton_perms`): each is held
 against its plain version on the sorted rays (found, t and closest-hit rows
@@ -116,6 +127,17 @@ UNFUSED_VS_FUSED = dict(res=(256, 256), depth=4, spp=2)
 # Depth cut from 4 to 3 to make room for config 3's phases: its plain render
 # is the slowest gate of the run.
 MID_HAIRBALL = dict(res=(256, 256), n_fibers=20_000, depth=3, spp=1)
+# The gradient phase: config 4's fur patch (45,000 cones, median BVH, 512^2,
+# depth 4) at spp 1 through the unfused bounce with compaction on, the
+# materials' parameters (make_params) fitted for FIT_STEPS Adam steps to a
+# target rendered at the true parameters, with the fur's hair_beta moved by
+# HAIR_BETA_SHIFT degrees; the finite-difference check on the fur
+# material's diffuse red at FD_EPS against a black target (the skin's
+# gradient is ~1e-9: 45,000 cones hide it); kernels against twins at
+# GRAD_TWIN_RES.
+GRAD = dict(depth=4, spp=1)
+FIT_STEPS, HAIR_BETA_SHIFT, FD_EPS, FD_REL = 3, 3.0, 1e-2, 0.05
+GRAD_TWIN_RES, GRAD_TWIN_TOL = (128, 128), 1e-4
 TIMED_REPS = 3
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3;
 # INT32 (the Hopper architecture white paper), for the shade kernel's threefry.
@@ -168,6 +190,25 @@ def plain_bounces():
     finally:
         for (m, name, _), fn in zip(swaps, kernels_fns):
             setattr(m, name, fn)
+
+
+@contextlib.contextmanager
+def alive_counts(out: list):
+    """Record (n_alive, R) after each bounce of a compacted render."""
+    from ba_pathtracing_fur_torch.ops import compact
+
+    fn = compact.compaction_permutation
+
+    def spy(alive):
+        perm, n = fn(alive)
+        out.append((n, alive.shape[0]))
+        return perm, n
+
+    compact.compaction_permutation = spy
+    try:
+        yield
+    finally:
+        compact.compaction_permutation = fn
 
 
 @contextlib.contextmanager
@@ -1432,6 +1473,147 @@ def phase_terrain_gate(dev) -> dict:
                             "vs plain image")
 
 
+def phase_compaction(scene, cam, cfg, name, **want) -> dict:
+    """One sample of `scene` through the kernels with compact=True and with
+    compact=False: the images bit for bit (each ray's result does not
+    depend on its position), both sample times (events, TIMED_REPS), and
+    the live share n_alive / R after each bounce. `want`: the kernel
+    launches of one sample."""
+    from ba_pathtracing_fur_torch.core import rng
+
+    key = rng.key(0, scene.device)
+    one = dataclasses.replace(cfg, spp=1, spp_batch=1)
+    cfgs = {c: dataclasses.replace(one, compact=c) for c in (True, False)}
+    imgs, alive = {}, []
+    for c, cf in cfgs.items():
+        reset_counts()
+        with alive_counts(alive) if c else contextlib.nullcontext():
+            imgs[c] = render(scene, cam, key, cf)
+        check_counts(read_counts(), f"{name} compact={c}", **want)
+    if not torch.equal(imgs[True], imgs[False]):
+        d = (imgs[True] - imgs[False]).abs()
+        raise AssertionError(f"{name}: compacted image differs from the uncompacted one "
+                             f"(max {d.max().item():.3e} over {(d > 0).any(-1).sum().item()} px)")
+    share = [int(n) / r for n, r in alive]
+    ms = {c: timed(lambda cf=cf: render(scene, cam, key, cf), TIMED_REPS)
+          for c, cf in cfgs.items()}
+    log(f"{name} compaction: images bit-identical; n_alive / R after bounces 0-"
+        f"{len(share) - 1}: {', '.join(f'{x:.4f}' for x in share)} (R = {alive[0][1]}); one "
+        f"sample {ms[True]:.3f} ms compacted, {ms[False]:.3f} ms not")
+    return dict(alive=share, ms=ms[True], uncompacted_ms=ms[False])
+
+
+def phase_gradient(scene, cam, dev) -> dict:
+    """diff.fit on config 4's fur patch at full width (GRAD): the unfused
+    bounce under autograd with compaction on. Times a recorded forward, a
+    forward plus backward and a fit step; the peak device memory with remat
+    off and on; K2 launched on every bounce of every full-width step, in
+    the forward and in remat's recompute, and no plain version; every
+    gradient finite, the hair parameters' not all 0; the finite-difference
+    check on the fur's diffuse red; and the gradients with the kernels
+    against those with the twins on the card at GRAD_TWIN_RES."""
+    from ba_pathtracing_fur_torch import diff
+    from ba_pathtracing_fur_torch.core import rng
+    from ba_pathtracing_fur_torch.models import pathtracer as pt
+    from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.scene import builtins
+    from ba_pathtracing_fur_torch.scene.types import SHADER_MARSCHNER_HAIR
+
+    cfg = pt.RenderConfig(**GRAD)
+    key = rng.key(0, dev)
+    w, h = cam.resolution
+    with torch.no_grad():
+        target = render(scene, cam, key, cfg)
+    mats = scene.materials
+    hair = int(torch.nonzero(mats.shader_id == SHADER_MARSCHNER_HAIR)[0, 0])
+    beta = mats.hair_beta.clone()
+    beta[hair] += HAIR_BETA_SHIFT
+    start = dataclasses.replace(scene, materials=dataclasses.replace(mats, hair_beta=beta))
+
+    def material_grads(sc, cm, tg):
+        params = diff.make_params(sc)
+        diff.render_loss(params, sc, cm, key, tg, cfg).backward()
+        return {k: v.grad for k, v in params["materials"].items() if v.grad is not None}
+
+    out = {}
+    for remat in (False, True):
+        cf = dataclasses.replace(cfg, remat=remat)
+        diff.render_loss(diff.make_params(start), start, cam, key, target, cf).backward()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params = diff.make_params(start)
+        t0 = time.perf_counter()
+        loss = diff.render_loss(params, start, cam, key, target, cf)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out[f"remat_{remat}"] = dict(forward_s=t1 - t0, forward_backward_s=t2 - t0,
+                                     peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        log(f"gradient, config-4 fur patch {w}x{h} depth {cfg.depth} spp 1, remat={remat}: "
+            f"recorded forward {t1 - t0:.4f} s, forward + backward {t2 - t0:.4f} s, peak device "
+            f"memory {out[f'remat_{remat}']['peak_gib']:.3f} GiB")
+    grads = {k: v.grad for k, v in params["materials"].items() if v.grad is not None}
+    bad = [k for k, g in grads.items() if not torch.isfinite(g).all()]
+    hair_g = torch.cat([grads["hair_alpha"], grads["hair_beta"]]).abs().max().item()
+    log(f"gradient: {len(grads)} material fields reached, max |g| "
+        + ", ".join(f"{k} {g.abs().max().item():.3e}" for k, g in grads.items()))
+    if bad or not hair_g > 0.0:
+        raise AssertionError(f"gradient: non-finite fields {bad}, hair max |g| {hair_g}")
+
+    fit_cfg = dataclasses.replace(cfg, remat=True)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = diff.fit(start, cam, target, fit_cfg, steps=FIT_STEPS, key=key)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / FIT_STEPS
+    counts = read_counts()
+    want = FIT_STEPS * 2 * 2 * cfg.depth
+    log(f"fit: {FIT_STEPS} Adam steps (remat), {step_s:.4f} s a step, losses "
+        f"{', '.join(f'{x:.6e}' for x in res.losses)}, hair_beta {beta[hair].item():.4f} -> "
+        f"{res.params['materials']['hair_beta'][hair].item():.4f} (true "
+        f"{mats.hair_beta[hair].item():.4f}); launches {counts} (expected traverse {want} = "
+        f"steps x depth x (closest + shadow) x (forward + recompute), no plain calls)")
+    check_counts(counts, "fit", traverse=want)
+    if not np.all(np.isfinite(res.losses)):
+        raise AssertionError("fit: non-finite loss")
+
+    # against a black target, as tests/test_diff.py checks it: the loss
+    # then moves with the fur's red at every fur pixel
+    analytic, numeric = diff.finite_diff_check(
+        diff.make_params(start), start, cam, key, torch.zeros_like(target), cfg,
+        path=("materials", "diffuse"), index=(hair, 0), eps=FD_EPS)
+    gate = abs(analytic - numeric) / max(abs(numeric), 1e-3)  # tests/test_diff.py's
+    rel = abs(analytic - numeric) / max(abs(numeric), 1e-30)
+    log(f"finite difference, fur diffuse red, eps {FD_EPS}, black target: autograd "
+        f"{analytic:.6e}, central difference {numeric:.6e}, relative error {rel:.3e} "
+        f"(|diff| / max(|numeric|, 1e-3) {gate:.3e} < {FD_REL})")
+    if not (np.isfinite(analytic) and abs(numeric) > 1e-3 and gate < FD_REL):
+        raise AssertionError("gradient: finite-difference check failed")
+
+    small, scam = builtins.fur_patch(resolution=GRAD_TWIN_RES,
+                                     fibers_per_face=CONFIG4["fibers_per_face"], device=dev)
+    small = traverse.attach_bvh(small)
+    with torch.no_grad():
+        small_target = render(small, scam, key, cfg)
+    small = dataclasses.replace(small, materials=start.materials)
+    reset_counts()
+    got = material_grads(small, scam, small_target)
+    check_counts(read_counts(), "gradient, kernels", traverse=2 * cfg.depth)
+    with plain_bounces():
+        want_g = material_grads(small, scam, small_target)
+    worst = max((got[k] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+                for k, g in want_g.items())
+    log(f"gradient at {GRAD_TWIN_RES[0]}x{GRAD_TWIN_RES[1]}, kernels vs twins on the card: "
+        f"largest |diff| / max |g| over the fields {worst:.3e} (<= {GRAD_TWIN_TOL})")
+    if set(got) != set(want_g) or not worst <= GRAD_TWIN_TOL:
+        raise AssertionError("gradient: kernels and twins disagree")
+    return dict(out, fit_step_s=step_s, step_launches=want // FIT_STEPS, fd_rel=rel,
+                twin_rel=worst)
+
+
 def phase_unfused_vs_fused(dev) -> dict:
     """The unfused bounce against the fused one on the card, both through
     the kernels, the same streams: the triangle-BVH Cornell (K2 on triangle
@@ -1513,6 +1695,9 @@ def drive(dev, card: str) -> list:
     phase_profile(*main_res["config0_scene"])
     log(f"config0 end to end: kernel path {times['kernel']:.4f} s, plain path "
         f"{times['plain']:.4f} s, on {card}")
+    cfg0 = main_res["config0_scene"][3]
+    compaction = {"config0": phase_compaction(*main_res["config0_scene"][:2], cfg0, "config0",
+                                              full_bounce=cfg0.depth)}
 
     scene4, cam4, cfg4, build_s = fur_scene(dev)
     fur = phase_fur_kernels(scene4, cam4, cfg4, dev)
@@ -1527,6 +1712,11 @@ def drive(dev, card: str) -> list:
         f"{rays4 / un4['times']['kernel']:.4e} rays/s unsorted; the sort adds "
         f"{prof4['launches'] - un4['profile']['launches']} launches a sample; BVH build "
         f"{build_s:.3f} s, on {card}")
+    compaction["config4"] = phase_compaction(scene4, cam4, cfg4, "config4",
+                                             traverse=2 * cfg4.depth, shade=cfg4.depth)
+    grad = phase_gradient(scene4, cam4, dev)
+    log(f"gradient phase on {card}: {grad}")
+    del scene4
     tri = phase_tri_bvh(dev)
 
     from ba_pathtracing_fur_torch.models import pathtracer as pt
@@ -1542,6 +1732,9 @@ def drive(dev, card: str) -> list:
         f"{rays5 / un5['times']['kernel']:.4e} rays/s unsorted; the sort adds "
         f"{prof5['launches'] - un5['profile']['launches']} launches a sample; generation "
         f"{build5['gen_s']:.3f} s, BVH build {build5['build_s']:.3f} s, on {card}")
+    compaction["config5"] = phase_compaction(scene5, cam5, cfg5, "config5",
+                                             stream=2 * cfg5.depth, bruteforce_tri=2 * cfg5.depth,
+                                             shade=cfg5.depth)
     del scene5
     k5_cone = phase_bruteforce_cone(dev)
     phase_mid_hairball(dev)
@@ -1556,6 +1749,9 @@ def drive(dev, card: str) -> list:
     main3 = phase_terrain_main_path(scene3, cam3, cfg3, dev)
     log(f"config3 end to end: {main3['rays_per_s']:.4e} rays/s; SAH build "
         f"{build3['build_s']:.3f} s (split {build3['stages']['split']:.3f} s), on {card}")
+    compaction["config3"] = phase_compaction(scene3, cam3, cfg3, "config3",
+                                             traverse=2 * cfg3.depth)
+    log(f"compaction on {card}: {compaction}")
     del scene3
     phase_terrain_gate(dev)
     phase_unfused_vs_fused(dev)
@@ -1582,7 +1778,8 @@ def drive(dev, card: str) -> list:
              unsorted_ms=t0["closest_unsorted_ms"], any_ms=t0["any_ms"],
              any_unsorted_ms=t0["any_unsorted_ms"], any_plain_ms=t0["any_plain_ms"],
              any_bound_ms=fur[0]["any_bound"]["bound_ms"],
-             any_bound_by=fur[0]["any_bound"]["bound_by"], sort_ms=t0["sort_ms"]),
+             any_bound_by=fur[0]["any_bound"]["bound_by"], sort_ms=t0["sort_ms"],
+             grad_step_launches=grad["step_launches"]),
         dict(name="traverse_tri", route="cuda",
              source="ba_pathtracing_fur_torch/csrc/traverse.cu",
              replaces="ba_pathtracing_fur_tpu/ops/pallas/traverse.py:247",

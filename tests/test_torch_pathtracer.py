@@ -84,13 +84,10 @@ def test_qmc_and_dof_render():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(compact=True), "M6"), (dict(fused_shading=False, compact=True), "M6"),
-    (dict(bdpt=True), "M11"),
-    (dict(tonemap=True), "M6"), (dict(joint_shadows=True), "do-not-port")])
+    (dict(bdpt=True), "M11"), (dict(joint_shadows=True), "do-not-port")])
 def test_unported_configs_raise(change, item):
-    """What the port does not run yet raises, naming its ROADMAP item; the
-    unfused bounce renders (test_torch_unfused_render.py), its compaction
-    does not."""
+    """What the port does not run yet raises, naming its ROADMAP item;
+    compaction and tone mapping render (test_torch_compact.py)."""
     scene, cam = _small()
     with pytest.raises(NotImplementedError, match=item):
         pt.render_image(scene, cam, rng.key(0, "cpu"), pt.RenderConfig(**{**KW, **change}))

@@ -117,7 +117,7 @@ def test_sah_bvh_attaches_as_jax():
         traverse.attach_bvh(ts, method="octree", min_prims=1)
 
 
-@pytest.mark.parametrize("change,item", [(dict(compact=True), "M6"), (dict(bdpt=True), "M11")])
+@pytest.mark.parametrize("change,item", [(dict(bdpt=True), "M11")])
 def test_ineligible_scene_is_refused(change, item):
     """Fur scenes render through the general bounce now; the render modes
     it does not run yet are refused on them, naming their ROADMAP item."""
