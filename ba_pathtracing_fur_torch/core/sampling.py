@@ -1,14 +1,16 @@
 """Sampling and Fresnel helpers on tensors.
 
 Counterpart of `ba_pathtracing_fur_tpu/core/sampling.py`, holding what the
-shading body, the hair automaton and the light sampler use. Uniform random numbers come in as
-explicit arguments.
+shading body, the hair automaton, the light sampler, BDPT's photon emission
+and the Whitted raytracer's Poisson-disk AA pattern use. Uniform random
+numbers come in as explicit arguments.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from . import vecmath as vm
@@ -94,3 +96,31 @@ def sample_disk_about(u1: torch.Tensor, u2: torch.Tensor, normal: torch.Tensor,
     y = r * torch.sin(theta) * radius
     s, t = vm.orthonormal_basis(normal)
     return x[..., None] * s + y[..., None] * t
+
+
+def cosine_hemisphere_about(u1: torch.Tensor, u2: torch.Tensor,
+                            normal: torch.Tensor) -> torch.Tensor:
+    """Cosine-weighted direction about `normal` (Light.cpp:74-84)."""
+    return vm.local_to_world_normal(cosine_sample_hemisphere(u1, u2), normal)
+
+
+def poisson_disk_pattern(n: int, seed: int = 0, tries: int = 30) -> np.ndarray:
+    """Blue-noise subpixel offsets in [0,1)^2 by dart throwing (the
+    reference's PoissonDiskGenerator, Simple_CPU_Raytracer.h:26): a float32
+    [n, 2] numpy array made on the host, deterministic in (n, seed). After
+    `tries` rejected darts in a row the minimum distance shrinks by 0.8."""
+    rng = np.random.default_rng(seed)
+    pts: list = []
+    min_d2 = (0.75 / np.sqrt(max(n, 1))) ** 2
+    budget = tries
+    while len(pts) < n:
+        c = rng.random(2)
+        if all(((c - p) ** 2).sum() >= min_d2 for p in pts):
+            pts.append(c)
+            budget = tries
+        else:
+            budget -= 1
+            if budget <= 0:
+                min_d2 *= 0.8
+                budget = tries
+    return np.asarray(pts, np.float32)

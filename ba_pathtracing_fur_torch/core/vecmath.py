@@ -1,7 +1,7 @@
 """Vector math on `[..., 3]` float tensors.
 
 Counterpart of `ba_pathtracing_fur_tpu/core/vecmath.py`, holding what the
-camera and the shading body use. Every function is batched over the leading
+camera, the shading body, the hair shaders and the Whitted raytracer use. Every function is batched over the leading
 axes; scalars come back as `[...]` tensors.
 """
 
@@ -75,3 +75,21 @@ def local_to_world_normal(local_dir: torch.Tensor, normal: torch.Tensor) -> torc
     t = normalize(cross(normal, s))
     return (local_dir[..., 0:1] * s + local_dir[..., 1:2] * t
             + local_dir[..., 2:3] * normal)
+
+
+def rotate_about_axis(v: torch.Tensor, axis: torch.Tensor, angle) -> torch.Tensor:
+    """Rodrigues rotation of v about the (normalized) axis by `angle`
+    radians, a float or a `[...]` tensor. The reference multiplies the row
+    vector on the left of glm::rotate's matrix (Bsdf.cpp:498,587,677), which
+    rotates by -angle: callers pass the negated angle."""
+    angle = torch.as_tensor(angle, dtype=v.dtype, device=v.device)
+    c = torch.cos(angle)[..., None]
+    s = torch.sin(angle)[..., None]
+    a = normalize(axis)
+    return v * c + cross(a, v) * s + a * (dot(a, v)[..., None] * (1.0 - c))
+
+
+def angle_between(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """glm::angle: acos of the clamped dot of the normalized vectors."""
+    d = dot(normalize(a), normalize(b))
+    return torch.acos(torch.clamp(d, -1.0 + 1e-7, 1.0 - 1e-7))

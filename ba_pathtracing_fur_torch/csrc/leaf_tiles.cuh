@@ -35,7 +35,8 @@
 // Results are independent of the visiting order: a node, super or child is
 // pruned only when its entry exceeds the ray's best t (an equal entry is
 // kept), and the key's minimum is the lexicographic minimum (t, row) over all
-// rows with t in (t_min, t_max): the brute-force twin's row on every ray,
+// rows with t in (t_min, min(t_max, INF)) (INF, the leaf tests' miss, is no
+// hit even below t_max = inf): the brute-force twin's row on every ray,
 // exact t ties across clusters included. An any hit ends its ray at the
 // first acceptance (its key's t becomes -1 inside, 0 in the output).
 
@@ -228,7 +229,16 @@ __device__ __forceinline__ void tile_traverse(
     cap = t_max[i];
   }
   const bool live = walker && i < n_rays && cap > 0.0f;
-  const float ix = safe_inv(r.dx), iy = safe_inv(r.dy), iz = safe_inv(r.dz);
+  // A ray with a non-finite origin or a NaN direction hits no row (its
+  // tests give NaN), but fminf/fmaxf drop the NaN of an inf * 0 slab term
+  // and would let it enter every box on its finite axes (the Whitted shadow
+  // rays of a miss start at inf): NaN inverse directions make its every
+  // slab test miss, as the twin finds nothing for it.
+  const bool inert = !(isfinite(r.ox) && isfinite(r.oy) && isfinite(r.oz)) || isnan(r.dx) ||
+                     isnan(r.dy) || isnan(r.dz);
+  const float nan = __int_as_float(0x7fffffff);
+  const float ix = inert ? nan : safe_inv(r.dx), iy = inert ? nan : safe_inv(r.dy),
+              iz = inert ? nan : safe_inv(r.dz);
   if (walker) {
     ray[0 * TILE + t] = r.ox; ray[1 * TILE + t] = r.oy; ray[2 * TILE + t] = r.oz;
     ray[3 * TILE + t] = r.dx; ray[4 * TILE + t] = r.dy; ray[5 * TILE + t] = r.dz;
@@ -412,7 +422,8 @@ __device__ __forceinline__ void tile_traverse(
                        : tri_row(rq, blk + k, leaf_k, t_min, qcap);
           int lr = lt < INF ? k : INT_MAX;
           warp_argmin(lt, lr);
-          if (lane == 0 && lt < qcap)
+          // INF is a miss, also below an infinite t_max (the twin's rule)
+          if (lane == 0 && lt < qcap && lt < INF)
             atomicMin(&key[qq], ray_key(kAnyHit ? -1.0f : lt,
                                         static_cast<unsigned>(leaf * leaf_k + lr)));
         }

@@ -40,8 +40,16 @@ image depends on is computed in torch. `remat` recomputes each bounce in
 the backward pass (`torch.utils.checkpoint`) instead of keeping its
 intermediates. The fused path runs kernels without a backward and raises
 under autograd. `tonemap` maps the finished image (`ops/tonemap`). The
-fused path refuses textured scenes; bidirectional mode raises
-`NotImplementedError` naming its ROADMAP item.
+fused path refuses textured scenes.
+
+With `bdpt=True` (bidirectional mode, as in the JAX package) each sample
+builds its light-subpath buffer once (`models/bdpt.build_light_subpaths`,
+keyed by fold_in(fold_in(key, sample), 0x1bb)), the eye-vertex connection
+(`bdpt.connect_eye_vertex`) replaces NEE in the unfused bounce, and with
+`bdpt_splat` the camera-plane splat is added after the bounce loop. BDPT
+always runs the unfused bounce, `fused_shading` or not, as the JAX package
+does. A wavefront of several samples stacks their buffers; each ray reads
+its own sample's (slot // pixels, which compaction carries along).
 """
 
 from __future__ import annotations
@@ -54,7 +62,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..core import camera as cam_mod, rng, vecmath as vm
-from ..models import bsdf, fur, shading
+from ..models import bdpt as bdpt_mod, bsdf, fur, shading
 from ..models.shade_core import CoreCfg, _w3 as w3
 from ..ops import compact, intersect as isect, tonemap, traverse
 from ..ops.cuda import shade as cshade
@@ -130,9 +138,7 @@ class BounceTables:
 
 
 def check_supported(scene: DeviceScene, cfg: RenderConfig) -> None:
-    """Raise NotImplementedError for what the port does not run yet."""
-    if cfg.bdpt:
-        raise NotImplementedError("bidirectional mode is not ported yet (ROADMAP M11)")
+    """Raise NotImplementedError for what the port does not run."""
     if cfg.joint_shadows:
         raise NotImplementedError("joint closest+shadow traversal measured negative "
                                   "and is not ported (ROADMAP, do-not-port list)")
@@ -227,7 +233,7 @@ def trace_bounce_fused(state: RayState, scene: DeviceScene, keys: torch.Tensor,
 
 
 def trace_bounce(state: RayState, scene: DeviceScene, keys: torch.Tensor, bounce: int,
-                 cfg: RenderConfig, n_alive=None) -> RayState:
+                 cfg: RenderConfig, n_alive=None, subpaths=None, sample=None) -> RayState:
     """One unfused wavefront bounce (the JAX package's `trace_bounce`,
     traceRays' body): trace, then shade per shader in torch. The bounce's
     uniforms are tags 0-3 of `rng.bounce_uniforms` (and 4 under RR), the
@@ -235,7 +241,10 @@ def trace_bounce(state: RayState, scene: DeviceScene, keys: torch.Tensor, bounce
     traversal by it, but its ray sort permutes and its Hit is the same per
     ray, so the port traces whole wavefronts. `n_alive`: the live prefix of
     a compacted wavefront, passed to the closest hit and the NEE shadow
-    any-hit."""
+    any-hit. With `cfg.bdpt` and a light-subpath buffer `subpaths` the
+    connection to it replaces NEE (`sample` [R]: each ray's sample in a
+    stacked buffer); lanes without a geometry hit connect with t_max = 0,
+    their term being unused."""
     check_supported(scene, cfg)
     active = (state.radiance != 0.0).any(-1)
     do_trace = active & (state.direction != 0.0).any(-1)
@@ -293,10 +302,16 @@ def trace_bounce(state: RayState, scene: DeviceScene, keys: torch.Tensor, bounce
     counter = -vm.normalize(state.direction)
     u = rng.bounce_uniforms(keys, bounce, 5 if cfg.rr else 4, 2)  # [tags, R, 2]
 
-    # NEE, shared by both shaders (calcDirectLight)
-    nee = shading.calc_direct_light_mis if cfg.mis else shading.calc_direct_light
-    direct = nee(scene, mp, hit, state.direction, u[1, :, 0], u[2], active=hit_geom,
-                 n_alive=n_alive)
+    # NEE, shared by both shaders (calcDirectLight); in BDPT mode the
+    # light-subpath connection replaces it (pt_shade.compute:146)
+    if cfg.bdpt and subpaths is not None:
+        direct = bdpt_mod.connect_eye_vertex(scene, subpaths, u[2], hit.position, n,
+                                             state.direction, mp, bounce, sample=sample,
+                                             active=hit_geom, n_alive=n_alive)
+    else:
+        nee = shading.calc_direct_light_mis if cfg.mis else shading.calc_direct_light
+        direct = nee(scene, mp, hit, state.direction, u[1, :, 0], u[2], active=hit_geom,
+                     n_alive=n_alive)
     # ambient = env_ambient * evaluateLight(n, n) / pi (SimpleShader.h:47)
     ambient = scene.env.ambient * bsdf.evaluate_light(mp, n, n, n) / math.pi
     accum = (direct + ambient) * radiance
@@ -397,30 +412,43 @@ def _render_samples(scene: DeviceScene, camera: cam_mod.Camera, pixel_ids: torch
                     tables: Optional[BounceTables] = None) -> torch.Tensor:
     """Samples `sample_ids` for the global `pixel_ids`, traced as one
     wavefront -> `[S, R, 3]`: `trace_bounce_fused` a bounce with
-    `cfg.fused_shading`, else `trace_bounce` (the JAX package's
-    `render_sample_ids` dispatch). With `cfg.compact` the whole wavefront is
-    compacted after each bounce (the live rays first, their keys and pixel
-    slots with them) and the colour scattered back by slot; with
-    `cfg.remat`, while autograd records, each bounce is recomputed in the
-    backward pass instead of keeping its intermediates."""
+    `cfg.fused_shading` (and not `cfg.bdpt`), else `trace_bounce` (the JAX
+    package's `render_sample_ids` dispatch). With `cfg.compact` the whole
+    wavefront is compacted after each bounce (the live rays first, their
+    keys and pixel slots with them) and the colour scattered back by slot;
+    with `cfg.remat`, while autograd records, each bounce is recomputed in
+    the backward pass instead of keeping its intermediates. With `cfg.bdpt`
+    (and lights) each sample's light subpaths are built first and stacked;
+    a ray's sample is its slot // len(pixel_ids)."""
     check_supported(scene, cfg)
     state, keys = camera_wavefront(camera, pixel_ids, key, sample_ids, cfg)
-    if cfg.fused_shading:
+    use_fused = cfg.fused_shading and not cfg.bdpt
+    if use_fused:
         tables = BounceTables.of(scene) if tables is None else tables
+    subpaths = None
+    if cfg.bdpt and scene.lights.count:
+        key = key.to(keys.device)
+        subpaths = bdpt_mod.stack_subpaths([bdpt_mod.build_light_subpaths(
+            scene, rng.fold_in(rng.fold_in(key, s), 0x1BB), cfg.bdpt_samples_per_light,
+            cfg.bdpt_bounces) for s in sample_ids])
+    n_pix = pixel_ids.shape[0]
 
-    def step(st, ks, b, n_alive):
-        if cfg.fused_shading:
+    def step(st, ks, b, n_alive, sample):
+        if use_fused:
             return trace_bounce_fused(st, scene, ks, b, cfg, tables, n_alive=n_alive)
-        return trace_bounce(st, scene, ks, b, cfg, n_alive=n_alive)
+        return trace_bounce(st, scene, ks, b, cfg, n_alive=n_alive, subpaths=subpaths,
+                            sample=sample)
 
     remat = cfg.remat and torch.is_grad_enabled()
+    keys0 = keys
     slot, n_alive = torch.arange(keys.shape[0], device=keys.device), None
     for b in range(cfg.depth):
+        sample = slot // n_pix if subpaths is not None else None
         if remat:
-            state = torch.utils.checkpoint.checkpoint(step, state, keys, b, n_alive,
+            state = torch.utils.checkpoint.checkpoint(step, state, keys, b, n_alive, sample,
                                                       use_reentrant=False)
         else:
-            state = step(state, keys, b, n_alive)
+            state = step(state, keys, b, n_alive, sample)
         if cfg.compact:
             perm, n_alive = compact.compaction_permutation((state.radiance != 0.0).any(-1))
             state = compact.gather_fields(state, perm)
@@ -428,7 +456,13 @@ def _render_samples(scene: DeviceScene, camera: cam_mod.Camera, pixel_ids: torch
     color = state.color
     if cfg.compact:
         color = torch.zeros_like(color).index_copy(0, slot, color)
-    return color.reshape(len(sample_ids), pixel_ids.shape[0], 3)
+    if subpaths is not None and cfg.bdpt_splat:
+        # the splat takes the un-permuted keys and pixel ids (as in JAX)
+        ids = torch.arange(keys0.shape[0], device=keys0.device)
+        color = color + bdpt_mod.splat_image_plane(scene, camera, subpaths,
+                                                   pixel_ids.repeat(len(sample_ids)), keys0,
+                                                   sample=ids // n_pix)
+    return color.reshape(len(sample_ids), n_pix, 3)
 
 
 def render_sample_ids(scene: DeviceScene, camera: cam_mod.Camera, pixel_ids: torch.Tensor,
@@ -456,7 +490,7 @@ def render_image(scene: DeviceScene, camera: cam_mod.Camera, key: torch.Tensor,
     check_supported(scene, cfg)
     w, h = camera.resolution
     bsz = cfg.spp_batch if cfg.spp_batch > 1 and cfg.spp % cfg.spp_batch == 0 else 1
-    tables = BounceTables.of(scene) if cfg.fused_shading else None
+    tables = BounceTables.of(scene) if cfg.fused_shading and not cfg.bdpt else None
     pixel_ids = torch.arange(w * h, device=scene.device)
     acc = torch.zeros((w * h, 3), dtype=torch.float32, device=scene.device)
     for i in range(cfg.spp // bsz):

@@ -452,19 +452,6 @@ def _phi(c0, c1):
     return torch.atan2(c0, torch.where(degenerate, 1.0, c1))
 
 
-def _rotate(v, axis, angle):
-    """Rodrigues rotation about `axis` by `angle` [R] (vm.rotate_about_axis)."""
-    c = torch.cos(angle)[..., None]
-    s = torch.sin(angle)[..., None]
-    a = vm.normalize(axis)
-    return v * c + vm.cross(a, v) * s + a * (vm.dot(a, v)[..., None] * (1.0 - c))
-
-
-def _angle_between(a, b):
-    d = vm.dot(vm.normalize(a), vm.normalize(b))
-    return torch.acos(torch.clamp(d, -1.0 + 1e-7, 1.0 - 1e-7))
-
-
 def _deon_M(v, theta_i, theta_r, radians_quirk: bool):
     """d'Eon's longitudinal term with the reference's mixed radians()/
     degrees() quirk on the R lobe (Bsdf.cpp:993-995) and MSVC _j0."""
@@ -512,7 +499,7 @@ def _marschner(mp: CoreMat, nin, n, fu, fv, fw, flags, p_choice):
     alpha, beta = mp.hair_alpha, mp.hair_beta
     theta_i = _theta(*_to_cyl(nin, fu, fv, fw))
     nf = vm.faceforward(n, -nin, n)
-    gamma_i = _angle_between(nin, vm.normalize(n))
+    gamma_i = vm.angle_between(nin, vm.normalize(n))
     h = torch.sin(gamma_i)
     b1, b2 = _bravais(mp.ior, gamma_i)
     fresnel = dielectric_fresnel(gamma_i, b1, b2)
@@ -520,7 +507,7 @@ def _marschner(mp: CoreMat, nin, n, fu, fv, fw, flags, p_choice):
     ones = torch.ones_like(h)
     zeros = torch.zeros_like(h)
 
-    wo_r = _rotate(vm.reflect(-nin, nf), fv, -alpha)
+    wo_r = vm.rotate_about_axis(vm.reflect(-nin, nf), fv, -alpha)
     th_r = _theta(*_to_cyl(wo_r, fu, fv, fw))
     th_h, th_d = 0.5 * (th_r + theta_i), 0.5 * (th_r - theta_i)
     pdf_r = normal_gauss_pdf(th_h - alpha, 0.0, beta)
@@ -537,7 +524,7 @@ def _marschner(mp: CoreMat, nin, n, fu, fv, fw, flags, p_choice):
     inv_root = _safe_div(1.0, torch.sqrt(torch.clamp(1.0 - h * h, min=_HAIR_EPS)))
     pi3 = math.pi ** 3
 
-    wo_tt = _rotate(vm.refract(-nin, nf, 1.0), fv, alpha / 2.0)
+    wo_tt = vm.rotate_about_axis(vm.refract(-nin, nf, 1.0), fv, alpha / 2.0)
     th_r_tt = _theta(*_to_cyl(wo_tt, fu, fv, fw))
     th_h_tt, th_d_tt = 0.5 * (th_r_tt + theta_i), 0.5 * (th_r_tt - theta_i)
     pdf_tt = normal_gauss_pdf(th_h_tt + alpha / 2.0, 0.0, beta / 2.0)
@@ -555,7 +542,7 @@ def _marschner(mp: CoreMat, nin, n, fu, fv, fw, flags, p_choice):
           torch.full_like(flags, MATFLAG_CYLINDER_TR_BOUNCE | MATFLAG_CYLINDER_T_BOUNCE
                           | MATFLAG_SPECULAR_BOUNCE), zeros)
 
-    wo_trt = _rotate(vm.refract(-nin, nf, 1.0), fv, 3.0 * alpha / 2.0)
+    wo_trt = vm.rotate_about_axis(vm.refract(-nin, nf, 1.0), fv, 3.0 * alpha / 2.0)
     th_r_trt = _theta(*_to_cyl(wo_trt, fu, fv, fw))
     th_h_trt, th_d_trt = 0.5 * (th_r_trt + theta_i), 0.5 * (th_r_trt - theta_i)
     pdf_trt = normal_gauss_pdf(th_h_trt + 3.0 * alpha / 2.0, 0.0, 2.0 * beta)
@@ -580,13 +567,13 @@ def _deon(mp: CoreMat, nin, n, fu, fv, fw, flags, p_choice):
     ior = mp.ior
     theta_i = _theta(ic0, ic1, ic2)
     phi_i = _phi(ic0, ic1)
-    gamma_i = _angle_between(nin, vm.normalize(n))
+    gamma_i = vm.angle_between(nin, vm.normalize(n))
     h = torch.sin(gamma_i)
     nf = vm.faceforward(n, -nin, n)
     zero3 = torch.zeros_like(nin)
     ones = torch.ones_like(h)
 
-    wo_r = _rotate(vm.reflect(-nin, nf), fv, -alpha)
+    wo_r = vm.rotate_about_axis(vm.reflect(-nin, nf), fv, -alpha)
     rc0, rc1, rc2 = _to_cyl(wo_r, fu, fv, fw)
     m_r = _deon_M(beta * beta, theta_i, _theta(rc0, rc1, rc2), radians_quirk=True)
     d_r = 0.25 * torch.cos(_phi(rc0, rc1) - phi_i / 2.0).abs()
@@ -600,7 +587,7 @@ def _deon(mp: CoreMat, nin, n, fu, fv, fw, flags, p_choice):
                          MATFLAG_CYLINDER_T_BOUNCE).to(torch.int32), theta_i)
 
     def exit_lobe(angle, lobe_beta, trt: bool):
-        wo = _rotate(vm.refract(-nin, nf, 1.0), fv, angle)
+        wo = vm.rotate_about_axis(vm.refract(-nin, nf, 1.0), fv, angle)
         c0, c1, c2 = _to_cyl(wo, fu, fv, fw)
         theta_r = _theta(c0, c1, c2)
         theta_d = 0.5 * (theta_r - theta_i)

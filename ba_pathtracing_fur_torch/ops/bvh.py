@@ -97,7 +97,9 @@ def morton_codes(points: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> to
     of points [N,3] normalized into [lo, hi]. The spread of each 10-bit
     coordinate comes from a table, and the three spread words, whose bits
     do not overlap, are summed: two launches where the bit arithmetic takes
-    twelve."""
+    twelve. A NaN coordinate (an entry point of a ray whose direction
+    overflows: the Whitted raytracer's shadow rays from a miss at 3.4e38)
+    gets cell 0, as XLA converts NaN to an unsigned 0."""
     lut = _MORTON_LUT.get(points.device)
     if lut is None:
         e = _expand_bits_10(torch.arange(1024, dtype=torch.int64))
@@ -105,6 +107,7 @@ def morton_codes(points: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> to
         _MORTON_LUT[points.device] = lut
     extent = torch.clamp(hi - lo, min=1e-12)
     q = torch.clamp((points - lo) / extent, 0.0, 1.0 - 1e-7)
+    q = torch.where(torch.isnan(q), 0.0, q)
     return lut.gather(0, (q * 1024.0).to(torch.int64)).sum(1, dtype=torch.int32)
 
 

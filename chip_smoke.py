@@ -51,6 +51,25 @@ gradients with the kernels against those with the plain versions on the
 card at 128x128; it prints the seconds of a forward, a forward plus
 backward and a fit step, and the peak device memory with remat off and on.
 
+The Whitted raytracer and BDPT run on the scenes of configs 4 and 5, each
+through the entry point a user calls: `models/whitted.render_whitted` on
+the fur patch at 512x512 with hair_lobes "all" (the reference's default
+depth 8, hard shadows, the TT and TRT rays traced from inside the fibers)
+and "r" (W4), and on the 1M-fiber hair ball at 1024x1024 (W5: K3 and K5);
+`render_image(bdpt=True)` on the fur patch at 512x512, depth 4, spp 8,
+every other field at the JAX package's default (B4). Each prints its wall
+seconds, traced rays/s (every ray a traversal call receives with t_max > 0)
+and pixels/s, the DFS's iterations and live lanes, its launches (each
+traversal kernel once a traversal call, no plain version) and peak device
+memory, and W4 and B4 a traced render. The traversal kernels are held to
+their twins on the engines' first iteration or sample of traffic: the
+nodes' rays, the shadow rays toward each light (t_max 1 on unnormalized
+directions, |d| ~1e16 toward a sun, non-finite from a miss, dead lanes at
+0), the TT and TRT rays, the light-subpath walks, and the connection and
+splat rays with their per-ray t_max. At a small size each engine's image
+through the kernels equals its image through the plain versions bit for
+bit.
+
 The traversal kernels (K2, K3) run, as on the main path, on rays sorted by
 the entry-morton key (`ops/traverse._entry_morton_perms`): each is held
 against its plain version on the sorted rays (found, t and closest-hit rows
@@ -67,8 +86,10 @@ that is the card's name and power limit. Before those lines it prints the
 render times (rays/s) through the kernels and through the plain versions,
 the BVH build times, the per-kernel work counts behind the bounds, and a
 torch.profiler breakdown of one config-0, config-4 and config-5 sample. The
-images go to `smoke_out/smoke_config0.png`, `smoke_out/smoke_fur_patch.png`
-and `smoke_out/smoke_hair_ball.png` (git-ignored).
+images go to `smoke_out/` (git-ignored): `smoke_config0.png`,
+`smoke_fur_patch.png`, `smoke_hair_ball.png`, `smoke_config3.png`, the
+Whitted renders `smoke_whitted_<scene>_<lobes>.png` and
+`smoke_bdpt_fur_patch.png`.
 """
 
 from __future__ import annotations
@@ -138,6 +159,24 @@ MID_HAIRBALL = dict(res=(256, 256), n_fibers=20_000, depth=3, spp=1)
 GRAD = dict(depth=4, spp=1)
 FIT_STEPS, HAIR_BETA_SHIFT, FD_EPS, FD_REL = 3, 3.0, 1e-2, 0.05
 GRAD_TWIN_RES, GRAD_TWIN_TOL = (128, 128), 1e-4
+# The Whitted raytracer and BDPT on the scenes of configs 4 and 5. W4: the
+# fur patch at 512^2, WhittedConfig(hair_lobes="all") -- the reference's
+# default depth 8 (CPU_Raytracer.h:75), hard shadows, all three lobes traced
+# as the thesis does -- and once with the default hair_lobes="r"; W5: the
+# 1M-fiber hair ball at 1024^2, hair_lobes="all"; B4: BDPT on the fur patch
+# at 512^2, RenderConfig(depth=4, spp=8, bdpt=True) with every other field
+# at the JAX package's default (compaction on, unfused, 8 samples a light,
+# 3 bounces, the splat on). No cut.
+B4 = dict(depth=4, spp=8)
+# The traversal kernels held to their twins on the engines' traffic: K2 and
+# K3 on TRAFFIC_TWIN_RAYS live rays (and 64 dead ones) of each wavefront.
+TRAFFIC_TWIN_RAYS = 1024
+# The engines' kernels-vs-plain bit-equality gates at a small size: the fur
+# patch at 128^2 with 400 fibers a face (7,200 cones, a median cone BVH: K2)
+# and a hair ball of 20,000 fibers at 160^2 (a two-level cone BVH: K3; 160^2
+# rays x 768 scalp triangles reach K5's 2^24 pairs).
+SMALL_FUR = dict(res=(128, 128), fibers_per_face=400)
+SMALL_HAIRBALL = dict(res=(160, 160), n_fibers=20_000)
 TIMED_REPS = 3
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3;
 # INT32 (the Hopper architecture white paper), for the shade kernel's threefry.
@@ -519,18 +558,24 @@ def phase_timing(scene, cam, key, cfg, name="config0", with_plain=True) -> dict:
 
 
 def phase_profile(scene, cam, key, cfg, name="config-0", marks=("full_bounce",)) -> dict:
-    """Where one sample's time goes: device time by kernel under
-    torch.profiler, against the host wall clock of the same traced run;
-    `kernel_ms` / `kernel_launches` are the device milliseconds and launches
-    of the kernels whose names hold each of `marks`."""
+    """Where one sample's time goes: `profile_call` of a spp-1 render."""
+    cfg = dataclasses.replace(cfg, spp=1)
+    return profile_call(lambda: render(scene, cam, key, cfg), f"{name} sample", marks)
+
+
+def profile_call(fn, name, marks) -> dict:
+    """Device time by kernel of one call of `fn` (ending in a sync) under
+    torch.profiler, after a warm-up call, against the host wall clock of
+    the same traced run; `kernel_ms` / `kernel_launches` are the device
+    milliseconds and launches of the kernels whose names hold each of
+    `marks`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = dataclasses.replace(cfg, spp=1)
-    render(scene, cam, key, cfg)
+    fn()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        render(scene, cam, key, cfg)
+        fn()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(dev_us(e) for e in kernels) / 1e6
@@ -542,7 +587,7 @@ def phase_profile(scene, cam, key, cfg, name="config-0", marks=("full_bounce",))
         kernel_launches[mark] = sum(e.count for e in kernels if mark in e.key)
         parts.append(f"{mark} {t:.5f} s = {t / max(busy, 1e-12):.4f} of device time "
                      f"({kernel_launches[mark]} launches)")
-    log(f"profile, one {name} sample (traced): wall {wall:.4f} s, device busy {busy:.4f} s "
+    log(f"profile, one {name} (traced): wall {wall:.4f} s, device busy {busy:.4f} s "
         f"(idle share {max(0.0, 1.0 - busy / wall):.3f}), {launches} kernel launches, "
         + ", ".join(parts))
     for e in sorted(kernels, key=dev_us, reverse=True)[:6]:
@@ -1647,10 +1692,318 @@ def phase_unfused_vs_fused(dev) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def traffic(rec: dict, keep: int = 0):
+    """Count every `traverse.closest_hit` / `any_hit` call into `rec`: its
+    calls, and its traced rays (t_max > 0) as a device tensor; keep the
+    ("closest" | "any", o, d, t_max) of the first `keep` calls in
+    rec["kept"]."""
+    from ba_pathtracing_fur_torch.ops import traverse
+
+    closest_fn, any_fn = traverse.closest_hit, traverse.any_hit
+    rec.update(calls=0, rays=0, kept=[])
+
+    def note(kind, o, d, t_max):
+        t_max = traverse._t_max_of(t_max, o.shape[0], o)
+        rec["calls"] += 1
+        rec["rays"] = rec["rays"] + (t_max > 0).sum()
+        if len(rec["kept"]) < keep:
+            rec["kept"].append((kind, o.detach(), d.detach(), t_max.detach()))
+        return t_max
+
+    def closest(o, d, scene, *a, **k):
+        k["t_max"] = note("closest", o, d, k.get("t_max", traverse.INF))
+        return closest_fn(o, d, scene, *a, **k)
+
+    def any_(o, d, scene, t_max, *a, **k):
+        return any_fn(o, d, scene, note("any", o, d, t_max), *a, **k)
+
+    traverse.closest_hit, traverse.any_hit = closest, any_
+    try:
+        yield rec
+    finally:
+        traverse.closest_hit, traverse.any_hit = closest_fn, any_fn
+
+
+def live_subset(t_max: torch.Tensor, k: int, n_dead: int = 64) -> torch.Tensor:
+    """Up to k indices spread over the live rays (t_max > 0) and up to
+    n_dead over the dead ones."""
+    out = []
+    for idx, m in ((torch.nonzero(t_max > 0)[:, 0], k), (torch.nonzero(t_max <= 0)[:, 0],
+                                                         n_dead)):
+        m = min(m, idx.numel())
+        if m:
+            out.append(idx[spread(idx.numel(), m, t_max.device)])
+    return torch.cat(out)
+
+
+def hold_traffic(kind, o, d, t_max, scene, what) -> dict:
+    """The traversal kernels of `scene` on one captured wavefront of the
+    Whitted or BDPT engines, as `closest_hit` / `any_hit` feed them (sorted
+    by the entry-morton key of the cone BVH): K2 (flat BVH) or K3 (two-level)
+    against its twin on TRAFFIC_TWIN_RAYS live rays and 64 dead ones spread
+    over the wavefront (found and t bit for bit, rows on closest hits), K3
+    also against K2 on the whole wavefront; K5 on a BVH-less triangle pack
+    big enough for it against its twin on every ray; and each kernel on the
+    unsorted rays equal to itself on the sorted ones. Times the kernels on
+    the sorted rays."""
+    from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.ops.cuda import intersect as cisect, stream as cstream, \
+        traverse as ctraverse
+
+    any_hit = kind == "any"
+    bvh = scene.cone_bvh
+    so, sd, st, perm = sorted_rays(o, d, t_max, bvh)
+    sub = live_subset(st, TRAFFIC_TWIN_RAYS)
+    two_level = traverse._two_level(bvh)
+    fn = lambda a, b, c: (cstream.traverse_stream if two_level else ctraverse.traverse)(  # noqa
+        a, b, c, bvh, "cone", any_hit=any_hit)
+    ref = cstream.traverse_stream_ref if two_level else ctraverse.traverse_ref
+    t1, r1, f1 = fn(so, sd, st)
+    t0, r0, f0 = ref(so[sub], sd[sub], st[sub], bvh, "cone", any_hit=any_hit)
+    torch.cuda.synchronize()
+    mis = dict(found=int((f0 != f1[sub]).sum()), t=int((t0 != t1[sub]).sum()))
+    if not any_hit:
+        mis["rows"] = int((r0 != r1[sub]).sum())
+    if two_level:
+        t2, r2, f2 = ctraverse.traverse(so, sd, st, dataclasses.replace(bvh, fanout=0), "cone",
+                                        any_hit=any_hit)
+        torch.cuda.synchronize()
+        mis.update(k2_found=int((f2 != f1).sum()), k2_t=int((t2 != t1).sum()))
+        if not any_hit:
+            mis["k2_rows"] = int((r2 != r1).sum())
+    name = "traverse_stream" if two_level else "traverse"
+    live = int((t_max > 0).sum())
+    res = dict(rays=o.shape[0], live=live, found=int(f1.sum()), twin_rays=int(sub.numel()),
+               mismatches=mis, max_abs_err=float((t0 - t1[sub]).abs().max()) if sub.numel()
+               else 0.0, ms=timed(lambda: fn(so, sd, st), 3))
+    nonfinite = int((~torch.isfinite(o).all(-1) | ~torch.isfinite(d).all(-1)).sum())
+    log(f"{name} cone {kind} hit, {what} (sorted): {o.shape[0]} rays, {live} with t_max > 0, "
+        f"{nonfinite} with a non-finite origin or direction, |d| up to "
+        f"{float(torch.nan_to_num(d.norm(dim=-1), nan=0.0, posinf=3.4e38).max()):.3e}; found "
+        f"{res['found']}; vs twin on {res['twin_rays']} rays: mismatches {mis}; "
+        f"{res['ms']:.4f} ms")
+    if any(mis.values()):
+        raise AssertionError(f"{name} {what}: kernel disagrees with plain")
+    same_unsorted(fn, (o, d, t_max), perm, (t1, r1, f1), any_hit, f"{name} {what}")
+    tris = scene.tris
+    if scene.tri_bvh is None and tris.count and traverse._use_brute(o, tris):
+        tables = cisect.tables_of(tris, "tri")
+        tk, ik = cisect.closest(so, sd, st, tables, "tri")
+        tp, ip = cisect.closest_ref(so, sd, st, tables, "tri")
+        tu, iu = cisect.closest(o, d, t_max, tables, "tri")
+        torch.cuda.synchronize()
+        bad = dict(t=int((tk != tp).sum()), index=int((ik != ip).sum()),
+                   unsorted=int((tu[perm] != tk).sum() + (iu[perm] != ik).sum()))
+        res["k5"] = dict(hits=int((ik >= 0).sum()), mismatches=bad,
+                         max_abs_err=float(torch.nan_to_num((tk - tp).abs()).max()),
+                         ms=timed(lambda: cisect.closest(so, sd, st, tables, "tri"), 3))
+        log(f"bruteforce tri, {what} (sorted): {o.shape[0]} rays x {tris.count} triangles, "
+            f"hits {res['k5']['hits']}; mismatches {bad}; {res['k5']['ms']:.4f} ms")
+        if any(bad.values()):
+            raise AssertionError(f"bruteforce tri {what}: kernel disagrees with plain")
+    return res
+
+
+def traffic_names(scene, lobes: str) -> list:
+    """The traversal calls of one Whitted iteration, in order: the nodes'
+    closest hit, a shadow any-hit a light, then (hair_lobes "all") the TT
+    and TRT closest hits."""
+    kinds = {0: "point", 1: "quad", 2: "spot", 3: "sun"}
+    names = ["node"] + [f"{kinds[int(k)]} shadow" for k in scene.lights.kind.tolist()]
+    return names + (["TT", "TRT"] if lobes == "all" else [])
+
+
+def timed_wall(fn, reps: int = TIMED_REPS) -> list:
+    """Wall seconds of `reps` calls of `fn` (each ending in a sync)."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def counted_run(fn, keep: int = 0) -> dict:
+    """One run of `fn` (a render on the card, its counts reset, under
+    `traffic`) -> its image, wall seconds, kernel launches, traversal calls,
+    traced rays, the first `keep` calls' rays, and peak device memory."""
+    rec = {}
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with traffic(rec, keep=keep):
+        img = fn()
+        torch.cuda.synchronize()
+    return dict(img=img, first_s=time.perf_counter() - t0, counts=read_counts(),
+                calls=rec["calls"], traced_rays=int(rec["rays"]), kept=rec["kept"],
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def phase_whitted(name, scene, cam, card, kernels, profile=False, lobes=("all", "r")) -> dict:
+    """render_whitted on a full-size scene (W4, W5) through the kernels:
+    WhittedConfig(hair_lobes="all") (the reference's default depth 8, hard
+    shadows, all three lobes traced) and the default hair_lobes="r". For
+    each: the image, the DFS's iterations and live lanes, the launches (each
+    of `kernels` once a traversal call, no plain version), wall seconds
+    (median of TIMED_REPS), traced rays/s and pixels/s, peak device
+    memory; for "all", the kernels held to their twins on the first
+    iteration's traffic (the nodes' camera rays, each light's shadow rays
+    with their dead lanes, the TT and TRT rays from inside the fibers) and,
+    with `profile`, a traced render."""
+    from ba_pathtracing_fur_torch.models import whitted
+    from ba_pathtracing_fur_torch.utils import film
+
+    w, h = cam.resolution
+    out = {}
+    for lb in lobes:
+        cfg = whitted.WhittedConfig(hair_lobes=lb)
+        names = traffic_names(scene, lb)
+        fn = lambda: whitted.render_whitted(scene, cam, cfg)  # noqa: E731
+        run = counted_run(fn, keep=len(names) if lb == "all" else 0)
+        live = [list(x) for x in whitted.LAST_QUEUE_LIVE]
+        iters = sum(len(x) for x in live)
+        if run["calls"] != iters * len(names):
+            raise AssertionError(f"{name} {lb}: {run['calls']} traversal calls for {iters} "
+                                 f"iterations of {len(names)}")
+        check_counts(run["counts"], f"{name} {lb}", **{k: run["calls"] for k in kernels})
+        a = check_image(run.pop("img"), (h, w, 3), f"{name} {lb}")
+        walls = timed_wall(fn)
+        med, rays = float(np.median(walls)), run["traced_rays"]
+        log(f"{name} whitted hair_lobes={lb!r} ({w}x{h}, depth {cfg.depth}): {iters} DFS "
+            f"iterations, live lanes {live}; {run['calls']} traversal calls, launches "
+            f"{run['counts']}; traced rays {rays}; wall median {med:.4f} s of {walls} (counted "
+            f"run {run['first_s']:.4f} s) -> {rays / med:.4e} traced rays/s, "
+            f"{w * h / med:.4e} pixels/s; peak device memory {run['peak_gib']:.2f} GiB; image "
+            f"max {a.max():.4f}, mean {a.mean():.5f}; on {card}")
+        OUT_DIR.mkdir(exist_ok=True)
+        film.write_png(OUT_DIR / f"smoke_whitted_{name}_{lb}.png", a)
+        kept = run.pop("kept")
+        res = dict(run, iterations=iters, live=live, walls=walls, wall=med,
+                   rays_per_s=rays / med, pixels_per_s=w * h / med)
+        if lb == "all":
+            res["held"] = {n: hold_traffic(kind, o, d, t, scene, f"{name} whitted {n} rays")
+                           for n, (kind, o, d, t) in zip(names, kept)}
+            if profile:
+                res["profile"] = profile_call(lambda: (fn(), torch.cuda.synchronize()),
+                                              f"{name} whitted render", ("traverse_kernel",))
+        del kept
+        out[lb] = res
+    return out
+
+
+def phase_bdpt(scene, cam, card) -> dict:
+    """B4: render_image(bdpt=True) on config 4's fur patch at full size
+    through the kernels (depth 4, spp 8, every other field at the JAX
+    package's default: compaction on, unfused, 8 samples a light, 3
+    bounces, the splat on): K2 once a traversal call (the light-subpath
+    walks, the camera and bounce closest hits, 3 connections a bounce, the
+    splat's 3), no plain version; the image, wall seconds (median of
+    TIMED_REPS), traced rays/s and pixels/s, peak device memory, a traced
+    sample; K2 held to its twin on every traversal call of the first
+    sample (the walk, the closest hits, the connection and splat rays with
+    their per-ray t_max)."""
+    from ba_pathtracing_fur_torch.core import rng
+    from ba_pathtracing_fur_torch.models import pathtracer as pt
+    from ba_pathtracing_fur_torch.utils import film
+
+    cfg = pt.RenderConfig(depth=B4["depth"], spp=B4["spp"], bdpt=True)
+    key = rng.key(0, scene.device)
+    w, h = cam.resolution
+    names = [f"light-subpath walk {j}" for j in range(1, cfg.bdpt_bounces)]
+    for b in range(cfg.depth):
+        names += [f"bounce-{b} closest"] + [f"bounce-{b} connection {j}"
+                                           for j in range(cfg.bdpt_bounces)]
+    names += [f"splat {j}" for j in range(cfg.bdpt_bounces)]
+    run = counted_run(lambda: render(scene, cam, key, cfg), keep=len(names))
+    if run["calls"] != cfg.spp * len(names):
+        raise AssertionError(f"B4: {run['calls']} traversal calls, expected "
+                             f"{cfg.spp * len(names)}")
+    check_counts(run["counts"], "B4", traverse=run["calls"])
+    a = check_image(run.pop("img"), (h, w, 3), "B4")
+    OUT_DIR.mkdir(exist_ok=True)
+    film.write_png(OUT_DIR / "smoke_bdpt_fur_patch.png", a)
+    held = {n: hold_traffic(kind, o, d, t, scene, f"B4 {n} rays")
+            for n, (kind, o, d, t) in zip(names, run.pop("kept"))}
+    walls = timed_wall(lambda: render(scene, cam, key, cfg))
+    med, rays = float(np.median(walls)), run["traced_rays"]
+    prof = phase_profile(scene, cam, key, cfg, name="B4", marks=("traverse_kernel",))
+    log(f"B4 bdpt ({w}x{h}, depth {cfg.depth}, spp {cfg.spp}, {cfg.bdpt_samples_per_light} "
+        f"samples a light, {cfg.bdpt_bounces} bounces, splat {cfg.bdpt_splat}, compact "
+        f"{cfg.compact}): {run['calls']} traversal calls, launches {run['counts']}; traced "
+        f"rays {rays}; wall median {med:.4f} s of {walls} (counted run {run['first_s']:.4f} "
+        f"s) -> {rays / med:.4e} traced rays/s, {w * h * cfg.spp / med:.4e} pixel samples/s; "
+        f"peak device memory {run['peak_gib']:.2f} GiB; image max {a.max():.4f}, mean "
+        f"{a.mean():.5f}; on {card}")
+    return dict(run, walls=walls, wall=med, rays_per_s=rays / med,
+                pixels_per_s=w * h * cfg.spp / med, profile=prof, held=held)
+
+
+def phase_engine_gates(dev) -> dict:
+    """The Whitted and BDPT engines at a small size through the kernels and
+    through their plain versions on the card: the images equal bit for bit
+    (every kernel on these paths is exact against its twin, and the rest is
+    the same torch code). The fur patch (SMALL_FUR, a median cone BVH: K2):
+    Whitted with hair_lobes "all" and BDPT (depth 4, spp 2); a hair ball
+    (SMALL_HAIRBALL, a two-level cone BVH and the BVH-less scalp: K3 and
+    K5): Whitted with hair_lobes "all"."""
+    from ba_pathtracing_fur_torch.core import rng
+    from ba_pathtracing_fur_torch.models import pathtracer as pt, whitted
+    from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.scene import builtins
+
+    c = SMALL_FUR
+    fur, fcam = builtins.fur_patch(resolution=c["res"], fibers_per_face=c["fibers_per_face"],
+                                   device=dev)
+    fur = traverse.attach_bvh(fur)
+    c = SMALL_HAIRBALL
+    ball, bcam = builtins.hair_ball(resolution=c["res"], n_fibers=c["n_fibers"],
+                                    on_device=True, device=dev)
+    ball = traverse.attach_bvh(ball, method="median", fanout=64)
+    if not traverse._two_level(ball.cone_bvh) or fur.cone_bvh is None:
+        raise AssertionError("engine gates: unexpected BVHs")
+    wcfg = whitted.WhittedConfig(hair_lobes="all")
+    bcfg = pt.RenderConfig(depth=4, spp=2, bdpt=True)
+    cases = (("whitted fur patch", lambda: whitted.render_whitted(fur, fcam, wcfg),
+              ("traverse",)),
+             ("bdpt fur patch", lambda: render(fur, fcam, rng.key(0, dev), bcfg), ("traverse",)),
+             ("whitted hair ball", lambda: whitted.render_whitted(ball, bcam, wcfg),
+              ("stream", "bruteforce_tri")))
+    out = {}
+    for name, fn, kernels in cases:
+        reset_counts()
+        a = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if any(counts[k] == 0 for k in kernels) or any(
+                v for k, v in counts.items() if k.endswith("_ref")):
+            raise AssertionError(f"{name}: launches {counts}")
+        t0 = time.perf_counter()
+        with plain_bounces():
+            b = fn()
+            torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        shape = a.shape
+        check_image(a, shape, name)
+        equal = torch.equal(a, b)
+        d = (a - b).abs()
+        log(f"{name} {shape[1]}x{shape[0]}: kernels (launches {counts}) vs plain ({plain_s:.2f} "
+            f"s): bit-equal {equal}, max |diff| {d.max().item():.3e} over "
+            f"{int((d > 0).any(-1).sum())} pixels")
+        if not equal:
+            raise AssertionError(f"{name}: the kernels' image differs from the plain one")
+        out[name] = dict(counts=counts, plain_s=plain_s)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
     log(card)
@@ -1668,6 +2021,7 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line or "stack frame" in line:
             log("ptxas:", line.strip())
     kernels_line = drive(dev, card)
+    log(f"smoke total: {time.perf_counter() - t_start:.1f} s, the kernels' build included")
     log(card)
     log(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {
@@ -1716,6 +2070,8 @@ def drive(dev, card: str) -> list:
                                              traverse=2 * cfg4.depth, shade=cfg4.depth)
     grad = phase_gradient(scene4, cam4, dev)
     log(f"gradient phase on {card}: {grad}")
+    w4 = phase_whitted("fur_patch", scene4, cam4, card, ("traverse",), profile=True)
+    b4 = phase_bdpt(scene4, cam4, card)
     del scene4
     tri = phase_tri_bvh(dev)
 
@@ -1735,6 +2091,8 @@ def drive(dev, card: str) -> list:
     compaction["config5"] = phase_compaction(scene5, cam5, cfg5, "config5",
                                              stream=2 * cfg5.depth, bruteforce_tri=2 * cfg5.depth,
                                              shade=cfg5.depth)
+    w5 = phase_whitted("hair_ball", scene5, cam5, card, ("stream", "bruteforce_tri"),
+                       lobes=("all",))
     del scene5
     k5_cone = phase_bruteforce_cone(dev)
     phase_mid_hairball(dev)
@@ -1755,6 +2113,16 @@ def drive(dev, card: str) -> list:
     del scene3
     phase_terrain_gate(dev)
     phase_unfused_vs_fused(dev)
+    phase_engine_gates(dev)
+    for name, r in (("W4", w4["all"]), ("W4 hair_lobes='r'", w4["r"]), ("W5", w5["all"]),
+                    ("B4", b4)):
+        prof = r.get("profile")
+        log(f"{name} on {card}: wall {r['wall']:.4f} s, {r['rays_per_s']:.4e} traced rays/s, "
+            f"{r['pixels_per_s']:.4e} pixels/s, iterations {r.get('iterations', '-')}, "
+            f"launches {r['counts']}, peak {r['peak_gib']:.2f} GiB"
+            + (f", traced: device busy {prof['busy'] * 1e3:.2f} ms, idle share "
+               f"{max(0.0, 1 - prof['busy'] / prof['wall']):.3f}, {prof['launches']} launches"
+               if prof else ""))
 
     t0, s0 = fur[0]["times"], fur[0]["shade"]
     b0 = fur[0]["closest_bound"]
@@ -1779,7 +2147,12 @@ def drive(dev, card: str) -> list:
              any_unsorted_ms=t0["any_unsorted_ms"], any_plain_ms=t0["any_plain_ms"],
              any_bound_ms=fur[0]["any_bound"]["bound_ms"],
              any_bound_by=fur[0]["any_bound"]["bound_by"], sort_ms=t0["sort_ms"],
-             grad_step_launches=grad["step_launches"]),
+             grad_step_launches=grad["step_launches"],
+             whitted_launches=w4["all"]["counts"]["traverse"],
+             whitted_r_launches=w4["r"]["counts"]["traverse"],
+             bdpt_launches=b4["counts"]["traverse"],
+             whitted_traffic_ms={n: x["ms"] for n, x in w4["all"]["held"].items()},
+             bdpt_traffic_ms={n: x["ms"] for n, x in b4["held"].items()}),
         dict(name="traverse_tri", route="cuda",
              source="ba_pathtracing_fur_torch/csrc/traverse.cu",
              replaces="ba_pathtracing_fur_tpu/ops/pallas/traverse.py:247",
@@ -1839,7 +2212,9 @@ def drive(dev, card: str) -> list:
              any_k2_unsorted_ms=h0["times"]["any_k2_unsorted_ms"],
              sort_ms=h0["times"]["sort_ms"], bounce1_ms=hb[1]["times"]["closest_ms"],
              bounce1_bound_ms=hb[1]["closest_bound"]["bound_ms"],
-             bounce1_bound_by=hb[1]["closest_bound"]["bound_by"]),
+             bounce1_bound_by=hb[1]["closest_bound"]["bound_by"],
+             whitted_launches=w5["all"]["counts"]["stream"],
+             whitted_traffic_ms={n: x["ms"] for n, x in w5["all"]["held"].items()}),
         dict(name="bruteforce_tri", route="cuda",
              source="ba_pathtracing_fur_torch/csrc/bruteforce.cu",
              replaces="ba_pathtracing_fur_tpu/ops/pallas/intersect.py:220",
@@ -1855,7 +2230,9 @@ def drive(dev, card: str) -> list:
                                                                        "k5_tri_shadow")),
              **{f"{w}_{k}": hb[f"k5_tri_{w}"][k] for w in ("1", "shadow")
                 for k in ("ms", "unsorted_ms")},
-             **{f"{w}_bound_ms": hb[f"k5_tri_{w}"]["bound"]["bound_ms"] for w in ("1", "shadow")}),
+             **{f"{w}_bound_ms": hb[f"k5_tri_{w}"]["bound"]["bound_ms"] for w in ("1", "shadow")},
+             whitted_launches=w5["all"]["counts"]["bruteforce_tri"],
+             whitted_traffic_ms={n: x["k5"]["ms"] for n, x in w5["all"]["held"].items()}),
         dict(name="bruteforce_cone", route="cuda",
              source="ba_pathtracing_fur_torch/csrc/bruteforce.cu",
              replaces="ba_pathtracing_fur_tpu/ops/pallas/intersect.py:220",

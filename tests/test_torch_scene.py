@@ -119,16 +119,21 @@ def test_sah_bvh_attaches_as_jax():
 
 @pytest.mark.parametrize("change,item", [(dict(bdpt=True), "M11")])
 def test_ineligible_scene_is_refused(change, item):
-    """Fur scenes render through the general bounce now; the render modes
-    it does not run yet are refused on them, naming their ROADMAP item."""
+    """Fur scenes render through the general bounce now. BDPT (ROADMAP M11),
+    once refused on them, is ported: with fused_shading=True it renders
+    through the unfused bounce, as the JAX package does, so the image is
+    the fused_shading=False one bit for bit."""
     from ba_pathtracing_fur_torch.core import rng
     from ba_pathtracing_fur_torch.models import pathtracer as pt
 
+    assert item == "M11"
     ts, tc = builtins.fur_patch(resolution=(4, 4), fibers_per_face=4, device="cpu")
     cfg = pt.RenderConfig(**{**dict(depth=1, spp=1, compact=False, fused_shading=True),
                              **change})
-    with pytest.raises(NotImplementedError, match=item):
-        pt.render_image(ts, tc, rng.key(0, "cpu"), cfg)
+    img = pt.render_image(ts, tc, rng.key(0, "cpu"), cfg)
+    unfused = pt.render_image(ts, tc, rng.key(0, "cpu"),
+                              dataclasses.replace(cfg, fused_shading=False))
+    assert torch.isfinite(img).all() and torch.equal(img, unfused)
 
 
 def test_textured_scene_is_refused():
