@@ -81,7 +81,11 @@ __device__ __forceinline__ float tri_row(const Ray& r, const float* p, int k, fl
 
 // Slab test of a box (lo xyz, hi xyz) with the ray's inverse direction:
 // the entry distance max(tnear, 0), or INF when missed or when the entry
-// lies beyond t_best (an entry equal to t_best is kept).
+// lies beyond t_best (an entry equal to t_best is kept). An inverted box
+// (lo > hi: a padding leaf or unit, which holds no row) is never entered:
+// min/max of its slab terms would span the whole line and let every ray
+// in at 0, and the morton and grid builds put whole runs of padding
+// leaves at the end of the tree.
 __device__ __forceinline__ float slab(const Ray& r, float ix, float iy, float iz, float lox,
                                       float loy, float loz, float hix, float hiy, float hiz,
                                       float t_best) {
@@ -90,7 +94,7 @@ __device__ __forceinline__ float slab(const Ray& r, float ix, float iy, float iz
   float t0z = (loz - r.oz) * iz, t1z = (hiz - r.oz) * iz;
   float tnear = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
   float tfar = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
-  bool hit = tnear <= tfar && tfar >= 0.0f && tnear <= t_best;
+  bool hit = lox <= hix && tnear <= tfar && tfar >= 0.0f && tnear <= t_best;
   return hit ? fmaxf(tnear, 0.0f) : INF;
 }
 

@@ -37,6 +37,19 @@
 // classes come in regions, and grouping a block's rays by shading branch
 // measured no gain (PERF.md), so the kernel does not.
 //
+// Textured scenes (a second instance, kTex): the kernel also stages each
+// material's atlas ids of the six slots the shading consumes (diffuse,
+// specular, volume, emission, transparency, roughness) in shared memory
+// and, for a geometry hit, fetches each textured slot at the hit's uv with
+// the arithmetic of scene/texture.fetch_bilinear: repeat addressing by
+// floor-mod, v flipped to row order, the corner indices clamped as jnp
+// gathers them, the bilinear weights in the same order, with rounded
+// intrinsics so that no multiply-add contracts. A colour slot takes RGB, a
+// scalar slot the length of the RGBA texel; a slot whose id is negative,
+// or that the scene does not texture, keeps the table's value. Four texels
+// a textured slot come from device memory through L2; untextured scenes
+// run the kTex = false instance, which reads no uv and fetches nothing.
+//
 // Built without --use_fast_math (see full_bounce.cu); native trig replaces
 // the Cephes forms of the TPU kernel, so values move by ulps against the
 // JAX package and the tests compare with per-field gates.
@@ -57,6 +70,17 @@ struct ShadeIn {
   const int* mat_id;
   const long long* keys;
   const float *env_color, *env_ambient;
+  const float* uv;  // [R,2], read by the kTex instance only
+};
+
+// A textured scene's textures (ops/cuda/shade.py builds it from the
+// scene's TextureAtlas and the material table).
+struct TexIn {
+  const float* atlas;  // [n_tex, ah, aw, 4] RGBA
+  const int* sizes;    // [n_tex, 2] each texture's own (h, w)
+  const int* ids;      // [n_mats, TEX_SLOTS] atlas index of each consumed slot, -1 = none
+  int n_tex, ah, aw;
+  unsigned slots;      // bit j: slot j is textured in this scene
 };
 
 struct ShadeOut {
@@ -100,18 +124,94 @@ __device__ __forceinline__ int mat_row(int id, int n_mats) {
   return min(max(id, 0), n_mats - 1);
 }
 
-template <bool kHair>
+// the consumed texture slots, in the order of TexIn::ids' columns
+// (models/bsdf.CONSUMED_TEX_SLOTS): four colour slots, then two scalars
+constexpr int TEX_SLOTS = 6, TEX_COLOR_SLOTS = 4;
+
+// jnp's gather index on an axis of length n: negative counts from the end,
+// then clamped.
+__device__ __forceinline__ int jnp_index(int idx, int n) {
+  if (idx < 0) idx += n;
+  return min(max(idx, 0), n - 1);
+}
+
+// torch's / jnp's float x % 1.0: fmod, moved into [0, 1) when negative.
+__device__ __forceinline__ float floor_mod1(float x) {
+  float m = fmodf(x, 1.0f);
+  return (m != 0.0f && m < 0.0f) ? __fadd_rn(m, 1.0f) : m;
+}
+
+__device__ __forceinline__ float lerp2(float a, float b, float f, float g) {
+  // a * g + b * f with g = 1 - f, uncontracted
+  return __fadd_rn(__fmul_rn(a, g), __fmul_rn(b, f));
+}
+
+// The bilinear fetch of atlas texture `tex` (an index >= 0) at uv: the
+// first `ch` channels into c (scene/texture.fetch_bilinear).
+__device__ __forceinline__ void fetch_bilinear(const TexIn& tx, int tex, float2 uv, int ch,
+                                               float* c) {
+  tex = jnp_index(tex, tx.n_tex);
+  const float h = static_cast<float>(__ldg(tx.sizes + 2 * tex));
+  const float w = static_cast<float>(__ldg(tx.sizes + 2 * tex + 1));
+  const float u = floor_mod1(uv.x);
+  const float v = __fsub_rn(1.0f, floor_mod1(uv.y));
+  const float x = __fmul_rn(u, __fsub_rn(w, 1.0f));
+  const float y = __fmul_rn(v, __fsub_rn(h, 1.0f));
+  const int x0 = static_cast<int>(floorf(x)), y0 = static_cast<int>(floorf(y));
+  const int x1 = min(x0 + 1, static_cast<int>(__fsub_rn(w, 1.0f)));
+  const int y1 = min(y0 + 1, static_cast<int>(__fsub_rn(h, 1.0f)));
+  const float fx = __fsub_rn(x, static_cast<float>(x0));
+  const float fy = __fsub_rn(y, static_cast<float>(y0));
+  const float gx = __fsub_rn(1.0f, fx), gy = __fsub_rn(1.0f, fy);
+  const size_t base = static_cast<size_t>(tex) * tx.ah;
+  auto texel = [&](int yy, int xx) {
+    return tx.atlas + ((base + jnp_index(yy, tx.ah)) * tx.aw + jnp_index(xx, tx.aw)) * 4;
+  };
+  const float *c00 = texel(y0, x0), *c01 = texel(y0, x1);
+  const float *c10 = texel(y1, x0), *c11 = texel(y1, x1);
+  for (int k = 0; k < ch; ++k) {
+    const float top = lerp2(__ldg(c00 + k), __ldg(c01 + k), fx, gx);
+    const float bot = lerp2(__ldg(c10 + k), __ldg(c11 + k), fx, gx);
+    c[k] = lerp2(top, bot, fy, gy);
+  }
+}
+
+// The material's textured slots resolved at uv (models/bsdf.fetch_textures).
+__device__ __forceinline__ void texture_mat(sc::Mat& m, const int* ids, float2 uv,
+                                            const TexIn& tx) {
+  float3* colors[TEX_COLOR_SLOTS] = {&m.diffuse, &m.specular, &m.volume, &m.emission};
+  float* scalars[TEX_SLOTS - TEX_COLOR_SLOTS] = {&m.transparency, &m.roughness};
+  for (int j = 0; j < TEX_SLOTS; ++j) {
+    const int id = ids[j];
+    if (!((tx.slots >> j) & 1u) || id < 0) continue;
+    float c[4];
+    if (j < TEX_COLOR_SLOTS) {
+      fetch_bilinear(tx, id, uv, 3, c);
+      *colors[j] = make_float3(c[0], c[1], c[2]);
+    } else {
+      fetch_bilinear(tx, id, uv, 4, c);
+      float s2 = __fmul_rn(c[0], c[0]);
+      for (int k = 1; k < 4; ++k) s2 = __fadd_rn(s2, __fmul_rn(c[k], c[k]));
+      *scalars[j - TEX_COLOR_SLOTS] = sqrtf(s2);
+    }
+  }
+}
+
+template <bool kHair, bool kTex>
 __global__ void __launch_bounds__(BLOCK) shade_kernel(int n_rays, ShadeIn in, ShadeOut out,
                                                       const float* __restrict__ lights,
                                                       const float* __restrict__ mats, int n_mats,
                                                       int bounce, sc::Cfg cfg, bool hair_p_random,
-                                                      bool env_per_ray) {
+                                                      bool env_per_ray, TexIn tex) {
   extern __shared__ float smem[];
   float* s_lights = smem;  // [n_lights, LIGHT_COLS]
   float* s_mats = smem + cfg.n_lights * sc::LIGHT_COLS;  // [n_mats, MAT_COLS]
+  int* s_tex = reinterpret_cast<int*>(s_mats + n_mats * sc::MAT_COLS);  // [n_mats, TEX_SLOTS]
   for (int k = threadIdx.x; k < cfg.n_lights * sc::LIGHT_COLS; k += blockDim.x)
     s_lights[k] = lights[k];
   for (int k = threadIdx.x; k < n_mats * sc::MAT_COLS; k += blockDim.x) s_mats[k] = mats[k];
+  if (kTex)
+    for (int k = threadIdx.x; k < n_mats * TEX_SLOTS; k += blockDim.x) s_tex[k] = tex.ids[k];
   __syncthreads();
 
   int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -132,7 +232,11 @@ __global__ void __launch_bounds__(BLOCK) shade_kernel(int n_rays, ShadeIn in, Sh
   hit.pos = sc::ld3(in.hit_pos + 3 * i);
   hit.normal = sc::ld3(in.hit_normal + 3 * i);
 
-  sc::Mat mp = sc::load_mat(s_mats + mat_row(in.mat_id[i], n_mats) * sc::MAT_COLS);
+  const int row = mat_row(in.mat_id[i], n_mats);
+  sc::Mat mp = sc::load_mat(s_mats + row * sc::MAT_COLS);
+  // the shading reads the material on geometry hits only
+  if (kTex && hit.valid)
+    texture_mat(mp, s_tex + row * TEX_SLOTS, make_float2(in.uv[2 * i], in.uv[2 * i + 1]), tex);
   KeyDraws draws{tf::load_key(in.keys, i), bounce};
 
   sc::Fiber fib;
@@ -174,30 +278,33 @@ __global__ void __launch_bounds__(BLOCK) draws_kernel(int n_rays,
   o[1] = u.y;
 }
 
-template <bool kHair>
+template <bool kHair, bool kTex>
 cudaError_t launch_shade(int grid, size_t smem, cudaStream_t s, int n_rays, const ShadeIn& in,
                          const ShadeOut& out, const float* lights, const float* mats, int n_mats,
-                         int bounce, const sc::Cfg& cfg, bool hair_p_random, bool env_per_ray) {
+                         int bounce, const sc::Cfg& cfg, bool hair_p_random, bool env_per_ray,
+                         const TexIn& tex) {
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(shade_kernel<kHair>,
+    cudaError_t e = cudaFuncSetAttribute(shade_kernel<kHair, kTex>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  shade_kernel<kHair><<<grid, BLOCK, smem, s>>>(n_rays, in, out, lights, mats, n_mats, bounce, cfg,
-                                                hair_p_random, env_per_ray);
+  shade_kernel<kHair, kTex><<<grid, BLOCK, smem, s>>>(n_rays, in, out, lights, mats, n_mats,
+                                                      bounce, cfg, hair_p_random, env_per_ray,
+                                                      tex);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError() of the launch.
+// Plain C entry point (loaded with ctypes). `tex` is null for an
+// untextured scene. Launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() of the launch.
 extern "C" int shade_launch(int n_rays, const ShadeIn* in, const ShadeOut* out,
                             const float* lights, int n_lights, const float* mats, int n_mats,
                             int bounce, int mis, int rr, int rr_gate, float clamp_throughput,
                             unsigned bsdfs_present, int has_hair, int hair_p_random,
-                            int env_per_ray, void* stream) {
+                            int env_per_ray, const TexIn* tex, void* stream) {
   sc::Cfg cfg;
   cfg.n_lights = n_lights;
   cfg.mis = mis != 0;
@@ -205,16 +312,26 @@ extern "C" int shade_launch(int n_rays, const ShadeIn* in, const ShadeOut* out,
   cfg.rr_gate = rr_gate != 0;
   cfg.clamp_throughput = clamp_throughput;
   cfg.bsdfs_present = bsdfs_present;
+  const bool textured = tex != nullptr;
   size_t smem = sizeof(float) * (static_cast<size_t>(n_lights) * sc::LIGHT_COLS
-                                 + static_cast<size_t>(n_mats) * sc::MAT_COLS);
+                                 + static_cast<size_t>(n_mats) * sc::MAT_COLS)
+                + (textured ? sizeof(int) * static_cast<size_t>(n_mats) * TEX_SLOTS : 0);
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
   int grid = (n_rays + BLOCK - 1) / BLOCK;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = has_hair
-      ? launch_shade<true>(grid, smem, s, n_rays, *in, *out, lights, mats, n_mats, bounce, cfg,
-                           hair_p_random != 0, env_per_ray != 0)
-      : launch_shade<false>(grid, smem, s, n_rays, *in, *out, lights, mats, n_mats, bounce, cfg,
-                            hair_p_random != 0, env_per_ray != 0);
+  const TexIn tx = textured ? *tex : TexIn{};
+  const bool hp = hair_p_random != 0, ep = env_per_ray != 0;
+  cudaError_t e;
+  if (has_hair)
+    e = textured ? launch_shade<true, true>(grid, smem, s, n_rays, *in, *out, lights, mats,
+                                            n_mats, bounce, cfg, hp, ep, tx)
+                 : launch_shade<true, false>(grid, smem, s, n_rays, *in, *out, lights, mats,
+                                             n_mats, bounce, cfg, hp, ep, tx);
+  else
+    e = textured ? launch_shade<false, true>(grid, smem, s, n_rays, *in, *out, lights, mats,
+                                             n_mats, bounce, cfg, hp, ep, tx)
+                 : launch_shade<false, false>(grid, smem, s, n_rays, *in, *out, lights, mats,
+                                              n_mats, bounce, cfg, hp, ep, tx);
   return static_cast<int>(e);
 }
 

@@ -76,6 +76,7 @@ SIGNATURES = {
         + [_C_INT]                             # bounce
         + [_C_INT, _C_INT, _C_INT, _C_FLOAT, _C_UINT]  # mis rr rr_gate clamp present
         + [_C_INT, _C_INT, _C_INT]             # has_hair hair_p_random env_per_ray
+        + [_C_VOID_P]                          # &TexIn, null when untextured
         + [_C_VOID_P])),                       # cudaStream_t
     "shade_draws_launch": ("shade.cu", (
         [_C_INT, _C_VOID_P, _C_INT, _C_INT]    # n_rays, keys, bounce, n_tags

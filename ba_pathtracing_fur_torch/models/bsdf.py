@@ -7,8 +7,9 @@ Counterpart of `ba_pathtracing_fur_tpu/models/bsdf.py`:
     fetchParameterFloat, Material.h:153-216): a colour-slot texture replaces
     the value, a float-slot texture gives the length of the fetched RGBA
     (Material.cpp:15-23). `gather_rows` reads untextured rows from the
-    packed `[M, 20]` table (`ops/cuda/shade.pack_mats_table`), as the shade
-    stage's plain version does. Ids are read as jnp reads them
+    packed `[M, 20]` table (`ops/cuda/shade.pack_mats_table`), and
+    `fetch_textures` resolves their textured slots, as the shade stage's
+    plain version does. Ids are read as jnp reads them
     (`material_index`: a negative id counts from the end, and the index
     clamps to the table).
   * `sample_surface`, `is_delta`, `eval_pdf`, `sample_pdf`,
@@ -22,6 +23,7 @@ direction); the reflectance is f/|cos| style, as each BSDF returns it.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -31,13 +33,16 @@ from ..scene.types import MaterialTable
 from . import shade_core as sc
 from .shade_core import CoreMat as MatParams, eval_pdf, evaluate_light, is_delta, sample_pdf
 
-__all__ = ["MatParams", "CONSUMED_TEX_SLOTS", "BsdfSample", "require_untextured",
-           "material_index", "material_rows", "gather_rows", "gather_materials",
-           "sample_surface", "is_delta", "eval_pdf", "sample_pdf", "evaluate_light"]
+__all__ = ["MatParams", "CONSUMED_TEX_SLOTS", "COLOR_TEX_SLOTS", "BsdfSample",
+           "material_index", "material_rows", "gather_rows", "fetch_textures",
+           "gather_materials", "sample_surface", "is_delta", "eval_pdf", "sample_pdf",
+           "evaluate_light"]
 
 #: the slots gather_materials resolves (the ones the shading consumes)
 CONSUMED_TEX_SLOTS = ("diffuse", "specular", "volume", "emission", "transparency", "roughness")
-_COLOR_SLOTS = ("diffuse", "specular", "volume", "emission")
+#: the colour slots among them (a fetch gives RGB; the others take the
+#: length of the RGBA texel)
+COLOR_TEX_SLOTS = ("diffuse", "specular", "volume", "emission")
 
 
 class BsdfSample(NamedTuple):
@@ -45,15 +50,6 @@ class BsdfSample(NamedTuple):
     wo: torch.Tensor  # [R,3]
     pdf: torch.Tensor  # [R]
     flags: torch.Tensor  # [R] int32
-
-
-def require_untextured(textures) -> None:
-    """Raise for a textured scene on the fused path: the shade kernel K1
-    reads material rows itself and has no texture fetch yet."""
-    if textures is not None:
-        raise NotImplementedError("the fused shade stage has no texture fetch yet (K1's "
-                                  "texture fetch, ROADMAP Queue 1): render textured scenes "
-                                  "with fused_shading=False")
 
 
 def material_rows(m: torch.Tensor) -> MatParams:
@@ -73,6 +69,28 @@ def gather_rows(mats_table: torch.Tensor, mat_id: torch.Tensor) -> MatParams:
     return material_rows(mats_table[material_index(mat_id, mats_table.shape[0])])
 
 
+def fetch_textures(mp: MatParams, tex_ids: dict, uv, textures,
+                   tex_slots: tuple = CONSUMED_TEX_SLOTS) -> MatParams:
+    """`mp` with its textured slots resolved by a bilinear fetch at `uv`
+    [R,2] from `textures` (the scene's atlas): `tex_ids` maps each slot of
+    CONSUMED_TEX_SLOTS to the rays' atlas ids [R] (-1: the slot keeps its
+    value), and only the slots in `tex_slots` (the scene's) pay the fetch.
+    A colour slot takes RGB, a scalar slot the length of the RGBA texel."""
+    vals = {}
+    for slot in CONSUMED_TEX_SLOTS:
+        if slot not in tex_slots:
+            continue
+        tex_id = tex_ids[slot]
+        textured = tex_id >= 0
+        if slot in COLOR_TEX_SLOTS:
+            c = fetch_bilinear(textures, torch.clamp(tex_id, min=0), uv)
+            vals[slot] = torch.where(textured[:, None], c, getattr(mp, slot))
+        else:
+            c = fetch_bilinear(textures, torch.clamp(tex_id, min=0), uv, channels=4)
+            vals[slot] = torch.where(textured, torch.sqrt((c * c).sum(-1)), getattr(mp, slot))
+    return dataclasses.replace(mp, **vals)
+
+
 def gather_materials(materials: MaterialTable, mat_id: torch.Tensor, uv=None, textures=None,
                      tex_slots: tuple = CONSUMED_TEX_SLOTS) -> MatParams:
     """The material row of each ray's hit with its textured slots resolved
@@ -80,22 +98,13 @@ def gather_materials(materials: MaterialTable, mat_id: torch.Tensor, uv=None, te
     `tex_slots` (the scene's `tex_slots`) names the slots that pay the fetch;
     normal and bump textures are not fetched (no render path reads them)."""
     idx = material_index(mat_id, materials.count)
-    vals = {f: getattr(materials, f)[idx] for f in (
+    mp = MatParams(**{f: getattr(materials, f)[idx] for f in (
         "diffuse", "specular", "volume", "emission", "ior", "transparency", "reflectivity",
-        "roughness", "bsdf_id", "shader_id", "hair_alpha", "hair_beta")}
-    if textures is not None:
-        for slot in CONSUMED_TEX_SLOTS:
-            if slot not in tex_slots:
-                continue
-            tex_id = getattr(materials, f"{slot}_tex")[idx]
-            textured = tex_id >= 0
-            if slot in _COLOR_SLOTS:
-                c = fetch_bilinear(textures, torch.clamp(tex_id, min=0), uv)
-                vals[slot] = torch.where(textured[:, None], c, vals[slot])
-            else:
-                c = fetch_bilinear(textures, torch.clamp(tex_id, min=0), uv, channels=4)
-                vals[slot] = torch.where(textured, torch.sqrt((c * c).sum(-1)), vals[slot])
-    return MatParams(**vals)
+        "roughness", "bsdf_id", "shader_id", "hair_alpha", "hair_beta")})
+    if textures is None:
+        return mp
+    return fetch_textures(mp, {slot: getattr(materials, f"{slot}_tex")[idx]
+                               for slot in CONSUMED_TEX_SLOTS}, uv, textures, tex_slots)
 
 
 def sample_surface(mp: MatParams, wi, n, u, flags, present: tuple = ()) -> BsdfSample:

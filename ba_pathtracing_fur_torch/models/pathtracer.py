@@ -39,8 +39,9 @@ traversal kernels only pick rows from detached rays, and every value the
 image depends on is computed in torch. `remat` recomputes each bounce in
 the backward pass (`torch.utils.checkpoint`) instead of keeping its
 intermediates. The fused path runs kernels without a backward and raises
-under autograd. `tonemap` maps the finished image (`ops/tonemap`). The
-fused path refuses textured scenes.
+under autograd. `tonemap` maps the finished image (`ops/tonemap`).
+`render_progressive` yields the running mean after each sample, as the
+CLI and `utils/checkpoint.render_resumable` consume it.
 
 With `bdpt=True` (bidirectional mode, as in the JAX package) each sample
 builds its light-subpath buffer once (`models/bdpt.build_light_subpaths`,
@@ -124,17 +125,21 @@ def init_state(origins: torch.Tensor, directions: torch.Tensor) -> RayState:
 
 @dataclasses.dataclass
 class BounceTables:
-    """The per-scene tables of the full-bounce pass, built once per render."""
+    """The per-scene tables of the fused bounce, built once per render: the
+    texture ids [M, 6] only for a textured scene."""
 
     tris: torch.Tensor
     mats: torch.Tensor
     lights: torch.Tensor
+    tex: Optional[torch.Tensor] = None
 
     @classmethod
     def of(cls, scene: DeviceScene) -> "BounceTables":
         return cls(tris=cshade.pack_tris_table(scene.tris),
                    mats=cshade.pack_mats_table(scene.materials),
-                   lights=cshade.pack_lights_table(scene.lights))
+                   lights=cshade.pack_lights_table(scene.lights),
+                   tex=None if scene.textures is None
+                   else cshade.pack_tex_table(scene.materials))
 
 
 def check_supported(scene: DeviceScene, cfg: RenderConfig) -> None:
@@ -188,9 +193,12 @@ def shade_inputs(state: RayState, scene: DeviceScene, keys: torch.Tensor, bounce
     state, the hit with its material id, the material and light tables,
     the environment colour, and the per-sample keys with the bounce, from
     which the shade stage draws u_bsdf/u_pick/u_light/u_hairp (and u_rr
-    when `cfg.rr`) with the tags 0-4 of the JAX package. No draw and no
-    material gather happens here."""
-    bsdf.require_untextured(scene.textures)
+    when `cfg.rr`) with the tags 0-4 of the JAX package; on a textured
+    scene also the hit's uv, the atlas and the texture ids, from which it
+    fetches the textured slots. No draw, no material gather and no texture
+    fetch happens here."""
+    tex = {} if scene.textures is None else dict(
+        uv=hit.uv, textures=scene.textures, tex_table=tables.tex, tex_slots=scene.tex_slots)
     return dict(
         origin=state.origin, direction=state.direction, radiance=state.radiance,
         color=state.color, flags=state.flags, theta_i=state.theta_i, prev_pdf=state.prev_pdf,
@@ -199,7 +207,8 @@ def shade_inputs(state: RayState, scene: DeviceScene, keys: torch.Tensor, bounce
         mats_table=tables.mats, keys=keys, bounce=bounce,
         env_color=shading.environment_color(scene.env, state.direction),
         env_ambient=scene.env.ambient, lights_table=tables.lights,
-        n_lights=scene.lights.count, rr_gate=bounce >= cfg.rr_start, cfg=core_cfg(scene, cfg))
+        n_lights=scene.lights.count, rr_gate=bounce >= cfg.rr_start, cfg=core_cfg(scene, cfg),
+        **tex)
 
 
 def trace_bounce_fused(state: RayState, scene: DeviceScene, keys: torch.Tensor,
@@ -499,3 +508,24 @@ def render_image(scene: DeviceScene, camera: cam_mod.Camera, key: torch.Tensor,
         acc = acc + (cs.mean(0) - acc) / (i + 1.0)
     img = acc.reshape(h, w, 3)
     return tonemap.tonemap(img) if cfg.tonemap else img
+
+
+def render_progressive(scene: DeviceScene, camera: cam_mod.Camera, key: torch.Tensor,
+                       cfg: RenderConfig, accum: Optional[torch.Tensor] = None,
+                       start_sample: int = 0):
+    """The progressive loop (the reference's render() a frame,
+    CPU_PathTracer.cpp:17-52, and the checkpoint/resume surface): yields
+    (sample index, the running mean `[H, W, 3]` after it) for the samples
+    `start_sample .. cfg.spp - 1`, continuing from `accum` (the mean of the
+    samples before `start_sample`) when given. The mean is the JAX
+    package's `acc + (c - acc) / (i + 1)`, on the scene's device."""
+    check_supported(scene, cfg)
+    w, h = camera.resolution
+    r = w * h
+    acc = (torch.zeros((r, 3), dtype=torch.float32, device=scene.device) if accum is None
+           else accum.reshape(r, 3).to(scene.device))
+    tables = BounceTables.of(scene) if cfg.fused_shading and not cfg.bdpt else None
+    for i in range(start_sample, cfg.spp):
+        c = render_sample(scene, camera, key, i, cfg, tables)
+        acc = acc + (c - acc) / (i + 1.0)
+        yield i, acc.reshape(h, w, 3)

@@ -14,7 +14,10 @@ same implicit complete binary tree over fixed-size leaf clusters:
 
 `build_sah` is the JAX package's capacity-clamped binned SAH split, a copy
 of its host numpy (the same numpy calls on the same float32 data, so the
-same permutation), finished on the bounds' device. `build_median` runs the
+same permutation), finished on the bounds' device; `build_grid`, its
+uniform-grid cell binning, is the same kind of copy. `build` is its morton
+clustering in torch on the bounds' device: 30-bit codes of the centroids
+and a stable sort, as `jnp.argsort` sorts. `build_median` runs the
 JAX package's numpy lexsort split level by level in torch on the bounds'
 device (segment min/max, longest axis, stable sort by
 key then by segment), so on the same bounds it is bit-identical to the
@@ -22,7 +25,9 @@ numpy build, at any size and on any device; it takes the place of the JAX
 package's native C++ splitter, whose `nth_element` leaves the same leaf
 membership up to ties. Padding rows are inert: zero triangles (det = 0)
 and cones with an empty axis slab (min_d = 1 > max_d = -1). Padding leaves
-carry inverted boxes.
+carry inverted boxes. The morton and grid builds fill the slots in order,
+so their padding collects in the last leaves, which can be wholly empty;
+the median and SAH splits spread it over the leaves.
 """
 
 from __future__ import annotations
@@ -276,6 +281,83 @@ def build_sah(prim_bmin: torch.Tensor, prim_bmax: torch.Tensor, leaf_size: int =
     hmin, hmax = _finalize(perm, prim_bmin, prim_bmax, n_leaves, leaf_size)
     return BVH(bmin=hmin, bmax=hmax, perm=perm.to(torch.int32), packed=None,
                n_leaves=n_leaves, leaf_size=leaf_size)
+
+
+def _in_order(order: torch.Tensor, n_leaves: int, leaf_size: int) -> torch.Tensor:
+    """The slot permutation that fills the slots in `order`, padding last."""
+    perm = torch.full((n_leaves * leaf_size,), -1, dtype=torch.int64, device=order.device)
+    perm[:order.shape[0]] = order
+    return perm
+
+
+def build(prim_bmin: torch.Tensor, prim_bmax: torch.Tensor, leaf_size: int = 8) -> BVH:
+    """Morton build (the JAX package's `build`, a linearized octree: each
+    leaf is a run of the primitives sorted by the 30-bit morton code of
+    their centroid in the scene's bounds), in torch on the bounds' device.
+    Centroids of one fiber share cells, so the sort is stable, as
+    `jnp.argsort` is. prim_bmin / prim_bmax: [N,3] float32 tensors."""
+    n = prim_bmin.shape[0]
+    n_leaves = _next_pow2(max(-(-n // leaf_size), 1))
+    codes = morton_codes(0.5 * (prim_bmin + prim_bmax), prim_bmin.amin(0), prim_bmax.amax(0))
+    perm = _in_order(torch.argsort(codes, stable=True), n_leaves, leaf_size)
+    hmin, hmax = _finalize(perm, prim_bmin, prim_bmax, n_leaves, leaf_size)
+    return BVH(bmin=hmin, bmax=hmax, perm=perm.to(torch.int32), packed=None,
+               n_leaves=n_leaves, leaf_size=leaf_size)
+
+
+def build_grid(prim_bmin: torch.Tensor, prim_bmax: torch.Tensor, leaf_size: int = 256,
+               resolution: Optional[int] = None) -> BVH:
+    """Uniform-grid clustering (UniformGrid.h:12-50): the primitives binned
+    by centroid into a G^3 raster of cells (G = ceil((N / leaf_size)^(1/3))
+    unless `resolution` is given) and packed into leaves in cell order,
+    each leaf's box the tight bound of its contents. The binning is the JAX
+    package's float32 numpy on the host; the slot permutation and the heap
+    boxes are made on the bounds' device."""
+    bmin = prim_bmin.cpu().numpy()
+    bmax = prim_bmax.cpu().numpy()
+    n = bmin.shape[0]
+    cent = 0.5 * (bmin + bmax)
+    n_leaves = _next_pow2(max(-(-n // leaf_size), 1))
+    if resolution is None:
+        resolution = max(int(np.ceil((n / max(leaf_size, 1)) ** (1.0 / 3.0))), 1)
+    g = int(resolution)
+    lo = cent.min(axis=0)
+    extent = np.maximum(cent.max(axis=0) - lo, 1e-12)
+    ijk = np.minimum((cent - lo) / extent * g, g - 1).astype(np.int64)
+    cell = (ijk[:, 0] * g + ijk[:, 1]) * g + ijk[:, 2]
+    order = torch.from_numpy(np.argsort(cell, kind="stable")).to(prim_bmin.device)
+    perm = _in_order(order, n_leaves, leaf_size)
+    hmin, hmax = _finalize(perm, prim_bmin, prim_bmax, n_leaves, leaf_size)
+    return BVH(bmin=hmin, bmax=hmax, perm=perm.to(torch.int32), packed=None,
+               n_leaves=n_leaves, leaf_size=leaf_size)
+
+
+def debug_info(bvh: BVH) -> dict:
+    """Structure statistics (TreeAccel::printDebugInfo, TreeAccel.h:80-86:
+    node, leaf and depth counts) and the quality measures that predict the
+    traversal's cost: the SAH cost (sum of leaf area x leaf count over the
+    root's area) and the occupancy. Host numpy, as the JAX package's."""
+    n_leaves, k = bvh.n_leaves, bvh.leaf_size
+    leaf_base = n_leaves - 1
+    lo = bvh.bmin.cpu().numpy()
+    hi = bvh.bmax.cpu().numpy()
+    counts = (bvh.perm.cpu().numpy().reshape(n_leaves, k) >= 0).sum(axis=1)
+
+    def area(lo, hi):
+        d = np.maximum(hi - lo, 0.0)
+        return d[:, 0] * d[:, 1] + d[:, 1] * d[:, 2] + d[:, 2] * d[:, 0]
+
+    leaf_area = area(lo[leaf_base:], hi[leaf_base:])
+    root_area = float(area(lo[:1], hi[:1])[0])
+    return {
+        "n_nodes": int(2 * n_leaves - 1),
+        "n_leaves": int(n_leaves),
+        "leaf_size": int(k),
+        "depth": bvh.depth,
+        "n_prims": int(counts.sum()),
+        "occupancy": float(counts.mean() / k),
+        "sah_cost": float((leaf_area * counts).sum() / max(root_area, 1e-30)),
+    }
 
 
 def unit_boxes(lo: torch.Tensor, hi: torch.Tensor, bvh: BVH) -> torch.Tensor:

@@ -15,8 +15,12 @@ Counterparts of `ba_pathtracing_fur_tpu/ops/pallas/shade.py`:
     hair automaton, and the throughput update. It takes each ray's threefry
     key and material id: the kernel draws the bounce's uniforms and reads
     the material row itself, the twin draws with `core/rng.bounce_uniforms`
-    and gathers with `models/bsdf.gather_rows`. `SHADE_LAUNCHES` and
-    `SHADE_REF_CALLS` count which of kernel and twin ran.
+    and gathers with `models/bsdf.gather_rows`. On a textured scene it also
+    takes the hit's uv, the atlas and each material's texture ids
+    (`pack_tex_table`): the kernel fetches the textured slots itself, the
+    twin with `models/bsdf.fetch_textures`, as the unfused path's
+    `gather_materials` does. `SHADE_LAUNCHES` and `SHADE_REF_CALLS` count
+    which of kernel and twin ran.
 
 Both dispatch on the device of their tensors: CPU tensors go to the plain
 version, CUDA tensors launch the kernel or raise.
@@ -49,7 +53,7 @@ SHADE_REF_CALLS = 0
 SHADE_IN_FIELDS = (
     "origin", "direction", "radiance", "color", "theta_i", "prev_pdf", "flags", "hit_t",
     "hit_valid", "hit_pos", "hit_normal", "fib_u", "fib_v", "fib_w", "mat_id", "keys",
-    "env_color", "env_ambient")
+    "env_color", "env_ambient", "uv")
 SHADE_OUT_FIELDS = ("origin", "direction", "radiance", "color", "theta_i", "prev_pdf",
                     "flags", "shadow_o", "shadow_d", "shadow_tmax", "direct_rgb")
 
@@ -91,6 +95,18 @@ def pack_mats_table(m: MaterialTable) -> torch.Tensor:
                       col(m.transparency), col(m.reflectivity), col(m.roughness),
                       col(m.bsdf_id), col(m.shader_id), col(m.hair_alpha),
                       col(m.hair_beta)], dim=1).contiguous()
+
+
+def pack_tex_table(m: MaterialTable) -> torch.Tensor:
+    """[M, 6] int32: each material's atlas id of the slots the shading
+    consumes (`bsdf.CONSUMED_TEX_SLOTS`), -1 where untextured."""
+    return torch.stack([getattr(m, f"{slot}_tex").to(torch.int32)
+                        for slot in bsdf.CONSUMED_TEX_SLOTS], dim=1).contiguous()
+
+
+def tex_slot_mask(tex_slots: tuple) -> int:
+    """Bit j set for each slot j of `bsdf.CONSUMED_TEX_SLOTS` in `tex_slots`."""
+    return sum(1 << j for j, slot in enumerate(bsdf.CONSUMED_TEX_SLOTS) if slot in tex_slots)
 
 
 def core_lights(table: torch.Tensor) -> list[CoreLight]:
@@ -283,18 +299,25 @@ def shade_bounce_full(*, origin, u_hairp=None, **kw) -> dict:
 def shade_bounce_ref(*, origin, direction, radiance, color, flags, theta_i, prev_pdf, hit_t,
                      hit_valid, hit_pos, hit_normal, fib_u, fib_v, fib_w, mat_id, mats_table,
                      keys, bounce: int, env_color, env_ambient, lights_table, n_lights: int,
-                     rr_gate: bool, cfg: CoreCfg) -> dict:
+                     rr_gate: bool, cfg: CoreCfg, uv=None, textures=None, tex_table=None,
+                     tex_slots: tuple = ()) -> dict:
     """The shade stage in plain torch -> the CoreOut fields as a dict: the
     bounce's draws of tags 0-4 (`rng.bounce_uniforms`, u_rr only with RR),
-    the material rows as the JAX package gathers them, and
+    the material rows as the JAX package gathers them (with the textured
+    slots fetched at `uv` when `textures` is given), and
     `models/shade_core.shade_bounce_core`."""
     global SHADE_REF_CALLS
     SHADE_REF_CALLS += 1
     u = rng.bounce_uniforms(keys, bounce, 5 if cfg.rr else 4, 2)  # [tags, R, 2]
+    mp = bsdf.gather_rows(mats_table, mat_id)
+    if textures is not None:
+        ids = tex_table[bsdf.material_index(mat_id, tex_table.shape[0])]
+        mp = bsdf.fetch_textures(mp, dict(zip(bsdf.CONSUMED_TEX_SLOTS, ids.unbind(1))), uv,
+                                 textures, tex_slots)
     out = sc.shade_bounce_core(
         origin=origin, direction=direction, radiance=radiance, color=color, flags=flags,
         theta_i=theta_i, prev_pdf=prev_pdf, hit_t=hit_t, hit_valid=hit_valid,
-        hit_pos=hit_pos, hit_normal=hit_normal, mp=bsdf.gather_rows(mats_table, mat_id),
+        hit_pos=hit_pos, hit_normal=hit_normal, mp=mp,
         env_color=env_color, env_ambient=env_ambient,
         lights=core_lights(lights_table[:n_lights]), u_bsdf1=u[0, :, 0],
         u_bsdf2=u[0, :, 1], u_pick=u[1, :, 0], u_light1=u[2, :, 0], u_light2=u[2, :, 1],
@@ -321,15 +344,44 @@ class _ShadeOut(_Ptrs):
     _fields_ = [(f, ctypes.c_void_p) for f in SHADE_OUT_FIELDS]
 
 
+class _TexIn(ctypes.Structure):
+    """The ctypes mirror of csrc/shade.cu's TexIn."""
+
+    _fields_ = [("atlas", ctypes.c_void_p), ("sizes", ctypes.c_void_p),
+                ("ids", ctypes.c_void_p), ("n_tex", ctypes.c_int), ("ah", ctypes.c_int),
+                ("aw", ctypes.c_int), ("slots", ctypes.c_uint)]
+
+
+def _tex_in(textures, tex_table, tex_slots, n_mats: int, dev):
+    """The kernel's TexIn of a textured scene, and the tensors it points at
+    (which the caller keeps alive across the launch)."""
+    images = textures.images
+    nt, ah, aw = images.shape[:3]
+    sizes = textures.sizes
+    if sizes is None:  # every texture at the atlas' own size
+        sizes = torch.tensor([[ah, aw]], dtype=torch.int32, device=dev).expand(nt, 2)
+    sizes = sizes.to(torch.int32).contiguous()
+    _check("atlas", images, (nt, ah, aw, 4), torch.float32, dev)
+    _check("atlas sizes", sizes, (nt, 2), torch.int32, dev)
+    _check("tex_table", tex_table, (n_mats, len(bsdf.CONSUMED_TEX_SLOTS)), torch.int32, dev)
+    if nt == 0:
+        raise ValueError("shade: a textured scene with an empty atlas")
+    tex = _TexIn(atlas=images.data_ptr(), sizes=sizes.data_ptr(), ids=tex_table.data_ptr(),
+                 n_tex=nt, ah=ah, aw=aw, slots=tex_slot_mask(tex_slots))
+    return tex, (images, sizes, tex_table)
+
+
 def _shade_bounce_cuda(*, origin, mats_table, bounce: int, n_lights: int, lights_table,
-                       rr_gate: bool, cfg: CoreCfg, **rays) -> dict:
+                       rr_gate: bool, cfg: CoreCfg, uv=None, textures=None, tex_table=None,
+                       tex_slots: tuple = (), **rays) -> dict:
     from ...kernels import load_library
 
     global SHADE_LAUNCHES
     dev = origin.device
     r = origin.shape[0]
     f32, i32 = torch.float32, torch.int32
-    ins = dict(rays, origin=origin)
+    textured = textures is not None
+    ins = dict(rays, origin=origin, uv=uv if textured else None)
     # a constant environment colour ([3], or [R,3] broadcast from it) goes
     # to the kernel as its 3 floats
     env = ins["env_color"]
@@ -344,8 +396,8 @@ def _shade_bounce_cuda(*, origin, mats_table, bounce: int, n_lights: int, lights
     for f in SHADE_IN_FIELDS:
         if f == "env_ambient" or (f == "env_color" and not env_per_ray):
             _check(f, ins[f], (3,), f32, dev)
-        elif f not in hair_only:
-            shape = (r, 3) if f in vec3 else (r, 2) if f == "keys" else (r,)
+        elif f not in hair_only and not (f == "uv" and not textured):
+            shape = (r, 3) if f in vec3 else (r, 2) if f in ("keys", "uv") else (r,)
             dtype = (i32 if f in ("flags", "mat_id") else torch.int64 if f == "keys"
                      else torch.bool if f == "hit_valid" else f32)
             _check(f, ins[f], shape, dtype, dev)
@@ -354,9 +406,12 @@ def _shade_bounce_cuda(*, origin, mats_table, bounce: int, n_lights: int, lights
     _check("lights_table", lights_table, (lights_table.shape[0], LIGHT_COLS), f32, dev)
     if not (0 <= n_lights <= lights_table.shape[0] and n_mats > 0):
         raise ValueError(f"shade: bad table counts M={n_mats} L={n_lights}")
-    table_bytes = 4 * (n_lights * LIGHT_COLS + n_mats * MAT_COLS)
+    table_bytes = 4 * (n_lights * LIGHT_COLS + n_mats * MAT_COLS
+                       + (n_mats * len(bsdf.CONSUMED_TEX_SLOTS) if textured else 0))
     if table_bytes > MAX_TABLE_BYTES:
         raise ValueError(f"shade: tables of {table_bytes} B exceed shared memory")
+    tex, keep = _tex_in(textures, tex_table, tex_slots, n_mats, dev) if textured \
+        else (None, ())
 
     outs = {f: torch.empty_like(ins[f]) for f in SHADE_OUT_FIELDS if f in ins}
     outs.update(shadow_o=torch.empty_like(origin), shadow_d=torch.empty_like(origin),
@@ -371,7 +426,9 @@ def _shade_bounce_cuda(*, origin, mats_table, bounce: int, n_lights: int, lights
         ctypes.c_float(cfg.clamp_throughput),
         ctypes.c_uint(bsdfs_present_mask(cfg.bsdfs_present)), ctypes.c_int(int(cfg.has_hair)),
         ctypes.c_int(int(cfg.hair_p_random)), ctypes.c_int(int(env_per_ray)),
+        ctypes.byref(tex) if textured else ctypes.c_void_p(None),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    del keep
     if err != 0:
         raise RuntimeError(f"shade kernel launch failed: CUDA error {err}")
     SHADE_LAUNCHES += 1
@@ -382,7 +439,9 @@ def shade_bounce(*, origin, **kw) -> dict:
     """The shade stage of one bounce after the traversal, from the ray
     state, the hit, each ray's material id (`mat_id` [R] int32, into
     `mats_table` [M, 20]) and threefry key (`keys` [R, 2] int64) at
-    `bounce`. CPU tensors run the plain version; CUDA tensors launch the
+    `bounce`; on a textured scene also the hit's `uv` [R, 2], the scene's
+    `textures` (TextureAtlas), `tex_table` [M, 6] (`pack_tex_table`) and
+    `tex_slots`. CPU tensors run the plain version; CUDA tensors launch the
     kernel (or raise). Returns the new ray state and the NEE shadow ray
     with its direct term."""
     if origin.device.type == "cpu":
@@ -499,6 +558,10 @@ _DEON = (_D_COMMON + _REFLECT + _ROTATE + _CYL + _DEON_M + _THETA + _PHI + 3 + _
          _D_COMMON + _REFLECT,
          _D_COMMON + _D_EXIT,
          _D_COMMON + _D_EXIT + 3)
+#: operations of one bilinear fetch (csrc/shade.cu fetch_bilinear): the
+#: floor-mods, the texel coordinates and weights, then 9 a channel (two
+#: lerps along x, one along y); a scalar slot adds its length (7 + a root)
+_FETCH_COORDS, _FETCH_CHANNEL, _FETCH_LENGTH = 20, 9, 7 + _D
 #: ray classes of `branch_classes`
 DEAD, MISS, LIGHT_HIT, SURFACE, MARSCHNER, DEON = 0, 1, 2, 8, 20, 25
 HAIR_STATES = ("R", "enter", "TR", "TT", "TRT")
@@ -550,10 +613,13 @@ def work_ref(kw: dict, out: dict) -> dict:
     the outputs of every ray once, the hit's t and valid flag of the live
     rays, its point, normal, material id, key and fiber frame of the
     geometry hits (a dead ray's or a miss's result does not depend on
-    them), the tables once. `all_bytes` count every per-ray input of every
-    ray; `old_bytes` are those of the interface before the kernel drew and
-    gathered itself (the 12 material fields and the draws per ray in place
-    of the key and the id)."""
+    them), the tables once; on a textured scene also the uv of the
+    geometry hits, and for each of their textured slots the fetch's
+    operations and its 4 texels (RGB of a colour slot, RGBA of a scalar).
+    `all_bytes` count every per-ray input of every ray; `old_bytes` are
+    those of the interface before the kernel drew and gathered itself (the
+    12 material fields and the draws per ray in place of the key and the
+    id)."""
     cfg = kw["cfg"]
     cls = branch_classes(kw)
     r = cls.shape[0]
@@ -614,6 +680,19 @@ def work_ref(kw: dict, out: dict) -> dict:
         tf, draws = tf + 2 * n_hair, draws + n_hair  # u_hairp
     tf, draws = tf + 2 * rr_rays, draws + rr_rays  # u_rr
     int_ops = tf * THREEFRY_INT_OPS + draws * DRAW_INT_OPS
+    tex_bytes, fetches = 0, 0
+    if kw.get("textures") is not None:
+        ids = kw["tex_table"][bsdf.material_index(kw["mat_id"], kw["tex_table"].shape[0])]
+        for j, slot in enumerate(bsdf.CONSUMED_TEX_SLOTS):
+            if slot not in kw["tex_slots"]:
+                continue
+            n = int((geom & (ids[:, j] >= 0)).sum())
+            color = slot in bsdf.COLOR_TEX_SLOTS
+            fetches += n
+            flops += n * (_FETCH_COORDS + (3 if color else 4) * _FETCH_CHANNEL
+                          + (0 if color else _FETCH_LENGTH))
+            tex_bytes += n * 4 * (3 if color else 4) * 4
+        tex_bytes += n_geom * 8 + kw["tex_table"].numel() * 4  # uv, the id table
 
     def nb(*xs):
         return sum(x.numel() * x.element_size() for x in xs if x is not None)
@@ -631,13 +710,13 @@ def work_ref(kw: dict, out: dict) -> dict:
     once = nb(*(kw[f] for f in state), env, kw["env_ambient"].reshape(-1)[:3],
               kw["lights_table"][:kw["n_lights"]], kw["mats_table"], *out.values())
     n_bytes = once + int(live.sum()) * sum(map(row, on_live)) \
-        + n_geom * sum(map(row, on_geom))
-    all_bytes = once + r * sum(map(row, on_live + on_geom))
+        + n_geom * sum(map(row, on_geom)) + tex_bytes
+    all_bytes = once + r * sum(map(row, on_live + on_geom)) + tex_bytes
     old = nb(kw["mat_id"], kw["keys"])
     new = r * 4 * (12 + 8 + 5 + (1 if cfg.has_hair else 0) + (1 if cfg.rr else 0))
     return dict(flops=flops, int_ops=int_ops, bytes=n_bytes, all_bytes=all_bytes,
                 old_bytes=all_bytes - nb(kw["mats_table"]) - old + new, threefry=tf,
-                draws=draws,
+                draws=draws, fetches=fetches, tex_bytes=tex_bytes,
                 classes={name: counts[c] for name, c in (
                     ("dead", DEAD), ("miss", MISS), ("light", LIGHT_HIT))} | {
                     f"surface_{b}": counts[SURFACE + b] for b in range(9) if counts[SURFACE + b]}

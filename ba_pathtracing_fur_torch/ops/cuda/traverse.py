@@ -96,7 +96,8 @@ def traverse_ref(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = False
 
 def _slab_entry(o, d, bmin, bmax, t_best):
     """Entry distance of every ray into every box ([R,N], INF where the slab
-    test fails or the entry is not below t_best): the kernel's box test."""
+    test fails or the entry is not below t_best): the kernel's box test,
+    which enters no inverted (padding) box."""
     eps = 1e-20
     inv = 1.0 / torch.where(d.abs() < eps, torch.where(d < 0, -eps, eps), d)
     tnear = torch.full((o.shape[0], bmin.shape[0]), -INF, device=o.device)
@@ -106,7 +107,8 @@ def _slab_entry(o, d, bmin, bmax, t_best):
         t1 = (bmax[None, :, a] - o[:, a:a + 1]) * inv[:, a:a + 1]
         tnear = torch.maximum(tnear, torch.minimum(t0, t1))
         tfar = torch.minimum(tfar, torch.maximum(t0, t1))
-    hit = (tnear <= tfar) & (tfar >= 0.0) & (tnear < t_best[:, None])
+    hit = (bmin[None, :, 0] <= bmax[None, :, 0]) & (tnear <= tfar) & (tfar >= 0.0) \
+        & (tnear < t_best[:, None])
     return torch.where(hit, torch.clamp(tnear, min=0.0), INF)
 
 
@@ -119,7 +121,7 @@ def _units_entered(o, d, ub, t_best):
     t1 = (ub[:, 3:6] - o[:, :, None]) * inv
     tnear = torch.minimum(t0, t1).amax(1)
     tfar = torch.maximum(t0, t1).amin(1)
-    return (tnear <= tfar) & (tfar >= 0.0) & (tnear < t_best[:, None])
+    return (ub[:, 0] <= ub[:, 3]) & (tnear <= tfar) & (tfar >= 0.0) & (tnear < t_best[:, None])
 
 
 def work_ref(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = False,

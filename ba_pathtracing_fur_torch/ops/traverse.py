@@ -61,16 +61,18 @@ _BRUTE_MIN = 1 << 24
 SORT_RAYS = True
 
 #: stage seconds of the last build per kind ("tri", "cone"): the AABBs,
-#: the split (the median split, or the SAH split on the host), the reorder +
+#: the split (by the build method: see ACCEL_BUILDERS), the reorder +
 #: pack, and the kernel layouts
 LAST_BUILD_STATS: dict = {}
 
-#: the BVH builds the port runs (the JAX package's ACCEL_BUILDERS):
+#: the BVH builds (the JAX package's ACCEL_BUILDERS, the reference's
+#: runtime-switchable structures, Demo/main.cpp:94-127):
 #:   median - longest-axis centroid-median splits, in torch on the pack's device
 #:   sah    - capacity-clamped 16-bin SAH, split on the host in numpy
-ACCEL_BUILDERS = {"median": bvh_mod.build_median, "sah": bvh_mod.build_sah}
-#: the JAX package's builds the port does not run yet, with their ROADMAP item
-_UNPORTED_BUILDS = {"morton": "ROADMAP Queue 1 item 2", "grid": "ROADMAP Queue 1 item 2"}
+#:   morton - morton-code clustering (a linearized octree), in torch on the device
+#:   grid   - uniform-grid cell binning, on the host in numpy
+ACCEL_BUILDERS = {"median": bvh_mod.build_median, "sah": bvh_mod.build_sah,
+                  "morton": bvh_mod.build, "grid": bvh_mod.build_grid}
 
 
 def auto_leaf_size(n_prims: int, target: int = 256) -> int:
@@ -151,9 +153,6 @@ def attach_bvh(scene: DeviceScene, leaf_size: Optional[int] = None, method: str 
     stage times."""
     if method == "none":
         return scene
-    if method in _UNPORTED_BUILDS:
-        raise NotImplementedError(f"BVH method {method!r} is not ported yet "
-                                  f"({_UNPORTED_BUILDS[method]})")
     if method not in ACCEL_BUILDERS:
         raise ValueError(f"unknown BVH method {method!r}: one of {sorted(ACCEL_BUILDERS)}")
     out = {}

@@ -1,7 +1,6 @@
 """Procedural fur growth.
 
-Counterpart of `ba_pathtracing_fur_tpu/scene/mesh.py`, holding what the fur
-patch and the hair ball use. The numpy functions draw the same
+Counterpart of `ba_pathtracing_fur_tpu/scene/mesh.py`. The numpy functions draw the same
 `np.random.RandomState` stream with the same float32 arithmetic, so one
 seed gives bit-identical fibers in both packages; `grow_fur_fibers_along_
 torch` grows the hair ball on the tensors' device from supplied draws.
@@ -13,6 +12,8 @@ torch` grows the hair ball on the tensors' device from supplied draws.
   * CPU::Scene fiber -> cone-chain conversion (CPU_Scene.cpp:104-145): base
     pulled back 0.008 segment to hide joints, base radius shrunk 5% (10%
     beyond the 4th segment).
+  * fiberToTriangles (CPU_Scene.cpp:232-345): fibers as triangle tubes,
+    for `scene/graph.flatten(..., fiber_as_cylinder=False)`.
 """
 
 from __future__ import annotations
@@ -159,3 +160,49 @@ def fibers_to_cone_chain(fibers: FurFibers):
     r_apex = r[:, 1:]
     return (base.reshape(-1, 3), apex.reshape(-1, 3),
             r_base.reshape(-1), r_apex.reshape(-1))
+
+
+def fibers_to_triangle_tubes(fibers: FurFibers, resolution: int = 5):
+    """fiberToTriangles parity (CPU_Scene.cpp:232-345), in host numpy: each
+    fiber segment becomes a ring-pair tube of `resolution` sides, and every
+    triangle carries its segment's fiber frame, so the hair BSDFs still
+    work on triangles. Returns (v0, v1, v2 [M,3], fiber_u, fiber_v,
+    fiber_w [M,3])."""
+    p = fibers.positions  # [N,V,3]
+    r = fibers.radii
+    n, v = r.shape
+
+    axis = p[:, 1:] - p[:, :-1]  # [N,V-1,3]
+    axis_n = axis / np.maximum(np.linalg.norm(axis, axis=-1, keepdims=True), 1e-12)
+    # a frame per segment (the Cylinder ctor's construction)
+    tmp = np.tile(np.array([0.0, 1.0, 0.0], np.float32), (n, v - 1, 1))
+    deg = 1.0 - np.abs(np.sum(tmp * axis_n, axis=-1)) < 1e-4
+    tmp[deg] = np.array([0.0, 0.0, 1.0], np.float32)
+    u = np.cross(axis_n, tmp)
+    u /= np.maximum(np.linalg.norm(u, axis=-1, keepdims=True), 1e-12)
+    w = np.cross(u, axis_n)
+    w /= np.maximum(np.linalg.norm(w, axis=-1, keepdims=True), 1e-12)
+
+    ang = 2.0 * np.pi * np.arange(resolution) / resolution
+    cs = np.cos(ang)[None, None, :, None]
+    sn = np.sin(ang)[None, None, :, None]
+    ring_dir = u[:, :, None, :] * cs + w[:, :, None, :] * sn  # [N,V-1,res,3]
+    base_ring = p[:, :-1, None, :] + ring_dir * r[:, :-1, None, None]
+    apex_ring = p[:, 1:, None, :] + ring_dir * r[:, 1:, None, None]
+
+    b0 = base_ring
+    b1 = np.roll(base_ring, -1, axis=2)
+    a0 = apex_ring
+    a1 = np.roll(apex_ring, -1, axis=2)
+    # two triangles a side
+    t1 = np.stack([b0, b1, a0], axis=3)  # [N,V-1,res,3,3]
+    t2 = np.stack([b1, a1, a0], axis=3)
+    tris = np.concatenate([t1, t2], axis=2).reshape(-1, 3, 3)
+
+    frame_u = np.broadcast_to(u[:, :, None, :], b0.shape)
+    frame_v = np.broadcast_to(axis_n[:, :, None, :], b0.shape)
+    frame_w = np.broadcast_to(w[:, :, None, :], b0.shape)
+    fu = np.concatenate([frame_u, frame_u], axis=2).reshape(-1, 3)
+    fv = np.concatenate([frame_v, frame_v], axis=2).reshape(-1, 3)
+    fw = np.concatenate([frame_w, frame_w], axis=2).reshape(-1, 3)
+    return tris[:, 0], tris[:, 1], tris[:, 2], fu, fv, fw

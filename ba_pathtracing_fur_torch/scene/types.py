@@ -282,6 +282,13 @@ def make_triangle_pack(v0, v1, v2, n0=None, n1=None, n2=None, uv0=None,
         fiber_w=_f32(opt(fiber_w, frame[:, 2]), (-1, 3)))
 
 
+def empty_triangle_pack() -> TrianglePack:
+    z3 = _f32(np.zeros((0, 3)))
+    z2 = _f32(np.zeros((0, 2)))
+    return TrianglePack(v0=z3, v1=z3, v2=z3, n0=z3, n1=z3, n2=z3, uv0=z2, uv1=z2, uv2=z2,
+                        mat_id=_i32(np.zeros((0,))), fiber_u=z3, fiber_v=z3, fiber_w=z3)
+
+
 def make_cone_pack(base, apex, r_base, r_apex, mat_id) -> ConePack:
     """The per-cone local frame exactly as Cylinder's ctor builds it
     (Cylinder.cpp:5-43), for untransformed fibers, in host float32 numpy as

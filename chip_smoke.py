@@ -70,6 +70,21 @@ splat rays with their per-ray t_max. At a small size each engine's image
 through the kernels equals its image through the plain versions bit for
 bit.
 
+The command line (`python -m ba_pathtracing_fur_torch.cli`, driven in this
+process through `cli.main`) runs last on a JSON scene it writes: the
+reference's default fur workload (5 fibers a face x 10 vertices, radius
+0.004) on a 64x64-quad OBJ skin with a noise-textured diffuse map, 368,640
+cones, at the Demo's 1280x720, depth 5 (spp cut from 100 to 16): `convert`
+(the b3df scene flattens to the OBJ scene's packs bit for bit), `render`
+with every `--accel` build (median timed 3 times; sah, morton and grid at
+spp 4; none at spp 1, K5 on both packs), each kernel held to its twin on
+the first sample's traffic and each image gated against the median render,
+`--engine whitted --hair-lobes all`, `--report`, the fused path on the same
+scene (K1 held to its plain version, timed and bounded), and a 64x36 run
+on the card against `--device cpu`. The fur hides the skin from bounces
+0-1, so K1's texture fetch is held, timed and bounded at full size on
+config 3's textured terrain through the fused path.
+
 The traversal kernels (K2, K3) run, as on the main path, on rays sorted by
 the entry-morton key (`ops/traverse._entry_morton_perms`): each is held
 against its plain version on the sorted rays (found, t and closest-hit rows
@@ -89,7 +104,8 @@ torch.profiler breakdown of one config-0, config-4 and config-5 sample. The
 images go to `smoke_out/` (git-ignored): `smoke_config0.png`,
 `smoke_fur_patch.png`, `smoke_hair_ball.png`, `smoke_config3.png`, the
 Whitted renders `smoke_whitted_<scene>_<lobes>.png` and
-`smoke_bdpt_fur_patch.png`.
+`smoke_bdpt_fur_patch.png`; the CLI phase's scene, PNGs and report go to
+`smoke_out/cli/`.
 """
 
 from __future__ import annotations
@@ -178,6 +194,20 @@ TRAFFIC_TWIN_RAYS = 1024
 SMALL_FUR = dict(res=(128, 128), fibers_per_face=400)
 SMALL_HAIRBALL = dict(res=(160, 160), n_fibers=20_000)
 TIMED_REPS = 3
+# The CLI phase: the user entry point (`python -m ba_pathtracing_fur_torch.cli
+# render -s scene.json`) on a JSON scene of the reference's default fur
+# workload (Fur_SmallSkinPatch/scene.json: 5 fibers a face x 10 vertices,
+# radius 0.004) grown on a skin of CLI["quads"]^2 quads (8,192 triangles
+# with UVs, an OBJ; its material a diffuse_map PNG of noise_texture(256) in
+# the JSON's Material section): 40,960 fibers = 368,640 cones. The fur
+# patch's camera, point and sun lights and environment. The Demo's
+# defaults, 1280x720, depth 5, --accel median; spp cut from 100 to 16. The
+# other builds at spp 4 (sah, morton, grid) and 1 (none: K5 on both packs),
+# the report at spp 1. The small gate: a 16x16-quad skin at 64x36, spp 2.
+CLI = dict(quads=64, res=(1280, 720), depth=5, spp=16, spp_methods=4, spp_none=1,
+           spp_report=1)
+CLI_SMALL = dict(quads=16, res=(64, 36), spp=2)
+CLI_DIR = Path("smoke_out") / "cli"
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3;
 # INT32 (the Hopper architecture white paper), for the shade kernel's threefry.
 PEAK_FP32_FLOPS, PEAK_BYTES, PEAK_INT32_OPS = 67e12, 3.35e12, 33.5e12
@@ -717,11 +747,13 @@ def shade_bound(kw, got, what) -> dict:
     old_ms, all_ms = (w[k] / PEAK_BYTES * 1e3 for k in ("old_bytes", "all_bytes"))
     log(f"shade work, {what}: {r} rays by branch {w['classes']}; {w['flops']:.4e} flops "
         f"({w['flops'] / r:.1f} a ray), {w['threefry']} threefry calls and {w['draws']} "
-        f"draws = {w['int_ops']:.4e} integer ops, {w['bytes']:.4e} bytes -> bound "
+        f"draws = {w['int_ops']:.4e} integer ops, {w['fetches']} texture fetches "
+        f"({w['tex_bytes']:.4e} bytes with the uvs), {w['bytes']:.4e} bytes -> bound "
         f"{res['bound_ms']:.4f} ms by {res['bound_by']}; every input of every ray: "
         f"{w['all_bytes']:.4e} bytes = {all_ms:.4f} ms; the drawn-and-gathered interface "
         f"before: {w['old_bytes']:.4e} bytes = {old_ms:.4f} ms")
-    return dict(res, all_bytes_ms=all_ms, old_bound_ms=old_ms, classes=w["classes"])
+    return dict(res, all_bytes_ms=all_ms, old_bound_ms=old_ms, classes=w["classes"],
+                fetches=w["fetches"])
 
 
 def check_draws(keys, bounce, what) -> None:
@@ -1999,6 +2031,483 @@ def phase_engine_gates(dev) -> dict:
     return out
 
 
+def write_skin_scene(out_dir: Path, quads: int, res, device, mesh: str = "skin.obj") -> Path:
+    """The CLI phase's scene under `out_dir`: `skin.obj` (a quads x quads
+    patch of the plane y = 0 over [-0.5, 0.5]^2 with UVs 2x, 2z, so that
+    the texture wraps and takes negative coordinates), `skin.png` (the
+    port's noise_texture(256) made on `device`) and `scene.json` naming
+    `mesh`, the skin material and the "Fur" section, with a camera of
+    resolution `res` -> the JSON's path."""
+    from ba_pathtracing_fur_torch.scene import noise
+    from ba_pathtracing_fur_torch.utils import film
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    g = np.linspace(-0.5, 0.5, quads + 1, dtype=np.float32)
+    xx, zz = np.meshgrid(g, g, indexing="ij")
+    lines = ["# skin patch"]
+    lines += [f"v {float(x)!r} 0.0 {float(z)!r}" for x, z in zip(xx.ravel(), zz.ravel())]
+    lines += [f"vt {float(2 * x)!r} {float(2 * z)!r}" for x, z in zip(xx.ravel(), zz.ravel())]
+    n = quads + 1
+    for i in range(quads):
+        for j in range(quads):  # corners in the order that faces +y
+            c = [i * n + j + 1, i * n + j + 2, (i + 1) * n + j + 2, (i + 1) * n + j + 1]
+            lines.append("f " + " ".join(f"{k}/{k}" for k in c))
+    (out_dir / "skin.obj").write_text("\n".join(lines) + "\n")
+    tex = noise.noise_texture(256, color_lo=(0.2, 0.12, 0.08), color_hi=(0.62, 0.46, 0.36),
+                              device=device)
+    film.write_png(str(out_dir / "skin.png"), tex.cpu().numpy())
+    scene = {
+        "Material": [dict(name="skin", diffuse=[0.35, 0.25, 0.18],
+                          bsdf="LambertianReflectionBSDF", diffuse_map="skin.png")],
+        "Mesh": [{"path": mesh}],
+        "Node": [
+            dict(object="mesh", object_id=0, mesh_id=0, material_id=0, name="skin"),
+            dict(object="camera", object_id=1, position=[0.0, 0.45, 1.1],
+                 direction=[0.0, -0.35, -1.0], up_vector=[0.0, 1.0, 0.0],
+                 resolution=list(res), name="camera"),
+            dict(object="light", object_id=2, kind="point", color=[10.0, 10.0, 10.0],
+                 position=[0.6, 1.2, 0.8], radius=0.05, constant=1.0, name="point"),
+            dict(object="light", object_id=3, kind="sun", color=[1.5, 1.4, 1.2],
+                 direction=[-0.4, -1.0, -0.3], radius=0.05, name="sun")],
+        "Environment": {"color": [0.05, 0.06, 0.08], "light": [0.08, 0.08, 0.08]},
+        "Fur": {"fibers_per_face": 5, "fiber_verts": 10, "radius": 0.004, "seed": 0},
+    }
+    path = out_dir / ("scene.json" if mesh == "skin.obj" else f"scene_{Path(mesh).suffix[1:]}.json")
+    path.write_text(json.dumps(scene, indent=2))
+    return path
+
+
+@contextlib.contextmanager
+def cli_spy(rec: dict):
+    """Record into `rec` what a `cli.main` render runs: the scene it built
+    (with its BVHs), the image and the seconds of the render loop
+    (`render_progressive`, or `render_whitted_jit`) ending in a sync."""
+    from ba_pathtracing_fur_torch.models import pathtracer as pt, whitted
+
+    prog, wjit = pt.render_progressive, whitted.render_whitted_jit
+
+    def progressive(scene, camera, key, cfg, *a, **k):
+        rec["scene"], rec["camera"] = scene, camera
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, acc in prog(scene, camera, key, cfg, *a, **k):
+            rec["img"] = acc
+            yield i, acc
+        torch.cuda.synchronize()
+        rec["render_s"] = time.perf_counter() - t0
+
+    def whitted_jit(scene, camera, cfg):
+        rec["scene"], rec["camera"] = scene, camera
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec["img"] = wjit(scene, camera, cfg)
+        torch.cuda.synchronize()
+        rec["render_s"] = time.perf_counter() - t0
+        return rec["img"]
+
+    pt.render_progressive, whitted.render_whitted_jit = progressive, whitted_jit
+    try:
+        yield rec
+    finally:
+        pt.render_progressive, whitted.render_whitted_jit = prog, wjit
+
+
+def cli_render(scene_path: Path, out: str, dev, *, accel="median", spp=None, res=None,
+               depth=None, keep=0, extra=()) -> dict:
+    """One `cli.main(["render", ..., "--device", dev])` in this process, its
+    counts reset:
+    its wall and render seconds, launches, traversal calls and traced
+    rays, the first `keep` calls' rays, peak device memory, the image, the
+    scene, the build's stage seconds and each BVH's debug_info."""
+    from ba_pathtracing_fur_torch import cli
+    from ba_pathtracing_fur_torch.ops import bvh as bvh_mod, traverse
+
+    spp, res, depth = spp or CLI["spp"], res or CLI["res"], depth or CLI["depth"]
+    argv = ["render", "-s", str(scene_path), "-r", str(spp), "-W", str(res[0]), "-H",
+            str(res[1]), "-d", str(depth), "--accel", accel, "-o", str(CLI_DIR / out),
+            "--device", str(dev), *extra]
+    rec, spy = {}, {}
+    traverse.LAST_BUILD_STATS.clear()
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with cli_spy(spy), traffic(rec, keep=keep):
+        if cli.main(argv) != 0:
+            raise AssertionError(f"cli {' '.join(argv)}: non-zero exit")
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    scene = spy["scene"]
+    build = {k: sum(v.values()) for k, v in traverse.LAST_BUILD_STATS.items()}
+    info = {k: bvh_mod.debug_info(b) for k, b in (("tri", scene.tri_bvh),
+                                                 ("cone", scene.cone_bvh)) if b is not None}
+    return dict(argv=argv, wall=wall, render_s=spy["render_s"], counts=read_counts(),
+                calls=rec["calls"], traced_rays=int(rec["rays"]), kept=rec["kept"],
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30, img=spy["img"],
+                scene=scene, camera=spy["camera"], build_s=build,
+                build_stages=dict(traverse.LAST_BUILD_STATS), debug_info=info)
+
+
+def traversal_launches(scene, calls: int, n_rays: int) -> dict:
+    """The traversal kernels' launches of `calls` closest and any hits on
+    `scene` over wavefronts of `n_rays`: per pack with a BVH, K3 (two-level)
+    or K2 (flat); per BVH-less pack of K5's size, K5."""
+    from ba_pathtracing_fur_torch.ops import traverse
+
+    want: dict = {}
+    for kind, pack, bvh in (("tri", scene.tris, scene.tri_bvh),
+                            ("cone", scene.cones, scene.cone_bvh)):
+        if bvh is not None:
+            k = "stream" if traverse._two_level(bvh) else "traverse"
+        elif pack.count and n_rays * pack.count >= traverse._BRUTE_MIN:
+            k = f"bruteforce_{kind}"
+        else:
+            continue
+        want[k] = want.get(k, 0) + calls
+    return want
+
+
+def hold_cli_traffic(kind, o, d, t_max, scene, what) -> dict:
+    """Every traversal kernel of the CLI scene on one captured wavefront,
+    as `closest_hit` / `any_hit` feed them (sorted by the entry-morton key
+    of the cone BVH, else the triangle BVH; unsorted without a BVH): per
+    pack with a BVH, K2 (flat) or K3 (two-level) on the whole wavefront
+    against its twin on TRAFFIC_TWIN_RAYS live rays and 64 dead ones (found
+    and t bit for bit, rows on closest hits); per BVH-less pack of K5's
+    size, K5 against its twin on the same rays (t and index bit for bit).
+    Each kernel is timed on the whole wavefront."""
+    from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.ops.cuda import intersect as cisect, stream as cstream, \
+        traverse as ctraverse
+
+    any_hit = kind == "any"
+    sort_bvh = scene.cone_bvh if scene.cone_bvh is not None else scene.tri_bvh
+    rays = sorted_rays(o, d, t_max, sort_bvh)[:3] if sort_bvh is not None else (o, d, t_max)
+    sub = live_subset(rays[2], TRAFFIC_TWIN_RAYS)
+    part = tuple(x[sub] for x in rays)
+    out = {}
+    for pk, pack, bvh in (("tri", scene.tris, scene.tri_bvh),
+                          ("cone", scene.cones, scene.cone_bvh)):
+        if bvh is not None:
+            two = traverse._two_level(bvh)
+            name = "traverse_stream" if two else "traverse"
+            fn = lambda *r: (cstream.traverse_stream if two else ctraverse.traverse)(  # noqa
+                *r, bvh, pk, any_hit=any_hit)
+            ref = cstream.traverse_stream_ref if two else ctraverse.traverse_ref
+            t1, r1, f1 = fn(*rays)
+            t0, r0, f0 = ref(*part, bvh, pk, any_hit=any_hit)
+            torch.cuda.synchronize()
+            mis = dict(found=int((f0 != f1[sub]).sum()), t=int((t0 != t1[sub]).sum()))
+            if not any_hit:
+                mis["rows"] = int((r0 != r1[sub]).sum())
+            found, err = int(f1.sum()), float((t0 - t1[sub]).abs().max())
+        elif pack.count and traverse._use_brute(o, pack):
+            name = "bruteforce"
+            tables = cisect.tables_of(pack, pk)
+            fn = lambda *r: cisect.closest(*r, tables, pk)  # noqa: E731
+            tk, ik = fn(*rays)
+            tp, ip = cisect.closest_ref(*part, tables, pk)
+            torch.cuda.synchronize()
+            mis = dict(t=int((tk[sub] != tp).sum()), index=int((ik[sub] != ip).sum()))
+            found = int((ik >= 0).sum())
+            err = float(torch.nan_to_num((tk[sub] - tp).abs()).max())
+        else:
+            continue
+        ms = timed(lambda: fn(*rays), 3)
+        out[f"{name}_{pk}"] = dict(mismatches=mis, found=found, max_abs_err=err, ms=ms,
+                                   twin_rays=int(sub.numel()))
+        log(f"{name} {pk} {kind} hit, {what}: {o.shape[0]} rays, "
+            f"{int((t_max > 0).sum())} with t_max > 0, found {found}; vs twin on "
+            f"{sub.numel()} rays: mismatches {mis}; {ms:.4f} ms")
+        if any(mis.values()):
+            raise AssertionError(f"{name} {pk} {what}: kernel disagrees with plain")
+    return out
+
+
+def cli_traffic_names(depth: int, n_lights: int) -> list:
+    """The traversal calls of one sample of the unfused bounce, in order."""
+    return [f"bounce-{b} {c}" for b in range(depth)
+            for c in (("closest", "shadow") if n_lights else ("closest",))]
+
+
+def flatten_equal(a, b, what) -> None:
+    """Two flattened scenes hold the same packs, tables, lights, environment,
+    atlas and texture slots, bit for bit."""
+    for part in ("tris", "cones", "materials", "lights"):
+        pa, pb = getattr(a, part), getattr(b, part)
+        for f in dataclasses.fields(pa):
+            if not torch.equal(getattr(pa, f.name), getattr(pb, f.name)):
+                raise AssertionError(f"{what}: {part}.{f.name} differs")
+    if not (torch.equal(a.env.color, b.env.color) and torch.equal(a.env.ambient, b.env.ambient)
+            and torch.equal(a.textures.images, b.textures.images)
+            and torch.equal(a.textures.sizes, b.textures.sizes)
+            and a.tex_slots == b.tex_slots and a.has_hair == b.has_hair):
+        raise AssertionError(f"{what}: environment, atlas or flags differ")
+
+
+def phase_cli(dev, card) -> dict:
+    """The CLI on the JSON skin scene (CLI), in this process through
+    `cli.main`: convert OBJ -> b3df (the b3df scene flattens to the OBJ
+    scene's packs bit for bit); render --engine pt with --accel median at
+    the Demo's width (3 timed runs: wall and render seconds, rays/s, build
+    stages, K2 tri and K3 cone launches, peak memory, the PNG); sah, morton
+    and grid at spp 4 and none at spp 1 (K5 on both packs), each with its
+    build seconds, debug_info, wall and launches, every kernel held to its
+    twin on the first sample's traffic, the image gated against the median
+    render at the same spp; --engine whitted --hair-lobes all once; --report
+    with each BVH's overlay; the fused path (K1 with its texture fetch) on
+    the same scene: K1's draws bit-exact and K1 against its plain version
+    on bounces 0-1, timed and bounded, the image gated against the unfused
+    CLI render; and the small gate (CLI_SMALL) on the card against --device
+    cpu, and through the kernels against the plain versions on the card."""
+    from ba_pathtracing_fur_torch import cli
+    from ba_pathtracing_fur_torch.core import rng
+    from ba_pathtracing_fur_torch.models import pathtracer as pt, whitted
+    from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.ops.cuda import shade as cshade
+    from ba_pathtracing_fur_torch.scene.graph import flatten
+    from ba_pathtracing_fur_torch.scene.io import load_scene_json
+
+    t_phase = time.perf_counter()
+    c = CLI
+    w, h = c["res"]
+    path = write_skin_scene(CLI_DIR, c["quads"], c["res"], dev)
+    t0 = time.perf_counter()
+    cli.main(["convert", str(CLI_DIR / "skin.obj"), str(CLI_DIR / "skin.b3df")])
+    convert_s = time.perf_counter() - t0
+    path_b3df = write_skin_scene(CLI_DIR, c["quads"], c["res"], dev, mesh="skin.b3df")
+    t0 = time.perf_counter()
+    scene_obj, cam = flatten(load_scene_json(str(path)), device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    scene_b3df, _ = flatten(load_scene_json(str(path_b3df)), device=dev)
+    flatten_equal(scene_obj, scene_b3df, "the b3df scene against the OBJ scene")
+    n_tris, n_cones = scene_obj.tris.count, scene_obj.cones.count
+    log(f"cli scene: {n_tris} triangles, {n_cones} cones, atlas "
+        f"{tuple(scene_obj.textures.images.shape)}, tex_slots {scene_obj.tex_slots}; convert "
+        f"OBJ -> b3df {convert_s:.3f} s; load + fur + flatten {load_s:.3f} s; the b3df scene "
+        f"flattens to the OBJ scene's packs bit for bit")
+    if (n_tris, n_cones) != (2 * c["quads"] ** 2, 2 * c["quads"] ** 2 * 5 * 9):
+        raise AssertionError("cli: unexpected scene size")
+    del scene_b3df
+
+    names = cli_traffic_names(c["depth"], scene_obj.lights.count)
+    main = cli_render(path, "cli_median.png", dev, keep=len(names))
+    walls = [cli_render(path, "cli_median.png", dev)["wall"] for _ in range(TIMED_REPS)]
+    rays = w * h * c["spp"] * c["depth"]
+    check_counts(main["counts"], "cli median",
+                 **traversal_launches(main["scene"], 2 * c["spp"] * c["depth"], w * h))
+    a_main = check_image(main["img"], (h, w, 3), "cli median")
+    med = float(np.median(walls))
+    log(f"cli render --accel median ({w}x{h}, depth {c['depth']}, spp {c['spp']}): wall median "
+        f"{med:.4f} s of {walls} (counted run {main['wall']:.4f} s, its render loop "
+        f"{main['render_s']:.4f} s) -> {rays / med:.4e} rays/s end to end, "
+        f"{rays / main['render_s']:.4e} rays/s in the render loop; build stages "
+        f"{main['build_stages']} (total {sum(main['build_s'].values()):.3f} s); launches "
+        f"{main['counts']}; peak device memory {main['peak_gib']:.2f} GiB; debug_info "
+        f"{main['debug_info']}; {CLI_DIR / 'cli_median.png'}; on {card}")
+    held = {"median": {n: hold_cli_traffic(k, o, d, t, main["scene"], f"cli median {n} rays")
+                       for n, (k, o, d, t) in zip(names, main.pop("kept"))}}
+    prof = profile_call(lambda: cli_render(path, "cli_profile.png", dev, spp=1),
+                        "cli median spp-1 render (scene load and build included)",
+                        ("traverse_kernel", "stream_kernel"))
+    res = dict(median=dict({k: v for k, v in main.items() if k not in ("img", "scene",
+                                                                      "camera")},
+                           walls=walls, wall_median=med, rays_per_s=rays / med,
+                           render_rays_per_s=rays / main["render_s"], profile=prof))
+    del main
+
+    refs = {}
+    methods = {}
+    for m, spp in (("median", c["spp_methods"]), ("sah", c["spp_methods"]),
+                   ("morton", c["spp_methods"]), ("grid", c["spp_methods"]),
+                   ("median", c["spp_none"]), ("none", c["spp_none"])):
+        run = cli_render(path, f"cli_{m}_spp{spp}.png", dev, accel=m, spp=spp,
+                         keep=len(names))
+        img = check_image(run["img"], (h, w, 3), f"cli {m} spp {spp}")
+        check_counts(run["counts"], f"cli {m}",
+                     **traversal_launches(run["scene"], 2 * spp * c["depth"], w * h))
+        held[f"{m}_spp{spp}"] = {
+            nm: hold_cli_traffic(k, o, d, t, run["scene"], f"cli {m} {nm} rays")
+            for nm, (k, o, d, t) in zip(names, run.pop("kept"))}
+        if m == "median":
+            refs[spp] = img
+            gate = None
+        else:
+            gate = image_gate(refs[spp], img, f"cli --accel {m} against median, spp {spp}")
+        log(f"cli --accel {m} spp {spp}: build {run['build_s']} s, debug_info "
+            f"{run['debug_info']}; wall {run['wall']:.4f} s (render loop {run['render_s']:.4f} "
+            f"s); launches {run['counts']}; peak {run['peak_gib']:.2f} GiB; on {card}")
+        methods[f"{m}_spp{spp}"] = dict(
+            {k: v for k, v in run.items() if k not in ("img", "scene", "camera")}, gate=gate)
+        del run
+    res["methods"] = methods
+
+    run = cli_render(path, "cli_whitted.png", dev,
+                     extra=("--engine", "whitted", "--hair-lobes", "all"))
+    iters = sum(len(x) for x in whitted.LAST_QUEUE_LIVE)
+    check_image(run["img"], (h, w, 3), "cli whitted")
+    log(f"cli --engine whitted --hair-lobes all: wall {run['wall']:.4f} s, render "
+        f"{run['render_s']:.4f} s, {iters} DFS iterations, traced rays {run['traced_rays']} -> "
+        f"{run['traced_rays'] / run['render_s']:.4e} traced rays/s; launches {run['counts']}; "
+        f"peak {run['peak_gib']:.2f} GiB; on {card}")
+    res["whitted"] = dict(wall=run["wall"], render_s=run["render_s"], iterations=iters,
+                          traced_rays=run["traced_rays"], counts=run["counts"],
+                          rays_per_s=run["traced_rays"] / run["render_s"],
+                          peak_gib=run["peak_gib"])
+    del run
+
+    report = CLI_DIR / "cli_report.html"
+    run = cli_render(path, "cli_report.png", dev, spp=c["spp_report"],
+                     extra=("--report", str(report)))
+    html = report.read_text()
+    if html.count("structure overlay") < 2:
+        raise AssertionError("cli report: an overlay is missing")
+    log(f"cli --report (spp {c['spp_report']}): wall {run['wall']:.4f} s, {report} "
+        f"{report.stat().st_size} bytes, peak device memory {run['peak_gib']:.2f} GiB "
+        f"(the overlays chunk the rays x leaves slab test); on {card}")
+    res["report"] = dict(wall=run["wall"], peak_gib=run["peak_gib"], bytes=report.stat().st_size)
+    del run
+
+    res["fused"] = phase_cli_fused(scene_obj, cam, {c["spp"]: a_main, c["spp_none"]: refs[
+        c["spp_none"]]}, dev, card)
+    del scene_obj
+    res["small"] = phase_cli_small(dev)
+    res["held"] = held
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"cli phase: {res['phase_s']:.1f} s on {card}")
+    return res
+
+
+def phase_cli_fused(scene, cam, unfused: dict, dev, card) -> dict:
+    """render_image(RenderConfig(depth=5, spp=16, fused_shading=True)) on
+    the CLI scene with its median BVHs: K1 with its texture fetch on every
+    bounce (launch counts), its draws bit-exact and K1 against its plain
+    version (compare_shade's gate) on bounces 0-1, timed and bounded there;
+    the images against the unfused CLI renders `unfused` ({spp: image})
+    under image_gate: through K1 at spp 1, through K1's plain version at
+    spp 16."""
+    from ba_pathtracing_fur_torch.core import rng
+    from ba_pathtracing_fur_torch.models import pathtracer as pt
+    from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.ops.cuda import shade as cshade
+
+    c = CLI
+    w, h = c["res"]
+    scene = traverse.attach_bvh(scene, method="median")
+    cfg = pt.RenderConfig(depth=c["depth"], spp=c["spp"], fused_shading=True)
+    cam = dataclasses.replace(cam, resolution=c["res"])
+    reset_counts()
+    t0 = time.perf_counter()
+    img = render(scene, cam, rng.key(0, dev), cfg)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    n = c["spp"] * c["depth"]
+    check_counts(counts, "cli fused", shade=n, **traversal_launches(scene, 2 * n, w * h))
+    a = check_image(img, (h, w, 3), "cli fused")
+    # K1's float differences from its plain version (FMA contraction, CUDA
+    # transcendentals; 0.2% of a bounce's rows off by more than 1e-4, as on
+    # config 4) move a few hair paths of a sample, and a pixel's 16 samples
+    # collect them: the gate holds the kernel's render against the unfused
+    # CLI render at spp 1, and the fused path with K1's plain version
+    # against it at spp 16; the kernel's spp-16 difference is reported.
+    b = check_image(render(scene, cam, rng.key(0, dev), dataclasses.replace(
+        cfg, spp=c["spp_none"])), (h, w, 3), f"cli fused spp {c['spp_none']}")
+    gate = image_gate(unfused[c["spp_none"]], b, f"cli fused (K1 textured) spp "
+                      f"{c['spp_none']} against the unfused CLI render")
+    fn = cshade.shade_bounce
+    cshade.shade_bounce = cshade.shade_bounce_ref
+    try:
+        p = check_image(render(scene, cam, rng.key(0, dev), cfg), (h, w, 3), "cli fused plain")
+    finally:
+        cshade.shade_bounce = fn
+    gate_plain = image_gate(unfused[c["spp"]], p, f"cli fused with K1's plain version spp "
+                            f"{c['spp']} against the unfused CLI render")
+    d = np.abs(a.astype(np.float64) - unfused[c["spp"]])
+    spp16 = dict(mean=float(d.mean()), flips=float(np.mean(d.max(-1) > IMG_FLIP)))
+    log(f"cli fused (K1 textured) spp {c['spp']} against the unfused CLI render, not gated: "
+        f"mean |diff| {spp16['mean']:.3e}, flipped pixels {spp16['flips']:.4f}")
+    out = dict(wall=wall, rays_per_s=w * h * n / wall, counts=counts, gate=gate,
+               gate_plain=gate_plain, spp16=spp16)
+    out.update(k1_bounces(scene, cam, cfg, dev, "cli"))
+    k1 = out["k1"]
+    log(f"cli fused render ({w}x{h}, depth {c['depth']}, spp {c['spp']}): {wall:.4f} s = "
+        f"{w * h * n / wall:.4e} rays/s, launches {counts}; K1 textured vs plain: worst "
+        f"mismatched-row fraction {k1['worst_frac']:.5f}, max |diff| {k1['max_abs_err']:.3e}; "
+        f"bounce 0 {out[0]['times']['ms']:.4f} ms vs bound {out[0]['bound']['bound_ms']:.4f} ms "
+        f"({out[0]['bound']['bound_by']}); on {card}")
+    return out
+
+
+def k1_bounces(scene, cam, cfg, dev, name, n_bounces: int = 2) -> dict:
+    """K1 on bounces 0..n_bounces-1 of sample 0 of `scene`'s fused path
+    (the camera wavefront, then the plain version's output): held to its
+    plain version under compare_shade's gate, its draws bit-exact, timed
+    (shade_times) and bounded (shade_bound) on each bounce -> {bounce:
+    {times, bound}, "k1": worst values}."""
+    from ba_pathtracing_fur_torch.core import rng
+    from ba_pathtracing_fur_torch.models import pathtracer as pt
+    from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.ops.cuda import shade as cshade
+
+    w, h = cam.resolution
+    tables = pt.BounceTables.of(scene)
+    ids = torch.arange(w * h, device=dev)
+    state, keys = pt.camera_wavefront(cam, ids, rng.key(0, dev), [0], cfg)
+    k1 = dict(worst_frac=0.0, max_abs_err=0.0, max_rel_err=0.0)
+    out = dict(k1=k1)
+    for bounce in range(n_bounces):
+        alive = (state.radiance != 0.0).any(-1) & (state.direction != 0.0).any(-1)
+        hit = traverse.closest_hit(state.origin, state.direction, scene,
+                                   t_max=torch.where(alive, traverse.INF, 0.0))
+        kw = pt.shade_inputs(state, scene, keys, bounce, cfg, hit, tables)
+        got = cshade.shade_bounce(**kw)
+        want = cshade.shade_bounce_ref(**kw)
+        torch.cuda.synchronize()
+        what = f"{name} textured bounce {bounce}"
+        compare_shade(got, want, what, k1)
+        check_draws(keys, bounce, what)
+        out[bounce] = dict(times=shade_times(kw, what), bound=shade_bound(kw, got, what))
+        blocked = traverse.any_hit(want["shadow_o"], want["shadow_d"], scene,
+                                   want["shadow_tmax"])
+        color = want["color"] + torch.where(blocked[:, None], 0.0, want["direct_rgb"])
+        state = pt.RayState(origin=want["origin"], direction=want["direction"],
+                            radiance=want["radiance"], color=color, flags=want["flags"],
+                            theta_i=want["theta_i"], prev_pdf=want["prev_pdf"])
+    log(f"K1 textured vs plain, {name}: worst mismatched-row fraction {k1['worst_frac']:.5f}, "
+        f"max |diff| {k1['max_abs_err']:.3e}")
+    return out
+
+
+def phase_cli_small(dev) -> dict:
+    """The CLI at CLI_SMALL on a small skin of the same JSON: --device cuda
+    against --device cpu (image_gate), and on the card through the kernels
+    against the plain versions (bit for bit: the traversal kernels are
+    exact and the rest is the same torch code)."""
+    c = CLI_SMALL
+    w, h = c["res"]
+    path = write_skin_scene(CLI_DIR / "small", c["quads"], c["res"], dev)
+    kw = dict(spp=c["spp"], res=c["res"])
+    card = cli_render(path, "small_cuda.png", dev, **kw)
+    check_counts(card["counts"], "cli small",
+                 **traversal_launches(card["scene"], 2 * c["spp"] * CLI["depth"], w * h))
+    a = check_image(card["img"], (h, w, 3), "cli small card")
+    with plain_bounces():
+        plain = cli_render(path, "small_plain.png", dev, **kw)
+    b = plain["img"].cpu().numpy()
+    cpu = cli_render(path, "small_cpu.png", "cpu", **kw)
+    cpu_img = check_image(cpu["img"], (h, w, 3), "cli small cpu")
+    equal = bool(np.array_equal(a, b))
+    d = np.abs(a - b)
+    log(f"cli small ({w}x{h}, spp {c['spp']}, {card['scene'].cones.count} cones): card "
+        f"kernels vs card plain bit-equal {equal} (max |diff| {d.max():.3e}); card "
+        f"vs cpu: bit-equal {bool(np.array_equal(a, cpu_img))}")
+    if not equal:
+        raise AssertionError("cli small: the kernels' image differs from the plain one")
+    return dict(gate=image_gate(cpu_img, a, "cli small: card against --device cpu"),
+                bit_equal_plain=equal, bit_equal_cpu=bool(np.array_equal(a, cpu_img)))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU", file=sys.stderr)
@@ -2109,11 +2618,16 @@ def drive(dev, card: str) -> list:
         f"{build3['build_s']:.3f} s (split {build3['stages']['split']:.3f} s), on {card}")
     compaction["config3"] = phase_compaction(scene3, cam3, cfg3, "config3",
                                              traverse=2 * cfg3.depth)
+    # K1's texture fetch at full size: the terrain's textured material on
+    # the fused path (the CLI skin's fur hides its skin from bounces 0-1)
+    k1t = k1_bounces(scene3, cam3, dataclasses.replace(cfg3, fused_shading=True), dev,
+                     "config3")
     log(f"compaction on {card}: {compaction}")
     del scene3
     phase_terrain_gate(dev)
     phase_unfused_vs_fused(dev)
     phase_engine_gates(dev)
+    cli = phase_cli(dev, card)
     for name, r in (("W4", w4["all"]), ("W4 hair_lobes='r'", w4["r"]), ("W5", w5["all"]),
                     ("B4", b4)):
         prof = r.get("profile")
@@ -2124,6 +2638,19 @@ def drive(dev, card: str) -> list:
                f"{max(0.0, 1 - prof['busy'] / prof['wall']):.3f}, {prof['launches']} launches"
                if prof else ""))
 
+    def cli_kernel(name):
+        """The CLI scene's numbers of one kernel: its launches in the median
+        (or none) render, and its time on each held wavefront of each build."""
+        runs = {"median": cli["median"], **cli["methods"]}
+        count = {"traverse_tri": "traverse", "traverse_stream_cone": "stream"}.get(name, name)
+        return dict(
+            launches={m: r["counts"][count] for m, r in runs.items()},
+            ms={m: {w: x[name]["ms"] for w, x in held.items() if name in x}
+                for m, held in cli["held"].items()},
+            max_abs_err=max([x[name]["max_abs_err"] for held in cli["held"].values()
+                             for x in held.values() if name in x] or [0.0]))
+
+    cf = cli["fused"]
     t0, s0 = fur[0]["times"], fur[0]["shade"]
     b0 = fur[0]["closest_bound"]
     h0, k5t, k4b = hb[0], hb["k5_tri_0"], k4["config0_b0"]
@@ -2159,7 +2686,7 @@ def drive(dev, card: str) -> list:
              launches=tri["launches"], max_abs_err=tri["max_abs_err"], ms=tri["ms"],
              plain_ms=tri["plain_ms"], bound_ms=tri["bound_ms"], bound_by=tri["bound_by"],
              library_ms=None, unsorted_ms=tri["unsorted_ms"], any_ms=tri["any_ms"],
-             soup=tri["soup"],
+             soup=tri["soup"], cli=cli_kernel("traverse_tri"),
              config3=dict(
                  launches=main3["counts"]["traverse"],
                  max_abs_err=max(k2t[k]["max_abs_err"] for k in (0, 1, "shadow")),
@@ -2193,7 +2720,20 @@ def drive(dev, card: str) -> list:
                               bound_by=hb[b]["shade"]["bound"]["bound_by"])
                       for k, b in (("bounce0", 0), ("bounce1", 1))},
              config5_launches=hb_main["counts"]["shade"],
-             config5_traced_ms_per_launch=per_launch(prof5, "shade_kernel")),
+             config5_traced_ms_per_launch=per_launch(prof5, "shade_kernel"),
+             textured=dict(
+                 launches=cf["counts"]["shade"], max_abs_err=cf["k1"]["max_abs_err"],
+                 mismatch_frac=cf["k1"]["worst_frac"],
+                 **{k: cf[0]["times"][k] for k in ("ms", "plain_ms")},
+                 bound_ms=cf[0]["bound"]["bound_ms"], bound_by=cf[0]["bound"]["bound_by"],
+                 bounce1_ms=cf[1]["times"]["ms"], bounce1_bound_ms=cf[1]["bound"]["bound_ms"],
+                 rays_per_s=cf["rays_per_s"], fetches=cf[0]["bound"]["fetches"],
+                 config3=dict(
+                     max_abs_err=k1t["k1"]["max_abs_err"], mismatch_frac=k1t["k1"]["worst_frac"],
+                     **{k: k1t[0]["times"][k] for k in ("ms", "plain_ms")},
+                     bound_ms=k1t[0]["bound"]["bound_ms"], bound_by=k1t[0]["bound"]["bound_by"],
+                     fetches=k1t[0]["bound"]["fetches"], bounce1_ms=k1t[1]["times"]["ms"],
+                     bounce1_bound_ms=k1t[1]["bound"]["bound_ms"]))),
         dict(name="traverse_stream_cone", route="cuda",
              source="ba_pathtracing_fur_torch/csrc/traverse_stream.cu",
              replaces="ba_pathtracing_fur_tpu/ops/pallas/stream.py:464",
@@ -2214,7 +2754,8 @@ def drive(dev, card: str) -> list:
              bounce1_bound_ms=hb[1]["closest_bound"]["bound_ms"],
              bounce1_bound_by=hb[1]["closest_bound"]["bound_by"],
              whitted_launches=w5["all"]["counts"]["stream"],
-             whitted_traffic_ms={n: x["ms"] for n, x in w5["all"]["held"].items()}),
+             whitted_traffic_ms={n: x["ms"] for n, x in w5["all"]["held"].items()},
+             cli=cli_kernel("traverse_stream_cone")),
         dict(name="bruteforce_tri", route="cuda",
              source="ba_pathtracing_fur_torch/csrc/bruteforce.cu",
              replaces="ba_pathtracing_fur_tpu/ops/pallas/intersect.py:220",
@@ -2232,7 +2773,8 @@ def drive(dev, card: str) -> list:
                 for k in ("ms", "unsorted_ms")},
              **{f"{w}_bound_ms": hb[f"k5_tri_{w}"]["bound"]["bound_ms"] for w in ("1", "shadow")},
              whitted_launches=w5["all"]["counts"]["bruteforce_tri"],
-             whitted_traffic_ms={n: x["k5"]["ms"] for n, x in w5["all"]["held"].items()}),
+             whitted_traffic_ms={n: x["k5"]["ms"] for n, x in w5["all"]["held"].items()},
+             cli=cli_kernel("bruteforce_tri")),
         dict(name="bruteforce_cone", route="cuda",
              source="ba_pathtracing_fur_torch/csrc/bruteforce.cu",
              replaces="ba_pathtracing_fur_tpu/ops/pallas/intersect.py:220",
@@ -2245,7 +2787,8 @@ def drive(dev, card: str) -> list:
              exact_per_ray=k5c["bound"]["exact_per_ray"],
              entry_ratio=max(k5_cone[b]["margin"]["entry_ratio"] for b in (0, 1)),
              bounce1_ms=k5_cone[1]["ms"],
-             bounce1_bound_ms=k5_cone[1]["bound"]["bound_ms"]),
+             bounce1_bound_ms=k5_cone[1]["bound"]["bound_ms"],
+             cli=cli_kernel("bruteforce_cone")),
     ]
     return kernels_line
 

@@ -1,4 +1,5 @@
-"""The traversal kernels on the Whitted raytracer's and BDPT's traffic.
+"""The traversal kernels on the Whitted raytracer's and BDPT's traffic, on
+trees with empty tail leaves, and K1's texture fetch.
 
 Whitted's nodes trace with t_max = inf (the JAX package's `jnp.inf`), its
 shadow rays carry unnormalized directions with t_max = 1 (|d| ~ 1e16 toward
@@ -7,7 +8,12 @@ fiber; BDPT's connections carry a per-ray t_max. Here the twins' rules on
 that traffic (a row's INF is a miss even below t_max = inf), and, on the
 card (`cuda`-marked, skipped elsewhere), K2, K3 and K5 against their twins
 on it and the engines' small renders through the kernels against their
-plain versions bit for bit. No jax import, so on the card:
+plain versions bit for bit. The morton build fills the leaves in order, so
+its last leaves can be wholly padding (inverted boxes): K2 and K3 are held
+to their twins on such trees. K1 on a textured scene fetches its textured
+slots itself: it is held to its plain version (the textured gather) on
+wrapping and negative uvs, ids of -1 and a slot the scene does not texture.
+No jax import, so on the card:
 `python -m pytest tests/test_torch_engine_kernels.py -m cuda --noconftest -p no:cacheprovider`.
 """
 
@@ -139,3 +145,112 @@ def test_engines_render_bit_equal_to_their_plain_versions_on_the_card(monkeypatc
         monkeypatch.undo()
         monkeypatch.setattr(traverse, "_BRUTE_MIN", 1 << 10)
         assert torch.isfinite(got).all() and torch.equal(got, want)
+
+
+def _textured_inputs(dev):
+    """shade_bounce's inputs on a textured terrain (a SAH BVH, K2) with
+    textured diffuse and transparency on material 0, an untextured
+    material 1 (ids -1), a roughness id on material 1 that the scene does
+    not texture (not in tex_slots: it keeps its value), and the hits' uvs
+    replaced by values in [-2.5, 2.5): wrapping and negative."""
+    import dataclasses
+
+    scene, cam = builtins.tri_terrain(resolution=(64, 64), n_tris=2000, device=dev)
+    m = scene.materials
+    m = dataclasses.replace(m, transparency_tex=torch.tensor([0, -1], dtype=torch.int32,
+                                                             device=dev),
+                            roughness_tex=torch.tensor([-1, 0], dtype=torch.int32, device=dev))
+    scene = dataclasses.replace(traverse.attach_bvh(scene, method="sah", min_prims=1),
+                                materials=m, tex_slots=("diffuse", "transparency"))
+    cfg = pt.RenderConfig(depth=2, spp=1, compact=False, fused_shading=True)
+    ids = torch.arange(64 * 64, device=dev)
+    state, keys = pt.camera_wavefront(cam, ids, rng.key(3, dev), [0], cfg)
+    hit = traverse.closest_hit(state.origin, state.direction, scene)
+    kw = pt.shade_inputs(state, scene, keys, 0, cfg, hit, pt.BounceTables.of(scene))
+    g = torch.Generator().manual_seed(5)
+    kw["uv"] = (torch.rand((ids.numel(), 2), generator=g) * 5.0 - 2.5).to(dev)
+    kw["uv"][:8] = torch.tensor([[0.0, 0.0], [1.0, 1.0], [-1e-10, 0.5], [2.0, -2.0],
+                                 [-0.3, 1.7], [0.999999, -0.999999], [-0.0, -0.0],
+                                 [1.5, 0.25]])
+    assert 0.2 < float(hit.valid.float().mean()) < 1.0
+    return kw
+
+
+def test_textured_shade_inputs_fetch_like_the_unfused_gather():
+    """The plain K1's textured rows (gather_rows + fetch_textures on the
+    table's ids) equal the unfused path's gather_materials bit for bit, and
+    the fetch changes the textured slots only."""
+    from ba_pathtracing_fur_torch.models import bsdf
+
+    kw = _textured_inputs("cpu")
+    ids = kw["tex_table"][bsdf.material_index(kw["mat_id"], kw["tex_table"].shape[0])]
+    got = bsdf.fetch_textures(bsdf.gather_rows(kw["mats_table"], kw["mat_id"]),
+                              dict(zip(bsdf.CONSUMED_TEX_SLOTS, ids.unbind(1))), kw["uv"],
+                              kw["textures"], kw["tex_slots"])
+    plain = bsdf.gather_rows(kw["mats_table"], kw["mat_id"])
+    mat0 = kw["mat_id"] == 0
+    assert not torch.equal(got.diffuse[mat0], plain.diffuse[mat0])
+    assert not torch.equal(got.transparency[mat0], plain.transparency[mat0])
+    for f in ("diffuse", "transparency", "roughness", "specular", "emission", "ior"):
+        assert torch.equal(getattr(got, f)[~mat0], getattr(plain, f)[~mat0]), f
+    assert torch.equal(got.roughness, plain.roughness)
+
+
+@pytest.mark.cuda
+def test_shade_kernel_texture_fetch_matches_plain_on_the_card():
+    """K1 with its texture fetch against its plain version (the textured
+    gather) on the card: wrapping and negative uvs, a texture id of -1, a
+    slot the scene does not texture, colour and scalar slots. Every output
+    field under the per-field gate of the other K1 tests, and the textured
+    rows' direct term bit for bit where both are lit (the fetch is rounded
+    as the plain version rounds)."""
+    from ba_pathtracing_fur_torch.ops.cuda import shade as cshade
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card with -m cuda)")
+    kw = _textured_inputs(torch.device("cuda"))
+    launches = cshade.SHADE_LAUNCHES
+    got = cshade.shade_bounce(**kw)
+    want = cshade.shade_bounce_ref(**kw)
+    torch.cuda.synchronize()
+    assert cshade.SHADE_LAUNCHES == launches + 1
+    live = want["shadow_tmax"] > 0
+    for f, a in want.items():
+        b = got[f]
+        if f in ("shadow_o", "shadow_d"):
+            a, b = a[live], b[live]
+        a, b = a.double().reshape(len(a), -1), b.double().reshape(len(b), -1)
+        bad = ((a - b).abs() > 1e-4 + 1e-4 * a.abs()).any(-1).double().mean().item()
+        assert bad < 0.02, f"{f}: {bad:.4f} of rows mismatched"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_traversal_kernels_on_empty_tail_leaves_on_the_card(any_hit):
+    """K2 (flat) and K3 (two-level) on morton trees whose last leaves are
+    wholly padding (inverted boxes), against their twins: found and t bit
+    for bit, rows on closest hits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card with -m cuda)")
+    dev = torch.device("cuda")
+    fur, _ = builtins.fur_patch(resolution=(8, 8), fibers_per_face=1000, device=dev)
+    n = 4096
+    for leaf_size, fanout in ((96, 0), (96, 16)):
+        scene = traverse.attach_bvh(fur, method="morton", leaf_size=leaf_size, fanout=fanout,
+                                    min_prims=1)
+        bvh = scene.cone_bvh
+        empty = (bvh.perm.reshape(bvh.n_leaves, -1) < 0).all(1)
+        assert int(empty.sum()) >= 8 and bool(empty[-1])
+        o, d = _traffic(n, dev, seed=2)
+        t_max = torch.rand((n,), device=dev) * 3.0
+        t_max[::5] = float("inf")
+        t_max[::11] = 0.0
+        perm, _ = traverse._entry_morton_perms(o, d, t_max, bvh)
+        so, sd, st = o[perm], d[perm], t_max[perm]
+        fn = cstream.traverse_stream if fanout else ctraverse.traverse
+        t1, r1, f1 = fn(so, sd, st, bvh, "cone", any_hit=any_hit)
+        t0, r0, f0 = _twin(bvh, "cone", so, sd, st, any_hit)
+        assert 0 < int(f0.sum()) < n
+        assert torch.equal(f1, f0) and torch.equal(t1, t0)
+        if not any_hit:
+            assert torch.equal(r1, r0)

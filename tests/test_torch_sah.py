@@ -114,13 +114,25 @@ def test_sah_terrain_closest_rows_equal_jax():
 
 
 def test_sah_render_cfg_has_no_texture_fetch_in_the_fused_path():
-    """The fused path still refuses the textured terrain (K1 has no texture
-    fetch); the unfused default renders it."""
-    ts, tc = builtins.tri_terrain(resolution=(6, 6), n_tris=200, device=CPU)
-    ts = traverse.attach_bvh(ts, method="sah", min_prims=1)
-    with pytest.raises(NotImplementedError, match="K1's texture fetch"):
-        pt.render_image(ts, tc, rng.key(0, CPU), pt.RenderConfig(
-            depth=1, spp=1, compact=False, fused_shading=True))
+    """The fused path, which refused the textured terrain until K1 fetched
+    textures itself, renders it on its SAH BVH as the JAX package's fused
+    path does (op by op, under the image gate); the unfused default renders
+    it too."""
+    from ba_pathtracing_fur_tpu.models import pathtracer as jpt
+    from ba_pathtracing_fur_torch.core.camera import camera_from_numpy
+    from test_torch_fur import _compare_images
+
+    js, jc = jbuiltins.tri_terrain(resolution=(6, 6), n_tris=200)
+    js = jtraverse.attach_bvh(js, method="sah", min_prims=1)
+    cfg = dict(depth=2, spp=1, compact=False, fused_shading=True)
+    with jax.disable_jit():
+        want = np.asarray(jpt.render_sample_ids(js, jc, jnp.arange(36), jax.random.key(0), 0,
+                                                jpt.RenderConfig(**cfg))).reshape(6, 6, 3)
+    ts = types.scene_from_numpy(js, device=CPU)
+    tc = camera_from_numpy(jc, device=CPU)
+    img = pt.render_image(ts, tc, rng.key(0, CPU), pt.RenderConfig(**cfg))
+    assert ts.textures is not None and img.shape == (6, 6, 3)
+    _compare_images(want, img.numpy())
     img = pt.render_image(ts, tc, rng.key(0, CPU), pt.RenderConfig(depth=2, spp=1,
                                                                    compact=False))
     assert img.shape == (6, 6, 3) and torch.isfinite(img).all() and img.max() > 0.01

@@ -87,14 +87,24 @@ def test_pixel_grid_matches():
 
 @pytest.mark.parametrize("method", ["grid", "morton"])
 def test_scene_with_bvh_is_refused(method):
-    """Scenes with a median or SAH BVH render (test_torch_traverse.py,
-    test_torch_sah.py); the BVH builds that are not ported yet are refused,
-    naming their ROADMAP item."""
+    """The grid and morton builds, refused (naming their ROADMAP item) until
+    they were ported, attach on the fur patch's cones and triangles as the
+    JAX package's do: the same perm, boxes and packed leaves per pack, and
+    the last leaves of the morton and grid trees hold the padding."""
+    from ba_pathtracing_fur_tpu.ops import traverse as jtraverse
     from ba_pathtracing_fur_torch.ops import traverse
 
-    ts, _ = builtins.fur_patch(resolution=(4, 4), fibers_per_face=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        traverse.attach_bvh(ts, method=method, min_prims=1)
+    js, _ = jbuiltins.fur_patch(resolution=(4, 4), fibers_per_face=4)
+    jb = jtraverse.attach_bvh(js, method=method, min_prims=1, fanout=0)
+    ts = traverse.attach_bvh(types.scene_from_numpy(js, device="cpu"), method=method,
+                             min_prims=1, fanout=0)
+    for kind in ("tri_bvh", "cone_bvh"):
+        a, b = getattr(ts, kind), getattr(jb, kind)
+        for f in ("perm", "bmin", "bmax", "packed"):
+            np.testing.assert_array_equal(getattr(a, f).numpy(), np.asarray(getattr(b, f)),
+                                          err_msg=f"{kind} {f}")
+        n = getattr(js, kind[:-4] + "s").count  # the pack before the reorder
+        assert (a.perm[:n] >= 0).all() and (a.perm[n:] == -1).all()
 
 
 def test_sah_bvh_attaches_as_jax():
@@ -137,22 +147,37 @@ def test_ineligible_scene_is_refused(change, item):
 
 
 def test_textured_scene_is_refused():
-    """The fused path refuses a textured scene, naming K1's texture fetch
-    (the shade kernel reads material rows itself and fetches no texture);
-    the unfused path renders it."""
+    """The fused path, which refused textured scenes until K1 fetched
+    textures itself, renders a textured fur patch (the skin's diffuse
+    textured) as the JAX package's fused path does (op by op, under the
+    image gate), and as the port's unfused path does."""
+    import jax
+
+    from ba_pathtracing_fur_tpu.models import pathtracer as jpt
+    from ba_pathtracing_fur_tpu.scene.texture import build_atlas as jbuild_atlas
     from ba_pathtracing_fur_torch.core import rng
     from ba_pathtracing_fur_torch.models import pathtracer as pt
-    from ba_pathtracing_fur_torch.scene.texture import TextureAtlas
+    from ba_pathtracing_fur_torch.ops.cuda import shade as cshade
+    from test_torch_fur import _compare_images
 
-    ts, tc = builtins.fur_patch(resolution=(4, 4), fibers_per_face=4, device="cpu")
-    ts = dataclasses.replace(ts, textures=TextureAtlas(torch.zeros((1, 2, 2, 4)),
-                                                       torch.tensor([[2, 2]], dtype=torch.int32)),
-                             tex_slots=("diffuse",))
-    cfg = pt.RenderConfig(depth=1, spp=1, compact=False, fused_shading=True)
-    with pytest.raises(NotImplementedError, match="K1's texture fetch"):
-        pt.render_image(ts, tc, rng.key(0, "cpu"), cfg)
-    img = pt.render_image(ts, tc, rng.key(0, "cpu"), dataclasses.replace(cfg, fused_shading=False))
-    assert torch.isfinite(img).all()
+    js, jc = jbuiltins.fur_patch(resolution=(6, 6), fibers_per_face=4)
+    tex = np.random.RandomState(0).rand(3, 5, 3).astype(np.float32)
+    js = js.replace(textures=jbuild_atlas([tex]), tex_slots=("diffuse",),
+                    materials=js.materials.replace(
+                        diffuse_tex=np.asarray([0, -1], np.int32)))
+    cfg = dict(depth=2, spp=1, compact=False, fused_shading=True)
+    w, h = jc.resolution
+    with jax.disable_jit():
+        want = np.asarray(jpt.render_sample_ids(js, jc, jax.numpy.arange(w * h),
+                                                jax.random.key(0), 0, jpt.RenderConfig(**cfg)))
+    ts, tc = types.scene_from_numpy(js, device="cpu"), cam_mod.camera_from_numpy(jc, "cpu")
+    refs = cshade.SHADE_REF_CALLS
+    img = pt.render_image(ts, tc, rng.key(0, "cpu"), pt.RenderConfig(**cfg))
+    assert cshade.SHADE_REF_CALLS - refs == cfg["depth"]
+    _compare_images(want.reshape(h, w, 3), img.numpy())
+    unfused = pt.render_image(ts, tc, rng.key(0, "cpu"), pt.RenderConfig(
+        **dict(cfg, fused_shading=False)))
+    _compare_images(unfused.numpy(), img.numpy())
 
 
 def test_entry_points_default_to_the_card():
