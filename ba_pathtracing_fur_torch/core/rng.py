@@ -105,6 +105,13 @@ def keys_for_pixels(base_key: torch.Tensor, pixel_ids: torch.Tensor,
     return fold_in(k, pixel_ids.to(torch.int64))
 
 
+def pixel_keys(base_key: torch.Tensor, n_pixels: int, sample_index: int) -> torch.Tensor:
+    """One key `[n_pixels, 2]` per pixel 0..n_pixels-1 for a progressive
+    sample index."""
+    return keys_for_pixels(base_key, torch.arange(n_pixels, device=base_key.device),
+                           sample_index)
+
+
 def bounce_uniform(keys: torch.Tensor, bounce: int, n: int,
                    tag: int = 0) -> torch.Tensor:
     """`[R, n]` uniforms for this bounce; `tag` separates independent uses

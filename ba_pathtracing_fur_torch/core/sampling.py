@@ -24,6 +24,15 @@ def normal_gauss_pdf(x, mean, stddev):
     return INV_SQRT_2PI / stddev * torch.exp(-0.5 * a * a)
 
 
+def schlick_fresnel(view, normal, ior_in, ior_out):
+    """Schlick's approximation (Bsdf.cpp:87-93). The fifth power is
+    ((m m)(m m)) m, the products XLA's integer power takes."""
+    r0 = ((ior_in - ior_out) / (ior_in + ior_out)) ** 2
+    m = 1.0 - vm.dot(view, normal)
+    m2 = m * m
+    return r0 + (m2 * m2) * m * (1.0 - r0)
+
+
 def dielectric_fresnel(cos_theta, eta_i, eta_t):
     """Unpolarized dielectric Fresnel (Bsdf.cpp:143-171). Negative cos_theta
     means exiting and swaps the indices; 1 on total internal reflection."""
@@ -102,6 +111,29 @@ def cosine_hemisphere_about(u1: torch.Tensor, u2: torch.Tensor,
                             normal: torch.Tensor) -> torch.Tensor:
     """Cosine-weighted direction about `normal` (Light.cpp:74-84)."""
     return vm.local_to_world_normal(cosine_sample_hemisphere(u1, u2), normal)
+
+
+def bessel_i0(x: torch.Tensor) -> torch.Tensor:
+    """The modified Bessel function I0 by its power series (20 terms, ~1e-7
+    for |x| <= 12), the asymptotic form above 12 (d'Eon's M term names I0;
+    the reference calls MSVC `_j0`, Bsdf.cpp:837)."""
+    x2 = 0.25 * x * x
+    term = torch.ones_like(x)
+    acc = torch.ones_like(x)
+    for k in range(1, 21):
+        term = term * x2 / (k * k)
+        acc = acc + term
+    ax = x.abs()
+    asym = torch.exp(ax) / torch.sqrt(torch.clamp(2.0 * math.pi * ax, min=vm.EPS))
+    return torch.where(ax > 12.0, asym, acc)
+
+
+def log_bessel_i0(x: torch.Tensor) -> torch.Tensor:
+    """log(I0(x)), finite where I0 overflows."""
+    ax = x.abs()
+    small = torch.log(torch.clamp(bessel_i0(torch.clamp(ax, max=12.0)), min=1e-30))
+    large = ax - 0.5 * torch.log(torch.clamp(2.0 * math.pi * ax, min=vm.EPS))
+    return torch.where(ax > 12.0, large, small)
 
 
 def poisson_disk_pattern(n: int, seed: int = 0, tries: int = 30) -> np.ndarray:

@@ -77,6 +77,18 @@ def local_to_world_normal(local_dir: torch.Tensor, normal: torch.Tensor) -> torc
             + local_dir[..., 2:3] * normal)
 
 
+def world_to_frame(v: torch.Tensor, u_ax: torch.Tensor, v_ax: torch.Tensor,
+                   w_ax: torch.Tensor) -> torch.Tensor:
+    """A world vector projected onto an orthonormal (u, v, w) frame -> local
+    coordinates."""
+    return torch.stack([dot(v, u_ax), dot(v, v_ax), dot(v, w_ax)], dim=-1)
+
+
+def frame_to_world(v: torch.Tensor, u_ax: torch.Tensor, v_ax: torch.Tensor,
+                   w_ax: torch.Tensor) -> torch.Tensor:
+    return v[..., 0:1] * u_ax + v[..., 1:2] * v_ax + v[..., 2:3] * w_ax
+
+
 def rotate_about_axis(v: torch.Tensor, axis: torch.Tensor, angle) -> torch.Tensor:
     """Rodrigues rotation of v about the (normalized) axis by `angle`
     radians, a float or a `[...]` tensor. The reference multiplies the row
@@ -93,3 +105,20 @@ def angle_between(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """glm::angle: acos of the clamped dot of the normalized vectors."""
     d = dot(normalize(a), normalize(b))
     return torch.acos(torch.clamp(d, -1.0 + 1e-7, 1.0 - 1e-7))
+
+
+def homogeneous_transform_point(mat4: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Points [..., 3] through a 4x4 affine matrix (w = 1)."""
+    ph = torch.cat([p, torch.ones_like(p[..., :1])], dim=-1)
+    return (ph @ mat4.T)[..., :3]
+
+
+def homogeneous_transform_dir(mat4: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Directions [..., 3] through a 4x4 affine matrix (w = 0)."""
+    dh = torch.cat([d, torch.zeros_like(d[..., :1])], dim=-1)
+    return (dh @ mat4.T)[..., :3]
+
+
+def normal_matrix(mat4: torch.Tensor) -> torch.Tensor:
+    """The transpose-inverse 3x3 that transforms normals (Cylinder.cpp:7)."""
+    return torch.linalg.inv(mat4[:3, :3]).T

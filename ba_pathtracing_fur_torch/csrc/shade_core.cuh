@@ -19,9 +19,14 @@
 // (shade.cu) with and without.
 //
 // Build without --use_fast_math: approximate division and denormal flush
-// would move results against the 1.19e-7 determinant threshold. FMA
-// contraction stays on and moves values by ulps against the plain version,
-// which is why the tests compare with image gates, not bit equality.
+// would move results against the 1.19e-7 determinant threshold. The shade
+// kernel (shade.cu) is built with -fmad=false, so its products and sums
+// round as the plain version's separate ops do: with FMA contraction its
+// hair paths drifted from the plain version's over a render's samples. The
+// full-bounce kernel keeps contraction on, and its values move by ulps
+// against the plain version. The CUDA transcendentals still differ from the
+// CPU's by an ulp, which is why the tests compare with image gates, not bit
+// equality.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -65,9 +70,18 @@ __device__ __forceinline__ float3 operator*(float3 a, float3 b) { return f3(a.x 
 __device__ __forceinline__ float3 operator*(float3 a, float s) { return f3(a.x * s, a.y * s, a.z * s); }
 __device__ __forceinline__ float3 operator*(float s, float3 a) { return a * s; }
 __device__ __forceinline__ float3 operator/(float3 a, float s) { return f3(a.x / s, a.y / s, a.z / s); }
-__device__ __forceinline__ float dot(float3 a, float3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+// dot and cross round as the plain version's torch ops do on the card:
+// `(a * b).sum(-1)` adds the three products as (x + z) + y, and
+// torch.linalg.cross's kernel contracts each component's first product into
+// an FMA, a1 b2 - a2 b1 = fma(a1, b2, -(a2 b1)) (measured bit for bit on
+// the H100). Thin fibers put many hits at grazing angles, where an ulp of
+// a dot decides a branch (same_side of the NEE's evaluate_light).
+__device__ __forceinline__ float dot(float3 a, float3 b) {
+  return (a.x * b.x + a.z * b.z) + a.y * b.y;
+}
 __device__ __forceinline__ float3 cross(float3 a, float3 b) {
-  return f3(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x);
+  return f3(__fmaf_rn(a.y, b.z, -(a.z * b.y)), __fmaf_rn(a.z, b.x, -(a.x * b.z)),
+            __fmaf_rn(a.x, b.y, -(a.y * b.x)));
 }
 __device__ __forceinline__ float length(float3 v) { return sqrtf(fmaxf(dot(v, v), 1e-20f)); }
 __device__ __forceinline__ float3 normalize(float3 v) { return v / fmaxf(length(v), EPS); }
@@ -424,7 +438,7 @@ __device__ inline BsdfSample sample_surface(const Mat& mp, float3 wi, float3 n, 
     case BSDF_LAMBERT_TRANSMISSION: {
       float sgn = entering ? -1.0f : 1.0f;
       bs.wo = local_to_world_normal(cosine_sample_hemisphere(u1, u2) * sgn, n);
-      bs.pdf = fabsf(dot(bs.wo, n)) / PI;
+      bs.pdf = fabsf(dot(bs.wo, n)) * INV_PI;
       bs.refl = bs.pdf == 0.0f ? f3(0.0f) : mp.volume * INV_PI;
       bs.flags = MATFLAG_TRANSPARENT_BOUNCE;
       break;
@@ -446,7 +460,7 @@ __device__ inline BsdfSample sample_surface(const Mat& mp, float3 wi, float3 n, 
     default: {  // Lambert
       float sgn = entering ? 1.0f : -1.0f;
       bs.wo = local_to_world_normal(cosine_sample_hemisphere(u1, u2) * sgn, n);
-      bs.pdf = fabsf(dot(bs.wo, n)) / PI;
+      bs.pdf = fabsf(dot(bs.wo, n)) * INV_PI;
       bs.refl = bs.pdf == 0.0f ? f3(0.0f) : mp.diffuse * INV_PI;
       bs.flags = 0;
       break;
@@ -485,10 +499,10 @@ __device__ __forceinline__ float3 eval_pdf(const Mat& mp, float3 n, float3 wi_vi
   pdf = 0.0f;
   if (bid == BSDF_LAMBERT && same_side) {
     f = mp.diffuse * INV_PI;
-    pdf = abs_cos / PI;
+    pdf = abs_cos * INV_PI;
   } else if (bid == BSDF_LAMBERT_TRANSMISSION && !same_side) {
     f = mp.volume * INV_PI;
-    pdf = abs_cos / PI;
+    pdf = abs_cos * INV_PI;
   } else if (bid == BSDF_GLOSSY && mp.roughness > DELTA_EPS && same_side) {
     float3 nf = faceforward(n, -wi_view, n);
     float3 reflected = normalize(reflect(normalize(-wi_view), nf));
@@ -690,7 +704,8 @@ __device__ inline HairSample marschner_sample(const Mat& mp, float3 nin, float3 
     float th_r = hair_theta(to_cyl(wo, fb));
     float th_h = 0.5f * (th_r + theta_i), th_d = 0.5f * (th_r - theta_i);
     float pdf = gauss_pdf(th_h + alpha / 2.0f, beta / 2.0f);
-    float denom = inv_root * (-(24.0f * c_tt / PI3) * (gamma_i * gamma_i) + (6.0f * c_tt / PI - 2.0f));
+    float denom = inv_root * (-((24.0f * c_tt) * (1.0f / PI3)) * (gamma_i * gamma_i) +
+                              ((6.0f * c_tt) * INV_PI - 2.0f));
     float dh = safe_div(1.0f, fabsf(denom));
     float cos_gamma_t = -2.0f * cosf(asinf(clip1(h / b1)));
     float inv_ctr = 1.0f / fmaxf(cosf(th_r), HAIR_EPS);
@@ -708,7 +723,8 @@ __device__ inline HairSample marschner_sample(const Mat& mp, float3 nin, float3 
   float th_r = hair_theta(to_cyl(wo, fb));
   float th_h = 0.5f * (th_r + theta_i), th_d = 0.5f * (th_r - theta_i);
   float pdf = gauss_pdf(th_h + 3.0f * alpha / 2.0f, 2.0f * beta);
-  float denom = inv_root * (-(48.0f * c_tt / PI3) * (gamma_i * gamma_i) + (12.0f * c_tt / PI - 2.0f));
+  float denom = inv_root * (-((48.0f * c_tt) * (1.0f / PI3)) * (gamma_i * gamma_i) +
+                            ((12.0f * c_tt) * INV_PI - 2.0f));
   float dh = safe_div(1.0f, fabsf(denom));
   float gamma_t = asinf(clip1(h / b1));
   float fresnel_exit = dielectric_fresnel(gamma_t, 1.0f / b1, 1.0f / b2);

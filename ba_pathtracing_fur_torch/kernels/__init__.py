@@ -30,17 +30,20 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 #: Hopper only; no --use_fast_math (approximate division and denormal flush
-#: would move the ray/triangle determinant test). FMA contraction stays on.
+#: would move the ray/triangle determinant test). FMA contraction stays on
+#: except where SOURCE_FLAGS turns it off.
 #: -Xptxas -v reports each kernel's registers, stack and spills into the log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
-#: per-source flags on top of NVCC_FLAGS. The traversal and brute-force
-#: kernels are built without FMA contraction, so their ray-primitive tests
-#: round like the plain torch versions' separate ops: each agrees with its
-#: twin bit for bit on t, rows and found.
+#: per-source flags on top of NVCC_FLAGS. The traversal, brute-force and
+#: shade kernels are built without FMA contraction, so their arithmetic
+#: rounds like the plain torch versions' separate ops: the traversal
+#: kernels agree with their twins bit for bit on t, rows and found, and the
+#: shade kernel's hair paths do not drift from its twin's over a render's
+#: samples. The full-bounce kernel (its own source) keeps contraction on.
 SOURCE_FLAGS = {name: ("-fmad=false",)
-                for name in ("traverse.cu", "traverse_stream.cu", "bruteforce.cu")}
+                for name in ("traverse.cu", "traverse_stream.cu", "bruteforce.cu", "shade.cu")}
 
 _C_VOID_P, _C_INT, _C_FLOAT, _C_UINT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                                        ctypes.c_uint)

@@ -121,12 +121,13 @@ def angular_attenuation(lights: LightPack, idx, dir_to_light):
 
 
 def build_light_subpaths(scene: DeviceScene, key, samples_per_light: int,
-                         n_bounces: int) -> LightSubpaths:
+                         n_bounces: int, closest_fn=None) -> LightSubpaths:
     """The light bounce buffer: P = samples_per_light x lights photon rays,
     each walked `n_bounces` vertices (traceLightRays and shadeLightRays
     fused a step). Photon p's key is fold_in(key, p); its uniforms are
     tags 10 and 11 of bounce -1 (the emission) and tag 12 of bounce j (the
-    BSDF sample at vertex j)."""
+    BSDF sample at vertex j). `closest_fn(o, d, scene) -> Hit` replaces
+    the walk's closest hit (the geometry-sharded render's seam)."""
     lights = scene.lights
     dev = scene.device
     n_l = lights.count
@@ -145,7 +146,7 @@ def build_light_subpaths(scene: DeviceScene, key, samples_per_light: int,
     flags0 = torch.zeros((p,), dtype=torch.int32, device=dev)
 
     for j in range(1, n_bounces):
-        hit = traverse.closest_hit(o, d, scene)
+        hit = traverse.closest_hit(o, d, scene) if closest_fn is None else closest_fn(o, d, scene)
         v3 = hit.valid[:, None]
         pos_j = torch.where(v3, hit.position, o)
         norm_j = torch.where(v3, hit.normal, up)
@@ -200,13 +201,14 @@ def _flat(f: torch.Tensor, vdim: int) -> torch.Tensor:
 def connect_eye_vertex(scene: DeviceScene, sub: LightSubpaths, u_pick, pos, normal, view_dir,
                        mp, bounce: int, bias: float = 1e-4,
                        sample: Optional[torch.Tensor] = None,
-                       active: Optional[torch.Tensor] = None, n_alive=None):
+                       active: Optional[torch.Tensor] = None, n_alive=None, occlude_fn=None):
     """The BDPT connection at an eye hit (pt_shade.compute:146-201): pick
     one (sample, light) subpath a ray with u_pick [R,2] and connect to each
     of its vertices -> the term [R,3] that replaces NEE. `sample` [R]: each
     ray's sample in a stacked buffer. `active` [R]: the lanes whose term is
     used; the others get t_max = 0 connection rays. `n_alive` is passed to
-    the shadow any-hit."""
+    the shadow any-hit; `occlude_fn(o, d, scene, t_max) -> blocked`
+    replaces it."""
     lights = scene.lights
     flat, pidx, lidx = _vertex_rows(sub, lights.count, u_pick, sample)
     base_color = lights.color[lidx.long()]
@@ -221,9 +223,9 @@ def connect_eye_vertex(scene: DeviceScene, sub: LightSubpaths, u_pick, pos, norm
         t_max = vm.length(to_light)
         lc = angular_attenuation(lights, lidx, to_light)[:, None] * base_color \
             if j == 0 else base_color
-        blocked = traverse.any_hit(origin, sdir, scene,
-                                   t_max if active is None else torch.where(active, t_max, 0.0),
-                                   n_alive=n_alive)
+        t_cap = t_max if active is None else torch.where(active, t_max, 0.0)
+        blocked = (traverse.any_hit(origin, sdir, scene, t_cap, n_alive=n_alive)
+                   if occlude_fn is None else occlude_fn(origin, sdir, scene, t_cap))
         t_l, valid_l = isect.light_hit_grid(origin, sdir, lights)
         blocked = blocked | (valid_l & (t_l < t_max[:, None])).any(-1)
         f = bsdf_mod.evaluate_light(mp, normal, sdir, wo_view)
@@ -233,12 +235,12 @@ def connect_eye_vertex(scene: DeviceScene, sub: LightSubpaths, u_pick, pos, norm
 
 
 def splat_image_plane(scene: DeviceScene, camera, sub: LightSubpaths, pixel_ids, keys,
-                      sample: Optional[torch.Tensor] = None):
+                      sample: Optional[torch.Tensor] = None, occlude_fn=None):
     """shadeBDPTImagePlane (pt_shade.compute:17-97): connect light vertices
     straight to jittered points on the camera plane -> [R,3] additive
     colour for `pixel_ids` [R] with the rays' keys [R,2] (tags 13 and 14 of
-    bounce -1: the jitter and the subpath pick). `sample` as in
-    `connect_eye_vertex`."""
+    bounce -1: the jitter and the subpath pick). `sample` and `occlude_fn`
+    as in `connect_eye_vertex`."""
     lights = scene.lights
     w, h = camera.resolution
     jitter = rng.bounce_uniform(keys, -1, 2, tag=13)
@@ -265,7 +267,8 @@ def splat_image_plane(scene: DeviceScene, camera, sub: LightSubpaths, pixel_ids,
         we = 1.0 / torch.clamp(area * cos_t ** 4, min=1e-12)
         we = torch.where(cos_t <= 0.0, 0.0, we)
         npdf = (t * t) / torch.clamp(cos_t.abs(), min=1e-12)
-        blocked = traverse.any_hit(pixel, dn, scene, t)
+        blocked = (traverse.any_hit(pixel, dn, scene, t) if occlude_fn is None
+                   else occlude_fn(pixel, dn, scene, t))
         t_l, valid_l = isect.light_hit_grid(pixel, dn, lights)
         blocked = blocked | (valid_l & (t_l < t[:, None])).any(-1)
         contrib = v_hc * (we / torch.clamp(npdf, min=1e-12) / (j + 1.0))[:, None]

@@ -43,6 +43,13 @@ under autograd. `tonemap` maps the finished image (`ops/tonemap`).
 `render_progressive` yields the running mean after each sample, as the
 CLI and `utils/checkpoint.render_resumable` consume it.
 
+`render_sample_ids(..., closest_fn=, occlude_fn=)` is the JAX package's
+seam for the geometry-sharded render (`parallel/render.py`): the hooks
+`closest_fn(o, d, scene) -> Hit` and `occlude_fn(o, d, scene, t_max) ->
+blocked` replace every closest hit and any hit of the sample (the bounces,
+NEE, BDPT's walk, connections and splat), and the full-bounce pass is
+skipped while a hook is given. Without hooks nothing changes.
+
 With `bdpt=True` (bidirectional mode, as in the JAX package) each sample
 builds its light-subpath buffer once (`models/bdpt.build_light_subpaths`,
 keyed by fold_in(fold_in(key, sample), 0x1bb)), the eye-vertex connection
@@ -211,30 +218,47 @@ def shade_inputs(state: RayState, scene: DeviceScene, keys: torch.Tensor, bounce
         **tex)
 
 
+def _closest(state: RayState, scene: DeviceScene, n_alive, closest_fn):
+    """The bounce's closest hit: `closest_fn(o, d, scene)` when given (the
+    JAX package's seam; dead lanes are traced too and masked by the
+    shading), else `traverse.closest_hit` with dead lanes at t_max = 0."""
+    if closest_fn is not None:
+        return closest_fn(state.origin, state.direction, scene)
+    do_trace = (state.radiance != 0.0).any(-1) & (state.direction != 0.0).any(-1)
+    t_cap = torch.where(do_trace, traverse.INF, 0.0)  # dead lanes trace nothing
+    return traverse.closest_hit(state.origin, state.direction, scene, t_max=t_cap,
+                                n_alive=n_alive)
+
+
 def trace_bounce_fused(state: RayState, scene: DeviceScene, keys: torch.Tensor,
                        bounce: int, cfg: RenderConfig,
-                       tables: Optional[BounceTables] = None, n_alive=None) -> RayState:
+                       tables: Optional[BounceTables] = None, n_alive=None,
+                       closest_fn=None, occlude_fn=None) -> RayState:
     """One bounce. Level-2 scenes run it as one full-bounce pass; every
     other scene runs closest hit -> Hit assembly -> env colour -> shade
     kernel (draws and material rows inside) -> shadow any-hit -> NEE add.
     `n_alive`: the live prefix of a compacted wavefront (the traversal's
-    dense grid skips the chunks past it). Raises under autograd."""
+    dense grid skips the chunks past it). `closest_fn(o, d, scene) -> Hit`
+    and `occlude_fn(o, d, scene, t_max) -> blocked` replace the closest hit
+    and the shadow any-hit (the geometry-sharded render's seam,
+    `parallel/render.py`); with either, the full-bounce pass is skipped, as
+    the JAX package skips it. Raises under autograd."""
     check_supported(scene, cfg)
     check_no_grad(scene)
     tables = BounceTables.of(scene) if tables is None else tables
-    if cshade.full_fuse_eligible(scene):
+    if closest_fn is None and occlude_fn is None and cshade.full_fuse_eligible(scene):
         return RayState(**cshade.shade_bounce_full(
             **full_bounce_inputs(state, scene, keys, bounce, cfg, tables)))
 
-    do_trace = (state.radiance != 0.0).any(-1) & (state.direction != 0.0).any(-1)
-    t_cap = torch.where(do_trace, traverse.INF, 0.0)
-    hit = traverse.closest_hit(state.origin, state.direction, scene, t_max=t_cap,
-                               n_alive=n_alive)
+    hit = _closest(state, scene, n_alive, closest_fn)
     out = cshade.shade_bounce(**shade_inputs(state, scene, keys, bounce, cfg, hit, tables))
     color = out["color"]
     if scene.lights.count:
-        blocked = traverse.any_hit(out["shadow_o"], out["shadow_d"], scene,
-                                   out["shadow_tmax"], n_alive=n_alive)
+        if occlude_fn is None:
+            blocked = traverse.any_hit(out["shadow_o"], out["shadow_d"], scene,
+                                       out["shadow_tmax"], n_alive=n_alive)
+        else:
+            blocked = occlude_fn(out["shadow_o"], out["shadow_d"], scene, out["shadow_tmax"])
         color = color + torch.where(blocked[:, None], 0.0, out["direct_rgb"])
     return RayState(origin=out["origin"], direction=out["direction"],
                     radiance=out["radiance"], color=color, flags=out["flags"],
@@ -242,7 +266,8 @@ def trace_bounce_fused(state: RayState, scene: DeviceScene, keys: torch.Tensor,
 
 
 def trace_bounce(state: RayState, scene: DeviceScene, keys: torch.Tensor, bounce: int,
-                 cfg: RenderConfig, n_alive=None, subpaths=None, sample=None) -> RayState:
+                 cfg: RenderConfig, n_alive=None, subpaths=None, sample=None,
+                 closest_fn=None, occlude_fn=None) -> RayState:
     """One unfused wavefront bounce (the JAX package's `trace_bounce`,
     traceRays' body): trace, then shade per shader in torch. The bounce's
     uniforms are tags 0-3 of `rng.bounce_uniforms` (and 4 under RR), the
@@ -253,13 +278,11 @@ def trace_bounce(state: RayState, scene: DeviceScene, keys: torch.Tensor, bounce
     any-hit. With `cfg.bdpt` and a light-subpath buffer `subpaths` the
     connection to it replaces NEE (`sample` [R]: each ray's sample in a
     stacked buffer); lanes without a geometry hit connect with t_max = 0,
-    their term being unused."""
+    their term being unused. `closest_fn` / `occlude_fn` replace the
+    closest hit and every shadow any-hit, as in `trace_bounce_fused`."""
     check_supported(scene, cfg)
-    active = (state.radiance != 0.0).any(-1)
-    do_trace = active & (state.direction != 0.0).any(-1)
-    t_cap = torch.where(do_trace, traverse.INF, 0.0)  # dead lanes trace nothing
-    hit = traverse.closest_hit(state.origin, state.direction, scene, t_max=t_cap,
-                               n_alive=n_alive)
+    do_trace = (state.radiance != 0.0).any(-1) & (state.direction != 0.0).any(-1)
+    hit = _closest(state, scene, n_alive, closest_fn)
 
     # analytic light intersections (traceRay:185-208)
     n_lights = scene.lights.count
@@ -316,11 +339,12 @@ def trace_bounce(state: RayState, scene: DeviceScene, keys: torch.Tensor, bounce
     if cfg.bdpt and subpaths is not None:
         direct = bdpt_mod.connect_eye_vertex(scene, subpaths, u[2], hit.position, n,
                                              state.direction, mp, bounce, sample=sample,
-                                             active=hit_geom, n_alive=n_alive)
+                                             active=hit_geom, n_alive=n_alive,
+                                             occlude_fn=occlude_fn)
     else:
         nee = shading.calc_direct_light_mis if cfg.mis else shading.calc_direct_light
         direct = nee(scene, mp, hit, state.direction, u[1, :, 0], u[2], active=hit_geom,
-                     n_alive=n_alive)
+                     n_alive=n_alive, occlude_fn=occlude_fn)
     # ambient = env_ambient * evaluateLight(n, n) / pi (SimpleShader.h:47)
     ambient = scene.env.ambient * bsdf.evaluate_light(mp, n, n, n) / math.pi
     accum = (direct + ambient) * radiance
@@ -418,7 +442,8 @@ def camera_wavefront(camera: cam_mod.Camera, pixel_ids: torch.Tensor, key: torch
 
 def _render_samples(scene: DeviceScene, camera: cam_mod.Camera, pixel_ids: torch.Tensor,
                     key: torch.Tensor, sample_ids: Sequence[int], cfg: RenderConfig,
-                    tables: Optional[BounceTables] = None) -> torch.Tensor:
+                    tables: Optional[BounceTables] = None, closest_fn=None,
+                    occlude_fn=None) -> torch.Tensor:
     """Samples `sample_ids` for the global `pixel_ids`, traced as one
     wavefront -> `[S, R, 3]`: `trace_bounce_fused` a bounce with
     `cfg.fused_shading` (and not `cfg.bdpt`), else `trace_bounce` (the JAX
@@ -428,7 +453,9 @@ def _render_samples(scene: DeviceScene, camera: cam_mod.Camera, pixel_ids: torch
     with `cfg.remat`, while autograd records, each bounce is recomputed in
     the backward pass instead of keeping its intermediates. With `cfg.bdpt`
     (and lights) each sample's light subpaths are built first and stacked;
-    a ray's sample is its slot // len(pixel_ids)."""
+    a ray's sample is its slot // len(pixel_ids). `closest_fn` /
+    `occlude_fn` replace every closest hit and any hit of the sample (the
+    bounces, the light-subpath walk, the connections and the splat)."""
     check_supported(scene, cfg)
     state, keys = camera_wavefront(camera, pixel_ids, key, sample_ids, cfg)
     use_fused = cfg.fused_shading and not cfg.bdpt
@@ -439,14 +466,15 @@ def _render_samples(scene: DeviceScene, camera: cam_mod.Camera, pixel_ids: torch
         key = key.to(keys.device)
         subpaths = bdpt_mod.stack_subpaths([bdpt_mod.build_light_subpaths(
             scene, rng.fold_in(rng.fold_in(key, s), 0x1BB), cfg.bdpt_samples_per_light,
-            cfg.bdpt_bounces) for s in sample_ids])
+            cfg.bdpt_bounces, closest_fn=closest_fn) for s in sample_ids])
     n_pix = pixel_ids.shape[0]
 
     def step(st, ks, b, n_alive, sample):
         if use_fused:
-            return trace_bounce_fused(st, scene, ks, b, cfg, tables, n_alive=n_alive)
+            return trace_bounce_fused(st, scene, ks, b, cfg, tables, n_alive=n_alive,
+                                      closest_fn=closest_fn, occlude_fn=occlude_fn)
         return trace_bounce(st, scene, ks, b, cfg, n_alive=n_alive, subpaths=subpaths,
-                            sample=sample)
+                            sample=sample, closest_fn=closest_fn, occlude_fn=occlude_fn)
 
     remat = cfg.remat and torch.is_grad_enabled()
     keys0 = keys
@@ -470,17 +498,21 @@ def _render_samples(scene: DeviceScene, camera: cam_mod.Camera, pixel_ids: torch
         ids = torch.arange(keys0.shape[0], device=keys0.device)
         color = color + bdpt_mod.splat_image_plane(scene, camera, subpaths,
                                                    pixel_ids.repeat(len(sample_ids)), keys0,
-                                                   sample=ids // n_pix)
+                                                   sample=ids // n_pix, occlude_fn=occlude_fn)
     return color.reshape(len(sample_ids), n_pix, 3)
 
 
 def render_sample_ids(scene: DeviceScene, camera: cam_mod.Camera, pixel_ids: torch.Tensor,
                       key: torch.Tensor, sample_idx: int, cfg: RenderConfig,
-                      tables: Optional[BounceTables] = None) -> torch.Tensor:
+                      tables: Optional[BounceTables] = None, closest_fn=None,
+                      occlude_fn=None) -> torch.Tensor:
     """One progressive sample for a set of global pixel ids -> `[R, 3]`.
     Keys depend on the global id, so any partition of the image renders
-    bit-identically to the whole."""
-    return _render_samples(scene, camera, pixel_ids, key, [sample_idx], cfg, tables)[0]
+    bit-identically to the whole. `closest_fn(o, d, scene) -> Hit` and
+    `occlude_fn(o, d, scene, t_max) -> blocked [R]` replace the
+    intersection backend (the seam of `parallel/render.py`)."""
+    return _render_samples(scene, camera, pixel_ids, key, [sample_idx], cfg, tables,
+                           closest_fn, occlude_fn)[0]
 
 
 def render_sample(scene: DeviceScene, camera: cam_mod.Camera, key: torch.Tensor,

@@ -188,14 +188,16 @@ def _pick(lights: LightPack, u_pick):
 
 
 def calc_direct_light_mis(scene: DeviceScene, mp, hit, ray_dir, u_pick, u_light, active=None,
-                          n_alive=None):
+                          n_alive=None, occlude_fn=None):
     """MIS-mode NEE: a uniform pick with 1/N compensation; quad and point
     lights in solid-angle measure weighted by the power heuristic against
     the BSDF pdf; spot and sun in the reference's attenuation form at weight
     1. The emitted radiance is `light_emitted_radiance`, the same Le a BSDF
     path sees on hitting the light. Dead lanes (`active` False) get a
     zero-length shadow ray; `n_alive` is the live prefix of a compacted
-    wavefront, passed to the shadow any-hit."""
+    wavefront, passed to the shadow any-hit. `occlude_fn(o, d, scene,
+    t_max) -> blocked` replaces the any-hit (the geometry-sharded render's
+    seam)."""
     lights = scene.lights
     n_lights = lights.count
     if n_lights == 0:
@@ -223,7 +225,8 @@ def calc_direct_light_mis(scene: DeviceScene, mp, hit, ray_dir, u_pick, u_light,
     t_max = dist * (1.0 - 1e-3)  # stop short of the target itself
     if active is not None:
         t_max = torch.where(active, t_max, 0.0)
-    blocked = traverse.any_hit(origin, wi, scene, t_max, n_alive=n_alive)
+    blocked = (traverse.any_hit(origin, wi, scene, t_max, n_alive=n_alive)
+               if occlude_fn is None else occlude_fn(origin, wi, scene, t_max))
     t_l, valid_l = isect.light_hit_grid(origin, wi, lights)
     other = torch.arange(n_lights, device=idx.device)[None, :] != idx[:, None]
     blocked = blocked | (valid_l & other & (t_l < t_max[:, None])).any(-1)
@@ -232,12 +235,12 @@ def calc_direct_light_mis(scene: DeviceScene, mp, hit, ray_dir, u_pick, u_light,
 
 
 def calc_direct_light(scene: DeviceScene, mp, hit, ray_dir, u_pick, u_light, active=None,
-                      n_alive=None):
+                      n_alive=None, occlude_fn=None):
     """SimpleShader::calcDirectLight (SimpleShader.h:101-152): one light
     picked uniformly a ray, its contribution not divided by the pick
     probability; the shadow ray tests the scene and every analytic light.
-    Dead lanes (`active` False) get a zero-length shadow ray; `n_alive` as
-    in `calc_direct_light_mis`."""
+    Dead lanes (`active` False) get a zero-length shadow ray; `n_alive` and
+    `occlude_fn` as in `calc_direct_light_mis`."""
     lights = scene.lights
     if lights.count == 0:
         return torch.zeros_like(hit.position)
@@ -258,7 +261,8 @@ def calc_direct_light(scene: DeviceScene, mp, hit, ray_dir, u_pick, u_light, act
     t_max = vm.length(lightpos - origin)
     if active is not None:
         t_max = torch.where(active, t_max, 0.0)
-    blocked = traverse.any_hit(origin, wi, scene, t_max, n_alive=n_alive)
+    blocked = (traverse.any_hit(origin, wi, scene, t_max, n_alive=n_alive)
+               if occlude_fn is None else occlude_fn(origin, wi, scene, t_max))
     # the light geometry occludes too (SimpleShader.h:135-144)
     t_l, valid_l = isect.light_hit_grid(origin, wi, lights)
     blocked = blocked | (valid_l & (t_l < t_max[:, None])).any(-1)

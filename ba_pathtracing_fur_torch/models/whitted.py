@@ -136,6 +136,10 @@ def light_shading(scene: DeviceScene, pos, norm, uv, view, mp, diff_color,
         att = torch.where(kind == 1, att * dd,  # a quad faces the point
                           torch.where(kind == 2, att * (delta2 * delta2), att))  # spot
         lit = (att > 0.0) & (vm.dot(norm_view, n_ldir) >= 0.0)
+        # unlit lanes (a miss's point at o + INF d among them) take a finite
+        # light direction and no attenuation: their term is dropped below,
+        # and finite values keep NaN out of the parameters' backward
+        n_ldir, att = _w3(lit, n_ldir, norm), torch.where(lit, att, 0.0)
 
         cos_phi = torch.clamp(vm.dot(norm, n_ldir), min=0.0)
         direct = cos_phi[:, None] * diff_color * lights.color[i] * att[:, None]
@@ -178,18 +182,24 @@ def _hair_color(scene: DeviceScene, hit, view_n, mp, cfg: WhittedConfig, is_hair
     hair_lobes="all" the TT second wall and the TRT first-wall re-hit are
     traced through the scene from 1e-4 inside the fiber (their closest hit
     is the exiting root). `is_hair` [R]: the lanes whose result is kept;
-    the others trace with t_max = 0."""
+    the others trace from the origin with t_max = 0 (their own origin may
+    be a miss's o + INF d, whose backward would be NaN)."""
     nin, normal = view_n, hit.normal
     if cfg.hair_lobes == "all":
-        t_max = traverse.INF if is_hair is None else torch.where(is_hair, traverse.INF, 0.0)
+        if is_hair is None:
+            t_max, live = traverse.INF, lambda o: o
+        else:
+            t_max = torch.where(is_hair, traverse.INF, 0.0)
+            live = lambda o: _w3(is_hair, o, 0.0)  # noqa: E731
         nf = vm.faceforward(normal, -nin, normal)
         t_dir = vm.refract(-nin, nf, 1.0 / mp.ior)
-        t_hit = traverse.closest_hit(hit.position + 1e-4 * t_dir, t_dir, scene, t_max=t_max)
+        t_hit = traverse.closest_hit(live(hit.position + 1e-4 * t_dir), t_dir, scene,
+                                     t_max=t_max)
         t_normal = _w3(t_hit.valid, t_hit.normal, normal)
         t_pos = _w3(t_hit.valid, t_hit.position, hit.position)
         t_nf = vm.faceforward(t_normal, -vm.normalize(t_dir), t_normal)
         tr_dir = vm.reflect(-vm.normalize(t_dir), t_nf)
-        tr_hit = traverse.closest_hit(t_pos + 1e-4 * tr_dir, tr_dir, scene, t_max=t_max)
+        tr_hit = traverse.closest_hit(live(t_pos + 1e-4 * tr_dir), tr_dir, scene, t_max=t_max)
         tr_normal = _w3(tr_hit.valid, tr_hit.normal, normal)
     else:
         t_normal = tr_normal = normal

@@ -69,6 +69,9 @@ class BVH:
     # the boxes of each leaf's runs of UNIT rows [n_leaves, 6, U] (unit_boxes),
     # which the traversal kernels test before a run's rows
     uboxes: Optional[torch.Tensor] = None
+    # one BVH per geometry shard, every tensor stacked on a leading [n_geo]
+    # axis (parallel/render.shard_scene_bvh); the ints are the shards' own
+    geo_stacked: bool = False
 
     @property
     def depth(self) -> int:
@@ -189,8 +192,16 @@ def build_median(prim_bmin: torch.Tensor, prim_bmax: torch.Tensor,
     n = prim_bmin.shape[0]
     n_leaves = _next_pow2(max(-(-n // leaf_size), 1))
     order, bounds = median_split(0.5 * (prim_bmin + prim_bmax), n_leaves)
-    perm = _ranges_to_perm(order, bounds, n_leaves, leaf_size)
-    hmin, hmax = _finalize(perm, prim_bmin, prim_bmax, n_leaves, leaf_size)
+    return from_perm(_ranges_to_perm(order, bounds, n_leaves, leaf_size), prim_bmin,
+                     prim_bmax, n_leaves, leaf_size)
+
+
+def from_perm(perm: torch.Tensor, prim_bmin: torch.Tensor, prim_bmax: torch.Tensor,
+              n_leaves: int, leaf_size: int) -> BVH:
+    """The BVH of a slot permutation (slot -> primitive id, -1 on padding):
+    its heap boxes over the primitives' AABBs, on the bounds' device."""
+    perm = perm.to(prim_bmin.device)
+    hmin, hmax = _finalize(perm.long(), prim_bmin, prim_bmax, n_leaves, leaf_size)
     return BVH(bmin=hmin, bmax=hmax, perm=perm.to(torch.int32), packed=None,
                n_leaves=n_leaves, leaf_size=leaf_size)
 

@@ -18,6 +18,7 @@ The grids are `[R, P]`: callers bound R·P by chunking over rays.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -57,6 +58,14 @@ def triangle_hit_grid(o, d, tris: TrianglePack, t_min, t_max):
     valid = (~near_zero & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
              & (t > t_min) & (t < t_max))
     return torch.where(valid, t, INF), u, v, valid
+
+
+def triangle_interpolate(tris: TrianglePack, tri_id, point, o, d):
+    """`triangle_interpolate_rows` on the rows `tri_id` of `tris`."""
+    tri_id = tri_id.long()
+    return triangle_interpolate_rows(TrianglePack(**{
+        f.name: getattr(tris, f.name)[tri_id] for f in dataclasses.fields(TrianglePack)}),
+        point, o, d)
 
 
 def triangle_interpolate_rows(rp: TrianglePack, point, o, d):
@@ -125,6 +134,19 @@ def cone_hit_grid(o, d, cones: ConePack, t_min, t_max, ray_eps=1e-4):
     return t, take_t1, take_t1 | take_t2
 
 
+def cone_normal(cones: ConePack, cone_id, point):
+    """`cone_normal_rows` on the rows `cone_id` of `cones`."""
+    i = cone_id.long()
+    return cone_normal_rows(cones.v[i], cones.base[i], cones.base_d[i], cones.slope[i], point)
+
+
+def cone_texcoord(cones: ConePack, cone_id, point):
+    """`cone_texcoord_rows` on the rows `cone_id` of `cones`."""
+    i = cone_id.long()
+    return cone_texcoord_rows(cones.base[i], cones.u[i], cones.v[i], cones.w[i],
+                              cones.r_base[i], cones.slope[i], cones.height[i], point)
+
+
 def cone_normal_rows(v_ax, base, base_d, slope, point):
     """Cylinder::calcNormal (Cylinder.cpp:230-237) on per-ray rows: the
     radial direction tilted by the slope."""
@@ -145,6 +167,16 @@ def cone_texcoord_rows(base, u_ax, v_ax, w_ax, r_base, slope, height, point):
     tmp = torch.clamp(w / torch.where(r.abs() < 1e-12, 1e-12, r), -1.0 + 1e-7, 1.0 - 1e-7)
     phi = torch.where(u < 0.0, 2.0 * math.pi - torch.acos(tmp), torch.acos(tmp))
     return torch.stack([phi / (2.0 * math.pi), v / height], dim=-1)
+
+
+def ray_aabb(o, inv_d, bmin, bmax, t_max):
+    """The slab test: o, inv_d [..., 3], bmin/bmax broadcastable -> (hit
+    mask, t_near)."""
+    t0 = (bmin - o) * inv_d
+    t1 = (bmax - o) * inv_d
+    tnear = torch.minimum(t0, t1).amax(-1)
+    tfar = torch.maximum(t0, t1).amin(-1)
+    return (tnear <= tfar) & (tfar >= 0.0) & (tnear <= t_max), tnear
 
 
 def cone_aabbs(cones: ConePack):

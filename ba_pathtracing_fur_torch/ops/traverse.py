@@ -29,8 +29,12 @@ pack (`cisect.tables_of`), not per call.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import os
 import time
 from typing import Optional
+
+import numpy as np
 
 import torch
 
@@ -62,8 +66,16 @@ SORT_RAYS = True
 
 #: stage seconds of the last build per kind ("tri", "cone"): the AABBs,
 #: the split (by the build method: see ACCEL_BUILDERS), the reorder +
-#: pack, and the kernel layouts
+#: pack, and the kernel layouts; where a median build used the perm cache,
+#: `perm_cached` says whether its split came from the cache
 LAST_BUILD_STATS: dict = {}
+
+#: primitive count from which a median build keeps its slot permutation in
+#: the on-disk perm cache (the JAX package's at-scale threshold); smaller
+#: packs use it only with a caller's fingerprint. BAPT_BVH_CACHE_DIR moves
+#: the cache (default ~/.cache/ba_pathtracing_fur_torch/bvh) and
+#: BAPT_NO_BVH_CACHE=1 turns it off.
+PERM_CACHE_MIN = 1 << 20
 
 #: the BVH builds (the JAX package's ACCEL_BUILDERS, the reference's
 #: runtime-switchable structures, Demo/main.cpp:94-127):
@@ -95,6 +107,54 @@ def auto_fanout(n_leaves: int, max_supers: int = 1024) -> int:
     return min(f, n_leaves)
 
 
+def _pack_fingerprint(pack, n_leaves: int, k: int) -> str:
+    """Content hash of a primitive pack and the tree shape: every field's
+    shape and a strided subsample of about 1M of its values (taken on the
+    pack's device), so hashing costs little beside the split it skips."""
+    h = hashlib.blake2b(digest_size=16)
+    h.update(f"{type(pack).__name__}:{pack.count}:{n_leaves}:{k}:v2".encode())
+    for f in dataclasses.fields(pack):
+        a = getattr(pack, f.name)
+        h.update(str(tuple(a.shape)).encode())
+        b = a.reshape(-1)
+        stride = max(1, b.numel() // 1_000_000)
+        h.update(np.ascontiguousarray(b[::stride].cpu().numpy()).tobytes())
+    return h.hexdigest()
+
+
+def _perm_cache_path(fingerprint: str) -> str:
+    root = os.environ.get("BAPT_BVH_CACHE_DIR", os.path.join(
+        os.path.expanduser("~"), ".cache", "ba_pathtracing_fur_torch", "bvh"))
+    return os.path.join(root, f"perm_{fingerprint}.npz")
+
+
+def _median_cached(pack, bmin, bmax, k, fingerprint):
+    """The median build through the perm cache -> (BVH, hit: True, False,
+    or None where the cache is not used). The cache is used at
+    PERM_CACHE_MIN primitives or more, or with a caller's `fingerprint`
+    (the key of a generated pack, no hashing), and not at all under
+    BAPT_NO_BVH_CACHE; a file that cannot be read or written is a miss."""
+    n = pack.count
+    n_leaves = bvh_mod._next_pow2(max(-(-n // k), 1))
+    if os.environ.get("BAPT_NO_BVH_CACHE") or (n < PERM_CACHE_MIN and fingerprint is None):
+        return bvh_mod.build_median(bmin, bmax, k), None
+    fp = (f"{fingerprint}_{n_leaves}x{k}" if fingerprint is not None
+          else _pack_fingerprint(pack, n_leaves, k))
+    path = _perm_cache_path(fp)
+    try:
+        perm = torch.from_numpy(np.load(path)["perm"].astype(np.int64))
+        return bvh_mod.from_perm(perm, bmin, bmax, n_leaves, k), True
+    except (OSError, KeyError, ValueError):
+        pass
+    b = bvh_mod.build_median(bmin, bmax, k)
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.savez(path, perm=b.perm.cpu().numpy())
+    except OSError:
+        pass
+    return b, False
+
+
 def _clock(dev) -> float:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -102,14 +162,18 @@ def _clock(dev) -> float:
 
 
 def _attach_one(pack, kind, aabb_fn, reorder_fn, pack_fn, leaf_size, fanout, target,
-                method):
+                method, fingerprint=None):
     """One pack's build on its device -> (reordered pack, BVH)."""
     dev = pack.mat_id.device
     t0 = _clock(dev)
     k = leaf_size or auto_leaf_size(pack.count, target)
     bmin, bmax = aabb_fn(pack)
     t1 = _clock(dev)
-    b = ACCEL_BUILDERS[method](bmin, bmax, k)
+    cached = None
+    if method == "median":
+        b, cached = _median_cached(pack, bmin, bmax, k, fingerprint)
+    else:
+        b = ACCEL_BUILDERS[method](bmin, bmax, k)
     b.fanout = auto_fanout(b.n_leaves) if fanout is None else fanout
     t2 = _clock(dev)
     pack = reorder_fn(pack, b)
@@ -119,6 +183,8 @@ def _attach_one(pack, kind, aabb_fn, reorder_fn, pack_fn, leaf_size, fanout, tar
     t4 = _clock(dev)
     LAST_BUILD_STATS[kind] = dict(aabb=t1 - t0, split=t2 - t1, reorder_pack=t3 - t2,
                                   layouts=t4 - t3)
+    if cached is not None:
+        LAST_BUILD_STATS[kind]["perm_cached"] = cached
     return pack, b
 
 
@@ -143,14 +209,18 @@ def _cache_kernel_layouts(bvh, kind: str, pack):
 
 
 def attach_bvh(scene: DeviceScene, leaf_size: Optional[int] = None, method: str = "median",
-               min_prims: int = 2048, fanout: Optional[int] = None) -> DeviceScene:
+               min_prims: int = 2048, fanout: Optional[int] = None,
+               fingerprint: Optional[str] = None) -> DeviceScene:
     """Build BVHs by `method` (one of ACCEL_BUILDERS, or "none") over the
     packs of at least `min_prims` primitives and reorder those packs so leaf
     clusters are contiguous. Smaller packs stay BVH-less (the dense grid or
     K5 takes them). leaf_size/fanout default to `auto_leaf_size` /
     `auto_fanout`. Each BVH lands on its pack's device, bit-identical to
-    the JAX package's build by the same method. LAST_BUILD_STATS gets the
-    stage times."""
+    the JAX package's build by the same method. A median build goes
+    through the perm cache (`_median_cached`: at PERM_CACHE_MIN primitives,
+    or keyed by the caller's `fingerprint` of the cone pack, e.g. of a
+    generated hair ball's parameters). LAST_BUILD_STATS gets the stage
+    times and, where the cache took part, whether the split came from it."""
     if method == "none":
         return scene
     if method not in ACCEL_BUILDERS:
@@ -166,7 +236,7 @@ def attach_bvh(scene: DeviceScene, leaf_size: Optional[int] = None, method: str 
                   else CONE_LEAF_TARGET)
         cones, cone_bvh = _attach_one(scene.cones, "cone", isect.cone_aabbs,
                                       bvh_mod.reorder_cones, bvh_mod.pack_cones, leaf_size,
-                                      fanout, target, method)
+                                      fanout, target, method, fingerprint)
         out.update(cones=cones, cone_bvh=cone_bvh)
     return dataclasses.replace(scene, **out)
 
@@ -377,8 +447,12 @@ def _assemble_hit(o, d, scene: DeviceScene, t_tri, tri_row, t_cone, cone_row, t_
     if tris.count:
         if tri_rp is None:
             tri_rp = take_tri_rows(tri_aos(tris), tri_row)
-        tn, tuv, _ = isect.triangle_interpolate_rows(tri_rp, position, o, d)
         is_tri = prim_type == bruteforce.PRIM_TRI
+        # the other lanes take a finite ray toward the row's first vertex:
+        # their values are dropped below (see the cone block)
+        e = torch.tensor([0.0, 0.0, 1.0], device=o.device)
+        tn, tuv, _ = isect.triangle_interpolate_rows(tri_rp, position, w3(is_tri, o, tri_rp.v0 - e),
+                                                     w3(is_tri, d, e))
         n, uv = w3(is_tri, tn, n), w3(is_tri, tuv, uv)
         mat_id = torch.where(is_tri, tri_rp.mat_id, mat_id)
         fu, fv, fw = (w3(is_tri, tri_rp.fiber_u, fu), w3(is_tri, tri_rp.fiber_v, fv),
@@ -388,12 +462,16 @@ def _assemble_hit(o, d, scene: DeviceScene, t_tri, tri_row, t_cone, cone_row, t_
     if cones.count:
         if cone_rc is None:
             cone_rc = take_cone_rows(cone_aos(cones), cone_row)
+        is_cone = prim_type == bruteforce.PRIM_CONE
+        # the other lanes (misses at o + INF d among them) take the cone
+        # fields at a finite point off the row's axis: their values are
+        # dropped below, and finite inputs keep NaN out of the backward
+        pos_c = w3(is_cone, position, cone_rc["base"] + cone_rc["u"])
         cn = isect.cone_normal_rows(cone_rc["v"], cone_rc["base"], cone_rc["base_d"],
-                                    cone_rc["slope"], position)
+                                    cone_rc["slope"], pos_c)
         cuv = isect.cone_texcoord_rows(cone_rc["base"], cone_rc["u"], cone_rc["v"],
                                        cone_rc["w"], cone_rc["r_base"], cone_rc["slope"],
-                                       cone_rc["height"], position)
-        is_cone = prim_type == bruteforce.PRIM_CONE
+                                       cone_rc["height"], pos_c)
         n, uv = w3(is_cone, cn, n), w3(is_cone, cuv, uv)
         mat_id = torch.where(is_cone, cone_rc["mat_id"], mat_id)
         fu, fv, fw = (w3(is_cone, cone_rc["u"], fu), w3(is_cone, cone_rc["v"], fv),

@@ -53,6 +53,8 @@ BSDF_NAMES = {
     "DEonHairBSDF": BSDF_DEON_HAIR,
 }
 
+BSDF_ID_TO_NAME = {v: k for k, v in BSDF_NAMES.items()}
+
 SHADER_SIMPLE = 0
 SHADER_MARSCHNER_HAIR = 1
 SHADER_NAMES = {"SimpleShader": SHADER_SIMPLE, "MarschnerHairShader": SHADER_MARSCHNER_HAIR}

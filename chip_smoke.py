@@ -85,6 +85,18 @@ on the card against `--device cpu`. The fur hides the skin from bounces
 0-1, so K1's texture fetch is held, timed and bounded at full size on
 config 3's textured terrain through the fused path.
 
+The multi-device layer (`parallel/`) runs after config 4's phases on the
+same fur patch at full width, with the one card repeated in the mesh: dp 4
+on the replicated median BVH and geo 4 on per-shard median BVHs at spp 8,
+geo 2 without a BVH (K5 a shard) at spp 1, each image against
+`render_image` of the same scene (rtol 2e-5, atol 2e-6), the geo-4 merged
+camera Hit against the unsharded one, each kernel's launches those of the
+mesh's shards and rows, K5 on a padded cone pack, two `train_step`s whose
+loss falls, and `measure_scaling`. K1's fused images are gated at full
+spp: config 4 at spp 8 against the render with K1's plain version, the CLI
+skin at spp 16 against the unfused CLI render. Config 5's BVH is built
+twice, the second time from the perm cache (a temporary directory).
+
 The traversal kernels (K2, K3) run, as on the main path, on rays sorted by
 the entry-morton key (`ops/traverse._entry_morton_perms`): each is held
 against its plain version on the sorted rays (found, t and closest-hit rows
@@ -113,8 +125,11 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -136,6 +151,11 @@ CONFIG4 = dict(res=(512, 512), fibers_per_face=2500, depth=4, spp=8)
 TRI_BVH = dict(variant="diffuse", res=(512, 512), depth=4, mis=False, spp=4)
 # K2 on its triangle leaves: a soup of random triangles, rays into it.
 TRI_SOUP, SOUP_RAYS = 20_000, 262_144
+# The multi-device phase: config 4 at full width on a mesh of the one card
+# repeated (dp 4; geo 4 on per-shard BVHs; geo 2 without a BVH at spp 1),
+# TRAIN_STEPS train_steps at geo 2 (spp 1, unfused, SGD at lr), and the
+# scaling sweep at SCALING_SPP.
+PARALLEL = dict(spp=8, train_steps=2, lr=0.05, scaling_spp=2)
 # Config 5: the hair ball (bench.py:318-324, bench_fur): 1,000,000 fibers x
 # 9 cones on a 768-triangle UV-sphere scalp, generated on the card, median
 # cone BVH (32,768 leaves x 280, fanout 64), 1024^2, depth 4; spp cut from
@@ -207,6 +227,9 @@ TIMED_REPS = 3
 CLI = dict(quads=64, res=(1280, 720), depth=5, spp=16, spp_methods=4, spp_none=1,
            spp_report=1)
 CLI_SMALL = dict(quads=16, res=(64, 36), spp=2)
+# The CLI wavefronts on which K3 (median and morton cone trees) and K5
+# (`--accel none`, the 368,640-cone pack) are bounded.
+CLI_BOUND_TRAFFIC = ("bounce-0 closest", "bounce-0 shadow")
 CLI_DIR = Path("smoke_out") / "cli"
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3;
 # INT32 (the Hopper architecture white paper), for the shade kernel's threefry.
@@ -897,7 +920,10 @@ def phase_fur_kernels(scene, cam, cfg, dev) -> dict:
 
 def phase_fur_main_path(scene, cam, cfg, dev) -> dict:
     """render_image of config 4 through the kernels: launch counts, the
-    image, rays/s, and the spp-1 image against the plain path's."""
+    image, rays/s; the spp-8 image against the render with K1's plain
+    version (K2, exact against its twin, stays the kernel: its twin's brute
+    force takes 3.7 s a call at this size), and the spp-1 image against the
+    render with every plain version."""
     from ba_pathtracing_fur_torch.core import rng
     from ba_pathtracing_fur_torch.utils import film
 
@@ -914,6 +940,15 @@ def phase_fur_main_path(scene, cam, cfg, dev) -> dict:
     OUT_DIR.mkdir(exist_ok=True)
     film.write_png(OUT_DIR / "smoke_fur_patch.png", a)
     times = phase_timing(scene, cam, key, cfg, name="config4", with_plain=False)
+    from ba_pathtracing_fur_torch.ops.cuda import shade as cshade
+    fn = cshade.shade_bounce
+    cshade.shade_bounce = cshade.shade_bounce_ref
+    try:
+        p = check_image(render(scene, cam, key, cfg), (h, w, 3), "config4 K1 plain")
+    finally:
+        cshade.shade_bounce = fn
+    gate_full = image_gate(p, a, f"config4 spp-{cfg.spp} image against the render with K1's "
+                           f"plain version")
     one = dataclasses.replace(cfg, spp=1)
     a1 = check_image(render(scene, cam, key, one), (h, w, 3), "config4 spp 1")
     with plain_bounces():
@@ -922,7 +957,170 @@ def phase_fur_main_path(scene, cam, cfg, dev) -> dict:
         plain_s = time.perf_counter() - t0
     log(f"config4 spp-1 render via plain: {plain_s:.3f} s")
     gate = image_gate(b1, a1, "config4 spp-1 kernel vs plain image")
-    return dict(counts=counts, times=times, gate=gate)
+    return dict(counts=counts, times=times, gate=gate, gate_full=gate_full)
+
+
+def mesh_launches(shards_by_row, calls: int, n_rays: int, shade: int) -> dict:
+    """The kernel launches a sharded render must make: per dp row and geo
+    shard, `traversal_launches` of its shard scene over its row's rays
+    (each shard's BVHs and K5-sized packs, as the unsharded render counts
+    them), and `shade` K1 launches a row."""
+    want: dict = {}
+    for shards in shards_by_row:
+        for s in shards:
+            for k, v in traversal_launches(s, calls, n_rays).items():
+                want[k] = want.get(k, 0) + v
+        if shade:
+            want["shade"] = want.get("shade", 0) + shade
+    return want
+
+
+def timed_render(fn) -> tuple:
+    """(image, wall seconds, peak device GiB) of one render after a warm-up
+    render, the counts reset before the timed one."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    img = fn()
+    torch.cuda.synchronize()
+    return img, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_parallel(dev, card) -> dict:
+    """The multi-device layer (`parallel/`) on config 4 at full width (the
+    fur patch: 512^2, 45,000 cones, depth 4, fused) with a mesh of the one
+    card repeated: (1) dp 4 on the replicated median BVH, spp 8; (2) geo 4
+    on per-shard median BVHs (`shard_scene_bvh`), spp 8; (3) geo 2 without
+    a BVH (K5 on 22,500 cones a shard), spp 1; (4) two `train_step`s at geo
+    2 on per-shard BVHs, spp 1, unfused. Each image against `render_image`
+    of the same scene on the card (rtol 2e-5, atol 2e-6, the JAX package's
+    test tolerance); part 2's merged camera-wavefront Hit against the
+    unsharded BVH's (t bit for bit; a prim_id that differs has the same t,
+    an exact tie); each part's launches per kernel those of its shards and
+    rows (`mesh_launches`); the loss falls. Wall seconds, rays/s against
+    the unsharded render's, peak memory; then `measure_scaling` over the
+    card's devices (one row here)."""
+    from ba_pathtracing_fur_torch import parallel as par
+    from ba_pathtracing_fur_torch.core import rng
+    from ba_pathtracing_fur_torch.models import pathtracer as pt
+    from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.parallel import render as prender
+    from ba_pathtracing_fur_torch.scene import builtins
+
+    t_phase = time.perf_counter()
+    c = PARALLEL
+    raw, cam = builtins.fur_patch(resolution=CONFIG4["res"],
+                                  fibers_per_face=CONFIG4["fibers_per_face"], device=dev)
+    w, h = cam.resolution
+    key = rng.key(0, dev)
+    fused = pt.RenderConfig(depth=CONFIG4["depth"], spp=c["spp"], compact=False,
+                            fused_shading=True)
+    bvh_scene = traverse.attach_bvh(raw, method="median")
+    out = {}
+
+    def part(name, scene, ref_scene, cfg, n, geo):
+        mesh = par.make_mesh(devices=[dev] * n, geo=geo)
+        dp = mesh.shape["dp"]
+        rows = [prender.geo_shards(prender.pad_scene_geo(scene, geo), geo)] * dp
+        want = mesh_launches(rows, 2 * cfg.spp * cfg.depth, w * h // dp, cfg.spp * cfg.depth)
+        ref, ref_s, _ = timed_render(lambda: pt.render_image(ref_scene, cam, key, cfg))
+        single = read_counts()
+        img, wall, peak = timed_render(
+            lambda: par.render_image_sharded(scene, cam, key, cfg, mesh))
+        counts = read_counts()
+        check_counts(counts, f"parallel {name}", **want)
+        a, b = check_image(img, (h, w, 3), f"parallel {name}"), ref.cpu().numpy()
+        err = float(np.abs(a - b).max())
+        ok = np.allclose(a, b, rtol=2e-5, atol=2e-6)
+        rays = w * h * cfg.spp * cfg.depth
+        log(f"parallel {name} ({mesh.shape}, spp {cfg.spp}): max |diff| against render_image "
+            f"{err:.3e} (rtol 2e-5, atol 2e-6: {'ok' if ok else 'FAILED'}); wall {wall:.4f} s "
+            f"= {rays / wall:.4e} rays/s against {ref_s:.4f} s = {rays / ref_s:.4e} rays/s "
+            f"unsharded; launches {counts} (unsharded {single}); peak {peak:.2f} GiB; on {card}")
+        if not ok:
+            raise AssertionError(f"parallel {name}: the sharded image differs from render_image")
+        return dict(mesh=mesh.shape, max_abs_err=err, wall=wall, ref_wall=ref_s,
+                    rays_per_s=rays / wall, ref_rays_per_s=rays / ref_s, peak_gib=peak,
+                    counts=counts, single_counts=single)
+
+    out["dp4"] = part("dp 4, replicated median BVH", bvh_scene, bvh_scene, fused, 4, 1)
+
+    sharded = prender.shard_scene_bvh(raw, 4, method="median")
+    state, _ = pt.camera_wavefront(cam, torch.arange(w * h, device=dev), key, [0], fused)
+    o, d = state.origin, state.direction
+    want_hit = traverse.closest_hit(o, d, bvh_scene)
+    got_hit = prender.geo_closest_fn(prender.geo_shards(sharded, 4))(o, d, sharded)
+    torch.cuda.synchronize()
+    t_bad = int((got_hit.t.view(torch.int32) != want_hit.t.view(torch.int32)).sum())
+    ties = got_hit.prim_id != want_hit.prim_id
+    fields = {f: int((getattr(got_hit, f) != getattr(want_hit, f)).sum())
+              for f in ("valid", "prim_type")}
+    fields["mat_id"] = int((got_hit.mat_id != want_hit.mat_id)[~ties].sum())
+    log(f"parallel geo 4 merged camera Hit ({w * h} rays, {int(want_hit.valid.sum())} hits): "
+        f"t differs on {t_bad} rays; prim_id differs on {int(ties.sum())} rays (exact ties: "
+        f"t is equal on every ray); valid/prim_type differ on {fields['valid']}/"
+        f"{fields['prim_type']} rays, mat_id on {fields['mat_id']} of the untied")
+    if t_bad or any(fields.values()):
+        raise AssertionError("parallel geo 4: the merged Hit differs from the unsharded one")
+    out["geo4"] = part("geo 4, a median BVH a shard", sharded, bvh_scene, fused, 4, 4)
+    out["geo4"].update(hit_t_mismatches=t_bad, prim_id_ties=int(ties.sum()))
+
+    one = dataclasses.replace(fused, spp=1)
+    out["geo2_bvh_less"] = part("geo 2 without a BVH (K5)", raw, raw, one, 2, 2)
+    # padded primitives never hit: K5 on the cone pack padded to a multiple
+    # of 7 (3 inert cones) equals K5 on the pack itself, and the cull's
+    # margin holds over the padded pack's boxes
+    from ba_pathtracing_fur_torch.ops.cuda import intersect as cisect
+    padded = prender.pad_scene_geo(raw, 7).cones
+    t_cap = torch.full((w * h,), traverse.INF, device=dev)
+    tp, ip = cisect.closest(o, d, t_cap, cisect.tables_of(padded, "cone"), "cone")
+    tu, iu = cisect.closest(o, d, t_cap, cisect.tables_of(raw.cones, "cone"), "cone")
+    margin = cisect.cull_margin(o, d, t_cap, padded, "cone")
+    same = torch.equal(tp, tu) and torch.equal(ip, iu)
+    log(f"parallel padded cone pack ({raw.cones.count} + {padded.count - raw.cones.count} "
+        f"inert cones): K5 equal to the unpadded pack's {same}, largest index hit "
+        f"{int(ip.max())}; cull margin {margin}")
+    if not same or margin["missed"] or margin["entry_ratio"] > cisect.PRUNE_SLACK:
+        raise AssertionError("parallel: a padded cone hit, or the cull's margin failed")
+    out["padded_margin"] = margin
+
+    cfg_t = pt.RenderConfig(depth=CONFIG4["depth"], spp=1)
+    mesh = par.make_mesh(devices=[dev] * 2, geo=2)
+    sharded2 = prender.shard_scene_bvh(raw, 2, method="median")
+    target = torch.zeros((h, w, 3), device=dev)
+    st = par.TrainState(materials=sharded2.materials,
+                        step=torch.tensor(0, dtype=torch.int32, device=dev))
+    losses, walls = [], []
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for _ in range(c["train_steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, loss = par.train_step(st, sharded2, cam, key, target, cfg_t, mesh, lr=c["lr"])
+        losses.append(float(loss))
+        walls.append(time.perf_counter() - t0)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = mesh_launches([prender.geo_shards(sharded2, 2)], 2 * cfg_t.depth * c["train_steps"],
+                         w * h, 0)
+    check_counts(counts, "parallel train_step", **want)
+    log(f"parallel train_step x{c['train_steps']} (geo 2, median BVH a shard, spp 1, "
+        f"unfused): losses {losses}, seconds {walls}, launches {counts}, peak {peak:.2f} GiB; "
+        f"on {card}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError("parallel train_step: the loss did not fall")
+    out["train"] = dict(losses=losses, walls=walls, counts=counts, peak_gib=peak)
+
+    rows = par.measure_scaling(bvh_scene, cam, dataclasses.replace(fused, spp=c["scaling_spp"]),
+                               repeats=2, devices=[dev] * torch.cuda.device_count())
+    log(f"parallel measure_scaling over the {torch.cuda.device_count()} visible device(s), "
+        f"config 4 at spp {c['scaling_spp']}: {rows}; on {card}")
+    out["scaling"] = rows
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"parallel phase: {out['phase_s']:.1f} s on {card}")
+    return out
 
 
 def camera_and_shadow_rays(scene, cam, cfg, dev):
@@ -1038,11 +1236,28 @@ def hair_ball_scene(dev):
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     n_cones = scene.cones.count
+    raw = scene
     t0 = time.perf_counter()
-    scene = traverse.attach_bvh(scene, method="median")
+    scene = traverse.attach_bvh(raw, method="median")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    b, stats = scene.cone_bvh, traverse.LAST_BUILD_STATS["cone"]
+    b, stats = scene.cone_bvh, dict(traverse.LAST_BUILD_STATS["cone"])
+    # the same build again: its split comes from the perm cache (9M cones,
+    # past PERM_CACHE_MIN; BAPT_BVH_CACHE_DIR is this run's temporary
+    # directory), bit-equal to the fresh one
+    t0 = time.perf_counter()
+    again = traverse.attach_bvh(raw, method="median")
+    torch.cuda.synchronize()
+    cached_s = time.perf_counter() - t0
+    cst = traverse.LAST_BUILD_STATS["cone"]
+    log(f"config5: the cached rebuild in {cached_s:.3f} s (split {cst['split']:.3f} s, "
+        f"perm_cached {cst['perm_cached']}) against {build_s:.3f} s (split "
+        f"{stats['split']:.3f} s, perm_cached {stats['perm_cached']})")
+    if not (cst["perm_cached"] and not stats["perm_cached"]
+            and torch.equal(again.cone_bvh.perm, b.perm)
+            and torch.equal(again.cone_bvh.packed, b.packed)):
+        raise AssertionError("config5: the perm cache missed or changed the BVH")
+    del again, raw
     log(f"config5: {n_cones} cones generated on the card in {gen_s:.3f} s; cone "
         f"BVH {b.n_leaves} leaves x {b.leaf_size}, fanout {b.fanout}, built on the "
         f"card in {build_s:.3f} s (aabb {stats['aabb']:.3f}, split "
@@ -1053,7 +1268,8 @@ def hair_ball_scene(dev):
             or scene.tri_bvh is not None or b.perm.device != scene.cones.base.device:
         raise AssertionError("config5: unexpected scene or BVH")
     cfg = pt.RenderConfig(depth=c["depth"], spp=c["spp"], compact=False, fused_shading=True)
-    return scene, cam, cfg, dict(gen_s=gen_s, build_s=build_s, stages=stats)
+    return scene, cam, cfg, dict(gen_s=gen_s, build_s=build_s, stages=stats,
+                                 cached_build_s=cached_s, cached_stages=dict(cst))
 
 
 def spread(n: int, k: int, dev) -> torch.Tensor:
@@ -2138,7 +2354,8 @@ def cli_render(scene_path: Path, out: str, dev, *, accel="median", spp=None, res
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     scene = spy["scene"]
-    build = {k: sum(v.values()) for k, v in traverse.LAST_BUILD_STATS.items()}
+    build = {k: sum(x for n, x in v.items() if n != "perm_cached")
+             for k, v in traverse.LAST_BUILD_STATS.items()}
     info = {k: bvh_mod.debug_info(b) for k, b in (("tri", scene.tri_bvh),
                                                  ("cone", scene.cone_bvh)) if b is not None}
     return dict(argv=argv, wall=wall, render_s=spy["render_s"], counts=read_counts(),
@@ -2167,7 +2384,7 @@ def traversal_launches(scene, calls: int, n_rays: int) -> dict:
     return want
 
 
-def hold_cli_traffic(kind, o, d, t_max, scene, what) -> dict:
+def hold_cli_traffic(kind, o, d, t_max, scene, what, bound_cones=False) -> dict:
     """Every traversal kernel of the CLI scene on one captured wavefront,
     as `closest_hit` / `any_hit` feed them (sorted by the entry-morton key
     of the cone BVH, else the triangle BVH; unsorted without a BVH): per
@@ -2175,7 +2392,9 @@ def hold_cli_traffic(kind, o, d, t_max, scene, what) -> dict:
     against its twin on TRAFFIC_TWIN_RAYS live rays and 64 dead ones (found
     and t bit for bit, rows on closest hits); per BVH-less pack of K5's
     size, K5 against its twin on the same rays (t and index bit for bit).
-    Each kernel is timed on the whole wavefront."""
+    Each kernel is timed on the whole wavefront; with `bound_cones`, K3 and
+    K5 on the cone pack are bounded on it too (`stream_bound` on K3's own
+    hits, `brute_bound` on K5_CONE_TILES tiles, as on configs 5 and 4)."""
     from ba_pathtracing_fur_torch.ops import traverse
     from ba_pathtracing_fur_torch.ops.cuda import intersect as cisect, stream as cstream, \
         traverse as ctraverse
@@ -2216,6 +2435,10 @@ def hold_cli_traffic(kind, o, d, t_max, scene, what) -> dict:
         ms = timed(lambda: fn(*rays), 3)
         out[f"{name}_{pk}"] = dict(mismatches=mis, found=found, max_abs_err=err, ms=ms,
                                    twin_rays=int(sub.numel()))
+        if bound_cones and pk == "cone" and name != "traverse":
+            out[f"{name}_{pk}"]["bound"] = (
+                stream_bound(*rays, bvh, any_hit, t1, r1, f1) if name == "traverse_stream"
+                else brute_bound(*rays, tables, pk, tk, ik, max_tiles=K5_CONE_TILES))
         log(f"{name} {pk} {kind} hit, {what}: {o.shape[0]} rays, "
             f"{int((t_max > 0).sum())} with t_max > 0, found {found}; vs twin on "
             f"{sub.numel()} rays: mismatches {mis}; {ms:.4f} ms")
@@ -2306,7 +2529,8 @@ def phase_cli(dev, card) -> dict:
         f"{main['build_stages']} (total {sum(main['build_s'].values()):.3f} s); launches "
         f"{main['counts']}; peak device memory {main['peak_gib']:.2f} GiB; debug_info "
         f"{main['debug_info']}; {CLI_DIR / 'cli_median.png'}; on {card}")
-    held = {"median": {n: hold_cli_traffic(k, o, d, t, main["scene"], f"cli median {n} rays")
+    held = {"median": {n: hold_cli_traffic(k, o, d, t, main["scene"], f"cli median {n} rays",
+                                           bound_cones=n in CLI_BOUND_TRAFFIC)
                        for n, (k, o, d, t) in zip(names, main.pop("kept"))}}
     prof = profile_call(lambda: cli_render(path, "cli_profile.png", dev, spp=1),
                         "cli median spp-1 render (scene load and build included)",
@@ -2328,7 +2552,8 @@ def phase_cli(dev, card) -> dict:
         check_counts(run["counts"], f"cli {m}",
                      **traversal_launches(run["scene"], 2 * spp * c["depth"], w * h))
         held[f"{m}_spp{spp}"] = {
-            nm: hold_cli_traffic(k, o, d, t, run["scene"], f"cli {m} {nm} rays")
+            nm: hold_cli_traffic(k, o, d, t, run["scene"], f"cli {m} {nm} rays",
+                                 bound_cones=m in ("morton", "none") and nm in CLI_BOUND_TRAFFIC)
             for nm, (k, o, d, t) in zip(names, run.pop("kept"))}
         if m == "median":
             refs[spp] = img
@@ -2369,8 +2594,7 @@ def phase_cli(dev, card) -> dict:
     res["report"] = dict(wall=run["wall"], peak_gib=run["peak_gib"], bytes=report.stat().st_size)
     del run
 
-    res["fused"] = phase_cli_fused(scene_obj, cam, {c["spp"]: a_main, c["spp_none"]: refs[
-        c["spp_none"]]}, dev, card)
+    res["fused"] = phase_cli_fused(scene_obj, cam, a_main, dev, card)
     del scene_obj
     res["small"] = phase_cli_small(dev)
     res["held"] = held
@@ -2379,14 +2603,13 @@ def phase_cli(dev, card) -> dict:
     return res
 
 
-def phase_cli_fused(scene, cam, unfused: dict, dev, card) -> dict:
+def phase_cli_fused(scene, cam, unfused: np.ndarray, dev, card) -> dict:
     """render_image(RenderConfig(depth=5, spp=16, fused_shading=True)) on
     the CLI scene with its median BVHs: K1 with its texture fetch on every
     bounce (launch counts), its draws bit-exact and K1 against its plain
     version (compare_shade's gate) on bounces 0-1, timed and bounded there;
-    the images against the unfused CLI renders `unfused` ({spp: image})
-    under image_gate: through K1 at spp 1, through K1's plain version at
-    spp 16."""
+    the spp-16 images through K1 and through K1's plain version each
+    against the unfused CLI render `unfused` under image_gate."""
     from ba_pathtracing_fur_torch.core import rng
     from ba_pathtracing_fur_torch.models import pathtracer as pt
     from ba_pathtracing_fur_torch.ops import traverse
@@ -2405,30 +2628,18 @@ def phase_cli_fused(scene, cam, unfused: dict, dev, card) -> dict:
     n = c["spp"] * c["depth"]
     check_counts(counts, "cli fused", shade=n, **traversal_launches(scene, 2 * n, w * h))
     a = check_image(img, (h, w, 3), "cli fused")
-    # K1's float differences from its plain version (FMA contraction, CUDA
-    # transcendentals; 0.2% of a bounce's rows off by more than 1e-4, as on
-    # config 4) move a few hair paths of a sample, and a pixel's 16 samples
-    # collect them: the gate holds the kernel's render against the unfused
-    # CLI render at spp 1, and the fused path with K1's plain version
-    # against it at spp 16; the kernel's spp-16 difference is reported.
-    b = check_image(render(scene, cam, rng.key(0, dev), dataclasses.replace(
-        cfg, spp=c["spp_none"])), (h, w, 3), f"cli fused spp {c['spp_none']}")
-    gate = image_gate(unfused[c["spp_none"]], b, f"cli fused (K1 textured) spp "
-                      f"{c['spp_none']} against the unfused CLI render")
+    gate = image_gate(unfused, a, f"cli fused (K1 textured) spp {c['spp']} against the "
+                      f"unfused CLI render")
     fn = cshade.shade_bounce
     cshade.shade_bounce = cshade.shade_bounce_ref
     try:
         p = check_image(render(scene, cam, rng.key(0, dev), cfg), (h, w, 3), "cli fused plain")
     finally:
         cshade.shade_bounce = fn
-    gate_plain = image_gate(unfused[c["spp"]], p, f"cli fused with K1's plain version spp "
+    gate_plain = image_gate(unfused, p, f"cli fused with K1's plain version spp "
                             f"{c['spp']} against the unfused CLI render")
-    d = np.abs(a.astype(np.float64) - unfused[c["spp"]])
-    spp16 = dict(mean=float(d.mean()), flips=float(np.mean(d.max(-1) > IMG_FLIP)))
-    log(f"cli fused (K1 textured) spp {c['spp']} against the unfused CLI render, not gated: "
-        f"mean |diff| {spp16['mean']:.3e}, flipped pixels {spp16['flips']:.4f}")
     out = dict(wall=wall, rays_per_s=w * h * n / wall, counts=counts, gate=gate,
-               gate_plain=gate_plain, spp16=spp16)
+               gate_plain=gate_plain)
     out.update(k1_bounces(scene, cam, cfg, dev, "cli"))
     k1 = out["k1"]
     log(f"cli fused render ({w}x{h}, depth {c['depth']}, spp {c['spp']}): {wall:.4f} s = "
@@ -2526,10 +2737,17 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.load_library()
     log(f"kernel build + load: {time.perf_counter() - t0:.2f} s")
+    # the BVH perm cache of this run (config 5's build uses it) lives in a
+    # temporary directory, removed at the end
+    cache = tempfile.mkdtemp(prefix="bvh_cache_")
+    os.environ["BAPT_BVH_CACHE_DIR"] = cache
     for line in kernels.LAST_BUILD_LOG.splitlines():
         if "registers" in line or "Compiling entry" in line or "stack frame" in line:
             log("ptxas:", line.strip())
-    kernels_line = drive(dev, card)
+    try:
+        kernels_line = drive(dev, card)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
     log(f"smoke total: {time.perf_counter() - t_start:.1f} s, the kernels' build included")
     log(card)
     log(json.dumps({"kernels": kernels_line}))
@@ -2582,6 +2800,7 @@ def drive(dev, card: str) -> list:
     w4 = phase_whitted("fur_patch", scene4, cam4, card, ("traverse",), profile=True)
     b4 = phase_bdpt(scene4, cam4, card)
     del scene4
+    para = phase_parallel(dev, card)
     tri = phase_tri_bvh(dev)
 
     from ba_pathtracing_fur_torch.models import pathtracer as pt
@@ -2647,8 +2866,18 @@ def drive(dev, card: str) -> list:
             launches={m: r["counts"][count] for m, r in runs.items()},
             ms={m: {w: x[name]["ms"] for w, x in held.items() if name in x}
                 for m, held in cli["held"].items()},
+            bound_ms={m: {w: x[name]["bound"]["bound_ms"] for w, x in held.items()
+                          if "bound" in x.get(name, {})} for m, held in cli["held"].items()},
             max_abs_err=max([x[name]["max_abs_err"] for held in cli["held"].values()
                              for x in held.values() if name in x] or [0.0]))
+
+    def parallel_launches(count):
+        """One kernel's launches in each part of the parallel phase (the
+        traverse count holds K2's triangle and cone launches), beside the
+        unsharded render's."""
+        return {name: dict(sharded=r["counts"][count], unsharded=r["single_counts"][count])
+                for name, r in para.items() if isinstance(r, dict) and "single_counts" in r} \
+            | {"train": para["train"]["counts"][count]}
 
     cf = cli["fused"]
     t0, s0 = fur[0]["times"], fur[0]["shade"]
@@ -2679,7 +2908,8 @@ def drive(dev, card: str) -> list:
              whitted_r_launches=w4["r"]["counts"]["traverse"],
              bdpt_launches=b4["counts"]["traverse"],
              whitted_traffic_ms={n: x["ms"] for n, x in w4["all"]["held"].items()},
-             bdpt_traffic_ms={n: x["ms"] for n, x in b4["held"].items()}),
+             bdpt_traffic_ms={n: x["ms"] for n, x in b4["held"].items()},
+             parallel_launches=parallel_launches("traverse")),
         dict(name="traverse_tri", route="cuda",
              source="ba_pathtracing_fur_torch/csrc/traverse.cu",
              replaces="ba_pathtracing_fur_tpu/ops/pallas/traverse.py:247",
@@ -2720,6 +2950,7 @@ def drive(dev, card: str) -> list:
                               bound_by=hb[b]["shade"]["bound"]["bound_by"])
                       for k, b in (("bounce0", 0), ("bounce1", 1))},
              config5_launches=hb_main["counts"]["shade"],
+             parallel_launches=parallel_launches("shade"),
              config5_traced_ms_per_launch=per_launch(prof5, "shade_kernel"),
              textured=dict(
                  launches=cf["counts"]["shade"], max_abs_err=cf["k1"]["max_abs_err"],
@@ -2788,7 +3019,8 @@ def drive(dev, card: str) -> list:
              entry_ratio=max(k5_cone[b]["margin"]["entry_ratio"] for b in (0, 1)),
              bounce1_ms=k5_cone[1]["ms"],
              bounce1_bound_ms=k5_cone[1]["bound"]["bound_ms"],
-             cli=cli_kernel("bruteforce_cone")),
+             cli=cli_kernel("bruteforce_cone"),
+             parallel_launches=parallel_launches("bruteforce_cone")),
     ]
     return kernels_line
 

@@ -108,3 +108,57 @@ def test_small_packs_stay_bvh_less():
     ts, _ = builtins.fur_patch(resolution=(4, 4), fibers_per_face=20, device=CPU)
     out = traverse.attach_bvh(ts)  # min_prims 2048: 360 cones, 2 triangles
     assert out.cone_bvh is None and out.tri_bvh is None and out.cones is ts.cones
+
+
+def _perm_cache_scene(shift=0.0):
+    ts, _ = builtins.fur_patch(resolution=(4, 4), fibers_per_face=120, device=CPU)
+    if shift:
+        base = ts.cones.base.clone()
+        base[0, 0] += shift
+        ts = dataclasses.replace(ts, cones=dataclasses.replace(ts.cones, base=base))
+    return ts
+
+
+def _cone_build(ts, **kw):
+    out = traverse.attach_bvh(ts, method="median", **kw)
+    return out, dict(traverse.LAST_BUILD_STATS["cone"])
+
+
+@pytest.mark.parametrize("case", ["hit_bit_equal", "changed_pack_misses", "disabled",
+                                  "fingerprint"])
+def test_perm_cache(case, tmp_path, monkeypatch, jax_numpy_build):
+    """The median build's on-disk perm cache (BAPT_BVH_CACHE_DIR = tmp_path;
+    PERM_CACHE_MIN lowered to this 2,160-cone patch): a cached build is
+    bit-equal to a fresh one and to the JAX package's build, a changed pack
+    misses, BAPT_NO_BVH_CACHE turns the cache off, and a caller's
+    fingerprint turns it on below the threshold; LAST_BUILD_STATS records
+    `perm_cached` wherever the cache took part."""
+    monkeypatch.setenv("BAPT_BVH_CACHE_DIR", str(tmp_path))
+    monkeypatch.delenv("BAPT_NO_BVH_CACHE", raising=False)
+    if case != "fingerprint":
+        monkeypatch.setattr(traverse, "PERM_CACHE_MIN", 1000)
+    kw = dict(fingerprint="patch120") if case == "fingerprint" else {}
+    if case == "disabled":
+        monkeypatch.setenv("BAPT_NO_BVH_CACHE", "1")
+        _, st = _cone_build(_perm_cache_scene())
+        assert "perm_cached" not in st and not list(tmp_path.iterdir())
+        return
+    if case == "fingerprint":
+        _, st = _cone_build(_perm_cache_scene())  # below the threshold, no key
+        assert "perm_cached" not in st and not list(tmp_path.iterdir())
+    first, st1 = _cone_build(_perm_cache_scene(), **kw)
+    second, st2 = _cone_build(_perm_cache_scene(), **kw)
+    assert (st1["perm_cached"], st2["perm_cached"]) == (False, True)
+    files = sorted(p.name for p in tmp_path.iterdir())
+    assert len(files) == 1 and files[0].startswith("perm_")
+    if case == "fingerprint":
+        assert files[0].startswith("perm_patch120_")
+    for f in ("bmin", "bmax", "perm", "packed", "aos_rows", "uboxes"):
+        assert torch.equal(getattr(first.cone_bvh, f), getattr(second.cone_bvh, f)), f
+    _assert_pack_equal(second.cones, first.cones, types.ConePack)
+    js, _ = jbuiltins.fur_patch(resolution=(4, 4), fibers_per_face=120)
+    js = jtraverse.attach_bvh(js, method="median")
+    _assert_bvh_equal(second.cone_bvh, js.cone_bvh)
+    if case == "changed_pack_misses":
+        _, st3 = _cone_build(_perm_cache_scene(shift=1e-3))
+        assert st3["perm_cached"] is False and len(list(tmp_path.iterdir())) == 2

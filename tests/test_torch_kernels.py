@@ -51,9 +51,10 @@ def test_nvcc_command_targets_hopper_without_fast_math(tmp_path):
         assert "arch=compute_90a,code=sm_90a" in cmd and "-O3" in cmd
         assert not any("fast_math" in c or "fast-math" in c for c in cmd)
         assert [Path(c).name for c in cmd if c.endswith(".cu")] == [src.name]
-        # the ray-primitive tests round as their twins: no FMA contraction
-        assert ("-fmad=false" in cmd) == (src.name in ("bruteforce.cu", "traverse.cu",
-                                                         "traverse_stream.cu"))
+        # the ray-primitive tests and the shade stage round as their twins:
+        # no FMA contraction (the full-bounce kernel keeps it)
+        assert ("-fmad=false" in cmd) == (src.name in ("bruteforce.cu", "shade.cu",
+                                                         "traverse.cu", "traverse_stream.cu"))
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):
