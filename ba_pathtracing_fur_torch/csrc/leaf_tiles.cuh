@@ -39,6 +39,15 @@
 // hit even below t_max = inf): the brute-force twin's row on every ray,
 // exact t ties across clusters included. An any hit ends its ray at the
 // first acceptance (its key's t becomes -1 inside, 0 in the output).
+//
+// Mixed mode (K3's third instance, for the joint closest+shadow pass of
+// ops/traverse.py::joint_closest_any): each ray's any-hit flag comes from
+// is_any [R] and is kept beside the tile's ray record as one bit a ray, so
+// closest-hit and shadow rays share one tile and one schedule. A shadow
+// ray that accepts is done exactly as in the any-hit instance: its best t
+// is -1 and every box entry is clamped to >= 0 (leaf_tests.cuh::slab), so
+// no walk, join, pair or unit test takes it again; a dead ray (t_max = 0,
+// the dead half of a pair) is never joined.
 
 #pragma once
 
@@ -187,17 +196,23 @@ __device__ __forceinline__ void load_leaf(float* dst, const float* __restrict__ 
 //   float node(int n, int a)      component a (lo xyz, hi xyz) of walk node n
 //                                 (heap nodes 0 .. 2S-2);
 //   float child(int s, int c, int a)  component a of child c of super s.
-template <bool kCone, bool kAnyHit, class Boxes>
+//
+// kMixed: the any-hit flag of each ray comes from is_any [R] (1 = shadow
+// ray, else closest hit); kAnyHit must be false then.
+template <bool kCone, bool kAnyHit, bool kMixed = false, class Boxes>
 __device__ __forceinline__ void tile_traverse(
     const Boxes& bx, int n_rays, const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ t_max, const float* __restrict__ packed,
     const float* __restrict__ uboxes, int leaf_k, int depth, float t_min,
-    float* __restrict__ t_out, int* __restrict__ row_out, unsigned char* __restrict__ found_out) {
+    float* __restrict__ t_out, int* __restrict__ row_out, unsigned char* __restrict__ found_out,
+    const unsigned char* __restrict__ is_any = nullptr) {
+  static_assert(!(kAnyHit && kMixed), "a mixed tile takes each ray's flag from is_any");
   constexpr int W = kCone ? 16 : 9;
   constexpr int RAY_WARPS = TILE / 32;
   extern __shared__ __align__(16) float smem[];
   __shared__ float red_e[RAY_WARPS];
   __shared__ int red_s[RAY_WARPS];
+  __shared__ unsigned any_bits[kMixed ? RAY_WARPS : 1];  // the rays' any-hit flags, a bit each
   __shared__ int s_star, n_join, n_pairs, n_vis, n_items;
   __shared__ unsigned s_max_tb;  // ord() of the largest best t of the joined rays
 
@@ -217,6 +232,7 @@ __device__ __forceinline__ void tile_traverse(
   int* items = reinterpret_cast<int*>(smem + lay.units);  // [TILE * U]
   float* leaf_buf = smem + lay.leaf;  // [2][W*K]
   auto best_t = [&](int q) { return unord(static_cast<unsigned>(key[q] >> 32)); };
+  auto any_ray = [&](int q) { return ((any_bits[q >> 5] >> (q & 31)) & 1u) != 0u; };
 
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const bool walker = t < TILE;
@@ -245,6 +261,14 @@ __device__ __forceinline__ void tile_traverse(
     ray[6 * TILE + t] = ix; ray[7 * TILE + t] = iy; ray[8 * TILE + t] = iz;
     ray[9 * TILE + t] = cap;
     key[t] = ray_key(cap, 0xffffffffu);
+  }
+  bool my_any = kAnyHit;  // this walker's ray ends at its first acceptance
+  if constexpr (kMixed) {
+    my_any = walker && i < n_rays && is_any[i] != 0;
+    if (warp < RAY_WARPS) {
+      const unsigned m = __ballot_sync(FULL, my_any);
+      if (lane == 0) any_bits[warp] = m;
+    }
   }
   for (int x = t; x < (n_sup + 31) / 32; x += THREADS) visited[x] = 0u;
   if (t == 0) { n_pairs = 0; n_items = 0; s_max_tb = 0u; }
@@ -407,6 +431,7 @@ __device__ __forceinline__ void tile_traverse(
         int qq = -1;
         Ray rq = {0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f};
         float qcap = 0.0f;
+        bool qany = kAnyHit;
         for (int y = warp * run; y < min(ni, (warp + 1) * run); ++y) {
           const int x = items[y], p = x / units, k = (x - p * units) * UNIT + lane;
           if (pairs[p] != qq) {
@@ -414,8 +439,9 @@ __device__ __forceinline__ void tile_traverse(
             rq = {ray[qq], ray[TILE + qq], ray[2 * TILE + qq],
                   ray[3 * TILE + qq], ray[4 * TILE + qq], ray[5 * TILE + qq]};
             qcap = ray[9 * TILE + qq];
+            if constexpr (kMixed) qany = any_ray(qq);
           }
-          if (kAnyHit && best_t(qq) < 0.0f) continue;  // done by another item
+          if (qany && best_t(qq) < 0.0f) continue;  // done by another item
           float lt = INF;
           if (k < leaf_k)
             lt = kCone ? cone_row(rq, blk + k, leaf_k, t_min, qcap)
@@ -424,7 +450,7 @@ __device__ __forceinline__ void tile_traverse(
           warp_argmin(lt, lr);
           // INF is a miss, also below an infinite t_max (the twin's rule)
           if (lane == 0 && lt < qcap && lt < INF)
-            atomicMin(&key[qq], ray_key(kAnyHit ? -1.0f : lt,
+            atomicMin(&key[qq], ray_key(qany ? -1.0f : lt,
                                         static_cast<unsigned>(leaf * leaf_k + lr)));
         }
         __syncthreads();
@@ -439,7 +465,7 @@ __device__ __forceinline__ void tile_traverse(
     const unsigned long long kq = key[t];
     const unsigned low = static_cast<unsigned>(kq);
     const bool found = low != 0xffffffffu;
-    t_out[i] = kAnyHit && found ? 0.0f : unord(static_cast<unsigned>(kq >> 32));
+    t_out[i] = my_any && found ? 0.0f : unord(static_cast<unsigned>(kq >> 32));
     row_out[i] = found ? static_cast<int>(low) : -1;
     found_out[i] = found ? 1 : 0;
   }

@@ -65,7 +65,8 @@ SIGNATURES = {
     "stream_launch": ("traverse_stream.cu", (
         [_C_INT] + [_C_VOID_P] * 9             # n_rays, o d t_max bmin bmax sboxes cboxes
                                                # packed uboxes
-        + [_C_INT] * 5 + [_C_FLOAT]            # n_sup fanout leaf_k cone any_hit t_min
+        + [_C_INT] * 5                         # n_sup fanout leaf_k cone any_hit
+        + [_C_VOID_P, _C_FLOAT]                # is_any (null unless mixed) t_min
         + [_C_VOID_P] * 3                      # t row found
         + [_C_VOID_P])),                       # cudaStream_t
     "bruteforce_launch": ("bruteforce.cu", (

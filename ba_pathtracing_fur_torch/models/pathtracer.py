@@ -24,6 +24,12 @@ kernels. With `fused_shading=True` each bounce is `trace_bounce_fused`:
     uniforms from each ray's key and gathers its material row itself), the
     shadow any-hit, and the masked add of the NEE term.
 
+With `joint_shadows=True` as well, on a scene that `ops/traverse.
+joint_eligible` passes (one two-level BVH: the hair ball), each bounce is
+`trace_bounce_fused_joint`: bounce b's shadow rays ride in bounce b + 1's
+closest-hit launch (one mixed launch of the streaming kernel), and the
+image equals the separate bounces' bit for bit.
+
 On the card each kernel is a CUDA launch; on the CPU its plain twin runs.
 
 With `compact=True` (the default, as in the JAX package) the wavefront is
@@ -149,13 +155,6 @@ class BounceTables:
                    else cshade.pack_tex_table(scene.materials))
 
 
-def check_supported(scene: DeviceScene, cfg: RenderConfig) -> None:
-    """Raise NotImplementedError for what the port does not run."""
-    if cfg.joint_shadows:
-        raise NotImplementedError("joint closest+shadow traversal measured negative "
-                                  "and is not ported (ROADMAP, do-not-port list)")
-
-
 def check_no_grad(scene: DeviceScene) -> None:
     """Raise for the fused path while autograd records and a tensor of the
     scene requires grad: its kernels (K1, K4) have no backward, and a
@@ -218,16 +217,42 @@ def shade_inputs(state: RayState, scene: DeviceScene, keys: torch.Tensor, bounce
         **tex)
 
 
+def _trace_cap(state: RayState) -> torch.Tensor:
+    """t_max of the bounce's closest-hit rays: INF, 0 on dead lanes (they
+    trace nothing)."""
+    do_trace = (state.radiance != 0.0).any(-1) & (state.direction != 0.0).any(-1)
+    return torch.where(do_trace, traverse.INF, 0.0)
+
+
 def _closest(state: RayState, scene: DeviceScene, n_alive, closest_fn):
     """The bounce's closest hit: `closest_fn(o, d, scene)` when given (the
     JAX package's seam; dead lanes are traced too and masked by the
     shading), else `traverse.closest_hit` with dead lanes at t_max = 0."""
     if closest_fn is not None:
         return closest_fn(state.origin, state.direction, scene)
-    do_trace = (state.radiance != 0.0).any(-1) & (state.direction != 0.0).any(-1)
-    t_cap = torch.where(do_trace, traverse.INF, 0.0)  # dead lanes trace nothing
-    return traverse.closest_hit(state.origin, state.direction, scene, t_max=t_cap,
+    return traverse.closest_hit(state.origin, state.direction, scene, t_max=_trace_cap(state),
                                 n_alive=n_alive)
+
+
+def _shade_stage(state: RayState, scene: DeviceScene, keys: torch.Tensor, bounce: int,
+                 cfg: RenderConfig, hit, tables: BounceTables):
+    """The post-traversal half of a general fused bounce (the JAX package's
+    `_fused_shade_stage`): the shade kernel on the hit -> (the next ray
+    state, its colour without the NEE term; the pending NEE term: its
+    shadow rays `o`, `d`, `tmax` and its colour `direct`)."""
+    out = cshade.shade_bounce(**shade_inputs(state, scene, keys, bounce, cfg, hit, tables))
+    nxt = RayState(origin=out["origin"], direction=out["direction"], radiance=out["radiance"],
+                   color=out["color"], flags=out["flags"], theta_i=out["theta_i"],
+                   prev_pdf=out["prev_pdf"])
+    return nxt, dict(o=out["shadow_o"], d=out["shadow_d"], tmax=out["shadow_tmax"],
+                     direct=out["direct_rgb"])
+
+
+def _add_unblocked(state: RayState, pend: dict, blocked: torch.Tensor) -> RayState:
+    """The state with the pending NEE colour added where its shadow ray is
+    not blocked."""
+    return dataclasses.replace(
+        state, color=state.color + torch.where(blocked[:, None], 0.0, pend["direct"]))
 
 
 def trace_bounce_fused(state: RayState, scene: DeviceScene, keys: torch.Tensor,
@@ -243,7 +268,6 @@ def trace_bounce_fused(state: RayState, scene: DeviceScene, keys: torch.Tensor,
     and the shadow any-hit (the geometry-sharded render's seam,
     `parallel/render.py`); with either, the full-bounce pass is skipped, as
     the JAX package skips it. Raises under autograd."""
-    check_supported(scene, cfg)
     check_no_grad(scene)
     tables = BounceTables.of(scene) if tables is None else tables
     if closest_fn is None and occlude_fn is None and cshade.full_fuse_eligible(scene):
@@ -251,18 +275,44 @@ def trace_bounce_fused(state: RayState, scene: DeviceScene, keys: torch.Tensor,
             **full_bounce_inputs(state, scene, keys, bounce, cfg, tables)))
 
     hit = _closest(state, scene, n_alive, closest_fn)
-    out = cshade.shade_bounce(**shade_inputs(state, scene, keys, bounce, cfg, hit, tables))
-    color = out["color"]
+    state, pend = _shade_stage(state, scene, keys, bounce, cfg, hit, tables)
     if scene.lights.count:
         if occlude_fn is None:
-            blocked = traverse.any_hit(out["shadow_o"], out["shadow_d"], scene,
-                                       out["shadow_tmax"], n_alive=n_alive)
+            blocked = traverse.any_hit(pend["o"], pend["d"], scene, pend["tmax"],
+                                       n_alive=n_alive)
         else:
-            blocked = occlude_fn(out["shadow_o"], out["shadow_d"], scene, out["shadow_tmax"])
-        color = color + torch.where(blocked[:, None], 0.0, out["direct_rgb"])
-    return RayState(origin=out["origin"], direction=out["direction"],
-                    radiance=out["radiance"], color=color, flags=out["flags"],
-                    theta_i=out["theta_i"], prev_pdf=out["prev_pdf"])
+            blocked = occlude_fn(pend["o"], pend["d"], scene, pend["tmax"])
+        state = _add_unblocked(state, pend, blocked)
+    return state
+
+
+def init_pending(r: int, device) -> dict:
+    """The pending NEE term before bounce 0: no shadow rays (t_max 0 rays
+    are inert in the mixed launch) and no colour."""
+    z3 = torch.zeros((r, 3), dtype=torch.float32, device=device)
+    return dict(o=z3, d=z3, tmax=torch.zeros((r,), dtype=torch.float32, device=device),
+                direct=z3)
+
+
+def trace_bounce_fused_joint(state: RayState, pend: dict, scene: DeviceScene,
+                             keys: torch.Tensor, bounce: int, cfg: RenderConfig,
+                             tables: Optional[BounceTables] = None, n_alive=None):
+    """`trace_bounce_fused` with its shadow rays deferred one bounce (the
+    JAX package's `trace_bounce_fused_joint`): the previous bounce's shadow
+    rays `pend` ride in this bounce's closest-hit launch
+    (`traverse.joint_closest_any`, one mixed K3 launch; a pair shares its
+    origin), their unblocked colour is added before the shade kernel runs,
+    and the kernel's shadow rays become the new pending term -> (state,
+    pend). The caller resolves the last pending term after the loop. The
+    colour sums as in `trace_bounce_fused`: (shaded colour + NEE of bounce
+    b) + the terms of bounce b + 1. Raises under autograd."""
+    check_no_grad(scene)
+    tables = BounceTables.of(scene) if tables is None else tables
+    hit, blocked = traverse.joint_closest_any(state.origin, state.direction, _trace_cap(state),
+                                              pend["o"], pend["d"], pend["tmax"], scene,
+                                              n_alive=n_alive)
+    return _shade_stage(_add_unblocked(state, pend, blocked), scene, keys, bounce, cfg, hit,
+                        tables)
 
 
 def trace_bounce(state: RayState, scene: DeviceScene, keys: torch.Tensor, bounce: int,
@@ -280,7 +330,6 @@ def trace_bounce(state: RayState, scene: DeviceScene, keys: torch.Tensor, bounce
     stacked buffer); lanes without a geometry hit connect with t_max = 0,
     their term being unused. `closest_fn` / `occlude_fn` replace the
     closest hit and every shadow any-hit, as in `trace_bounce_fused`."""
-    check_supported(scene, cfg)
     do_trace = (state.radiance != 0.0).any(-1) & (state.direction != 0.0).any(-1)
     hit = _closest(state, scene, n_alive, closest_fn)
 
@@ -455,10 +504,19 @@ def _render_samples(scene: DeviceScene, camera: cam_mod.Camera, pixel_ids: torch
     (and lights) each sample's light subpaths are built first and stacked;
     a ray's sample is its slot // len(pixel_ids). `closest_fn` /
     `occlude_fn` replace every closest hit and any hit of the sample (the
-    bounces, the light-subpath walk, the connections and the splat)."""
-    check_supported(scene, cfg)
+    bounces, the light-subpath walk, the connections and the splat).
+
+    With `cfg.joint_shadows` on the fused path, without hooks, with lights
+    and on a `traverse.joint_eligible` scene (the JAX package's conditions),
+    each bounce is `trace_bounce_fused_joint`: bounce b's shadow rays are
+    traced in bounce b + 1's mixed launch, a compacted lane stays alive while
+    its shadow ray is pending, and the last bounce's shadow rays are traced
+    by one `traverse.any_hit` after the loop. The image equals the separate
+    fused image bit for bit."""
     state, keys = camera_wavefront(camera, pixel_ids, key, sample_ids, cfg)
     use_fused = cfg.fused_shading and not cfg.bdpt
+    use_joint = (use_fused and cfg.joint_shadows and closest_fn is None and occlude_fn is None
+                 and scene.lights.count > 0 and traverse.joint_eligible(scene))
     if use_fused:
         tables = BounceTables.of(scene) if tables is None else tables
     subpaths = None
@@ -479,17 +537,29 @@ def _render_samples(scene: DeviceScene, camera: cam_mod.Camera, pixel_ids: torch
     remat = cfg.remat and torch.is_grad_enabled()
     keys0 = keys
     slot, n_alive = torch.arange(keys.shape[0], device=keys.device), None
+    pend = init_pending(keys.shape[0], keys.device) if use_joint else None
     for b in range(cfg.depth):
         sample = slot // n_pix if subpaths is not None else None
-        if remat:
+        if use_joint:
+            state, pend = trace_bounce_fused_joint(state, pend, scene, keys, b, cfg, tables,
+                                                   n_alive=n_alive)
+        elif remat:
             state = torch.utils.checkpoint.checkpoint(step, state, keys, b, n_alive, sample,
                                                       use_reentrant=False)
         else:
             state = step(state, keys, b, n_alive, sample)
         if cfg.compact:
-            perm, n_alive = compact.compaction_permutation((state.radiance != 0.0).any(-1))
+            alive = (state.radiance != 0.0).any(-1)
+            if use_joint:  # a pending shadow ray still owes its lane a colour
+                alive = alive | (pend["tmax"] > 0.0)
+            perm, n_alive = compact.compaction_permutation(alive)
             state = compact.gather_fields(state, perm)
             keys, slot = keys[perm.long()], slot[perm.long()]
+            if use_joint:
+                pend = {k: v[perm.long()] for k, v in pend.items()}
+    if use_joint:
+        state = _add_unblocked(state, pend, traverse.any_hit(pend["o"], pend["d"], scene,
+                                                             pend["tmax"], n_alive=n_alive))
     color = state.color
     if cfg.compact:
         color = torch.zeros_like(color).index_copy(0, slot, color)
@@ -528,7 +598,6 @@ def render_image(scene: DeviceScene, camera: cam_mod.Camera, key: torch.Tensor,
                  cfg: RenderConfig) -> torch.Tensor:
     """Full render: the running mean of `cfg.spp` samples -> `[H, W, 3]`,
     on the scene's device, tone-mapped when `cfg.tonemap`."""
-    check_supported(scene, cfg)
     w, h = camera.resolution
     bsz = cfg.spp_batch if cfg.spp_batch > 1 and cfg.spp % cfg.spp_batch == 0 else 1
     tables = BounceTables.of(scene) if cfg.fused_shading and not cfg.bdpt else None
@@ -551,7 +620,6 @@ def render_progressive(scene: DeviceScene, camera: cam_mod.Camera, key: torch.Te
     `start_sample .. cfg.spp - 1`, continuing from `accum` (the mean of the
     samples before `start_sample`) when given. The mean is the JAX
     package's `acc + (c - acc) / (i + 1)`, on the scene's device."""
-    check_supported(scene, cfg)
     w, h = camera.resolution
     r = w * h
     acc = (torch.zeros((r, 3), dtype=torch.float32, device=scene.device) if accum is None

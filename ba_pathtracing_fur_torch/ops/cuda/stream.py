@@ -20,6 +20,13 @@ exact t ties across clusters included: it keeps the lowest row among equal
 t and visits a node whose entry equals the best t. It is fastest on rays
 sorted by `ops/traverse._entry_morton_perms`, as `closest_hit`/`any_hit`
 feed it.
+
+Mixed mode (`is_any`, the TPU kernel's per-lane any-hit flag): each ray is
+a closest-hit ray or a shadow ray by its own flag, and gets what the
+closest or the any-hit launch would give it, in one launch of the kernel's
+third instance (`MIXED_LAUNCHES`); the plain version runs each set's brute
+force. `ops/traverse.joint_closest_any` feeds it a bounce's closest-hit
+rays interleaved with the previous bounce's shadow rays.
 """
 
 from __future__ import annotations
@@ -35,7 +42,8 @@ from . import traverse as ctraverse
 #: children of a super 64 at a time, so any power of two would run)
 MAX_FANOUT = 256
 
-KERNEL_LAUNCHES = 0
+KERNEL_LAUNCHES = 0  # closest-hit and any-hit launches
+MIXED_LAUNCHES = 0  # mixed launches (is_any given)
 REF_CALLS = 0
 
 
@@ -54,19 +62,41 @@ def pack_child_boxes(bvh: bvh_mod.BVH) -> torch.Tensor:
     return boxes.reshape(c // f, f, 6).permute(0, 2, 1).contiguous()
 
 
+def _flags(is_any, r: int) -> torch.Tensor:
+    """[R] any-hit flags as bool: a float flag is set above 0.5 (the JAX
+    package's 1.0 = shadow ray)."""
+    if tuple(is_any.shape) != (r,):
+        raise ValueError(f"traverse_stream: is_any must be [{r}], got {tuple(is_any.shape)}")
+    return is_any > 0.5 if is_any.is_floating_point() else is_any.bool()
+
+
 def traverse_stream_ref(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = False,
-                        t_min: float = 1e-4):
-    """The kernel's plain version: brute force over the reordered pack."""
+                        t_min: float = 1e-4, is_any=None):
+    """The kernel's plain version: brute force over the reordered pack; with
+    `is_any`, the closest-hit brute force on the rays whose flag is clear and
+    the any-hit one on the others."""
     global REF_CALLS
     REF_CALLS += 1
-    return ctraverse.brute_force(o, d, t_max, bvh, kind, any_hit, t_min)
+    if is_any is None:
+        return ctraverse.brute_force(o, d, t_max, bvh, kind, any_hit, t_min)
+    flags = _flags(is_any, o.shape[0])
+    t = torch.empty_like(t_max)
+    row = torch.empty(t_max.shape, dtype=torch.int32, device=o.device)
+    found = torch.empty(t_max.shape, dtype=torch.bool, device=o.device)
+    for flag in (False, True):
+        idx = (flags == flag).nonzero()[:, 0]
+        if idx.numel() == 0:
+            continue
+        t[idx], row[idx], found[idx] = ctraverse.brute_force(o[idx], d[idx], t_max[idx], bvh,
+                                                             kind, flag, t_min)
+    return t, row, found
 
 
 def _traverse_stream_cuda(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool,
-                          t_min: float):
+                          t_min: float, is_any):
     from ...kernels import load_library
 
-    global KERNEL_LAUNCHES
+    global KERNEL_LAUNCHES, MIXED_LAUNCHES
     dev = o.device
     r = o.shape[0]
     c, k, f = bvh.n_leaves, bvh.leaf_size, bvh.fanout
@@ -87,31 +117,41 @@ def _traverse_stream_cuda(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: boo
     t_out = torch.empty((r,), dtype=f32, device=dev)
     row_out = torch.empty((r,), dtype=torch.int32, device=dev)
     found_out = torch.empty((r,), dtype=torch.bool, device=dev)
+    flags = None if is_any is None else _flags(is_any, r).to(torch.uint8).contiguous()
+    if flags is not None and flags.device != dev:
+        raise ValueError(f"traverse_stream: is_any must be on {dev}, got {flags.device}")
     p = lambda x: ctypes.c_void_p(x.data_ptr())  # noqa: E731
     err = load_library().stream_launch(
         ctypes.c_int(r), p(o), p(d), p(t_max), p(bvh.bmin), p(bvh.bmax), p(sboxes), p(cboxes),
         p(bvh.packed), p(bvh.uboxes), ctypes.c_int(s), ctypes.c_int(f), ctypes.c_int(k),
-        ctypes.c_int(int(kind == "cone")), ctypes.c_int(int(any_hit)), ctypes.c_float(t_min),
+        ctypes.c_int(int(kind == "cone")), ctypes.c_int(int(any_hit)),
+        ctypes.c_void_p(None if flags is None else flags.data_ptr()), ctypes.c_float(t_min),
         p(t_out), p(row_out), p(found_out),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError(f"traverse_stream kernel launch failed: CUDA error {err}")
-    KERNEL_LAUNCHES += 1
+    if flags is None:
+        KERNEL_LAUNCHES += 1
+    else:
+        MIXED_LAUNCHES += 1
     return t_out, row_out, found_out
 
 
 def traverse_stream(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = False,
-                    t_min: float = 1e-4):
+                    t_min: float = 1e-4, is_any=None):
     """(t [R], row [R] int32, found [R] bool) of rays against a two-level
-    BVH. CPU tensors run the plain version; CUDA tensors launch the kernel
-    (or raise)."""
+    BVH. `is_any` [R] (bool, or float with 1.0 = shadow ray) gives each ray
+    its own mode, in place of `any_hit`. CPU tensors run the plain version;
+    CUDA tensors launch the kernel (or raise)."""
     if kind not in ctraverse.KINDS:
         raise ValueError(f"traverse_stream: kind must be one of {sorted(ctraverse.KINDS)}, "
                          f"got {kind!r}")
+    if any_hit and is_any is not None:
+        raise ValueError("traverse_stream: any_hit and is_any exclude each other")
     ctraverse.require_detached("traverse_stream", o, d, t_max)
     o, d, t_max = o.contiguous(), d.contiguous(), t_max.contiguous()
     if o.device.type == "cpu":
-        return traverse_stream_ref(o, d, t_max, bvh, kind, any_hit, t_min)
+        return traverse_stream_ref(o, d, t_max, bvh, kind, any_hit, t_min, is_any)
     if o.device.type == "cuda":
-        return _traverse_stream_cuda(o, d, t_max, bvh, kind, any_hit, t_min)
+        return _traverse_stream_cuda(o, d, t_max, bvh, kind, any_hit, t_min, is_any)
     raise ValueError(f"traverse_stream: no kernel for device {o.device}")

@@ -125,7 +125,7 @@ def _units_entered(o, d, ub, t_best):
 
 
 def work_ref(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = False,
-             t_min: float = 1e-4, hit=None) -> dict:
+             t_min: float = 1e-4, hit=None, is_any=None) -> dict:
     """The tests that any near-to-far walk of this BVH, pruning a node when
     its entry is not below the best hit, must make for these rays: for each
     live ray (t_max > 0; a dead one tests nothing) the root box, both child
@@ -138,7 +138,11 @@ def work_ref(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = False,
     occluded any-hit ray, the leaf of its row) with their bytes (rows and
     unit boxes). `hit` = (t, row, found) of these rays, where already known
     (the closest hits; for any hit, t of the closest and the accepted row),
-    saves the brute force."""
+    saves the brute force. `is_any` [R] bool (a mixed launch's rays) counts
+    each ray as a closest-hit or an any-hit ray by its own flag, in place
+    of `any_hit`."""
+    if is_any is None:
+        is_any = torch.full((o.shape[0],), bool(any_hit), device=o.device)
     if hit is None:
         t, row, found = brute_force(o, d, t_max, bvh, kind, any_hit=False, t_min=t_min)
     else:
@@ -151,9 +155,9 @@ def work_ref(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = False,
     inner = leaves = rows = 0
     entered = torch.zeros((bvh.n_leaves,), dtype=torch.bool, device=o.device)
     for s in range(0, o.shape[0], step):
-        t_fin = t[s:s + step]
-        if any_hit:  # an occluded ray is counted below as one path
-            t_fin = torch.where(found[s:s + step], -INF, t_max[s:s + step])
+        # an occluded any-hit ray is counted below as one path
+        t_fin = torch.where(is_any[s:s + step],
+                            torch.where(found[s:s + step], -INF, t_max[s:s + step]), t[s:s + step])
         t_fin = torch.where(t_max[s:s + step] > 0.0, t_fin, -INF)
         e = _slab_entry(o[s:s + step], d[s:s + step], bvh.bmin, bvh.bmax, t_fin)
         opened = e < INF
@@ -165,11 +169,11 @@ def work_ref(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = False,
         rows += int((units * unit_rows).sum())
     n_rays = o.shape[0]
     box_tests = int((t_max > 0.0).sum()) + 2 * inner + leaves * n_units
-    if any_hit:
-        n_found = int(found.sum())
-        box_tests += n_found * (2 * bvh.depth + n_units)
-        rows += n_found
-        entered[row[found].long() // bvh.leaf_size] = True
+    occluded = found & is_any
+    n_found = int(occluded.sum())
+    box_tests += n_found * (2 * bvh.depth + n_units)
+    rows += n_found
+    entered[row[occluded].long() // bvh.leaf_size] = True
     n_entered = int(entered.sum())
     return dict(rays=n_rays, box_tests=box_tests, leaf_row_tests=rows,
                 flops=box_tests * BOX_TEST_FLOPS + rows * LEAF_TEST_FLOPS[kind],

@@ -24,6 +24,12 @@ that enter the same leaves or primitives; the sort is a pure permutation,
 undone on the rows (closest hit) or the blocked flags (any hit), so the Hit
 is the same per ray with it or without it. K5's tables are made once per
 pack (`cisect.tables_of`), not per call.
+
+`joint_closest_any` (the JAX package's joint pass, for
+`RenderConfig.joint_shadows`) answers a closest-hit set and a shadow set of
+rays in one mixed K3 launch over their interleaved pairs, on scenes that
+`joint_eligible` passes; each ray's answer is the one `closest_hit` or
+`any_hit` gives it.
 """
 
 from __future__ import annotations
@@ -510,44 +516,42 @@ def closest_hit(o, d, scene: DeviceScene, t_min=1e-4, t_max=INF,
     r = o.shape[0]
     t_max = _t_max_of(t_max, r, o)
     o_s, d_s, t_s = o.detach(), d.detach(), t_max.detach()
-    tris, cones = scene.tris, scene.cones
     sort = _sorted_rays(o_s, d_s, t_s, scene)
+    rows = {}
+    for kind, pack, bvh in (("tri", scene.tris, scene.tri_bvh),
+                            ("cone", scene.cones, scene.cone_bvh)):
+        if bvh is not None:
+            rows[kind] = _traverse_rows(o_s, d_s, t_s, bvh, kind, t_min, sort)
+        elif pack.count and _use_brute(o, pack):
+            rows[kind] = _brute_rows(o_s, d_s, t_s, cisect.tables_of(pack, kind), kind, t_min,
+                                     sort)
+    return _hit_of_rows(o, d, scene, t_min, t_max, rows, n_alive)
 
-    t_tri = torch.full((r,), INF, device=o.device)
-    tri_row = torch.zeros((r,), dtype=torch.int32, device=o.device)
-    tri_rp = None
-    if scene.tri_bvh is not None or (tris.count and _use_brute(o, tris)):
-        if scene.tri_bvh is not None:
-            tri_row, found = _traverse_rows(o_s, d_s, t_s, scene.tri_bvh, "tri", t_min, sort)
-            aos = scene.tri_bvh.aos_rows
+
+def _hit_of_rows(o, d, scene: DeviceScene, t_min, t_max, rows: dict,
+                 n_alive=None) -> bruteforce.Hit:
+    """The closest Hit from the winner rows that the kernels picked:
+    `rows[kind] = (row [R], 0 on a miss; found [R])` in the callers' ray
+    order for each pack a kernel ran on (its BVH's traversal, or K5 on a
+    BVH-less pack), the winner's t recomputed from the gathered row; the
+    dense grid for every other BVH-less pack."""
+    r = o.shape[0]
+    kinds = {}  # kind -> (t [R], row [R], the gathered rows or None)
+    for kind, pack, bvh, aos_fn, take, recompute, grid_fn in (
+            ("tri", scene.tris, scene.tri_bvh, tri_aos, take_tri_rows, _recompute_t_tri,
+             isect.triangle_hit_grid),
+            ("cone", scene.cones, scene.cone_bvh, cone_aos, take_cone_rows, _recompute_t_cone,
+             isect.cone_hit_grid)):
+        if kind in rows:
+            row, found = rows[kind]
+            rp = take(bvh.aos_rows if bvh is not None else aos_fn(pack), row)
+            kinds[kind] = (torch.where(found, recompute(rp, o, d, t_min, t_max), INF), row, rp)
+        elif pack.count:
+            kinds[kind] = (*_grid_closest(o, d, pack, grid_fn, t_min, t_max, n_alive), None)
         else:
-            tri_row, found = _brute_rows(o_s, d_s, t_s, cisect.tables_of(tris, "tri"), "tri",
-                                         t_min, sort)
-            aos = tri_aos(tris)
-        tri_rp = take_tri_rows(aos, tri_row)
-        t_tri = torch.where(found, _recompute_t_tri(tri_rp, o, d, t_min, t_max), INF)
-    elif tris.count:
-        t_tri, tri_row = _grid_closest(o, d, tris, isect.triangle_hit_grid, t_min, t_max,
-                                       n_alive)
-
-    t_cone = torch.full((r,), INF, device=o.device)
-    cone_row = torch.zeros((r,), dtype=torch.int32, device=o.device)
-    cone_rc = None
-    if scene.cone_bvh is not None or (cones.count and _use_brute(o, cones)):
-        if scene.cone_bvh is not None:
-            cone_row, found = _traverse_rows(o_s, d_s, t_s, scene.cone_bvh, "cone", t_min,
-                                             sort)
-            aos = scene.cone_bvh.aos_rows
-        else:
-            cone_row, found = _brute_rows(o_s, d_s, t_s, cisect.tables_of(cones, "cone"),
-                                          "cone", t_min, sort)
-            aos = cone_aos(cones)
-        cone_rc = take_cone_rows(aos, cone_row)
-        t_cone = torch.where(found, _recompute_t_cone(cone_rc, o, d, t_min, t_max), INF)
-    elif cones.count:
-        t_cone, cone_row = _grid_closest(o, d, cones, isect.cone_hit_grid, t_min, t_max,
-                                         n_alive)
-
+            kinds[kind] = (torch.full((r,), INF, device=o.device),
+                           torch.zeros((r,), dtype=torch.int32, device=o.device), None)
+    (t_tri, tri_row, tri_rp), (t_cone, cone_row, cone_rc) = kinds["tri"], kinds["cone"]
     return _assemble_hit(o, d, scene, t_tri, tri_row, t_cone, cone_row, t_max,
                          tri_rp=tri_rp, cone_rc=cone_rc)
 
@@ -577,3 +581,71 @@ def any_hit(o, d, scene: DeviceScene, t_max, t_min=1e-4, n_alive=None) -> torch.
         elif pack.count:
             blocked |= _grid_any(o, d, pack, grid_fn, t_min, t_max, n_alive)
     return blocked if sort is None else blocked[inv]
+
+
+# ---------------------------------------------------------------------------
+# Joint closest + shadow pass (K3's mixed mode)
+# ---------------------------------------------------------------------------
+
+def joint_eligible(scene: DeviceScene) -> bool:
+    """Can a bounce's closest-hit rays and the previous bounce's shadow rays
+    share one mixed K3 launch? Yes when one two-level BVH carries the scene
+    and the other kind of primitive has no BVH (the hair ball: its cones on
+    the streaming BVH, its 768 scalp triangles BVH-less, which K5 or the
+    dense grid takes for both sets). The JAX package's `joint_eligible` with
+    the port's test for the streaming kernel."""
+    cone = scene.cone_bvh is not None and _two_level(scene.cone_bvh) and scene.tri_bvh is None
+    tri = scene.tri_bvh is not None and _two_level(scene.tri_bvh) and scene.cone_bvh is None
+    return cone or tri
+
+
+def joint_wavefront(o_c, d_c, tcap_c, o_a, d_a, tmax_a, bvh):
+    """The pairs of a joint pass as the mixed launch takes them -> (o [2R,
+    3], d, t_max [2R], is_any [2R] bool, the inverse of the pair order [R]
+    or None): closest rays in the even slots, shadow rays in the odd ones,
+    the pairs in the entry-morton order of the closest ray over max(tcap,
+    tmax) (a pair is dead only when both its rays are), with SORT_RAYS."""
+    r = o_c.shape[0]
+    inv = None
+    if SORT_RAYS:
+        perm, inv = _entry_morton_perms(o_c, d_c, torch.maximum(tcap_c, tmax_a), bvh)
+        o_c, d_c, tcap_c, o_a, d_a, tmax_a = (x[perm] for x in (o_c, d_c, tcap_c, o_a, d_a,
+                                                                 tmax_a))
+    o2 = torch.stack([o_c, o_a], 1).reshape(2 * r, 3)
+    d2 = torch.stack([d_c, d_a], 1).reshape(2 * r, 3)
+    t2 = torch.stack([tcap_c, tmax_a], 1).reshape(2 * r)
+    is_any = torch.arange(2 * r, device=o_c.device) % 2 == 1
+    return o2, d2, t2, is_any, inv
+
+
+def joint_closest_any(o_c, d_c, tcap_c, o_a, d_a, tmax_a, scene: DeviceScene, t_min=1e-4,
+                      n_alive=None):
+    """The closest Hit of rays (o_c, d_c, tcap_c) and the occlusion of rays
+    (o_a, d_a, tmax_a) -> (Hit, blocked [R] bool), from one mixed K3 launch
+    over the pairs (`joint_wavefront`) of a joint-eligible scene: the JAX
+    package's `joint_closest_any`. The BVH-less side pack is folded in for
+    both sets (K5 at 2^24 pairs or more, else the dense grid); the Hit is
+    assembled from the winner rows as `closest_hit` assembles it, so each
+    ray's Hit and flag equal those of `closest_hit` and `any_hit`."""
+    kind, bvh = ("cone", scene.cone_bvh) if scene.cone_bvh is not None else ("tri", scene.tri_bvh)
+    side, pack = ("tri", scene.tris) if kind == "cone" else ("cone", scene.cones)
+    r = o_c.shape[0]
+    tcap_c, tmax_a = _t_max_of(tcap_c, r, o_c), _t_max_of(tmax_a, r, o_c)
+    oc, dc, tc, oa, da, ta = (x.detach() for x in (o_c, d_c, tcap_c, o_a, d_a, tmax_a))
+    o2, d2, t2, is_any, inv = joint_wavefront(oc, dc, tc, oa, da, ta, bvh)
+    _, row2, found2 = cstream.traverse_stream(o2, d2, t2, bvh, kind, t_min=t_min,
+                                              is_any=is_any)
+    rows = {kind: (torch.clamp(row2[0::2], min=0), found2[0::2])}
+    blocked = found2[1::2]
+    use_brute = pack.count and _use_brute(oc, pack)
+    if use_brute:  # K5 on both sets, on the pair-sorted rays as the launch had them
+        tables = cisect.tables_of(pack, side)
+        rows[side] = _brute_rows(o2[0::2], d2[0::2], t2[0::2], tables, side, t_min)
+        blocked = blocked | _brute_rows(o2[1::2], d2[1::2], t2[1::2], tables, side, t_min)[1]
+    if inv is not None:
+        rows = {k: (row[inv], found[inv]) for k, (row, found) in rows.items()}
+        blocked = blocked[inv]
+    if pack.count and not use_brute:
+        grid_fn = isect.triangle_hit_grid if side == "tri" else isect.cone_hit_grid
+        blocked = blocked | _grid_any(oa, da, pack, grid_fn, t_min, ta, n_alive)
+    return _hit_of_rows(o_c, d_c, scene, t_min, tcap_c, rows, n_alive), blocked

@@ -38,7 +38,16 @@ render_image`) and checks the images:
     camera and bounce-1 wavefronts held whole, timed and bounded, then a
     render gated against the BVH render of the same patch),
     and a mid-size hair ball renders through the kernels and through the
-    plain versions under the image gate.
+    plain versions under the image gate;
+  * the joint closest + shadow path on config 5 (`joint_shadows=True`,
+    `phase_joint`): K3's mixed mode on the real bounce-1 pairs (the
+    continuation rays and the bounce-0 shadow rays, pair-sorted) held bit
+    for bit against K3's closest and any launches on every ray and against
+    its plain version on TWIN_RAYS pairs, timed beside those two launches
+    and bounded; the joint render through the mixed kernel (a launch a
+    bounce, no plain call) bit for bit equal to the separate fused render,
+    its compacted sample equal to the uncompacted one, rays/s of both
+    renders in turns and a traced sample of each.
 
 Configs 0, 3, 4 and 5 also render one sample with the JAX package's default
 stream compaction (`compact=True`) and one without: the images must be
@@ -323,7 +332,7 @@ def reset_counts():
     cshade.KERNEL_LAUNCHES = cshade.REF_CALLS = 0
     cshade.SHADE_LAUNCHES = cshade.SHADE_REF_CALLS = 0
     ctraverse.KERNEL_LAUNCHES = ctraverse.REF_CALLS = 0
-    cstream.KERNEL_LAUNCHES = cstream.REF_CALLS = 0
+    cstream.KERNEL_LAUNCHES = cstream.MIXED_LAUNCHES = cstream.REF_CALLS = 0
     cisect.TRI_LAUNCHES = cisect.CONE_LAUNCHES = cisect.REF_CALLS = 0
 
 
@@ -334,7 +343,8 @@ def read_counts() -> dict:
     return dict(full_bounce=cshade.KERNEL_LAUNCHES, full_bounce_ref=cshade.REF_CALLS,
                 shade=cshade.SHADE_LAUNCHES, shade_ref=cshade.SHADE_REF_CALLS,
                 traverse=ctraverse.KERNEL_LAUNCHES, traverse_ref=ctraverse.REF_CALLS,
-                stream=cstream.KERNEL_LAUNCHES, stream_ref=cstream.REF_CALLS,
+                stream=cstream.KERNEL_LAUNCHES, stream_mixed=cstream.MIXED_LAUNCHES,
+                stream_ref=cstream.REF_CALLS,
                 bruteforce_tri=cisect.TRI_LAUNCHES, bruteforce_cone=cisect.CONE_LAUNCHES,
                 bruteforce_ref=cisect.REF_CALLS)
 
@@ -1314,23 +1324,30 @@ def compare_stream(o, d, t_max, bvh, any_hit, what) -> dict:
     return dict(max_abs_err=err, t=t3, row=r3, found=f3, sorted=(so, sd, st))
 
 
-def stream_bound(o, d, t_max, bvh, any_hit, t, row, found) -> dict:
+def stream_bound(o, d, t_max, bvh, any_hit, t, row, found, is_any=None) -> dict:
     """K3's bound on this wavefront: the tests `work_ref` counts on WORK_RAYS
     rays spread over it (from K3's own hits, held to the twin above),
     scaled to the whole wavefront; the rays, boxes and tables read once,
     the distinct leaves the sampled rays enter read once (a lower count of
-    the whole wavefront's), (t, row, found) written once."""
+    the whole wavefront's), (t, row, found) written once. `is_any`: a mixed
+    launch's flags over its interleaved pairs (read once too); the sample is
+    then WORK_RAYS / 2 whole pairs."""
     from ba_pathtracing_fur_torch.ops.cuda import traverse as ctraverse
 
     r = o.shape[0]
     sub = spread(r, WORK_RAYS, o.device)
+    if is_any is not None:
+        sub = (2 * spread(r // 2, WORK_RAYS // 2, o.device)[:, None]
+               + torch.arange(2, device=o.device)).reshape(-1)
     w = ctraverse.work_ref(o[sub], d[sub], t_max[sub], bvh, "cone", any_hit=any_hit,
-                           hit=(t[sub], row[sub], found[sub]))
+                           hit=(t[sub], row[sub], found[sub]),
+                           is_any=None if is_any is None else is_any[sub])
     scale = r / WORK_RAYS
     n_bytes = nbytes(o, d, t_max, bvh.bmin, bvh.bmax, bvh.sboxes, bvh.cboxes) \
-        + w["leaf_bytes"] + r * 9
+        + w["leaf_bytes"] + r * 9 + (0 if is_any is None else nbytes(is_any))
     res = bound(w["flops"] * scale, n_bytes)
-    log(f"traverse_stream cone {'any' if any_hit else 'closest'} work on {WORK_RAYS} of {r} "
+    mode = "mixed" if is_any is not None else "any" if any_hit else "closest"
+    log(f"traverse_stream cone {mode} work on {WORK_RAYS} of {r} "
         f"rays: {w['box_tests']} box tests, {w['leaf_row_tests']} leaf-row tests "
         f"({w['leaf_row_tests'] / WORK_RAYS:.1f} a ray), {w['leaves_entered']} of "
         f"{bvh.n_leaves} leaves entered ({w['leaf_bytes']:.4e} bytes) -> x{scale:.1f} = "
@@ -1517,7 +1534,118 @@ def phase_hairball_main_path(scene, cam, cfg, dev) -> dict:
     OUT_DIR.mkdir(exist_ok=True)
     film.write_png(OUT_DIR / "smoke_hair_ball.png", a)
     times = phase_timing(scene, cam, key, cfg, name="config5", with_plain=False)
-    return dict(counts=counts, times=times)
+    return dict(counts=counts, times=times, img=img)
+
+
+def phase_joint(scene, cam, cfg, dev, separate) -> dict:
+    """The joint closest + shadow path (`RenderConfig.joint_shadows`) on
+    config 5, against the separate fused render `separate` of the same
+    scene and config. K3's mixed mode on the real bounce-1 pairs (bounce 0
+    run as the joint path runs it; the continuation rays and the bounce-0
+    shadow rays, pair-sorted by `traverse.joint_wavefront`): against K3's
+    closest and any launches on the same pairs on every ray (closest rays'
+    found, t and rows, shadow rays' found and t bit for bit) and against
+    the mixed plain version on TWIN_RAYS pairs; the mixed launch timed
+    beside the two launches it replaces (on the pair order and on each
+    set's own sort) and bounded (`stream_bound` with the flags). The joint
+    render: launches (the mixed kernel a bounce, no plain call), bit for bit
+    equal to `separate`, rays/s beside the separate render (median of
+    TIMED_REPS, in turns), one traced sample of each; then the compacted
+    joint sample against the uncompacted one (`phase_compaction`)."""
+    from ba_pathtracing_fur_torch.core import rng
+    from ba_pathtracing_fur_torch.models import pathtracer as pt
+    from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.ops.cuda import stream as cstream
+
+    bvh, key = scene.cone_bvh, rng.key(0, dev)
+    tables = pt.BounceTables.of(scene)
+    w, h = cam.resolution
+    state, keys = pt.camera_wavefront(cam, torch.arange(w * h, device=dev), key, [0], cfg)
+    state, pend = pt.trace_bounce_fused_joint(state, pt.init_pending(w * h, dev), scene, keys, 0,
+                                              cfg, tables)
+    pairs = (state.origin, state.direction, pt._trace_cap(state), pend["o"], pend["d"],
+             pend["tmax"])
+    o2, d2, t2, is_any, _ = traverse.joint_wavefront(*pairs, bvh)
+    t, row, found = cstream.traverse_stream(o2, d2, t2, bvh, "cone", is_any=is_any)
+    sets = {"closest": (o2[0::2].contiguous(), d2[0::2].contiguous(), t2[0::2].contiguous()),
+            "any": (o2[1::2].contiguous(), d2[1::2].contiguous(), t2[1::2].contiguous())}
+    tc, rc, fc = cstream.traverse_stream(*sets["closest"], bvh, "cone")
+    ta, _, fa = cstream.traverse_stream(*sets["any"], bvh, "cone", any_hit=True)
+    sub = (2 * spread(w * h, TWIN_RAYS, dev)[:, None] + torch.arange(2, device=dev)).reshape(-1)
+    t0, r0, f0 = cstream.traverse_stream_ref(o2[sub], d2[sub], t2[sub], bvh, "cone",
+                                             is_any=is_any[sub])
+    torch.cuda.synchronize()
+    vs_launches = dict(found=int((fc != found[0::2]).sum() + (fa != found[1::2]).sum()),
+                       t=int((tc != t[0::2]).sum() + (ta != t[1::2]).sum()),
+                       rows=int((rc != row[0::2]).sum()))
+    vs_twin = dict(found=int((f0 != found[sub]).sum()), t=int((t0 != t[sub]).sum()),
+                   rows=int((r0[0::2] != row[sub][0::2]).sum()))
+    err = float((t0 - t[sub]).abs().max())
+    log(f"traverse_stream cone mixed, config5 bounce-1 pairs (pair-sorted): {w * h} pairs, "
+        f"closest found {int(found[0::2].sum())}, shadow rays live "
+        f"{int((t2[1::2] > 0).sum())}, blocked {int(found[1::2].sum())}; vs the closest and "
+        f"any launches on every ray: found/t/row mismatches {vs_launches}; vs the mixed plain "
+        f"version on {TWIN_RAYS} pairs: {vs_twin}, max |t diff| {err}")
+    if any(vs_launches.values()) or any(vs_twin.values()) \
+            or not (t[1::2][found[1::2]] == 0.0).all():
+        raise AssertionError("traverse_stream mixed: kernel disagrees")
+    own = {k: sorted_rays(*v, bvh)[:3] for k, v in sets.items()}
+    times = dict(
+        mixed_ms=timed(lambda: cstream.traverse_stream(o2, d2, t2, bvh, "cone",
+                                                       is_any=is_any), 3),
+        closest_ms=timed(lambda: cstream.traverse_stream(*sets["closest"], bvh, "cone"), 3),
+        any_ms=timed(lambda: cstream.traverse_stream(*sets["any"], bvh, "cone",
+                                                     any_hit=True), 3),
+        closest_own_sort_ms=timed(lambda: cstream.traverse_stream(*own["closest"], bvh,
+                                                                  "cone"), 3),
+        any_own_sort_ms=timed(lambda: cstream.traverse_stream(*own["any"], bvh, "cone",
+                                                              any_hit=True), 3),
+        pair_sort_ms=timed(lambda: traverse.joint_wavefront(*pairs, bvh), 3),
+        two_sorts_ms=timed(lambda: [sorted_rays(*v, bvh) for v in
+                                    (pairs[:3], pairs[3:])], 3),
+        plain_ms=timed(lambda: cstream.traverse_stream_ref(o2[sub], d2[sub], t2[sub], bvh,
+                                                           "cone", is_any=is_any[sub]), 1))
+    log(f"config5 bounce-1 pairs, K3 times ({2 * w * h} rays; plain on {2 * TWIN_RAYS}): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    res = dict(times=times, max_abs_err=err, vs_launches=vs_launches, vs_twin=vs_twin,
+               bound=stream_bound(o2, d2, t2, bvh, False, t, row, found, is_any=is_any))
+    del state, pend, pairs, o2, d2, t2, is_any, t, row, found, sets, own
+
+    joint = dataclasses.replace(cfg, joint_shadows=True)
+    n = cfg.spp * cfg.depth
+    reset_counts()
+    img = render(scene, cam, key, joint)
+    res["counts"] = read_counts()
+    log(f"config5 joint: launches {res['counts']} (expected stream_mixed {n} = spp x depth, "
+        f"stream {cfg.spp} (the last bounce's shadow rays), bruteforce_tri "
+        f"{cfg.spp * (2 * cfg.depth + 1)}, shade {n}, no plain calls)")
+    check_counts(res["counts"], "config5 joint", stream_mixed=n, stream=cfg.spp,
+                 bruteforce_tri=cfg.spp * (2 * cfg.depth + 1), shade=n)
+    if not torch.equal(img, separate):
+        d = (img - separate).abs()
+        raise AssertionError(f"config5 joint: the image differs from the separate fused one "
+                             f"(max {d.max().item():.3e} over {(d > 0).any(-1).sum().item()} px)")
+    log("config5 joint image: bit for bit equal to the separate fused image")
+    rays = w * h * cfg.spp * cfg.depth
+    walls = {"joint": [], "separate": []}
+    for rep in range(TIMED_REPS):
+        for name in (("joint", "separate") if rep % 2 == 0 else ("separate", "joint")):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            render(scene, cam, key, joint if name == "joint" else cfg)
+            walls[name].append(time.perf_counter() - start)
+    marks = ("stream_kernel", "brute_kernel", "shade_kernel")
+    for name, c in (("joint", joint), ("separate", cfg)):
+        med = float(np.median(walls[name]))
+        res[name] = dict(wall=med, reps=walls[name], rays_per_s=rays / med,
+                         profile=phase_profile(scene, cam, key, c, name=f"config-5 {name}",
+                                               marks=marks))
+        log(f"config5 {name} render: median {med:.4f} s of {walls[name]} -> "
+            f"{rays / med:.4e} rays/s")
+    res["compaction"] = phase_compaction(scene, cam, joint, "config5 joint",
+                                         stream_mixed=cfg.depth, stream=1,
+                                         bruteforce_tri=2 * cfg.depth + 1, shade=cfg.depth)
+    return res
 
 
 def phase_bruteforce_cone(dev) -> dict:
@@ -2819,6 +2947,17 @@ def drive(dev, card: str) -> list:
     compaction["config5"] = phase_compaction(scene5, cam5, cfg5, "config5",
                                              stream=2 * cfg5.depth, bruteforce_tri=2 * cfg5.depth,
                                              shade=cfg5.depth)
+    joint = phase_joint(scene5, cam5, cfg5, dev, hb_main.pop("img"))
+    jr, sr = joint["joint"], joint["separate"]
+    log(f"config5 joint vs separate on {card}: {jr['rays_per_s']:.4e} vs "
+        f"{sr['rays_per_s']:.4e} rays/s; traced sample: launches {jr['profile']['launches']} "
+        f"vs {sr['profile']['launches']}, device busy {jr['profile']['busy'] * 1e3:.2f} vs "
+        f"{sr['profile']['busy'] * 1e3:.2f} ms, idle share "
+        f"{max(0.0, 1 - jr['profile']['busy'] / jr['profile']['wall']):.3f} vs "
+        f"{max(0.0, 1 - sr['profile']['busy'] / sr['profile']['wall']):.3f}; mixed pass "
+        f"{joint['times']['mixed_ms']:.4f} ms vs closest + any "
+        f"{joint['times']['closest_ms'] + joint['times']['any_ms']:.4f} ms, bound "
+        f"{joint['bound']['bound_ms']:.4f} ms")
     w5 = phase_whitted("hair_ball", scene5, cam5, card, ("stream", "bruteforce_tri"),
                        lobes=("all",))
     del scene5
@@ -2986,7 +3125,24 @@ def drive(dev, card: str) -> list:
              bounce1_bound_by=hb[1]["closest_bound"]["bound_by"],
              whitted_launches=w5["all"]["counts"]["stream"],
              whitted_traffic_ms={n: x["ms"] for n, x in w5["all"]["held"].items()},
-             cli=cli_kernel("traverse_stream_cone")),
+             cli=cli_kernel("traverse_stream_cone"),
+             joint_launches=joint["counts"]["stream"]),
+        dict(name="traverse_stream_mixed", route="cuda",
+             source="ba_pathtracing_fur_torch/csrc/traverse_stream.cu",
+             replaces="ba_pathtracing_fur_tpu/ops/pallas/stream.py:464",
+             launches=joint["counts"]["stream_mixed"], max_abs_err=joint["max_abs_err"],
+             ms=joint["times"]["mixed_ms"], plain_ms=joint["times"]["plain_ms"],
+             plain_rays=2 * TWIN_RAYS, bound_ms=joint["bound"]["bound_ms"],
+             bound_by=joint["bound"]["bound_by"], library_ms=None,
+             **{k: joint["times"][k] for k in ("closest_ms", "any_ms", "closest_own_sort_ms",
+                                               "any_own_sort_ms", "pair_sort_ms",
+                                               "two_sorts_ms")},
+             render={k: dict(rays_per_s=joint[k]["rays_per_s"], wall=joint[k]["wall"],
+                             traced_launches=joint[k]["profile"]["launches"],
+                             traced_busy_ms=joint[k]["profile"]["busy"] * 1e3,
+                             idle_share=max(0.0, 1 - joint[k]["profile"]["busy"]
+                                            / joint[k]["profile"]["wall"]))
+                     for k in ("joint", "separate")}),
         dict(name="bruteforce_tri", route="cuda",
              source="ba_pathtracing_fur_torch/csrc/bruteforce.cu",
              replaces="ba_pathtracing_fur_tpu/ops/pallas/intersect.py:220",

@@ -437,6 +437,58 @@ def test_stream_kernel_matches_plain_on_the_card(kind, any_hit):
         assert torch.equal(r0, r1) and torch.equal(r2, r1)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["cone", "tri"])
+def test_stream_kernel_mixed_mode_on_the_card(kind):
+    """K3's mixed instance (`is_any`, one flag a ray) on interleaved pairs of
+    a closest-hit and a shadow ray from one origin: each ray gets what its
+    own mode's launch gives it (closest rays found, t and rows, shadow rays
+    found and t = 0 on acceptance, bit for bit) and what the mixed plain
+    version gives it; dead rays of either kind stay inert. Counted apart."""
+    import dataclasses
+
+    from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.ops.cuda import stream as cstream
+    from ba_pathtracing_fur_torch.scene import types
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card with -m cuda)")
+    dev = torch.device("cuda")
+    if kind == "cone":
+        bvh, _, o, d, t_max = _tile_case("fanout_2", dev)
+        bvh = types._to(bvh, dev)
+    else:
+        g = torch.Generator().manual_seed(9)
+        v = torch.rand((20000, 3, 3), generator=g) * 2 - 1
+        v[:, 1:] = v[:, :1] + 0.05 * v[:, 1:]
+        soup = types.make_triangle_pack(v[:, 0].numpy(), v[:, 1].numpy(), v[:, 2].numpy())
+        scene, _ = builtins.cornell_box(resolution=(4, 4), device="cpu")
+        scene = types.to_device(dataclasses.replace(scene, tris=soup), dev)
+        bvh = traverse.attach_bvh(scene, leaf_size=16, fanout=8, min_prims=1).tri_bvh
+        o = (torch.rand((4096, 3), generator=g) * 4 - 2).to(dev)
+        d = torch.nn.functional.normalize(torch.randn((4096, 3), generator=g), dim=-1).to(dev)
+        t_max = torch.where(torch.arange(4096, device=dev) % 9 == 0, 0.0, 3.4e38)
+    n = o.shape[0] // 2
+    g = torch.Generator().manual_seed(8)
+    d_a = torch.nn.functional.normalize(torch.randn((n, 3), generator=g), dim=-1).to(dev)
+    t_a = torch.where(torch.arange(n, device=dev) % 7 == 0, 0.0, 1.0)
+    o2, d2, t2, is_any, _ = traverse.joint_wavefront(o[:n], d[:n], t_max[:n], o[:n], d_a, t_a,
+                                                      bvh)
+    launches, mixed = cstream.KERNEL_LAUNCHES, cstream.MIXED_LAUNCHES
+    t, row, found = cstream.traverse_stream(o2, d2, t2, bvh, kind, is_any=is_any)
+    assert (cstream.KERNEL_LAUNCHES, cstream.MIXED_LAUNCHES) == (launches, mixed + 1)
+    want_c = cstream.traverse_stream(o2[0::2], d2[0::2], t2[0::2], bvh, kind)
+    want_a = cstream.traverse_stream(o2[1::2], d2[1::2], t2[1::2], bvh, kind, any_hit=True)
+    ref = cstream.traverse_stream_ref(o2, d2, t2, bvh, kind, is_any=is_any)
+    torch.cuda.synchronize()
+    for got, want in ((t[0::2], want_c[0]), (row[0::2], want_c[1]), (found[0::2], want_c[2]),
+                      (t[1::2], want_a[0]), (found[1::2], want_a[2]), (t, ref[0]),
+                      (found, ref[2]), (row[0::2], ref[1][0::2])):
+        assert torch.equal(got, want)
+    assert found[0::2].any() and found[1::2].any() and not found[1::2].all()
+    assert not found[(t2 == 0.0)].any() and (t[1::2][found[1::2]] == 0.0).all()
+
+
 def _tile_case(case, dev):
     """(bvh, kind, o, d, t_max) on `dev` for one edge case of the leaf-tile
     kernels; the BVH is two-level except for `tri_leaf_13`."""

@@ -86,15 +86,13 @@ def test_qmc_and_dof_render():
 @pytest.mark.parametrize("change,item", [
     (dict(bdpt=True), "M11"), (dict(joint_shadows=True), "do-not-port")])
 def test_unported_configs_raise(change, item):
-    """What the port does not run raises, naming its ROADMAP item;
-    compaction and tone mapping render (test_torch_compact.py). BDPT
-    (ROADMAP M11) is ported now: its case checks that it renders, through
-    the unfused bounce (test_torch_bdpt.py holds it against JAX)."""
+    """The configurations that the port once refused, each labelled with
+    the ROADMAP entry that listed it, now render: BDPT (M11, through the
+    unfused bounce; test_torch_bdpt.py holds it against JAX) and the joint
+    closest + shadow pass (once on the do-not-port list; on this scene
+    without a two-level BVH the ordinary bounces run, and
+    test_torch_joint.py holds the joint pass against JAX)."""
     scene, cam = _small()
     cfg = pt.RenderConfig(**{**KW, **change})
-    if item == "M11":
-        img = pt.render_image(scene, cam, rng.key(0, "cpu"), cfg)
-        assert img.shape == (6, 8, 3) and torch.isfinite(img).all() and img.max() > 0.01
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        pt.render_image(scene, cam, rng.key(0, "cpu"), cfg)
+    img = pt.render_image(scene, cam, rng.key(0, "cpu"), cfg)
+    assert img.shape == (6, 8, 3) and torch.isfinite(img).all() and img.max() > 0.01
