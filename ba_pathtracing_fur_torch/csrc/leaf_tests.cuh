@@ -3,13 +3,19 @@
 // and the brute-force kernel's triangle test (csrc/bruteforce.cu).
 //
 // The arithmetic is that of the plain torch twins (ops/bvh.py::_cone_core,
-// _tri_core; ops/cuda/traverse.py::_slab_entry): every file that includes
-// this header is built with -fmad=false (kernels/__init__.py SOURCE_FLAGS),
-// so each multiply and add rounds on its own, as in the twins' separate
-// ops, and t agrees with them bit for bit.
+// _tri_core; ops/cuda/traverse.py::_slab_entry, _cone_core_mxu): every file
+// that includes this header is built with -fmad=false (kernels/__init__.py
+// SOURCE_FLAGS), so each multiply and add rounds on its own, as in the
+// twins' separate ops, and t agrees with them bit for bit.
+//
+// A leaf block is float or bf16 (the streaming kernel's half-size pack,
+// ops/cuda/stream.py::pack_prim_hbm): `ld` reads either as f32, a bf16
+// value exactly (its 8 significant bits fit f32's 24), so a bf16 row is
+// tested in f32 as its upcast copy is by the twin.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace fur {
@@ -21,16 +27,21 @@ struct Ray {
   float ox, oy, oz, dx, dy, dz;
 };
 
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
 // One cone row of a component-major leaf block (component c of the row at
 // p[c * k]): ops/bvh.py::_cone_core with t_best = cap, including its o.v
 // sum in the order y, x, z. INF where not hit.
-__device__ __forceinline__ float cone_row(const Ray& r, const float* p, int k, float t_min,
+template <class T>
+__device__ __forceinline__ float cone_row(const Ray& r, const T* p, int k, float t_min,
                                           float cap) {
-  float bx = p[0 * k], by = p[1 * k], bz = p[2 * k];
-  float ux = p[3 * k], uy = p[4 * k], uz = p[5 * k];
-  float vx = p[6 * k], vy = p[7 * k], vz = p[8 * k];
-  float wx = p[9 * k], wy = p[10 * k], wz = p[11 * k];
-  float slope = p[12 * k], r_base = p[13 * k], min_d = p[14 * k], max_d = p[15 * k];
+  float bx = ld(p + 0 * k), by = ld(p + 1 * k), bz = ld(p + 2 * k);
+  float ux = ld(p + 3 * k), uy = ld(p + 4 * k), uz = ld(p + 5 * k);
+  float vx = ld(p + 6 * k), vy = ld(p + 7 * k), vz = ld(p + 8 * k);
+  float wx = ld(p + 9 * k), wy = ld(p + 10 * k), wz = ld(p + 11 * k);
+  float slope = ld(p + 12 * k), r_base = ld(p + 13 * k), min_d = ld(p + 14 * k),
+        max_d = ld(p + 15 * k);
   float rx = r.ox - bx, ry = r.oy - by, rz = r.oz - bz;
   float px = rx * ux + ry * uy + rz * uz;
   float py = rx * vx + ry * vy + rz * vz;
@@ -55,13 +66,41 @@ __device__ __forceinline__ float cone_row(const Ray& r, const float* p, int k, f
   return INF;
 }
 
+// One cone row from the ray's six frame projections (ou, ov, ow = o.u,
+// o.v, o.w of its origin; dx, dy, dz = d.u, d.v, d.w) and the row's b.u,
+// b.v, b.w: ops/pallas/stream.py::_cone_block_mxu's order (p = o.u - b.u,
+// the axis slab from o.v), then the quadratic of cone_row. The tensor-core
+// leaf loop of the streaming kernel (leaf_tiles.cuh, kMxu) computes the
+// projections as matrix products. INF where not hit.
+__device__ __forceinline__ float cone_row_proj(float ou, float ov, float ow, float dx, float dy,
+                                               float dz, float bu, float bv, float bw,
+                                               float slope, float r_base, float min_d,
+                                               float max_d, float t_min, float cap) {
+  float px = ou - bu, py = ov - bv, pz = ow - bw;
+  float a = dx * dx + dz * dz - slope * slope * dy * dy;
+  float b = px * dx + pz * dz + r_base * slope * dy - slope * slope * py * dy;
+  float c_lin = r_base - slope * py;
+  float c = px * px + pz * pz - c_lin * c_lin;
+  float disc = b * b - a * c;
+  if (!(disc >= 0.0f)) return INF;
+  float sq = sqrtf(fmaxf(disc, 1e-12f));
+  float a_safe = fabsf(a) < 1e-12f ? 1e-12f : a;
+  float ra = (-b - sq) / a_safe, rb = (-b + sq) / a_safe;
+  float t1 = fminf(ra, rb), t2 = fmaxf(ra, rb);
+  float ax1 = ov + t1 * dy, ax2 = ov + t2 * dy;
+  if (t1 >= 1e-4f && t1 > t_min && t1 < cap && ax1 >= min_d && ax1 <= max_d) return t1;
+  if (t2 >= 1e-4f && t2 > t_min && t2 < cap && ax2 >= min_d && ax2 <= max_d) return t2;
+  return INF;
+}
+
 // One Möller-Trumbore row (v0, e1, e2 at p[c * k]): ops/bvh.py::_tri_core
 // with t_best = cap. INF where not hit.
-__device__ __forceinline__ float tri_row(const Ray& r, const float* p, int k, float t_min,
+template <class T>
+__device__ __forceinline__ float tri_row(const Ray& r, const T* p, int k, float t_min,
                                          float cap) {
-  float v0x = p[0 * k], v0y = p[1 * k], v0z = p[2 * k];
-  float e1x = p[3 * k], e1y = p[4 * k], e1z = p[5 * k];
-  float e2x = p[6 * k], e2y = p[7 * k], e2z = p[8 * k];
+  float v0x = ld(p + 0 * k), v0y = ld(p + 1 * k), v0z = ld(p + 2 * k);
+  float e1x = ld(p + 3 * k), e1y = ld(p + 4 * k), e1z = ld(p + 5 * k);
+  float e2x = ld(p + 6 * k), e2y = ld(p + 7 * k), e2z = ld(p + 8 * k);
   float px = r.dy * e2z - r.dz * e2y;
   float py = r.dz * e2x - r.dx * e2z;
   float pz = r.dx * e2y - r.dy * e2x;

@@ -48,6 +48,26 @@
 // is -1 and every box entry is clamped to >= 0 (leaf_tests.cuh::slab), so
 // no walk, join, pair or unit test takes it again; a dead ray (t_max = 0,
 // the dead half of a pair) is never joined.
+//
+// Leaf element type T (K3's bf16 pack, ops/cuda/stream.py::pack_prim_hbm):
+// a bf16 leaf is W*K*2 bytes, copied 16 or 4 bytes a cp.async where its
+// size allows and by plain loads otherwise (an odd W*K), and read as f32
+// (leaf_tests.cuh::ld). Its boxes bound the rounded rows.
+//
+// kMxu (K3's tensor-core cone test, ops/pallas/stream.py::_cone_block_mxu):
+// in place of the (pair, unit) items, a leaf's work is (group of 16 pairs,
+// unit) items, a unit run only where one of the group's rays enters its box.
+// A warp takes an item's rows 8 at a time: mma.sync m16n8k8 (TF32 in, f32
+// accumulated) of the group's rays [o | d | 0 0] (16 x 8) with the rows'
+// frame columns (8 x 8; u, v or w at depth 0-2 for o.u, o.v, o.w, at depth
+// 3-5 for d.u, d.v, d.w) gives the six projections of each (ray, row) in
+// the accumulator fragments, and each lane tests its four (ray, row)
+// elements with cone_row_proj. Precision: 3xTF32. Each operand x is split
+// into hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi) (-fmad=false keeps
+// x - hi from contracting), and a projection sums lo.hi + hi.lo + hi.hi in
+// f32: about f32's 24 bits, where one TF32 pass keeps 11 (3.9e-3 at |o| ~ 4,
+// a hair fiber's radius). A bf16 row is exact in TF32 (lo = 0), so its
+// hi.lo pass is left out.
 
 #pragma once
 
@@ -71,6 +91,8 @@ constexpr int TILE = FUR_TILE_RAYS;        // rays of a block
 constexpr int THREADS = FUR_TILE_THREADS;  // threads of a block, for the box and leaf work
 constexpr int WARPS = THREADS / 32;
 constexpr int MIN_BLOCKS = 1024 / THREADS;  // blocks an SM should hold: at most 64 registers
+constexpr int MXU_RAYS = 16;  // rays of an mma tile (m16n8k8: 16 x 8 outputs)
+constexpr int MXU_ROWS = 8;   // leaf rows of an mma tile
 constexpr int CHUNK = 64;     // child boxes tested per round
 constexpr int UNIT = 32;      // rows of a leaf under one unit box (ops/bvh.py::unit_boxes)
 constexpr unsigned FULL = 0xffffffffu;
@@ -81,19 +103,21 @@ constexpr int MAX_SHARED = 232448;  // bytes a block may opt in to on Hopper
 // each, the entry matrix [CHUNK][TILE], child boxes [6][CHUNK], child minima
 // and visiting order [CHUNK] each; then the walk stacks [depth][TILE] (node,
 // entry), the visited-super bits, the list of (pair, unit) work items
-// [TILE * U] (U = ceil(K / UNIT)), and two leaf buffers [W*K] at a 16-byte
-// boundary.
+// [TILE * U] (U = ceil(K / UNIT); the tensor-core instances keep their
+// (group, unit) items and flags there), and two leaf buffers of W*K
+// elements of `elem` bytes each at a 16-byte boundary.
 struct TileLayout {
   int stack, visited, units, leaf, words;
 };
 
-__host__ __device__ inline TileLayout tile_layout(int w, int leaf_k, int n_sup, int depth) {
+__host__ __device__ inline TileLayout tile_layout(int w, int leaf_k, int n_sup, int depth,
+                                                  int elem = 4) {
   TileLayout l;
   l.stack = (2 + 10 + 2 + CHUNK) * TILE + 8 * CHUNK;
   l.visited = l.stack + 2 * depth * TILE;
   l.units = l.visited + (n_sup + 31) / 32;
   l.leaf = (l.units + TILE * ((leaf_k + UNIT - 1) / UNIT) + 3) / 4 * 4;
-  l.words = l.leaf + 2 * w * leaf_k;
+  l.words = l.leaf + (2 * w * leaf_k * elem + 3) / 4;
   return l;
 }
 
@@ -134,12 +158,12 @@ __device__ __forceinline__ unsigned long long ray_key(float t, unsigned row) {
   return (static_cast<unsigned long long>(ord(t)) << 32) | row;
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
 }
@@ -191,6 +215,60 @@ __device__ __forceinline__ void load_leaf(float* dst, const float* __restrict__ 
   }
 }
 
+// The same for a bf16 block (2 bytes an element): 16 or 4 bytes a copy where
+// the block's size allows it (every block then starts at such a boundary),
+// else plain loads. The destination buffer is free when it is called (the
+// tile's tests of it ended at a barrier), and the barrier before its tests
+// publishes the plain stores as it does the copies.
+__device__ __forceinline__ void load_leaf(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* __restrict__ packed, int leaf,
+                                          int wk) {
+  const __nv_bfloat16* src = packed + static_cast<size_t>(leaf) * wk;
+  if ((wk & 7) == 0) {
+    for (int x = threadIdx.x; x < wk / 8; x += THREADS) cp_async16(dst + 8 * x, src + 8 * x);
+  } else if ((wk & 1) == 0) {
+    for (int x = threadIdx.x; x < wk / 2; x += THREADS) cp_async4(dst + 2 * x, src + 2 * x);
+  } else {
+    for (int x = threadIdx.x; x < wk; x += THREADS) dst[x] = src[x];
+  }
+}
+
+// x as TF32 rounded to nearest, ties away from zero (its low 13 bits 0).
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// 3xTF32 halves of x: x ~ hi + lo, both TF32.
+__device__ __forceinline__ void tf32_split(float x, unsigned& hi, unsigned& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// c += a (16 x 8, row) * b (8 x 8, col) on the tensor cores, TF32 in, f32 out.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One projection by 3xTF32: lo.hi + hi.lo + hi.hi, small terms first;
+// kExactB (bf16 rows: b's lo is 0) leaves out hi.lo.
+template <bool kExactB>
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const unsigned (&ah)[4],
+                                           const unsigned (&al)[4], float b0, float b1) {
+  unsigned bh0, bl0, bh1, bl1;
+  tf32_split(b0, bh0, bl0);
+  tf32_split(b1, bh1, bl1);
+  c[0] = c[1] = c[2] = c[3] = 0.0f;
+  mma_tf32(c, al, bh0, bh1);
+  if constexpr (!kExactB) mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
 // Boxes: the source of the box tables, with
 //   int n_sup, fanout;
 //   float node(int n, int a)      component a (lo xyz, hi xyz) of walk node n
@@ -198,15 +276,19 @@ __device__ __forceinline__ void load_leaf(float* dst, const float* __restrict__ 
 //   float child(int s, int c, int a)  component a of child c of super s.
 //
 // kMixed: the any-hit flag of each ray comes from is_any [R] (1 = shadow
-// ray, else closest hit); kAnyHit must be false then.
-template <bool kCone, bool kAnyHit, bool kMixed = false, class Boxes>
+// ray, else closest hit); kAnyHit must be false then. kMxu: cone rows by the
+// tensor-core loop (cones only). T: the leaf element type (float or bf16).
+template <bool kCone, bool kAnyHit, bool kMixed = false, bool kMxu = false, class T,
+          class Boxes>
 __device__ __forceinline__ void tile_traverse(
     const Boxes& bx, int n_rays, const float* __restrict__ o, const float* __restrict__ d,
-    const float* __restrict__ t_max, const float* __restrict__ packed,
+    const float* __restrict__ t_max, const T* __restrict__ packed,
     const float* __restrict__ uboxes, int leaf_k, int depth, float t_min,
     float* __restrict__ t_out, int* __restrict__ row_out, unsigned char* __restrict__ found_out,
     const unsigned char* __restrict__ is_any = nullptr) {
   static_assert(!(kAnyHit && kMixed), "a mixed tile takes each ray's flag from is_any");
+  static_assert(kCone || !kMxu, "the tensor-core loop tests cone rows");
+  static_assert(TILE % MXU_RAYS == 0, "a tile holds whole mma ray groups");
   constexpr int W = kCone ? 16 : 9;
   constexpr int RAY_WARPS = TILE / 32;
   extern __shared__ __align__(16) float smem[];
@@ -217,7 +299,7 @@ __device__ __forceinline__ void tile_traverse(
   __shared__ unsigned s_max_tb;  // ord() of the largest best t of the joined rays
 
   const int n_sup = bx.n_sup, fanout = bx.fanout, wk = W * leaf_k;
-  const TileLayout lay = tile_layout(W, leaf_k, n_sup, depth);
+  const TileLayout lay = tile_layout(W, leaf_k, n_sup, depth, static_cast<int>(sizeof(T)));
   unsigned long long* key = reinterpret_cast<unsigned long long*>(smem);  // [TILE]
   float* ray = smem + 2 * TILE;  // [10][TILE]
   int* join = reinterpret_cast<int*>(ray + 10 * TILE);
@@ -230,7 +312,7 @@ __device__ __forceinline__ void tile_traverse(
   float* stk_e = smem + lay.stack + depth * TILE;
   unsigned* visited = reinterpret_cast<unsigned*>(smem + lay.visited);
   int* items = reinterpret_cast<int*>(smem + lay.units);  // [TILE * U]
-  float* leaf_buf = smem + lay.leaf;  // [2][W*K]
+  T* leaf_buf = reinterpret_cast<T*>(smem + lay.leaf);  // [2][W*K]
   auto best_t = [&](int q) { return unord(static_cast<unsigned>(key[q] >> 32)); };
   auto any_ray = [&](int q) { return ((any_bits[q >> 5] >> (q & 31)) & 1u) != 0u; };
 
@@ -271,6 +353,12 @@ __device__ __forceinline__ void tile_traverse(
     }
   }
   for (int x = t; x < (n_sup + 31) / 32; x += THREADS) visited[x] = 0u;
+  constexpr int GROUPS = TILE / MXU_RAYS;  // mma ray groups of a tile
+  constexpr bool kBf16 = sizeof(T) == 2;
+  if constexpr (kMxu) {  // the (group, unit) flags, behind the item list in `items`
+    const int units = (leaf_k + UNIT - 1) / UNIT;
+    for (int x = t; x < GROUPS * units; x += THREADS) items[GROUPS * units + x] = 0;
+  }
   if (t == 0) { n_pairs = 0; n_items = 0; s_max_tb = 0u; }
 
   auto node_entry = [&](int n, float tb) {
@@ -403,7 +491,7 @@ __device__ __forceinline__ void tile_traverse(
         const int np = n_pairs;
         FUR_STAT(5, 1);
         FUR_STAT(6, np);
-        const float* blk = leaf_buf + cur * wk;
+        const T* blk = leaf_buf + cur * wk;
         const int leaf = s * fanout + c0 + c;
         // The work items: the units of UNIT rows whose box each pair's ray
         // enters within its best t.
@@ -421,37 +509,149 @@ __device__ __forceinline__ void tile_traverse(
                                ub[4 * units + u], ub[5 * units + u], tbq),
                           tbq);
           }
-          append(take, x, items, &n_items);
+          if constexpr (kMxu) {  // flag the unit for the pair's ray group
+            if (take) items[(GROUPS + x / units / MXU_RAYS) * units + x % units] = 1;
+          } else {
+            append(take, x, items, &n_items);
+          }
         }
         __syncthreads();
-        // Each warp takes a run of consecutive items (a pair's units lie
-        // together), lanes over the rows of a unit.
-        const int ni = n_items, run = (ni + WARPS - 1) / WARPS;
-        FUR_STAT(8, ni);
-        int qq = -1;
-        Ray rq = {0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f};
-        float qcap = 0.0f;
-        bool qany = kAnyHit;
-        for (int y = warp * run; y < min(ni, (warp + 1) * run); ++y) {
-          const int x = items[y], p = x / units, k = (x - p * units) * UNIT + lane;
-          if (pairs[p] != qq) {
-            qq = pairs[p];
-            rq = {ray[qq], ray[TILE + qq], ray[2 * TILE + qq],
-                  ray[3 * TILE + qq], ray[4 * TILE + qq], ray[5 * TILE + qq]};
-            qcap = ray[9 * TILE + qq];
-            if constexpr (kMixed) qany = any_ray(qq);
+        if constexpr (kMxu) {
+          // The (group, unit) items, the flags cleared for the next leaf.
+          const int ng = (np + MXU_RAYS - 1) / MXU_RAYS;
+          int* flag = items + GROUPS * units;
+          for (int x0 = 0; x0 < ng * units; x0 += THREADS) {
+            const int x = x0 + t;
+            bool take = false;
+            if (x < ng * units) {
+              take = flag[x] != 0;
+              flag[x] = 0;
+            }
+            append(take, x, items, &n_items);
           }
-          if (qany && best_t(qq) < 0.0f) continue;  // done by another item
-          float lt = INF;
-          if (k < leaf_k)
-            lt = kCone ? cone_row(rq, blk + k, leaf_k, t_min, qcap)
-                       : tri_row(rq, blk + k, leaf_k, t_min, qcap);
-          int lr = lt < INF ? k : INT_MAX;
-          warp_argmin(lt, lr);
-          // INF is a miss, also below an infinite t_max (the twin's rule)
-          if (lane == 0 && lt < qcap && lt < INF)
-            atomicMin(&key[qq], ray_key(qany ? -1.0f : lt,
-                                        static_cast<unsigned>(leaf * leaf_k + lr)));
+          __syncthreads();
+          // Each warp takes a run of items (a group's units lie together)
+          // and an item's rows MXU_ROWS at a time: a lane holds rays gid and
+          // gid + 8 of the group x rows 2 tig, 2 tig + 1 of the 8 (the
+          // accumulator fragment of m16n8k8).
+          const int ni = n_items, run = (ni + WARPS - 1) / WARPS;
+          FUR_STAT(8, ni);
+          const int gid = lane >> 2, tig = lane & 3;
+          int g_cur = -1, q[2] = {0, 0};
+          bool ok[2] = {false, false}, qa[2] = {kAnyHit, kAnyHit};
+          float cap[2] = {0.0f, 0.0f};
+          unsigned ah[4], al[4];  // A = the group's [o | d | 0 0], 16 x 8, hi and lo
+          for (int y = warp * run; y < min(ni, (warp + 1) * run); ++y) {
+            const int x = items[y], g = x / units, u = x - g * units;
+            if (g != g_cur) {
+              g_cur = g;
+              float a[4];
+              for (int m = 0; m < 2; ++m) {  // a0, a1: depth tig; a2, a3: depth tig + 4
+                const int p = g * MXU_RAYS + gid + 8 * m;
+                ok[m] = p < np;
+                q[m] = ok[m] ? pairs[p] : 0;
+                cap[m] = ray[9 * TILE + q[m]];
+                if constexpr (kMixed) qa[m] = any_ray(q[m]);
+                a[m] = ok[m] ? ray[tig * TILE + q[m]] : 0.0f;
+                a[2 + m] = ok[m] && tig < 2 ? ray[(tig + 4) * TILE + q[m]] : 0.0f;
+              }
+              for (int i = 0; i < 4; ++i) tf32_split(a[i], ah[i], al[i]);
+            }
+            float best[2] = {INF, INF};
+            int brow[2] = {INT_MAX, INT_MAX};
+            const int r_end = min(leaf_k, (u + 1) * UNIT);
+            for (int r0 = u * UNIT; r0 < r_end; r0 += MXU_ROWS) {
+              // B column gid = row r0 + gid: its u, v or w at depth 0-2 for
+              // o.u, o.v, o.w, at depth 3-5 for d.u, d.v, d.w (b0 at depth
+              // tig, b1 at tig + 4).
+              const int n = r0 + gid;
+              float proj[6][4];
+#pragma unroll
+              for (int f = 0; f < 3; ++f) {
+                const T* col = blk + (3 + 3 * f) * leaf_k + n;
+                const float fa = n < leaf_k ? ld(col + (tig < 3 ? tig : 0) * leaf_k) : 0.0f;
+                const float fb = n < leaf_k && tig < 2 ? ld(col + (tig + 1) * leaf_k) : 0.0f;
+                mma_3xtf32<kBf16>(proj[f], ah, al, tig < 3 ? fa : 0.0f, 0.0f);
+                mma_3xtf32<kBf16>(proj[3 + f], ah, al, tig == 3 ? fa : 0.0f, fb);
+              }
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                const int rr = r0 + 2 * tig + j;
+                if (rr >= leaf_k) continue;
+                const T* pr = blk + rr;
+                const float bx = ld(pr), by = ld(pr + leaf_k), bz = ld(pr + 2 * leaf_k);
+                const float bu = bx * ld(pr + 3 * leaf_k) + by * ld(pr + 4 * leaf_k) +
+                                 bz * ld(pr + 5 * leaf_k);
+                const float bv = bx * ld(pr + 6 * leaf_k) + by * ld(pr + 7 * leaf_k) +
+                                 bz * ld(pr + 8 * leaf_k);
+                const float bw = bx * ld(pr + 9 * leaf_k) + by * ld(pr + 10 * leaf_k) +
+                                 bz * ld(pr + 11 * leaf_k);
+                const float slope = ld(pr + 12 * leaf_k), r_base = ld(pr + 13 * leaf_k),
+                            min_d = ld(pr + 14 * leaf_k), max_d = ld(pr + 15 * leaf_k);
+#pragma unroll
+                for (int m = 0; m < 2; ++m) {
+                  const int e = 2 * m + j;
+                  const float lt =
+                      ok[m] ? cone_row_proj(proj[0][e], proj[1][e], proj[2][e], proj[3][e],
+                                            proj[4][e], proj[5][e], bu, bv, bw, slope, r_base,
+                                            min_d, max_d, t_min, cap[m])
+                            : INF;
+                  if (lt < best[m]) {  // rows ascend in a lane: the lowest of equal t
+                    best[m] = lt;
+                    brow[m] = rr;
+                  }
+                }
+              }
+            }
+            // The quad's lanes hold the same two rays: their (t, row) minimum.
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {
+#pragma unroll
+              for (int off = 1; off < 4; off <<= 1) {
+                const float ot = __shfl_xor_sync(FULL, best[m], off);
+                const int orow = __shfl_xor_sync(FULL, brow[m], off);
+                if (ot < best[m] || (ot == best[m] && orow < brow[m])) {
+                  best[m] = ot;
+                  brow[m] = orow;
+                }
+              }
+              // INF is a miss, also below an infinite t_max (the twin's rule)
+              if (tig == 0 && ok[m] && best[m] < cap[m] && best[m] < INF &&
+                  !(qa[m] && best_t(q[m]) < 0.0f))
+                atomicMin(&key[q[m]], ray_key(qa[m] ? -1.0f : best[m],
+                                              static_cast<unsigned>(leaf * leaf_k + brow[m])));
+            }
+          }
+        } else {
+          // Each warp takes a run of consecutive items (a pair's units lie
+          // together), lanes over the rows of a unit.
+          const int ni = n_items, run = (ni + WARPS - 1) / WARPS;
+          FUR_STAT(8, ni);
+          int qq = -1;
+          Ray rq = {0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f};
+          float qcap = 0.0f;
+          bool qany = kAnyHit;
+          for (int y = warp * run; y < min(ni, (warp + 1) * run); ++y) {
+            const int x = items[y], p = x / units, k = (x - p * units) * UNIT + lane;
+            if (pairs[p] != qq) {
+              qq = pairs[p];
+              rq = {ray[qq], ray[TILE + qq], ray[2 * TILE + qq],
+                    ray[3 * TILE + qq], ray[4 * TILE + qq], ray[5 * TILE + qq]};
+              qcap = ray[9 * TILE + qq];
+              if constexpr (kMixed) qany = any_ray(qq);
+            }
+            if (qany && best_t(qq) < 0.0f) continue;  // done by another item
+            float lt = INF;
+            if (k < leaf_k)
+              lt = kCone ? cone_row(rq, blk + k, leaf_k, t_min, qcap)
+                         : tri_row(rq, blk + k, leaf_k, t_min, qcap);
+            int lr = lt < INF ? k : INT_MAX;
+            warp_argmin(lt, lr);
+            // INF is a miss, also below an infinite t_max (the twin's rule)
+            if (lane == 0 && lt < qcap && lt < INF)
+              atomicMin(&key[qq], ray_key(qany ? -1.0f : lt,
+                                          static_cast<unsigned>(leaf * leaf_k + lr)));
+          }
         }
         __syncthreads();
         if (t == 0) { n_pairs = 0; n_items = 0; s_max_tb = 0u; }

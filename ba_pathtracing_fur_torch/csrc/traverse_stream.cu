@@ -26,6 +26,22 @@
 // origin, in one launch: a pair shares its tile, its schedule and its leaf
 // copies. Each ray's result is the one its own instance gives.
 //
+// Two more variants of the TPU kernel (traverse_stream's mxu=True and a
+// pack_prim_hbm(dtype=bfloat16) pack), each in closest, any and mixed mode:
+//   * bf16 leaves (cone and triangle): the pack at half the bytes, upcast on
+//     read from shared memory and tested in f32, so a row's t is the twin's
+//     over the upcast pack bit for bit; its boxes bound the rounded rows
+//     (ops/cuda/stream.py::pack_prim_hbm). Config 5's 587 MB of leaves
+//     become 294 MB.
+//   * mxu (cones, f32 or bf16 leaves): the six ray.frame projections of each
+//     (ray, row) on the tensor cores (mma.sync m16n8k8 TF32, 3xTF32 for f32
+//     precision; leaf_tiles.cuh kMxu), p = o.u - b.u and the quadratic of
+//     cone_row on the FP32 pipe (leaf_tests.cuh::cone_row_proj). The
+//     projections are 30 of a cone row's 93 flops. Its rows agree with the
+//     twin's (traverse_stream_ref(mxu=True)) but for near ties: the matrix
+//     products round otherwise than its f32 sums. Its 24 accumulators a lane
+//     spill ~100-130 bytes under the 64-register bound of two blocks an SM.
+//
 // What bounds it: operations (93 flops a cone row, ~700 rows a camera ray)
 // once the leaf bytes are shared; the cone arithmetic is built with
 // -fmad=false (kernels/__init__.py SOURCE_FLAGS) so t agrees with the twin
@@ -54,39 +70,55 @@ struct StreamBoxes {
   }
 };
 
-template <bool kCone, bool kAnyHit, bool kMixed>
-__global__ void __launch_bounds__(fur::THREADS, fur::MIN_BLOCKS) stream_kernel(
-    StreamBoxes bx, int n_rays, const float* __restrict__ o, const float* __restrict__ d,
-    const float* __restrict__ t_max, const float* __restrict__ packed,
-    const float* __restrict__ uboxes, int leaf_k, int depth, float t_min,
-    float* __restrict__ t_out, int* __restrict__ row_out, unsigned char* __restrict__ found_out,
-    const unsigned char* __restrict__ is_any) {
-  fur::tile_traverse<kCone, kAnyHit, kMixed>(bx, n_rays, o, d, t_max, packed, uboxes, leaf_k,
-                                             depth, t_min, t_out, row_out, found_out, is_any);
+template <bool kCone, bool kAnyHit, bool kMixed, bool kMxu, class T>
+__global__ void __launch_bounds__(fur::THREADS, fur::MIN_BLOCKS)
+    stream_kernel(StreamBoxes bx, int n_rays, const float* __restrict__ o,
+                  const float* __restrict__ d, const float* __restrict__ t_max,
+                  const T* __restrict__ packed, const float* __restrict__ uboxes, int leaf_k,
+                  int depth, float t_min, float* __restrict__ t_out, int* __restrict__ row_out,
+                  unsigned char* __restrict__ found_out, const unsigned char* __restrict__ is_any) {
+  fur::tile_traverse<kCone, kAnyHit, kMixed, kMxu>(bx, n_rays, o, d, t_max, packed, uboxes,
+                                                   leaf_k, depth, t_min, t_out, row_out,
+                                                   found_out, is_any);
 }
 
-template <bool kCone, bool kAnyHit, bool kMixed>
+template <bool kCone, bool kAnyHit, bool kMixed, bool kMxu, class T>
 cudaError_t launch(const StreamBoxes& bx, int n_rays, const float* o, const float* d,
-                   const float* t_max, const float* packed, const float* uboxes, int leaf_k,
+                   const float* t_max, const void* packed, const float* uboxes, int leaf_k,
                    float t_min, float* t_out, int* row_out, unsigned char* found_out,
                    const unsigned char* is_any, cudaStream_t st) {
   const int depth = fur::walk_depth(bx.n_sup);
-  const size_t bytes =
-      4u * static_cast<size_t>(fur::tile_layout(kCone ? 16 : 9, leaf_k, bx.n_sup, depth).words);
+  const size_t bytes = 4u * static_cast<size_t>(
+      fur::tile_layout(kCone ? 16 : 9, leaf_k, bx.n_sup, depth, sizeof(T)).words);
   if (bytes > static_cast<size_t>(fur::MAX_SHARED)) return cudaErrorInvalidValue;
   static size_t opted = 0;  // the dynamic shared memory this instance may use
   if (bytes > opted) {
-    cudaError_t e = cudaFuncSetAttribute(stream_kernel<kCone, kAnyHit, kMixed>,
+    cudaError_t e = cudaFuncSetAttribute(stream_kernel<kCone, kAnyHit, kMixed, kMxu, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
     if (e != cudaSuccess) return e;
     opted = bytes;
   }
   const int grid = (n_rays + fur::TILE - 1) / fur::TILE;
-  stream_kernel<kCone, kAnyHit, kMixed><<<grid, fur::THREADS, bytes, st>>>(
-      bx, n_rays, o, d, t_max, packed, uboxes, leaf_k, depth, t_min, t_out, row_out,
-      found_out, is_any);
+  stream_kernel<kCone, kAnyHit, kMixed, kMxu, T><<<grid, fur::THREADS, bytes, st>>>(
+      bx, n_rays, o, d, t_max, static_cast<const T*>(packed), uboxes, leaf_k, depth, t_min,
+      t_out, row_out, found_out, is_any);
   return cudaGetLastError();
+}
+
+// The closest, any or mixed instance of one (kind, test, element type).
+template <bool kCone, bool kMxu, class T>
+cudaError_t launch_mode(int any_hit, const unsigned char* is_any, const StreamBoxes& bx,
+                        int n_rays, const float* o, const float* d, const float* t_max,
+                        const void* packed, const float* uboxes, int leaf_k, float t_min,
+                        float* t_out, int* row_out, unsigned char* found_out, cudaStream_t st) {
+  const auto go = [&](auto launcher) {
+    return launcher(bx, n_rays, o, d, t_max, packed, uboxes, leaf_k, t_min, t_out, row_out,
+                    found_out, is_any, st);
+  };
+  if (is_any) return go(launch<kCone, false, true, kMxu, T>);
+  return any_hit ? go(launch<kCone, true, false, kMxu, T>)
+                 : go(launch<kCone, false, false, kMxu, T>);
 }
 
 }  // namespace
@@ -95,31 +127,34 @@ cudaError_t launch(const StreamBoxes& bx, int n_rays, const float* o, const floa
 // synchronise, and returns cudaGetLastError() of the launch (or
 // cudaErrorInvalidValue for a shape it does not take: fanout and the super
 // count powers of two, the leaf buffers within shared memory, any_hit with
-// is_any). is_any [R] (1 = shadow ray) makes the launch mixed; null leaves
-// it closest or any hit by any_hit.
+// is_any, mxu with triangle leaves). is_any [R] (1 = shadow ray) makes the
+// launch mixed; null leaves it closest or any hit by any_hit. packed is
+// [C, W, K] float, or bf16 when bf16 is set; mxu takes the tensor-core
+// cone test.
 extern "C" int stream_launch(int n_rays, const float* o, const float* d, const float* t_max,
                              const float* bmin, const float* bmax, const float* sboxes,
-                             const float* cboxes, const float* packed, const float* uboxes,
-                             int n_sup, int fanout, int leaf_k, int cone, int any_hit,
-                             const unsigned char* is_any, float t_min, float* t_out,
+                             const float* cboxes, const void* packed, const float* uboxes,
+                             int n_sup, int fanout, int leaf_k, int cone, int any_hit, int bf16,
+                             int mxu, const unsigned char* is_any, float t_min, float* t_out,
                              int* row_out, unsigned char* found_out, void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
   if (fanout <= 0 || (fanout & (fanout - 1)) || n_sup < 1 || (n_sup & (n_sup - 1)) ||
-      leaf_k <= 0 || (any_hit && is_any))
+      leaf_k <= 0 || (any_hit && is_any) || (mxu && !cone))
     return static_cast<int>(cudaErrorInvalidValue);
   const StreamBoxes bx = {bmin, bmax, sboxes, cboxes, n_sup, fanout};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using bf = __nv_bfloat16;
   const auto go = [&](auto launcher) {
-    return launcher(bx, n_rays, o, d, t_max, packed, uboxes, leaf_k, t_min, t_out, row_out,
-                    found_out, is_any, st);
+    return launcher(any_hit, is_any, bx, n_rays, o, d, t_max, packed, uboxes, leaf_k, t_min,
+                    t_out, row_out, found_out, st);
   };
   cudaError_t e;
-  if (is_any)
-    e = cone ? go(launch<true, false, true>) : go(launch<false, false, true>);
+  if (mxu)
+    e = bf16 ? go(launch_mode<true, true, bf>) : go(launch_mode<true, true, float>);
   else if (cone)
-    e = any_hit ? go(launch<true, true, false>) : go(launch<true, false, false>);
+    e = bf16 ? go(launch_mode<true, false, bf>) : go(launch_mode<true, false, float>);
   else
-    e = any_hit ? go(launch<false, true, false>) : go(launch<false, false, false>);
+    e = bf16 ? go(launch_mode<false, false, bf>) : go(launch_mode<false, false, float>);
   return static_cast<int>(e);
 }
 

@@ -65,7 +65,7 @@ SIGNATURES = {
     "stream_launch": ("traverse_stream.cu", (
         [_C_INT] + [_C_VOID_P] * 9             # n_rays, o d t_max bmin bmax sboxes cboxes
                                                # packed uboxes
-        + [_C_INT] * 5                         # n_sup fanout leaf_k cone any_hit
+        + [_C_INT] * 7                         # n_sup fanout leaf_k cone any_hit bf16 mxu
         + [_C_VOID_P, _C_FLOAT]                # is_any (null unless mixed) t_min
         + [_C_VOID_P] * 3                      # t row found
         + [_C_VOID_P])),                       # cudaStream_t

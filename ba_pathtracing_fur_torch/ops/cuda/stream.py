@@ -27,15 +27,36 @@ closest or the any-hit launch would give it, in one launch of the kernel's
 third instance (`MIXED_LAUNCHES`); the plain version runs each set's brute
 force. `ops/traverse.joint_closest_any` feeds it a bounce's closest-hit
 rays interleaved with the previous bounce's shadow rays.
+
+Two variants of the TPU kernel's leaf test, each in the three modes, which
+no render of either package passes (a user reaches them through this API,
+or routes a render through them with `render_sample_ids`'s `closest_fn` /
+`occlude_fn` hooks):
+
+* `mxu=True` (cones; the TPU kernel's `_cone_block_mxu`): the six
+  ray.frame projections of each (ray, row) as matrix products, on the
+  tensor cores (3xTF32). Its plain version is `brute_force(mxu=True)`; the
+  two agree but on near ties, where their products round apart. Triangle
+  leaves ignore the flag, as in JAX: they launch the f32 test.
+* a bf16 pack (`pack_prim_hbm(bvh, kind, torch.bfloat16)`): the leaf
+  geometry at half the bytes, upcast to f32 in the kernel. Its plain
+  version is the brute force over the upcast pack, bit for bit.
+
+Launches are counted by instance family: `KERNEL_LAUNCHES` and
+`MIXED_LAUNCHES` the f32 test on an f32 pack, `MXU_LAUNCHES` every launch
+of the tensor-core test, `BF16_LAUNCHES` every launch on a bf16 pack (an
+mxu launch on a bf16 pack counts in both).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from .. import bvh as bvh_mod
+from ..intersect import INF
 from . import traverse as ctraverse
 
 #: the largest fanout the kernel is held to its twin at (it tests the
@@ -44,7 +65,19 @@ MAX_FANOUT = 256
 
 KERNEL_LAUNCHES = 0  # closest-hit and any-hit launches
 MIXED_LAUNCHES = 0  # mixed launches (is_any given)
+MXU_LAUNCHES = 0  # launches of the tensor-core cone test (any mode or pack)
+BF16_LAUNCHES = 0  # launches on a bf16 pack (any mode or test)
 REF_CALLS = 0
+#: leaf element types the kernel takes
+PACK_DTYPES = (torch.float32, torch.bfloat16)
+#: outward padding of a bf16 row's box, absolute and relative (its box is
+#: computed in f64 and the row is tested in f32; cone_aabbs pads 1e-6)
+ROW_BOX_PAD = 1e-6
+#: `near_ties`' bound on a decision's distance from flipping, in units of
+#: its f32 error scale (`cone_margins`): each of the test's ~10 steps
+#: rounds at 6e-8, so a decision of either f32 evaluation moves by ~1e-6 of
+#: its scale at most; TIE_REL leaves a factor 10.
+TIE_REL = 1e-5
 
 
 def pack_super_boxes(bvh: bvh_mod.BVH) -> torch.Tensor:
@@ -62,6 +95,181 @@ def pack_child_boxes(bvh: bvh_mod.BVH) -> torch.Tensor:
     return boxes.reshape(c // f, f, 6).permute(0, 2, 1).contiguous()
 
 
+def _row_boxes(rows: torch.Tensor, kind: str):
+    """World AABBs ([N, 3] lo, hi in f32) of every point the leaf test can
+    accept on the rows [N, W] (f32, a bf16 pack's upcast), in f64 and
+    rounded outward. A triangle's are its three corners v0, v0 + e1,
+    v0 + e2. A cone row is tested in its own frame M = (u, v, w), which the
+    rounding leaves a little off orthonormal: a hit x has (x - b) . v in
+    [min_d - b.v, max_d - b.v] and its distance in (u, w) at most R, the
+    larger |r_base - slope y| at the two ends, so x = b + M^-1 q over that
+    box of q."""
+    r = rows.double()
+    if kind == "tri":
+        v0, e1, e2 = r[:, 0:3], r[:, 3:6], r[:, 6:9]
+        pts = torch.stack([v0, v0 + e1, v0 + e2], dim=1)
+        lo, hi = pts.amin(1), pts.amax(1)
+    else:
+        b, m = r[:, 0:3], r[:, 3:12].reshape(-1, 3, 3)  # rows of m: u, v, w
+        slope, r_base, min_d, max_d = r[:, 12], r[:, 13], r[:, 14], r[:, 15]
+        ok = torch.linalg.det(m).abs() > 1e-6  # padding rows are all 0
+        m = torch.where(ok[:, None, None], m, torch.eye(3, dtype=m.dtype, device=m.device))
+        inv = torch.linalg.inv(m)  # columns: the world steps of q's axes
+        bv = (b * m[:, 1]).sum(-1)
+        y0, y1 = min_d - bv - ROW_BOX_PAD, max_d - bv + ROW_BOX_PAD
+        rad = torch.maximum((r_base - slope * y0).abs(), (r_base - slope * y1).abs()) \
+            + ROW_BOX_PAD
+        ys = torch.stack([inv[:, :, 1] * y0[:, None], inv[:, :, 1] * y1[:, None]])
+        spread = rad[:, None] * (inv[:, :, 0].abs() + inv[:, :, 2].abs())
+        lo, hi = b + ys.amin(0) - spread, b + ys.amax(0) + spread
+    pad = ROW_BOX_PAD * (1.0 + torch.maximum(lo.abs(), hi.abs()))
+    lo, hi = lo - pad, hi + pad
+    lo32, hi32 = lo.float(), hi.float()
+    # rounded outward: an f32 bound that rounded inward moves one step out
+    lo32 = torch.where(lo32.double() > lo, torch.nextafter(lo32, lo32.new_tensor(-INF)), lo32)
+    hi32 = torch.where(hi32.double() < hi, torch.nextafter(hi32, hi32.new_tensor(INF)), hi32)
+    return lo32, hi32
+
+
+def pack_prim_hbm(bvh: bvh_mod.BVH, kind: str, dtype=torch.float32) -> bvh_mod.BVH:
+    """The BVH with its [C, W, K] leaf pack in `dtype` (the counterpart of
+    the JAX package's `pack_prim_hbm`, without its 128-lane K padding: the
+    kernel takes any K). float32 leaves the BVH as it is. bfloat16 halves
+    the leaves' bytes (round to nearest even, as `astype`), and the rounding
+    moves a coordinate by up to half a bf16 step (7.8e-3 at |x| in [2, 4),
+    about two hair-fiber radii), so the f32 boxes would cull hits of the
+    rounded rows: the pack comes with unit boxes (`uboxes`) recomputed from
+    the rounded rows' boxes (`_row_boxes`), the heap's boxes refitted from
+    them bottom-up and the super and child tables from those, each the
+    union with the f32 box it replaces."""
+    if kind not in ctraverse.KINDS:
+        raise ValueError(f"pack_prim_hbm: kind must be one of {sorted(ctraverse.KINDS)}, "
+                         f"got {kind!r}")
+    if dtype not in PACK_DTYPES:
+        raise ValueError(f"pack_prim_hbm: dtype must be one of {PACK_DTYPES}, got {dtype}")
+    if dtype == torch.float32:
+        return dataclasses.replace(bvh, packed=bvh.packed.float().contiguous())
+    if bvh.uboxes is None:
+        raise ValueError("pack_prim_hbm: the BVH has no uboxes table (attach_bvh makes it)")
+    packed = bvh.packed.to(dtype).contiguous()
+    c, w, k = packed.shape
+    lo, hi = _row_boxes(packed.float().permute(0, 2, 1).reshape(c * k, w), kind)
+    new = bvh_mod.unit_boxes(lo, hi, bvh)
+    uboxes = torch.cat([torch.minimum(new[:, :3], bvh.uboxes[:, :3]),
+                        torch.maximum(new[:, 3:], bvh.uboxes[:, 3:])], dim=1).contiguous()
+    bmin, bmax = bvh.bmin.clone(), bvh.bmax.clone()
+    bmin[c - 1:] = torch.minimum(bmin[c - 1:], uboxes[:, :3].amin(2))
+    bmax[c - 1:] = torch.maximum(bmax[c - 1:], uboxes[:, 3:].amax(2))
+    for level in reversed(range(bvh.depth)):  # inner nodes, bottom-up
+        nodes = torch.arange(2 ** level - 1, 2 ** (level + 1) - 1, device=bmin.device)
+        bmin[nodes] = torch.minimum(bmin[nodes], torch.minimum(bmin[2 * nodes + 1],
+                                                               bmin[2 * nodes + 2]))
+        bmax[nodes] = torch.maximum(bmax[nodes], torch.maximum(bmax[2 * nodes + 1],
+                                                               bmax[2 * nodes + 2]))
+    out = dataclasses.replace(bvh, packed=packed, bmin=bmin, bmax=bmax, uboxes=uboxes)
+    if 0 < bvh.fanout < bvh.n_leaves:
+        out = dataclasses.replace(out, sboxes=pack_super_boxes(out),
+                                  cboxes=pack_child_boxes(out))
+    return out
+
+
+def cone_margins(o, d, g, t_min: float = 1e-4) -> dict:
+    """How near the f32 cone test's decisions are to flipping, for rays o, d
+    [N, 3] each against one row g [N, 16], evaluated in f64, each as its
+    distance over the size of its f32 error, so that two f32 evaluations of
+    the test can disagree on a decision only where its margin is a few
+    times 6e-8 (f32's unit roundoff) or less: `disc` the discriminant over
+    b^2 + |ac| + 2 |d|^2 |p| P (its terms' rounding, and p's rounding at
+    P = |o| + |b|: the mxu test's p = o.u - b.u rounds there, however near
+    the cone), `axis` each root's axis coordinate's distance to the nearer
+    end over |o.v| + |t d.v| + |d.v| P, `t_min` each root's distance to
+    1e-4 and t_min over `t_err`, the roots' error scale (|b| + |d| P +
+    that disc scale / 2 sqrt(disc)) / |a| (both inf where the f64
+    discriminant is negative: no roots to decide on), and `t` the accepted
+    root (inf where the f64 test misses). A far ray (|p| ~ 2 from fibers of
+    r ~ 0.002 at the hair ball's camera) puts every decision of the
+    quadratic within ~1e-6 of its scale; a ray from a fiber's surface loses
+    its precision to the mxu test's rounding of p."""
+    o, d = o.double(), d.double()
+    b, u, v, w = g[:, 0:3], g[:, 3:6], g[:, 6:9], g[:, 9:12]
+    slope, r_base, min_d, max_d = g[:, 12], g[:, 13], g[:, 14], g[:, 15]
+    r = o - b
+    px, py, pz = (r * u).sum(-1), (r * v).sum(-1), (r * w).sum(-1)
+    dx, dy, dz = (d * u).sum(-1), (d * v).sum(-1), (d * w).sum(-1)
+    a = dx * dx + dz * dz - slope * slope * dy * dy
+    bq = px * dx + pz * dz + r_base * slope * dy - slope * slope * py * dy
+    c_lin = r_base - slope * py
+    c = px * px + pz * pz - c_lin * c_lin
+    disc = bq * bq - a * c
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    a_safe = torch.where(a.abs() < 1e-12, 1e-12, a)
+    ra, rb = (-bq - sq) / a_safe, (-bq + sq) / a_safe
+    roots = torch.stack([torch.minimum(ra, rb), torch.maximum(ra, rb)])
+    ov = (o * v).sum(-1)
+    ax = ov + roots * dy
+    ok = (disc >= 0.0) & (roots >= 1e-4) & (roots > t_min) & (ax >= min_d) & (ax <= max_d)
+    t = torch.where(ok[0], roots[0], torch.where(ok[1], roots[1], float("inf")))
+    big_p = o.norm(dim=-1) + b.norm(dim=-1)
+    dn = d.norm(dim=-1)
+    disc_scale = bq * bq + (a * c).abs() + 2 * dn * dn * r.norm(dim=-1) * big_p
+    t_err = (bq.abs() + dn * big_p + disc_scale / (2 * sq).clamp(min=1e-300)) / a_safe.abs()
+    no_roots = (disc < 0.0)[None]  # the roots' decisions only count where there are roots
+    return dict(disc=disc.abs() / disc_scale,
+                axis=torch.where(no_roots, float("inf"),
+                                 torch.minimum((ax - min_d).abs(), (ax - max_d).abs())
+                                 / (ov.abs() + (roots * dy).abs() + dy.abs() * big_p)),
+                t_min=torch.where(no_roots, float("inf"),
+                                  torch.minimum((roots - 1e-4).abs(), (roots - t_min).abs())
+                                  / t_err),
+                t=t, t_err=t_err)
+
+
+def near_ties(o, d, bvh: bvh_mod.BVH, a: tuple, b: tuple, tol: float = TIE_REL,
+              t_min: float = 1e-4) -> dict:
+    """Do two closest-hit results a = (row, found) and b = (row, found) [R]
+    over one cone pack (rows of `bvh.packed`, upcast) differ only by near
+    ties? Each row a side found is evaluated in f64 (`cone_margins`): it is
+    marginal when a decision of its test (the discriminant, an axis end or
+    t_min) lies within `tol` of flipping, and plausible when the f64 test
+    hits it or it is marginal. A ray where one side found nothing is a near
+    tie when the other side's row is marginal; a ray where the two found
+    different rows is one when both rows are plausible and one of them is
+    marginal or the two lie within `tol` of each other in t (over the sum of
+    their `t_err`). Returns `agree` [R] (the same found and, where found,
+    the same row), `tie` [R] (agreeing or a near tie), `margin` [R] (the smallest
+    relative distance of the ray's rows' decisions; 0 where they agree) and
+    `t_gap` [R] (|t_a - t_b| over the sum of their t_err, in f64, where both
+    sides found a row the f64 test hits, else nan)."""
+    (row_a, found_a), (row_b, found_b) = a, b
+    agree = (found_a == found_b) & (~found_a | (row_a == row_b))
+    margin = torch.zeros(agree.shape, dtype=torch.float64, device=agree.device)
+    t_gap = torch.full(agree.shape, float("nan"), dtype=torch.float64, device=agree.device)
+    tie = agree.clone()
+    idx = (~agree).nonzero()[:, 0]
+    if idx.numel():
+        flat = torch.stack(ctraverse._rows_cm(bvh))[:, 0].double()  # [W, C*K]
+        marg, hit, ts, errs = [], [], [], []
+        for row in (row_a[idx], row_b[idx]):
+            m = cone_margins(o[idx], d[idx], flat[:, row.long().clamp(min=0)].T, t_min)
+            marg.append(torch.minimum(m["disc"], torch.minimum(m["axis"].amin(0),
+                                                               m["t_min"].amin(0))))
+            hit.append(torch.isfinite(m["t"]))
+            ts.append(m["t"])
+            errs.append(m["t_err"])
+        fa, fb = found_a[idx], found_b[idx]
+        marginal = [x <= tol for x in marg]
+        plausible = [h | mg for h, mg in zip(hit, marginal)]
+        gap = (ts[0] - ts[1]).abs() / (errs[0] + errs[1])
+        t_tie = gap <= tol
+        t_gap[idx] = torch.where(torch.isfinite(gap), gap, float("nan"))
+        tie[idx] = torch.where(fa & fb, plausible[0] & plausible[1]
+                               & (marginal[0] | marginal[1] | t_tie),
+                               torch.where(fa, marginal[0], marginal[1]))
+        inf = torch.full_like(marg[0], float("inf"))
+        margin[idx] = torch.minimum(torch.where(fa, marg[0], inf), torch.where(fb, marg[1], inf))
+    return dict(agree=agree, tie=tie, margin=margin, t_gap=t_gap)
+
+
 def _flags(is_any, r: int) -> torch.Tensor:
     """[R] any-hit flags as bool: a float flag is set above 0.5 (the JAX
     package's 1.0 = shadow ray)."""
@@ -71,14 +279,15 @@ def _flags(is_any, r: int) -> torch.Tensor:
 
 
 def traverse_stream_ref(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = False,
-                        t_min: float = 1e-4, is_any=None):
-    """The kernel's plain version: brute force over the reordered pack; with
+                        t_min: float = 1e-4, is_any=None, mxu: bool = False):
+    """The kernel's plain version: brute force over the reordered pack (a
+    bf16 pack upcast; with `mxu`, cone rows by `_cone_core_mxu`); with
     `is_any`, the closest-hit brute force on the rays whose flag is clear and
     the any-hit one on the others."""
     global REF_CALLS
     REF_CALLS += 1
     if is_any is None:
-        return ctraverse.brute_force(o, d, t_max, bvh, kind, any_hit, t_min)
+        return ctraverse.brute_force(o, d, t_max, bvh, kind, any_hit, t_min, mxu)
     flags = _flags(is_any, o.shape[0])
     t = torch.empty_like(t_max)
     row = torch.empty(t_max.shape, dtype=torch.int32, device=o.device)
@@ -88,15 +297,15 @@ def traverse_stream_ref(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool 
         if idx.numel() == 0:
             continue
         t[idx], row[idx], found[idx] = ctraverse.brute_force(o[idx], d[idx], t_max[idx], bvh,
-                                                             kind, flag, t_min)
+                                                             kind, flag, t_min, mxu)
     return t, row, found
 
 
 def _traverse_stream_cuda(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool,
-                          t_min: float, is_any):
+                          t_min: float, is_any, mxu: bool):
     from ...kernels import load_library
 
-    global KERNEL_LAUNCHES, MIXED_LAUNCHES
+    global KERNEL_LAUNCHES, MIXED_LAUNCHES, MXU_LAUNCHES, BF16_LAUNCHES
     dev = o.device
     r = o.shape[0]
     c, k, f = bvh.n_leaves, bvh.leaf_size, bvh.fanout
@@ -111,9 +320,12 @@ def _traverse_stream_cuda(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: boo
             ("o", o, (r, 3), f32), ("d", d, (r, 3), f32), ("t_max", t_max, (r,), f32),
             ("bmin", bvh.bmin, (2 * c - 1, 3), f32), ("bmax", bvh.bmax, (2 * c - 1, 3), f32),
             ("sboxes", sboxes, (6, s), f32), ("cboxes", cboxes, (s, 6, f), f32),
-            ("packed", bvh.packed, (c, ctraverse.KINDS[kind], k), f32),
             ("uboxes", bvh.uboxes, (c, 6, -(-k // bvh_mod.UNIT)), f32)):
         ctraverse._check(name, x, shape, dt, dev)
+    bf16 = bvh.packed is not None and bvh.packed.dtype == torch.bfloat16
+    ctraverse._check("packed", bvh.packed, (c, ctraverse.KINDS[kind], k),
+                     torch.bfloat16 if bf16 else f32, dev)
+    mxu = mxu and kind == "cone"  # triangle rows take the f32 test (the JAX rule)
     t_out = torch.empty((r,), dtype=f32, device=dev)
     row_out = torch.empty((r,), dtype=torch.int32, device=dev)
     found_out = torch.empty((r,), dtype=torch.bool, device=dev)
@@ -124,13 +336,17 @@ def _traverse_stream_cuda(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: boo
     err = load_library().stream_launch(
         ctypes.c_int(r), p(o), p(d), p(t_max), p(bvh.bmin), p(bvh.bmax), p(sboxes), p(cboxes),
         p(bvh.packed), p(bvh.uboxes), ctypes.c_int(s), ctypes.c_int(f), ctypes.c_int(k),
-        ctypes.c_int(int(kind == "cone")), ctypes.c_int(int(any_hit)),
-        ctypes.c_void_p(None if flags is None else flags.data_ptr()), ctypes.c_float(t_min),
+        ctypes.c_int(int(kind == "cone")), ctypes.c_int(int(any_hit)), ctypes.c_int(int(bf16)),
+        ctypes.c_int(int(mxu)), ctypes.c_void_p(None if flags is None else flags.data_ptr()),
+        ctypes.c_float(t_min),
         p(t_out), p(row_out), p(found_out),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError(f"traverse_stream kernel launch failed: CUDA error {err}")
-    if flags is None:
+    if mxu or bf16:
+        MXU_LAUNCHES += int(mxu)
+        BF16_LAUNCHES += int(bf16)
+    elif flags is None:
         KERNEL_LAUNCHES += 1
     else:
         MIXED_LAUNCHES += 1
@@ -138,11 +354,14 @@ def _traverse_stream_cuda(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: boo
 
 
 def traverse_stream(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = False,
-                    t_min: float = 1e-4, is_any=None):
+                    t_min: float = 1e-4, is_any=None, mxu: bool = False):
     """(t [R], row [R] int32, found [R] bool) of rays against a two-level
     BVH. `is_any` [R] (bool, or float with 1.0 = shadow ray) gives each ray
-    its own mode, in place of `any_hit`. CPU tensors run the plain version;
-    CUDA tensors launch the kernel (or raise)."""
+    its own mode, in place of `any_hit`. `mxu` tests cone rows on the tensor
+    cores (the JAX package ignores it for triangle rows, and so does this
+    function: they launch the f32 test). A bf16 `bvh.packed`
+    (`pack_prim_hbm`) launches the bf16 instances. CPU tensors run the
+    plain version; CUDA tensors launch the kernel (or raise)."""
     if kind not in ctraverse.KINDS:
         raise ValueError(f"traverse_stream: kind must be one of {sorted(ctraverse.KINDS)}, "
                          f"got {kind!r}")
@@ -151,7 +370,7 @@ def traverse_stream(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = Fa
     ctraverse.require_detached("traverse_stream", o, d, t_max)
     o, d, t_max = o.contiguous(), d.contiguous(), t_max.contiguous()
     if o.device.type == "cpu":
-        return traverse_stream_ref(o, d, t_max, bvh, kind, any_hit, t_min, is_any)
+        return traverse_stream_ref(o, d, t_max, bvh, kind, any_hit, t_min, is_any, mxu)
     if o.device.type == "cuda":
-        return _traverse_stream_cuda(o, d, t_max, bvh, kind, any_hit, t_min, is_any)
+        return _traverse_stream_cuda(o, d, t_max, bvh, kind, any_hit, t_min, is_any, mxu)
     raise ValueError(f"traverse_stream: no kernel for device {o.device}")

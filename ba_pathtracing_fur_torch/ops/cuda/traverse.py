@@ -20,6 +20,12 @@ shared memory) returns the lexicographic minimum (t, row), so its rows
 equal the twin's on every ray, exact t ties across clusters included.
 `work_ref` counts the box and leaf tests any near-to-far walk of the BVH
 must make for given rays: the measure of the kernel's bound.
+
+The streaming kernel's two variants (`ops/cuda/stream.py`) have their
+plain versions here too: `brute_force(mxu=True)` tests cone rows by
+`_cone_core_mxu`, the JAX package's `_cone_block_mxu` (the six ray.frame
+projections as f32 matrix products), and a bf16 pack is tested as its f32
+upcast, which is exact.
 """
 
 from __future__ import annotations
@@ -42,29 +48,77 @@ _REF_ELEMS = 1 << 25
 #: 4, acceptance 10: 93) and one Möller-Trumbore row (55)
 BOX_TEST_FLOPS = 28
 LEAF_TEST_FLOPS = {"cone": 93, "tri": 55}
+#: the tensor-core cone row (mxu): the six projections (30 flops) on the
+#: tensor cores, each product in MXU_PASSES TF32 passes (3xTF32), and the
+#: rest of the row on the FP32 pipe (p = o.u - b.u in place of the origin
+#: offset: 63; b.u, b.v, b.w are a row's, not a pair's)
+MXU_PROJ_FLOPS, MXU_PASSES = 30, 3
+MXU_ROW_FLOPS = LEAF_TEST_FLOPS["cone"] - MXU_PROJ_FLOPS
 
 KERNEL_LAUNCHES = 0
 REF_CALLS = 0
 
 
-def _leaf_fn(kind: str):
-    return bvh_mod._cone_core if kind == "cone" else bvh_mod._tri_core
+def _cone_core_mxu(o, d, comp, t_min, t_best):
+    """The cone test of the JAX package's `_cone_block_mxu` -> t [R, K], INF
+    where invalid: the six ray.frame projections o.u, o.v, o.w, d.u, d.v,
+    d.w as f32 matrix products [R, 3] x [3, K], b.u, b.v, b.w as
+    bx*ux + by*uy + bz*uz, p = o.u - b.u, then `_cone_core`'s quadratic, its
+    axis slab from o.v."""
+    (bx, by, bz, ux, uy, uz, vx, vy, vz, wx, wy, wz,
+     slope, r_base, min_d, max_d) = comp
+    u, v, w = torch.cat([ux, uy, uz]), torch.cat([vx, vy, vz]), torch.cat([wx, wy, wz])
+    ou, ov, ow = o @ u, o @ v, o @ w
+    dx, dy, dz = d @ u, d @ v, d @ w
+    px = ou - (bx * ux + by * uy + bz * uz)
+    py = ov - (bx * vx + by * vy + bz * vz)
+    pz = ow - (bx * wx + by * wy + bz * wz)
+
+    a = dx * dx + dz * dz - slope * slope * dy * dy
+    b = px * dx + pz * dz + r_base * slope * dy - slope * slope * py * dy
+    c_lin = r_base - slope * py
+    c = px * px + pz * pz - c_lin * c_lin
+    disc = b * b - a * c
+    has_roots = disc >= 0.0
+    sq = torch.sqrt(torch.clamp(disc, min=1e-12))
+    a_safe = torch.where(a.abs() < 1e-12, 1e-12, a)
+    t1 = (-b - sq) / a_safe
+    t2 = (-b + sq) / a_safe
+    t1, t2 = torch.minimum(t1, t2), torch.maximum(t1, t2)
+
+    def axis_ok(t):
+        dax = ov + t * dy
+        return (dax >= min_d) & (dax <= max_d)
+
+    tb = t_best[:, None]
+    t1_ok = (t1 >= 1e-4) & (t1 > t_min) & (t1 < tb) & axis_ok(t1)
+    t2_ok = (t2 >= 1e-4) & (t2 > t_min) & (t2 < tb) & axis_ok(t2)
+    take1 = has_roots & t1_ok
+    take2 = has_roots & ~t1_ok & t2_ok
+    return torch.where(take1, t1, torch.where(take2, t2, INF))
+
+
+def _leaf_fn(kind: str, mxu: bool = False):
+    if kind == "cone":
+        return _cone_core_mxu if mxu else bvh_mod._cone_core
+    return bvh_mod._tri_core
 
 
 def _rows_cm(bvh: bvh_mod.BVH) -> list:
-    """The packed leaf geometry as W tensors of [1, C*K] (row-major)."""
+    """The packed leaf geometry as W tensors of [1, C*K] (row-major), in
+    f32 (a bf16 pack upcast, exactly)."""
     c, w, k = bvh.packed.shape
-    flat = bvh.packed.permute(1, 0, 2).reshape(w, c * k)
+    flat = bvh.packed.permute(1, 0, 2).reshape(w, c * k).float()
     return [flat[i][None] for i in range(w)]
 
 
 def brute_force(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = False,
-                t_min: float = 1e-4):
+                t_min: float = 1e-4, mxu: bool = False):
     """(t, row, found) by brute force over all rows of the reordered pack,
-    chunked over rays."""
+    chunked over rays; `mxu` tests cone rows by `_cone_core_mxu`."""
     comp = _rows_cm(bvh)
     n_rows = comp[0].shape[1]
-    leaf = _leaf_fn(kind)
+    leaf = _leaf_fn(kind, mxu)
     step = max(1, _REF_ELEMS // n_rows)
     ts, rows, founds = [], [], []
     for s in range(0, o.shape[0], step):
@@ -125,7 +179,7 @@ def _units_entered(o, d, ub, t_best):
 
 
 def work_ref(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = False,
-             t_min: float = 1e-4, hit=None, is_any=None) -> dict:
+             t_min: float = 1e-4, hit=None, is_any=None, mxu: bool = False) -> dict:
     """The tests that any near-to-far walk of this BVH, pruning a node when
     its entry is not below the best hit, must make for these rays: for each
     live ray (t_max > 0; a dead one tests nothing) the root box, both child
@@ -140,7 +194,10 @@ def work_ref(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = False,
     (the closest hits; for any hit, t of the closest and the accepted row),
     saves the brute force. `is_any` [R] bool (a mixed launch's rays) counts
     each ray as a closest-hit or an any-hit ray by its own flag, in place
-    of `any_hit`."""
+    of `any_hit`. A leaf's bytes are its pack's (2 a value for a bf16 pack).
+    `mxu` (cone rows by the tensor-core test) splits a row's flops: the
+    projections' MXU_PROJ_FLOPS x MXU_PASSES as `tf32_flops`, the other
+    MXU_ROW_FLOPS in `flops`."""
     if is_any is None:
         is_any = torch.full((o.shape[0],), bool(any_hit), device=o.device)
     if hit is None:
@@ -175,10 +232,14 @@ def work_ref(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = False,
     rows += n_found
     entered[row[occluded].long() // bvh.leaf_size] = True
     n_entered = int(entered.sum())
+    mxu = mxu and kind == "cone"
+    row_flops = MXU_ROW_FLOPS if mxu else LEAF_TEST_FLOPS[kind]
     return dict(rays=n_rays, box_tests=box_tests, leaf_row_tests=rows,
-                flops=box_tests * BOX_TEST_FLOPS + rows * LEAF_TEST_FLOPS[kind],
+                flops=box_tests * BOX_TEST_FLOPS + rows * row_flops,
+                tf32_flops=rows * MXU_PROJ_FLOPS * MXU_PASSES if mxu else 0,
                 leaves_entered=n_entered,
-                leaf_bytes=n_entered * (KINDS[kind] * bvh.leaf_size + 6 * n_units) * 4)
+                leaf_bytes=n_entered * (KINDS[kind] * bvh.leaf_size * bvh.packed.element_size()
+                                        + 6 * n_units * 4))
 
 
 def require_detached(name: str, *xs) -> None:

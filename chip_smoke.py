@@ -47,7 +47,22 @@ render_image`) and checks the images:
     and bounded; the joint render through the mixed kernel (a launch a
     bounce, no plain call) bit for bit equal to the separate fused render,
     its compacted sample equal to the uncompacted one, rays/s of both
-    renders in turns and a traced sample of each.
+    renders in turns and a traced sample of each;
+  * K3's last two variants on config 5 (`phase_stream_variants`): the
+    tensor-core cone test (`traverse_stream(mxu=True)`, 3xTF32 mma.sync)
+    and bf16 leaves (`pack_prim_hbm(dtype=torch.bfloat16)`), each in
+    closest, any and mixed mode, on the sorted camera and bounce-1
+    wavefronts, the bounce-0 shadow rays and the bounce-1 pairs: the bf16
+    instances bit for bit against their plain version and their drift
+    from the f32 test reported, the mxu instances (f32 and bf16 packs)
+    against their plain version and the f32 test on every ray (a found
+    floor, every differing ray plausible, near ties and the row agreement
+    reported), both f32 tests against an f64 brute force, each timed beside
+    the f32 test and bounded; K3's triangle instances (f32 and bf16) on
+    config 3's terrain on a two-level BVH; config 5 rendered through
+    `render_sample_ids`' hooks (with the f32 test bit for bit
+    render_image's image) with each variant (launches, the image's
+    difference from the f32 render, rays/s and a traced sample beside it).
 
 Configs 0, 3, 4 and 5 also render one sample with the JAX package's default
 stream compaction (`compact=True`) and one without: the images must be
@@ -135,6 +150,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -241,8 +257,45 @@ CLI_SMALL = dict(quads=16, res=(64, 36), spp=2)
 CLI_BOUND_TRAFFIC = ("bounce-0 closest", "bounce-0 shadow")
 CLI_DIR = Path("smoke_out") / "cli"
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3;
-# INT32 (the Hopper architecture white paper), for the shade kernel's threefry.
+# INT32 (the Hopper architecture white paper), for the shade kernel's threefry;
+# TF32 on the tensor cores (dense), for K3's mxu variant.
 PEAK_FP32_FLOPS, PEAK_BYTES, PEAK_INT32_OPS = 67e12, 3.35e12, 33.5e12
+PEAK_TF32_FLOPS = 495e12
+# K3's two variants (traverse_stream(mxu=True) and a pack_prim_hbm bf16 pack)
+# on config 5's sorted wavefronts: their plain versions on VARIANT_PLAIN_RAYS
+# rays spread over each (whole pairs on the mixed one), the f64 brute force on
+# the same rays of the closest-hit wavefronts, their bounds from work_ref on
+# VARIANT_WORK_RAYS rays, scaled; the phase's budget VARIANT_BUDGET_S. The mxu
+# test's row gate: every ray where it differs from its plain version or from
+# the f32 test is a near tie (`cstream.near_ties`, a decision within
+# cstream.TIE_REL of flipping in f64); its found and winner-row agreement are
+# reported against MXU_FOUND_MIN and MXU_ROWS_MIN.
+VARIANT_PLAIN_RAYS, VARIANT_WORK_RAYS, VARIANT_BUDGET_S = 512, 16_384, 90.0
+MXU_FOUND_MIN, MXU_ROWS_MIN = 0.999, 0.99
+# The gate itself: every differing ray's rows plausible at MXU_GATE_REL
+# (`near_ties` at 10 x TIE_REL: a row the f64 test does not hit, or whose
+# decisions are not within 1e-4 of flipping, fails it; a wrong projection
+# gives rows ~1e-2-1 away), and the near ties at TIE_REL counted.
+MXU_GATE_REL = 1e-4
+# The variants' renders against the f32 render are reported, not gated
+# (`image_diff`: the image gate per pixel, IMG_TILE x IMG_TILE-pixel tile
+# means, the images' means): from the hair ball's camera the f32 quadratic
+# of a thin fiber rounds t by up to ~1e-3 (a fifth of a fiber's radius) in
+# either test, so the two place a hit, and its normal, apart, and pick
+# another fiber on ~5% of camera rays, each about as often against an f64
+# brute force; the kernels are held ray by ray above (`hold_variant`).
+IMG_TILE = 32
+# ... and the found agreement below which the mxu test fails outright (a
+# wrong projection misses rays the other test hits: far below it; two f32
+# roundings of the thin-fiber quadratic disagree on ~0.5% of camera rays,
+# each about as often against an f64 brute force). Rows have no floor:
+# consecutive cones of a fiber overlap at their joint, where both give the
+# same t up to rounding and any two roundings pick either; the near-tie
+# test holds each differing row.
+MXU_FOUND_FLOOR = 0.98
+# K3's triangle instances, f32 and bf16: config 3's terrain (99,458
+# triangles) on a two-level median BVH, its camera and shadow wavefronts.
+TRI_STREAM = dict(res=(512, 512), n_tris=100_000, fanout=64)
 # The full-bounce kernel's shading flops per ray, a rough count on
 # shade_core.cuh: its bound is set by the triangle rows (config 0) or the
 # bytes. The shade kernel's bound counts its branches (`cshade.work_ref`).
@@ -333,6 +386,7 @@ def reset_counts():
     cshade.SHADE_LAUNCHES = cshade.SHADE_REF_CALLS = 0
     ctraverse.KERNEL_LAUNCHES = ctraverse.REF_CALLS = 0
     cstream.KERNEL_LAUNCHES = cstream.MIXED_LAUNCHES = cstream.REF_CALLS = 0
+    cstream.MXU_LAUNCHES = cstream.BF16_LAUNCHES = 0
     cisect.TRI_LAUNCHES = cisect.CONE_LAUNCHES = cisect.REF_CALLS = 0
 
 
@@ -344,6 +398,7 @@ def read_counts() -> dict:
                 shade=cshade.SHADE_LAUNCHES, shade_ref=cshade.SHADE_REF_CALLS,
                 traverse=ctraverse.KERNEL_LAUNCHES, traverse_ref=ctraverse.REF_CALLS,
                 stream=cstream.KERNEL_LAUNCHES, stream_mixed=cstream.MIXED_LAUNCHES,
+                stream_mxu=cstream.MXU_LAUNCHES, stream_bf16=cstream.BF16_LAUNCHES,
                 stream_ref=cstream.REF_CALLS,
                 bruteforce_tri=cisect.TRI_LAUNCHES, bruteforce_cone=cisect.CONE_LAUNCHES,
                 bruteforce_ref=cisect.REF_CALLS)
@@ -369,6 +424,58 @@ def timed(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def timed_median(fn, reps: int = TIMED_REPS) -> float:
+    """Median milliseconds of `reps` calls of `fn` on the card, each between
+    its own CUDA events, after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(reps):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        ms.append(t0.elapsed_time(t1))
+    return float(np.median(ms))
+
+
+def kernel_label(mangled: str) -> str:
+    """A readable name of a traversal kernel instance from its mangled name
+    ("K3 cone closest mxu bf16", "K2 tri any"); other names as they are."""
+    m = re.search(r"(stream_kernel|traverse_kernel)I((?:Lb[01]E)+)(f|13__nv_bfloat16)?E", mangled)
+    if not m:
+        return mangled
+    flags = [c == "1" for c in re.findall(r"Lb([01])E", m[2])] + [False, False]
+    mode = "mixed" if flags[2] else "any" if flags[1] else "closest"
+    name = f"{'K3' if m[1] == 'stream_kernel' else 'K2'} {'cone' if flags[0] else 'tri'} {mode}"
+    if m[1] == "stream_kernel":
+        name += (" mxu" if flags[3] else "") + (" bf16" if m[3] and "bfloat16" in m[3] else " f32")
+    return name
+
+
+def ptxas_report() -> dict:
+    """Registers, spill bytes, stack and static shared memory of each kernel
+    of the last build (nvcc -Xptxas -v), by `kernel_label`."""
+    from ba_pathtracing_fur_torch import kernels
+
+    out, name = {}, None
+    for line in kernels.LAST_BUILD_LOG.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = kernel_label(m[1])
+            out[name] = {}
+        elif name is not None:
+            for key, pat in (("stack", r"(\d+) bytes stack frame"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads"),
+                             ("registers", r"Used (\d+) registers"), ("smem", r"(\d+) bytes smem")):
+                m = re.search(pat, line)
+                if m:
+                    out[name][key] = int(m[1])
+    return out
 
 
 def dev_us(e) -> float:
@@ -1498,7 +1605,8 @@ def phase_hairball_kernels(scene, cam, cfg, dev) -> dict:
             closest_bound=stream_bound(o1, d1, t1, bvh, False, closest["t"], closest["row"],
                                        closest["found"]),
             any_bound=stream_bound(o2, d2, t2, bvh, True, shadow["t"], shadow["row"],
-                                   shadow["found"]))
+                                   shadow["found"]),
+            sorted=dict(closest=(o1, d1, t1), shadow=(o2, d2, t2)))
         out[f"k5_tri_{bounce}"] = k5_wavefront(o, d, t_cap, scene.tris, "tri", bvh,
                                                f"config5 {what}", plain=bounce == 0)
         if bounce == 0:
@@ -1608,7 +1716,8 @@ def phase_joint(scene, cam, cfg, dev, separate) -> dict:
     log(f"config5 bounce-1 pairs, K3 times ({2 * w * h} rays; plain on {2 * TWIN_RAYS}): "
         + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
     res = dict(times=times, max_abs_err=err, vs_launches=vs_launches, vs_twin=vs_twin,
-               bound=stream_bound(o2, d2, t2, bvh, False, t, row, found, is_any=is_any))
+               bound=stream_bound(o2, d2, t2, bvh, False, t, row, found, is_any=is_any),
+               pairs=(o2, d2, t2, is_any, (t, row, found)))
     del state, pend, pairs, o2, d2, t2, is_any, t, row, found, sets, own
 
     joint = dataclasses.replace(cfg, joint_shadows=True)
@@ -1646,6 +1755,513 @@ def phase_joint(scene, cam, cfg, dev, separate) -> dict:
                                          stream_mixed=cfg.depth, stream=1,
                                          bruteforce_tri=2 * cfg.depth + 1, shade=cfg.depth)
     return res
+
+
+def variant_hooks(variant: str, calls: list | None = None):
+    """`closest_fn(o, d, scene)` and `occlude_fn(o, d, scene, t_max)` for
+    `render_sample_ids` that trace the scene's two-level cone BVH with one
+    of K3's variants ("f32", "mxu": traverse_stream(mxu=True), "bf16": the
+    BVH's pack_prim_hbm bf16 pack, made once), as a user of the API writes
+    them: the rays sorted as closest_hit / any_hit sort them, the variant on
+    the cone BVH and the scene's other pack as those functions take it (K5
+    for the hair ball's BVH-less scalp), the Hit from the port's helpers
+    (`traverse._assemble_hit` on the winners' rows) at the variant's own t
+    of its cone winner: `closest_hit` recomputes t by the f32 test, which
+    would drop a winner that only the variant's arithmetic accepts (with
+    the f32 variant the two are the same t bit for bit). Each variant call
+    appends its mode to `calls`."""
+    from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.ops.cuda import intersect as cisect, stream as cstream
+
+    packs = {}
+
+    def cone(o, d, t_max, scene, any_hit):
+        bvh = scene.cone_bvh
+        if variant == "bf16":
+            if id(bvh) not in packs:
+                packs[id(bvh)] = (bvh, cstream.pack_prim_hbm(bvh, "cone", torch.bfloat16))
+            bvh = packs[id(bvh)][1]
+        if calls is not None:
+            calls.append("any" if any_hit else "closest")
+        return cstream.traverse_stream(o, d, t_max, bvh, "cone", any_hit=any_hit,
+                                       mxu=variant == "mxu")
+
+    def closest_fn(o, d, scene):
+        from ba_pathtracing_fur_torch.ops import intersect as isect
+
+        r, inf = o.shape[0], traverse.INF
+        t_max = traverse._t_max_of(inf, r, o)
+        o_s, d_s = o.detach(), d.detach()
+        sort = traverse._sorted_rays(o_s, d_s, t_max, scene)
+        t, row, found = cone(*(sort[:3] if sort is not None else (o_s, d_s, t_max)), scene,
+                             False)
+        if sort is not None:
+            t, row, found = t[sort[3]], row[sort[3]], found[sort[3]]
+        row = torch.clamp(row, min=0)
+        t_cone = torch.where(found, t, inf)
+        cone_rc = traverse.take_cone_rows(scene.cone_bvh.aos_rows, row)
+        t_tri = torch.full((r,), inf, device=o.device)
+        tri_row = torch.zeros((r,), dtype=torch.int32, device=o.device)
+        tri_rp = None
+        if scene.tris.count:
+            if scene.tri_bvh is not None:
+                tri_row, tri_found = traverse._traverse_rows(o_s, d_s, t_max, scene.tri_bvh,
+                                                             "tri", 1e-4, sort)
+            elif traverse._use_brute(o, scene.tris):
+                tri_row, tri_found = traverse._brute_rows(
+                    o_s, d_s, t_max, cisect.tables_of(scene.tris, "tri"), "tri", 1e-4, sort)
+            else:
+                tri_found = None
+                t_tri, tri_row = traverse._grid_closest(o, d, scene.tris, isect.triangle_hit_grid,
+                                                        1e-4, t_max)
+            if tri_found is not None:
+                aos = (scene.tri_bvh.aos_rows if scene.tri_bvh is not None
+                       else traverse.tri_aos(scene.tris))
+                tri_rp = traverse.take_tri_rows(aos, tri_row)
+                t_tri = torch.where(tri_found, traverse._recompute_t_tri(tri_rp, o, d, 1e-4,
+                                                                         t_max), inf)
+        return traverse._assemble_hit(o, d, scene, t_tri, tri_row, t_cone, row, t_max,
+                                      tri_rp=tri_rp, cone_rc=cone_rc)
+
+    def occlude_fn(o, d, scene, t_max):
+        r = o.shape[0]
+        o, d, t_max = o.detach(), d.detach(), traverse._t_max_of(t_max, r, o).detach()
+        sort = traverse._sorted_rays(o, d, t_max, scene)
+        if sort is not None:
+            o, d, t_max, inv = sort
+        blocked = cone(o, d, t_max, scene, True)[2]
+        if scene.tri_bvh is not None:
+            blocked |= traverse._traverse(o, d, t_max, scene.tri_bvh, "tri", True, 1e-4)[2]
+        elif scene.tris.count and traverse._use_brute(o, scene.tris):
+            blocked |= traverse._brute_rows(o, d, t_max, cisect.tables_of(scene.tris, "tri"),
+                                            "tri", 1e-4)[1]
+        elif scene.tris.count:
+            from ba_pathtracing_fur_torch.ops import intersect as isect
+            blocked |= traverse._grid_any(o, d, scene.tris, isect.triangle_hit_grid, 1e-4, t_max)
+        return blocked if sort is None else blocked[inv]
+
+    return closest_fn, occlude_fn
+
+
+def hook_render(scene, cam, key, cfg, variant: str, calls: list | None = None) -> torch.Tensor:
+    """render_image's running mean over cfg.spp samples, each sample through
+    `render_sample_ids` with `variant_hooks(variant)` (neither package's
+    render_image takes the hooks) -> [H, W, 3]."""
+    from ba_pathtracing_fur_torch.models import pathtracer as pt
+    from ba_pathtracing_fur_torch.ops import tonemap
+
+    closest_fn, occlude_fn = variant_hooks(variant, calls)
+    w, h = cam.resolution
+    ids = torch.arange(w * h, device=scene.device)
+    tables = pt.BounceTables.of(scene) if cfg.fused_shading else None
+    acc = torch.zeros((w * h, 3), dtype=torch.float32, device=scene.device)
+    for i in range(cfg.spp):
+        c = pt.render_sample_ids(scene, cam, ids, key, i, cfg, tables, closest_fn=closest_fn,
+                                 occlude_fn=occlude_fn)
+        acc = acc + (c - acc) / (i + 1.0)
+    img = acc.reshape(h, w, 3)
+    return tonemap.tonemap(img) if cfg.tonemap else img
+
+
+def brute_f64(o, d, t_max, bvh):
+    """(row, found) of closest hits by the cone test in f64 over every row of
+    the (upcast) pack: the exact arithmetic's answer, which both f32 tests
+    approximate."""
+    from ba_pathtracing_fur_torch.ops import bvh as bvh_mod
+    from ba_pathtracing_fur_torch.ops.cuda import traverse as ctraverse
+
+    comp = [c.double() for c in ctraverse._rows_cm(bvh)]
+    step = max(1, (1 << 25) // comp[0].shape[1])
+    rows, founds = [], []
+    for s in range(0, o.shape[0], step):
+        t = bvh_mod._cone_core(o[s:s + step].double(), d[s:s + step].double(), comp, 1e-4,
+                               t_max[s:s + step].double())
+        row = t.argmin(-1)
+        found = t.gather(-1, row[:, None])[:, 0] < 3.4e38
+        rows.append(torch.where(found, row, -1).to(torch.int32))
+        founds.append(found)
+    return torch.cat(rows), torch.cat(founds)
+
+
+def agreement(o, d, bvh, a: tuple, b: tuple, closest) -> dict:
+    """How two results (row, found) of the same rays over one pack agree:
+    found agreement, winner-row agreement on the both-found closest rays
+    (an any hit's row is whichever accepted row came first), and over the
+    rays where they differ (`cstream.near_ties`): how many are near ties at
+    TIE_REL and how many are not even plausible at MXU_GATE_REL, the
+    largest margin, how many differing row pairs are consecutive cones of
+    one fiber (original ids one apart) and the median t gap (over |o| + |b|)
+    of the pairs both hit in f64."""
+    from ba_pathtracing_fur_torch.ops.cuda import stream as cstream
+
+    (ra, fa), (rb, fb) = a, b
+    both = fa & fb & closest
+    rb = torch.where(~closest & fa & fb, ra, rb)
+    ties = cstream.near_ties(o, d, bvh, (ra, fa), (rb, fb))
+    gate = cstream.near_ties(o, d, bvh, (ra, fa), (rb, fb), tol=MXU_GATE_REL)
+    diff = ~ties["agree"]
+    pair = diff & fa & fb
+    ids = (bvh.perm[ra[pair].long()].long() - bvh.perm[rb[pair].long()].long()).abs()
+    gaps = ties["t_gap"][pair]
+    gaps = gaps[~gaps.isnan()]
+    n_both = int(both.sum())  # no closest ray found on both sides: rows agree
+    return dict(rays=int(fa.numel()), found=float((fa == fb).double().mean()),
+                rows=float((both & (ra == rb)).sum()) / n_both if n_both else 1.0,
+                rows_compared=n_both, differ=int(diff.sum()),
+                not_ties=int((~ties["tie"]).sum()), not_plausible=int((~gate["tie"]).sum()),
+                max_margin=float(ties["margin"][diff].max()) if diff.any() else 0.0,
+                consecutive_cones=int((ids == 1).sum()), row_pairs=int(pair.sum()),
+                median_t_gap=float(gaps.median()) if gaps.numel() else 0.0)
+
+
+def drift(a: tuple, b: tuple, closest) -> dict:
+    """Found and winner-row agreement of two results (row, found) of the same
+    rays over two packs (the f32 and the bf16 one)."""
+    (ra, fa), (rb, fb) = a, b
+    both = fa & fb & closest
+    n_both = int(both.sum())
+    return dict(found=float((fa == fb).double().mean()),
+                rows=float((both & (ra == rb)).sum()) / n_both if n_both else 1.0,
+                found_f32=int(fa.sum()), found_bf16=int(fb.sum()))
+
+
+def image_diff(a: np.ndarray, b: np.ndarray) -> dict:
+    """Two renders' difference: the image gate's per-pixel numbers (mean
+    |diff|, the share of pixels off by more than IMG_FLIP, and whether
+    both are within IMG_MEAN and IMG_FLIP_FRAC), the mean |diff| of
+    IMG_TILE x IMG_TILE-pixel tile means, and the relative difference of the
+    images' means."""
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    d = np.abs(a - b)
+    mean, flips = float(d.mean()), float(np.mean(d.max(-1) > IMG_FLIP))
+    h, w = a.shape[0] // IMG_TILE * IMG_TILE, a.shape[1] // IMG_TILE * IMG_TILE
+    tiles = (a - b)[:h, :w].reshape(h // IMG_TILE, IMG_TILE, w // IMG_TILE, IMG_TILE, -1)
+    return dict(mean=mean, flips=flips, pixel_gate_held=mean < IMG_MEAN and flips <= IMG_FLIP_FRAC,
+                tile_mean=float(np.abs(tiles.mean((1, 3))).mean()),
+                image_mean_rel=float(abs(a.mean() - b.mean()) / max(abs(b.mean()), 1e-12)))
+
+
+def variant_bound(o, d, t_max, bvh, any_hit, hit, is_any, mxu) -> dict:
+    """A K3 variant's bound on one wavefront: `work_ref` (with `mxu`) on
+    VARIANT_WORK_RAYS rays spread over it (whole pairs for a mixed one) from
+    the variant's own hits, scaled; the FP32 operations over the FP32 peak
+    plus the TF32 products (3 passes) over the tensor cores' TF32 peak,
+    against the bytes (rays, boxes and tables, the entered leaves of the
+    pack, 2 bytes a value for bf16, the outputs) over the memory rate."""
+    from ba_pathtracing_fur_torch.ops.cuda import traverse as ctraverse
+
+    r, dev = o.shape[0], o.device
+    sub = spread(r, VARIANT_WORK_RAYS, dev)
+    if is_any is not None:
+        sub = (2 * spread(r // 2, VARIANT_WORK_RAYS // 2, dev)[:, None]
+               + torch.arange(2, device=dev)).reshape(-1)
+    w = ctraverse.work_ref(o[sub], d[sub], t_max[sub], bvh, "cone", any_hit=any_hit,
+                           hit=tuple(x[sub] for x in hit),
+                           is_any=None if is_any is None else is_any[sub], mxu=mxu)
+    scale = r / sub.numel()
+    n_bytes = nbytes(o, d, t_max, bvh.bmin, bvh.bmax, bvh.sboxes, bvh.cboxes) \
+        + w["leaf_bytes"] + r * 9 + (0 if is_any is None else nbytes(is_any))
+    t_ops = (w["flops"] / PEAK_FP32_FLOPS + w["tf32_flops"] / PEAK_TF32_FLOPS) * scale * 1e3
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes
+                else "bytes", flops=w["flops"] * scale, tf32_flops=w["tf32_flops"] * scale,
+                bytes=n_bytes, row_tests_per_ray=w["leaf_row_tests"] / sub.numel())
+
+
+def hold_variant(wf: tuple, bvh, mxu: bool, ref, what: str) -> dict:
+    """One K3 variant (`mxu`, on `bvh`'s f32 or bf16 pack) on one sorted
+    wavefront wf = (o, d, t_max, is_any, any_hit): against its plain version
+    on VARIANT_PLAIN_RAYS rays spread over it (bf16: found, t and closest
+    rows bit for bit; mxu: the row gate) and against `ref` = (t, row, found),
+    the f32 test's kernel on the same pack, on every ray (mxu: the row gate);
+    timed (median of TIMED_REPS) and bounded."""
+    from ba_pathtracing_fur_torch.ops.cuda import stream as cstream
+
+    o, d, t_max, is_any, any_hit = wf
+    r, dev = o.shape[0], o.device
+    kw = dict(any_hit=any_hit, is_any=is_any, mxu=mxu)
+    t, row, found = cstream.traverse_stream(o, d, t_max, bvh, "cone", **kw)
+    closest = torch.full((r,), not any_hit, device=dev) if is_any is None else ~is_any
+    sub = spread(r, VARIANT_PLAIN_RAYS, dev)
+    if is_any is not None:
+        sub = (2 * spread(r // 2, VARIANT_PLAIN_RAYS // 2, dev)[:, None]
+               + torch.arange(2, device=dev)).reshape(-1)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    t0, r0, f0 = cstream.traverse_stream_ref(o[sub], d[sub], t_max[sub], bvh, "cone",
+                                             any_hit=any_hit,
+                                             is_any=None if is_any is None else is_any[sub],
+                                             mxu=mxu)
+    e1.record()
+    torch.cuda.synchronize()
+    res = dict(rays=r, found=int(found.sum()), plain_ms=e0.elapsed_time(e1),
+               plain_rays=int(sub.numel()))
+    same = f0 & found[sub] & ((r0 == row[sub]) | ~closest[sub])
+    res["max_abs_err"] = float((t0 - t[sub])[same].abs().max()) if same.any() else 0.0
+    if not mxu:
+        res["vs_plain"] = dict(found=int((f0 != found[sub]).sum()),
+                               t=int((t0 != t[sub]).sum()),
+                               rows=int(((r0 != row[sub]) & closest[sub]).sum()))
+        if any(res["vs_plain"].values()):
+            raise AssertionError(f"{what}: the bf16 kernel disagrees with its plain version: "
+                                 f"{res['vs_plain']}")
+    else:
+        res["vs_plain"] = agreement(o[sub], d[sub], bvh, (r0, f0), (row[sub], found[sub]),
+                                    closest[sub])
+        res["vs_f32_test"] = agreement(o, d, bvh, (ref[1], ref[2]), (row, found), closest)
+        for k in ("vs_plain", "vs_f32_test"):
+            a = res[k]
+            a["found_min_held"] = a["found"] >= MXU_FOUND_MIN
+            a["rows_min_held"] = a["rows"] >= MXU_ROWS_MIN
+            if a["not_plausible"] or a["found"] < MXU_FOUND_FLOOR:
+                raise AssertionError(f"{what}: the mxu kernel differs {k} by more than near "
+                                     f"ties: {a}")
+    res["ms"] = timed_median(lambda: cstream.traverse_stream(o, d, t_max, bvh, "cone", **kw))
+    res["bound"] = variant_bound(o, d, t_max, bvh, any_hit, (t, row, found), is_any, mxu)
+    res["result"] = (t, row, found)
+    log(f"{what}: {r} rays, found {res['found']}; vs plain on {res['plain_rays']} rays "
+        f"({res['plain_ms']:.1f} ms): {res['vs_plain']}"
+        + (f"; vs the f32 test on every ray: {res['vs_f32_test']}" if mxu else "")
+        + f"; {res['ms']:.4f} ms, bound {res['bound']['bound_ms']:.4f} ms by "
+        f"{res['bound']['bound_by']} ({res['bound']['row_tests_per_ray']:.1f} row tests a ray)")
+    return res
+
+
+def phase_stream_tri(dev) -> dict:
+    """K3's triangle instances, f32 and bf16 (closest and any hit): config
+    3's terrain on a two-level median BVH (fanout 64), its camera wavefront
+    and shadow rays, entry-morton sorted: each against its plain version
+    (found, t and closest rows bit for bit on TWIN_RAYS rays spread over
+    it), timed and bounded, the bf16 drift against f32 reported."""
+    from ba_pathtracing_fur_torch.models import pathtracer as pt
+    from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.ops.cuda import stream as cstream, traverse as ctraverse
+    from ba_pathtracing_fur_torch.scene import builtins
+
+    c = TRI_STREAM
+    scene, cam = builtins.tri_terrain(resolution=c["res"], n_tris=c["n_tris"], device=dev)
+    scene = traverse.attach_bvh(scene, method="median", fanout=c["fanout"])
+    b = scene.tri_bvh
+    if not 0 < b.fanout < b.n_leaves:
+        raise AssertionError(f"terrain: not a two-level BVH: {b.n_leaves} leaves, fanout "
+                             f"{b.fanout}")
+    t0 = time.perf_counter()
+    b16 = cstream.pack_prim_hbm(b, "tri", torch.bfloat16)
+    torch.cuda.synchronize()
+    out = dict(bvh=(b.n_leaves, b.leaf_size, b.fanout), triangles=scene.tris.count,
+               pack_s=time.perf_counter() - t0)
+    cfg = pt.RenderConfig(depth=4, spp=1, compact=False, fused_shading=True)
+    waves = camera_and_shadow_rays(scene, cam, cfg, dev)
+    for name, (o, d, t_max), any_hit in (("camera", waves[0], False),
+                                         ("shadow", waves[1], True)):
+        o, d, t_max, _ = sorted_rays(o, d, t_max, b)
+        sub = spread(o.shape[0], TWIN_RAYS, dev)
+        res = {}
+        for pack, bvh in (("f32", b), ("bf16", b16)):
+            run = lambda: cstream.traverse_stream(o, d, t_max, bvh, "tri", any_hit=any_hit)  # noqa
+            t, row, found = run()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            tp, rp, fp = cstream.traverse_stream_ref(o[sub], d[sub], t_max[sub], bvh, "tri",
+                                                     any_hit=any_hit)
+            e1.record()
+            torch.cuda.synchronize()
+            bad = dict(found=int((fp != found[sub]).sum()), t=int((tp != t[sub]).sum()),
+                       rows=0 if any_hit else int((rp != row[sub]).sum()))
+            if any(bad.values()):
+                raise AssertionError(f"traverse_stream tri {pack} {name}: kernel disagrees "
+                                     f"with plain: {bad}")
+            ws = spread(o.shape[0], min(WORK_RAYS, o.shape[0]), dev)
+            w = ctraverse.work_ref(o[ws], d[ws], t_max[ws], bvh, "tri", any_hit=any_hit,
+                                   hit=(t[ws], row[ws], found[ws]))
+            n_bytes = nbytes(o, d, t_max, bvh.bmin, bvh.bmax, bvh.sboxes, bvh.cboxes) \
+                + w["leaf_bytes"] + o.shape[0] * 9
+            res[pack] = dict(found=int(found.sum()), vs_plain=bad, plain_ms=e0.elapsed_time(e1),
+                             max_abs_err=float((tp - t[sub]).abs().max()),
+                             ms=timed_median(run),
+                             bound=bound(w["flops"] * o.shape[0] / ws.numel(), n_bytes),
+                             hit=(row, found))
+        closest = torch.full((o.shape[0],), not any_hit, device=dev)
+        res["drift"] = drift(res["f32"].pop("hit"), res["bf16"].pop("hit"), closest)
+        log(f"traverse_stream tri, terrain {name} ({o.shape[0]} rays, {b.n_leaves} leaves x "
+            f"{b.leaf_size}, fanout {b.fanout}; plain on {TWIN_RAYS}): "
+            + "; ".join(f"{p} found {r['found']}, vs plain {r['vs_plain']}, {r['ms']:.4f} ms "
+                        f"(plain {r['plain_ms']:.1f} ms), bound {r['bound']['bound_ms']:.4f} "
+                        f"ms by {r['bound']['bound_by']}" for p, r in res.items()
+                        if p != "drift")
+            + f"; bf16 against f32: {res['drift']}")
+        out[name] = res
+    return out
+
+
+def phase_stream_variants(scene, cam, cfg, dev, hb, joint, separate, card) -> dict:
+    """K3's last two variants on config 5: the mxu test (f32 and bf16 packs)
+    and the bf16 pack (f32 test), each in closest, any and mixed mode, on
+    the sorted wavefronts of `phase_hairball_kernels` (`hb`: the camera and
+    bounce-1 wavefronts, the bounce-0 shadow rays) and the bounce-1 pairs
+    of `phase_joint` (`joint`), by `hold_variant`; the f32 test and the
+    mxu test against an f64 brute force on the plain rays of the closest
+    wavefronts; the bf16 drift against the f32 test; the triangle instances
+    on the terrain (`phase_stream_tri`). Then config 5 rendered through
+    `render_sample_ids`' hooks (`hook_render`; with the f32 test bit for
+    bit `separate`, the render_image image) with the mxu test and with the
+    bf16 pack: each variant's launches (a closest and a shadow launch a
+    bounce, no plain call), its image's difference from `separate`
+    (`image_diff`, reported), rays/s beside the f32 render (median of
+    TIMED_REPS, in turns) and a traced sample of each. The phase's seconds
+    against VARIANT_BUDGET_S."""
+    from ba_pathtracing_fur_torch.core import rng
+    from ba_pathtracing_fur_torch.ops.cuda import stream as cstream
+
+    start = time.perf_counter()
+    bvh = scene.cone_bvh
+    t0 = time.perf_counter()
+    b16 = cstream.pack_prim_hbm(bvh, "cone", torch.bfloat16)
+    torch.cuda.synchronize()
+    out = dict(pack_s=time.perf_counter() - t0, pack_bytes=nbytes(b16.packed),
+               f32_pack_bytes=nbytes(bvh.packed))
+    log(f"config5 bf16 pack: {out['pack_bytes']:.4e} bytes (f32 {out['f32_pack_bytes']:.4e}), "
+        f"made with its refitted boxes in {out['pack_s']:.3f} s")
+    o2, d2, t2, is_any, mixed = joint.pop("pairs")
+    waves = {"camera": ((*hb[0]["sorted"]["closest"], None, False), hb[0]["closest"]),
+             "bounce1": ((*hb[1]["sorted"]["closest"], None, False), hb[1]["closest"]),
+             "shadow": ((*hb[0]["sorted"]["shadow"], None, True), hb[0]["shadow"]),
+             "pairs": ((o2, d2, t2, is_any, False),
+                       dict(t=mixed[0], row=mixed[1], found=mixed[2]))}
+    for x in (0, 1):
+        hb[x].pop("sorted")
+    for name, (wf, f32) in waves.items():
+        o, d, t_max, flags, any_hit = wf
+        ref = (f32["t"], f32["row"], f32["found"])
+        closest = torch.full((o.shape[0],), not any_hit, device=dev) if flags is None \
+            else ~flags
+        f32_ms = timed_median(lambda: cstream.traverse_stream(o, d, t_max, bvh, "cone",
+                                                              any_hit=any_hit, is_any=flags))
+        res = dict(f32_ms=f32_ms)
+        res["bf16"] = hold_variant(wf, b16, False, None, f"traverse_stream cone bf16, {name}")
+        bf = res["bf16"].pop("result")
+        res["bf16"]["drift"] = drift((ref[1], ref[2]), (bf[1], bf[2]), closest)
+        res["mxu"] = hold_variant(wf, bvh, True, ref, f"traverse_stream cone mxu, {name}")
+        res["mxu_bf16"] = hold_variant(wf, b16, True, bf, f"traverse_stream cone mxu bf16, {name}")
+        mx = res["mxu"].pop("result")
+        res["mxu_bf16"].pop("result")
+        if name in ("camera", "bounce1"):  # both f32 tests against the exact arithmetic
+            sub = spread(o.shape[0], VARIANT_PLAIN_RAYS, dev)
+            exact = brute_f64(o[sub], d[sub], t_max[sub], bvh)
+            res["vs_f64"] = {k: agreement(o[sub], d[sub], bvh, exact, (x[1][sub], x[2][sub]),
+                                          closest[sub]) for k, x in (("f32", ref), ("mxu", mx))}
+        log(f"config5 {name}, K3 variants against the f32 test ({f32_ms:.4f} ms): bf16 "
+            f"{res['bf16']['ms']:.4f} ms, drift {res['bf16']['drift']}; mxu "
+            f"{res['mxu']['ms']:.4f} ms; mxu bf16 {res['mxu_bf16']['ms']:.4f} ms"
+            + (f"; against an f64 brute force on {VARIANT_PLAIN_RAYS} rays: f32 test "
+               f"{res['vs_f64']['f32']}, mxu test {res['vs_f64']['mxu']}"
+               if "vs_f64" in res else ""))
+        out[name] = res
+    del waves, o2, d2, t2, is_any, mixed
+    out["tri"] = phase_stream_tri(dev)
+
+    key = rng.key(0, dev)
+    n = cfg.spp * cfg.depth
+    w, h = cam.resolution
+    # the hooks themselves: with the f32 test they give render_image's image
+    if not torch.equal(hook_render(scene, cam, key, cfg, "f32"), separate):
+        raise AssertionError("config5: the f32 hook render differs from render_image")
+    log("config5 f32 hook render: bit for bit render_image's image")
+    imgs = {}
+    for variant, counter in (("mxu", "stream_mxu"), ("bf16", "stream_bf16")):
+        reset_counts()
+        img = hook_render(scene, cam, key, cfg, variant)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        log(f"config5 {variant} hook render: launches {counts} (expected {counter} {2 * n} = spp "
+            f"x depth x (closest + shadow), bruteforce_tri {2 * n}, shade {n})")
+        check_counts(counts, f"config5 {variant} hook render", **{counter: 2 * n},
+                     bruteforce_tri=2 * n, shade=n)
+        imgs[variant] = check_image(img, (h, w, 3), f"config5 {variant} hook render")
+        out[f"render_{variant}"] = dict(counts=counts)
+    want = separate.cpu().numpy()
+    for variant in ("mxu", "bf16"):
+        out[f"render_{variant}"]["diff"] = image_diff(imgs[variant], want)
+        log(f"config5 {variant} hook render vs the f32 render: {out[f'render_{variant}']['diff']}")
+    rays = w * h * cfg.spp * cfg.depth
+    runs = {"f32": lambda c: render(scene, cam, key, c),
+            "mxu": lambda c: hook_render(scene, cam, key, c, "mxu"),
+            "bf16": lambda c: hook_render(scene, cam, key, c, "bf16")}
+    walls = {k: [] for k in runs}
+    for rep in range(TIMED_REPS):
+        for name in (list(runs) if rep % 2 == 0 else list(runs)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[name](cfg)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+    marks = ("stream_kernel", "brute_kernel", "shade_kernel")
+    one = dataclasses.replace(cfg, spp=1)
+    for name, fn in runs.items():
+        med = float(np.median(walls[name]))
+        prof = profile_call(lambda: (fn(one), torch.cuda.synchronize()),
+                            f"config-5 {name} hook sample" if name != "f32"
+                            else "config-5 f32 sample", marks)
+        out.setdefault(f"render_{name}", {}).update(
+            wall=med, reps=walls[name], rays_per_s=rays / med, traced_launches=prof["launches"],
+            traced_busy_ms=prof["busy"] * 1e3,
+            idle_share=max(0.0, 1 - prof["busy"] / prof["wall"]),
+            stream_ms=prof["kernel_ms"]["stream_kernel"])
+        log(f"config5 {name} render: median {med:.4f} s of {walls[name]} -> {rays / med:.4e} "
+            f"rays/s; a traced sample: {prof['launches']} launches, idle share "
+            f"{out[f'render_{name}']['idle_share']:.3f}, K3 "
+            f"{prof['kernel_ms']['stream_kernel']:.3f} ms, on {card}")
+    out["seconds"] = time.perf_counter() - start
+    log(f"phase_stream_variants: {out['seconds']:.1f} s (budget {VARIANT_BUDGET_S:.0f} s: "
+        f"{'held' if out['seconds'] <= VARIANT_BUDGET_S else 'missed'})")
+    return out
+
+
+VARIANT_WAVES = ("camera", "bounce1", "shadow", "pairs")
+
+
+def variant_entries(sv: dict, ptx: dict) -> tuple:
+    """The `kernels` line's entries of K3's two variants from
+    `phase_stream_variants`' results `sv` and the build's `ptxas_report`:
+    launches in each variant's hook render (none on the main path), its
+    numbers on the camera wavefront, every wavefront's beside the f32
+    test's, the renders and the ptxas of its instances."""
+
+    def entry(name, key, counter, ptx_keep):
+        cam_v = sv["camera"][key]
+        per = {w: dict(ms=sv[w][key]["ms"], f32_ms=sv[w]["f32_ms"],
+                       plain_ms=sv[w][key]["plain_ms"], plain_rays=sv[w][key]["plain_rays"],
+                       bound_ms=sv[w][key]["bound"]["bound_ms"],
+                       bound_by=sv[w][key]["bound"]["bound_by"],
+                       **{k: sv[w][key][k] for k in ("vs_plain", "vs_f32_test", "drift")
+                          if k in sv[w][key]}) for w in VARIANT_WAVES}
+        render = {x: {k: sv[f"render_{k}"][x] for k in ("f32", key)}
+                  for x in ("rays_per_s", "idle_share", "traced_launches", "stream_ms")}
+        render["image"] = sv[f"render_{key}"].get("gate") or sv[f"render_{key}"]["diff"]
+        return dict(name=name, route="cuda",
+                    source="ba_pathtracing_fur_torch/csrc/traverse_stream.cu",
+                    replaces="ba_pathtracing_fur_tpu/ops/pallas/stream.py:464",
+                    launches=sv[f"render_{key}"]["counts"][counter], main_path_launches=0,
+                    max_abs_err=max(sv[w][key]["max_abs_err"] for w in VARIANT_WAVES),
+                    ms=cam_v["ms"], plain_ms=cam_v["plain_ms"], plain_rays=cam_v["plain_rays"],
+                    bound_ms=cam_v["bound"]["bound_ms"], bound_by=cam_v["bound"]["bound_by"],
+                    library_ms=None, f32_ms=sv["camera"]["f32_ms"], wavefronts=per,
+                    render=render, ptxas={k: v for k, v in ptx.items() if ptx_keep(k)},
+                    phase_seconds=sv["seconds"])
+
+    mxu = entry("traverse_stream_mxu", "mxu", "stream_mxu",
+                lambda k: k.startswith("K3") and " mxu" in k)
+    mxu.update(bf16={w: dict(ms=sv[w]["mxu_bf16"]["ms"],
+                             bound_ms=sv[w]["mxu_bf16"]["bound"]["bound_ms"],
+                             vs_plain=sv[w]["mxu_bf16"]["vs_plain"],
+                             vs_bf16_f32_test=sv[w]["mxu_bf16"]["vs_f32_test"])
+                     for w in VARIANT_WAVES},
+               vs_f64={w: sv[w]["vs_f64"] for w in ("camera", "bounce1")})
+    bf16 = entry("traverse_stream_bf16", "bf16", "stream_bf16",
+                 lambda k: k.startswith("K3") and k.endswith(" bf16") and " mxu" not in k)
+    bf16.update(pack_bytes=sv["pack_bytes"], f32_pack_bytes=sv["f32_pack_bytes"],
+                pack_s=sv["pack_s"], tri=sv["tri"])
+    return mxu, bf16
 
 
 def phase_bruteforce_cone(dev) -> dict:
@@ -2887,6 +3503,15 @@ def main() -> int:
 
 def drive(dev, card: str) -> list:
     """Every phase on `dev`, in order -> the `kernels` line's entries."""
+    ptx = ptxas_report()
+    for name, v in ptx.items():
+        if name.startswith(("K2 ", "K3 ")):
+            log(f"ptxas {name}: {v}")
+    log("ptxas, the f32 test's instances (before the K3 variants: K2 56/56/59/59 registers, "
+        "K3 64, 0 spills): "
+        + ", ".join(f"{k} {v.get('registers')} regs {v.get('spill_stores')} B spilled"
+                    for k, v in ptx.items() if k.startswith(("K2 ", "K3 "))
+                    and (k.startswith("K2 ") or k.endswith(" f32") and " mxu" not in k)))
     # threefry on the card is bit-exact with the CPU
     from ba_pathtracing_fur_torch.core import rng
     ids = torch.arange(4096)
@@ -2947,7 +3572,8 @@ def drive(dev, card: str) -> list:
     compaction["config5"] = phase_compaction(scene5, cam5, cfg5, "config5",
                                              stream=2 * cfg5.depth, bruteforce_tri=2 * cfg5.depth,
                                              shade=cfg5.depth)
-    joint = phase_joint(scene5, cam5, cfg5, dev, hb_main.pop("img"))
+    img5 = hb_main.pop("img")
+    joint = phase_joint(scene5, cam5, cfg5, dev, img5)
     jr, sr = joint["joint"], joint["separate"]
     log(f"config5 joint vs separate on {card}: {jr['rays_per_s']:.4e} vs "
         f"{sr['rays_per_s']:.4e} rays/s; traced sample: launches {jr['profile']['launches']} "
@@ -2958,6 +3584,8 @@ def drive(dev, card: str) -> list:
         f"{joint['times']['mixed_ms']:.4f} ms vs closest + any "
         f"{joint['times']['closest_ms'] + joint['times']['any_ms']:.4f} ms, bound "
         f"{joint['bound']['bound_ms']:.4f} ms")
+    sv = phase_stream_variants(scene5, cam5, cfg5, dev, hb, joint, img5, card)
+    del img5
     w5 = phase_whitted("hair_ball", scene5, cam5, card, ("stream", "bruteforce_tri"),
                        lobes=("all",))
     del scene5
@@ -3019,6 +3647,7 @@ def drive(dev, card: str) -> list:
             | {"train": para["train"]["counts"][count]}
 
     cf = cli["fused"]
+    mxu_entry, bf16_entry = variant_entries(sv, ptx)
     t0, s0 = fur[0]["times"], fur[0]["shade"]
     b0 = fur[0]["closest_bound"]
     h0, k5t, k4b = hb[0], hb["k5_tri_0"], k4["config0_b0"]
@@ -3126,7 +3755,9 @@ def drive(dev, card: str) -> list:
              whitted_launches=w5["all"]["counts"]["stream"],
              whitted_traffic_ms={n: x["ms"] for n, x in w5["all"]["held"].items()},
              cli=cli_kernel("traverse_stream_cone"),
-             joint_launches=joint["counts"]["stream"]),
+             joint_launches=joint["counts"]["stream"],
+             ptxas={k: v for k, v in ptx.items() if k.startswith("K3") and k.endswith(" f32")
+                    and " mxu" not in k}),
         dict(name="traverse_stream_mixed", route="cuda",
              source="ba_pathtracing_fur_torch/csrc/traverse_stream.cu",
              replaces="ba_pathtracing_fur_tpu/ops/pallas/stream.py:464",
@@ -3143,6 +3774,8 @@ def drive(dev, card: str) -> list:
                              idle_share=max(0.0, 1 - joint[k]["profile"]["busy"]
                                             / joint[k]["profile"]["wall"]))
                      for k in ("joint", "separate")}),
+        mxu_entry,
+        bf16_entry,
         dict(name="bruteforce_tri", route="cuda",
              source="ba_pathtracing_fur_torch/csrc/bruteforce.cu",
              replaces="ba_pathtracing_fur_tpu/ops/pallas/intersect.py:220",

@@ -489,6 +489,112 @@ def test_stream_kernel_mixed_mode_on_the_card(kind):
     assert not found[(t2 == 0.0)].any() and (t[1::2][found[1::2]] == 0.0).all()
 
 
+def _variant_case(kind, mode, dev, leaf=16):
+    """(bvh, o, d, t_max, is_any) on `dev` for K3's variants: the small hair
+    ball's cones (leaf 24, fanout 16) or a soup of 20,000 triangles (leaf
+    `leaf`, fanout 8), 4,096 rays from a seed; a shadow ray traces to 1.0,
+    a closest one to 3.4e38, every 9th ray is dead; `mixed` makes every
+    other ray a shadow ray."""
+    import dataclasses
+
+    from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.scene import types
+
+    g = torch.Generator().manual_seed(12)
+    if kind == "cone":
+        scene, _ = builtins.hair_ball(resolution=(4, 4), n_fibers=3000, on_device=True,
+                                      device=dev)
+        bvh = traverse.attach_bvh(scene, leaf_size=24, fanout=16).cone_bvh
+        o = (torch.rand((4096, 3), generator=g) * 3 - 1.5).to(dev)
+    else:
+        v = torch.rand((20000, 3, 3), generator=g) * 2 - 1
+        v[:, 1:] = v[:, :1] + 0.05 * v[:, 1:]
+        soup = types.make_triangle_pack(v[:, 0].numpy(), v[:, 1].numpy(), v[:, 2].numpy())
+        scene, _ = builtins.cornell_box(resolution=(4, 4), device="cpu")
+        scene = types.to_device(dataclasses.replace(scene, tris=soup), dev)
+        bvh = traverse.attach_bvh(scene, leaf_size=leaf, fanout=8, min_prims=1).tri_bvh
+        o = (torch.rand((4096, 3), generator=g) * 4 - 2).to(dev)
+    assert 0 < bvh.fanout < bvh.n_leaves and bvh.leaf_size == (24 if kind == "cone" else leaf)
+    d = torch.nn.functional.normalize(torch.randn((4096, 3), generator=g), dim=-1).to(dev)
+    n = torch.arange(4096, device=dev)
+    shadow = (n % 2 == 1) if mode == "mixed" else torch.full_like(n, mode == "any", dtype=bool)
+    t_max = torch.where(n % 9 == 0, 0.0, torch.where(shadow, 1.0, 3.4e38))
+    return bvh, o, d, t_max, shadow if mode == "mixed" else None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,leaf", [("cone", 24), ("tri", 16), ("tri", 14), ("tri", 13)])
+@pytest.mark.parametrize("mode", ["closest", "any", "mixed"])
+def test_stream_kernel_bf16_matches_plain_on_the_card(kind, leaf, mode):
+    """K3's bf16 instances (`pack_prim_hbm(bvh, kind, torch.bfloat16)`)
+    against their plain version, the brute force over the upcast pack:
+    found and t bit for bit, rows on closest-hit rays; the leaf copies of 16
+    bytes (cones, triangle leaf 16), 4 bytes (leaf 14) and plain loads (leaf
+    13: an odd W*K); counted in BF16_LAUNCHES alone."""
+    from ba_pathtracing_fur_torch.ops.cuda import stream as cstream
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card with -m cuda)")
+    dev = torch.device("cuda")
+    bvh, o, d, t_max, is_any = _variant_case(kind, mode, dev, leaf)
+    b16 = cstream.pack_prim_hbm(bvh, kind, torch.bfloat16)
+    counts = (cstream.KERNEL_LAUNCHES, cstream.MIXED_LAUNCHES, cstream.MXU_LAUNCHES,
+              cstream.BF16_LAUNCHES)
+    t1, r1, f1 = cstream.traverse_stream(o, d, t_max, b16, kind, any_hit=mode == "any",
+                                         is_any=is_any)
+    assert (cstream.KERNEL_LAUNCHES, cstream.MIXED_LAUNCHES, cstream.MXU_LAUNCHES,
+            cstream.BF16_LAUNCHES) == counts[:3] + (counts[3] + 1,)
+    t0, r0, f0 = cstream.traverse_stream_ref(o, d, t_max, b16, kind, any_hit=mode == "any",
+                                             is_any=is_any)
+    torch.cuda.synchronize()
+    assert torch.equal(f0, f1) and torch.equal(t0, t1) and f0.any() and not f0.all()
+    closest = torch.full_like(f0, mode == "closest") if is_any is None else ~is_any
+    assert torch.equal(r0[closest], r1[closest])
+    assert not f1[t_max == 0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pack", ["f32", "bf16"])
+@pytest.mark.parametrize("mode", ["closest", "any", "mixed"])
+def test_stream_kernel_mxu_on_the_card(pack, mode):
+    """K3's tensor-core instances (`mxu=True`, f32 or bf16 pack) against
+    their plain version (`brute_force(mxu=True)`: the same formula with f32
+    matrix products) and against the f32 test's kernel on the same pack: the
+    same found on >= 99% of rays and rows on >= 98% of the both-found
+    closest rays, every ray where they differ a near tie
+    (`cstream.near_ties`); counted in MXU_LAUNCHES (and BF16_LAUNCHES on a
+    bf16 pack). Triangle leaves take the f32 test and its count."""
+    from ba_pathtracing_fur_torch.ops.cuda import stream as cstream
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card with -m cuda)")
+    dev = torch.device("cuda")
+    bvh, o, d, t_max, is_any = _variant_case("cone", mode, dev)
+    if pack == "bf16":
+        bvh = cstream.pack_prim_hbm(bvh, "cone", torch.bfloat16)
+    kw = dict(any_hit=mode == "any", is_any=is_any)
+    mxu, bf = cstream.MXU_LAUNCHES, cstream.BF16_LAUNCHES
+    t1, r1, f1 = cstream.traverse_stream(o, d, t_max, bvh, "cone", mxu=True, **kw)
+    assert (cstream.MXU_LAUNCHES, cstream.BF16_LAUNCHES) == (mxu + 1, bf + (pack == "bf16"))
+    closest = torch.full_like(f1, mode == "closest") if is_any is None else ~is_any
+    for t0, r0, f0 in (cstream.traverse_stream_ref(o, d, t_max, bvh, "cone", mxu=True, **kw),
+                       cstream.traverse_stream(o, d, t_max, bvh, "cone", **kw)):
+        torch.cuda.synchronize()
+        both = f0 & f1 & closest
+        assert (f0 == f1).double().mean() >= 0.99 and f0.any() and not f0.all()
+        assert not both.any() or (r0 == r1)[both].double().mean() >= 0.98
+        r1c = torch.where(~closest & f0 & f1, r0, r1)  # an any hit's row is any accepted row
+        assert cstream.near_ties(o, d, bvh, (r0, f0), (r1c, f1))["tie"].all()  # TIE_REL
+    assert not f1[t_max == 0].any() and (t1[f1 & ~closest] == 0).all()
+    tri, _, _, tri_t, _ = _variant_case("tri", "closest", dev)
+    launches = cstream.KERNEL_LAUNCHES
+    got = cstream.traverse_stream(o, d, tri_t, tri, "tri", mxu=True)
+    want = cstream.traverse_stream(o, d, tri_t, tri, "tri")
+    assert cstream.KERNEL_LAUNCHES == launches + 2 and cstream.MXU_LAUNCHES == mxu + 1
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
 def _tile_case(case, dev):
     """(bvh, kind, o, d, t_max) on `dev` for one edge case of the leaf-tile
     kernels; the BVH is two-level except for `tri_leaf_13`."""
