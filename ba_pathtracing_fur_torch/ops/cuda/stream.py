@@ -73,11 +73,6 @@ PACK_DTYPES = (torch.float32, torch.bfloat16)
 #: outward padding of a bf16 row's box, absolute and relative (its box is
 #: computed in f64 and the row is tested in f32; cone_aabbs pads 1e-6)
 ROW_BOX_PAD = 1e-6
-#: `near_ties`' bound on a decision's distance from flipping, in units of
-#: its f32 error scale (`cone_margins`): each of the test's ~10 steps
-#: rounds at 6e-8, so a decision of either f32 evaluation moves by ~1e-6 of
-#: its scale at most; TIE_REL leaves a factor 10.
-TIE_REL = 1e-5
 
 
 def pack_super_boxes(bvh: bvh_mod.BVH) -> torch.Tensor:
@@ -131,6 +126,25 @@ def _row_boxes(rows: torch.Tensor, kind: str):
     return lo32, hi32
 
 
+def _round_aos(aos: torch.Tensor, packed: torch.Tensor, kind: str) -> torch.Tensor:
+    """`ops/traverse.cone_aos` / `tri_aos` rows [N, *] with their geometry
+    taken from the rounded pack [C, W, K] (upcast; row = cluster * K +
+    within): a cone's 16 test fields and its base_d = base . v of the
+    rounded base and axis (what the normal subtracts), a triangle's v0 and
+    v1 = v0 + e1, v2 = v0 + e2. Shading fields (normals, uvs, height,
+    material) stay."""
+    c, w, k = packed.shape
+    g = packed.float().permute(0, 2, 1).reshape(c * k, w)[:aos.shape[0]]
+    out = aos.clone()
+    if kind == "cone":
+        out[:, :16] = g
+        out[:, 16] = (g[:, 0:3] * g[:, 6:9]).sum(-1)
+    else:
+        out[:, 0:3], out[:, 3:6], out[:, 6:9] = g[:, 0:3], g[:, 0:3] + g[:, 3:6], \
+            g[:, 0:3] + g[:, 6:9]
+    return out
+
+
 def pack_prim_hbm(bvh: bvh_mod.BVH, kind: str, dtype=torch.float32) -> bvh_mod.BVH:
     """The BVH with its [C, W, K] leaf pack in `dtype` (the counterpart of
     the JAX package's `pack_prim_hbm`, without its 128-lane K padding: the
@@ -141,7 +155,10 @@ def pack_prim_hbm(bvh: bvh_mod.BVH, kind: str, dtype=torch.float32) -> bvh_mod.B
     rounded rows: the pack comes with unit boxes (`uboxes`) recomputed from
     the rounded rows' boxes (`_row_boxes`), the heap's boxes refitted from
     them bottom-up and the super and child tables from those, each the
-    union with the f32 box it replaces."""
+    union with the f32 box it replaces. Its winner-row table (`aos_rows`,
+    from which a Hit is built) holds the rounded geometry too (`_round_aos`),
+    so a hit's point, normal and frame lie on the cone or triangle that the
+    kernel tested."""
     if kind not in ctraverse.KINDS:
         raise ValueError(f"pack_prim_hbm: kind must be one of {sorted(ctraverse.KINDS)}, "
                          f"got {kind!r}")
@@ -166,108 +183,13 @@ def pack_prim_hbm(bvh: bvh_mod.BVH, kind: str, dtype=torch.float32) -> bvh_mod.B
                                                                bmin[2 * nodes + 2]))
         bmax[nodes] = torch.maximum(bmax[nodes], torch.maximum(bmax[2 * nodes + 1],
                                                                bmax[2 * nodes + 2]))
-    out = dataclasses.replace(bvh, packed=packed, bmin=bmin, bmax=bmax, uboxes=uboxes)
+    aos = None if bvh.aos_rows is None else _round_aos(bvh.aos_rows, packed, kind)
+    out = dataclasses.replace(bvh, packed=packed, bmin=bmin, bmax=bmax, uboxes=uboxes,
+                              aos_rows=aos)
     if 0 < bvh.fanout < bvh.n_leaves:
         out = dataclasses.replace(out, sboxes=pack_super_boxes(out),
                                   cboxes=pack_child_boxes(out))
     return out
-
-
-def cone_margins(o, d, g, t_min: float = 1e-4) -> dict:
-    """How near the f32 cone test's decisions are to flipping, for rays o, d
-    [N, 3] each against one row g [N, 16], evaluated in f64, each as its
-    distance over the size of its f32 error, so that two f32 evaluations of
-    the test can disagree on a decision only where its margin is a few
-    times 6e-8 (f32's unit roundoff) or less: `disc` the discriminant over
-    b^2 + |ac| + 2 |d|^2 |p| P (its terms' rounding, and p's rounding at
-    P = |o| + |b|: the mxu test's p = o.u - b.u rounds there, however near
-    the cone), `axis` each root's axis coordinate's distance to the nearer
-    end over |o.v| + |t d.v| + |d.v| P, `t_min` each root's distance to
-    1e-4 and t_min over `t_err`, the roots' error scale (|b| + |d| P +
-    that disc scale / 2 sqrt(disc)) / |a| (both inf where the f64
-    discriminant is negative: no roots to decide on), and `t` the accepted
-    root (inf where the f64 test misses). A far ray (|p| ~ 2 from fibers of
-    r ~ 0.002 at the hair ball's camera) puts every decision of the
-    quadratic within ~1e-6 of its scale; a ray from a fiber's surface loses
-    its precision to the mxu test's rounding of p."""
-    o, d = o.double(), d.double()
-    b, u, v, w = g[:, 0:3], g[:, 3:6], g[:, 6:9], g[:, 9:12]
-    slope, r_base, min_d, max_d = g[:, 12], g[:, 13], g[:, 14], g[:, 15]
-    r = o - b
-    px, py, pz = (r * u).sum(-1), (r * v).sum(-1), (r * w).sum(-1)
-    dx, dy, dz = (d * u).sum(-1), (d * v).sum(-1), (d * w).sum(-1)
-    a = dx * dx + dz * dz - slope * slope * dy * dy
-    bq = px * dx + pz * dz + r_base * slope * dy - slope * slope * py * dy
-    c_lin = r_base - slope * py
-    c = px * px + pz * pz - c_lin * c_lin
-    disc = bq * bq - a * c
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
-    a_safe = torch.where(a.abs() < 1e-12, 1e-12, a)
-    ra, rb = (-bq - sq) / a_safe, (-bq + sq) / a_safe
-    roots = torch.stack([torch.minimum(ra, rb), torch.maximum(ra, rb)])
-    ov = (o * v).sum(-1)
-    ax = ov + roots * dy
-    ok = (disc >= 0.0) & (roots >= 1e-4) & (roots > t_min) & (ax >= min_d) & (ax <= max_d)
-    t = torch.where(ok[0], roots[0], torch.where(ok[1], roots[1], float("inf")))
-    big_p = o.norm(dim=-1) + b.norm(dim=-1)
-    dn = d.norm(dim=-1)
-    disc_scale = bq * bq + (a * c).abs() + 2 * dn * dn * r.norm(dim=-1) * big_p
-    t_err = (bq.abs() + dn * big_p + disc_scale / (2 * sq).clamp(min=1e-300)) / a_safe.abs()
-    no_roots = (disc < 0.0)[None]  # the roots' decisions only count where there are roots
-    return dict(disc=disc.abs() / disc_scale,
-                axis=torch.where(no_roots, float("inf"),
-                                 torch.minimum((ax - min_d).abs(), (ax - max_d).abs())
-                                 / (ov.abs() + (roots * dy).abs() + dy.abs() * big_p)),
-                t_min=torch.where(no_roots, float("inf"),
-                                  torch.minimum((roots - 1e-4).abs(), (roots - t_min).abs())
-                                  / t_err),
-                t=t, t_err=t_err)
-
-
-def near_ties(o, d, bvh: bvh_mod.BVH, a: tuple, b: tuple, tol: float = TIE_REL,
-              t_min: float = 1e-4) -> dict:
-    """Do two closest-hit results a = (row, found) and b = (row, found) [R]
-    over one cone pack (rows of `bvh.packed`, upcast) differ only by near
-    ties? Each row a side found is evaluated in f64 (`cone_margins`): it is
-    marginal when a decision of its test (the discriminant, an axis end or
-    t_min) lies within `tol` of flipping, and plausible when the f64 test
-    hits it or it is marginal. A ray where one side found nothing is a near
-    tie when the other side's row is marginal; a ray where the two found
-    different rows is one when both rows are plausible and one of them is
-    marginal or the two lie within `tol` of each other in t (over the sum of
-    their `t_err`). Returns `agree` [R] (the same found and, where found,
-    the same row), `tie` [R] (agreeing or a near tie), `margin` [R] (the smallest
-    relative distance of the ray's rows' decisions; 0 where they agree) and
-    `t_gap` [R] (|t_a - t_b| over the sum of their t_err, in f64, where both
-    sides found a row the f64 test hits, else nan)."""
-    (row_a, found_a), (row_b, found_b) = a, b
-    agree = (found_a == found_b) & (~found_a | (row_a == row_b))
-    margin = torch.zeros(agree.shape, dtype=torch.float64, device=agree.device)
-    t_gap = torch.full(agree.shape, float("nan"), dtype=torch.float64, device=agree.device)
-    tie = agree.clone()
-    idx = (~agree).nonzero()[:, 0]
-    if idx.numel():
-        flat = torch.stack(ctraverse._rows_cm(bvh))[:, 0].double()  # [W, C*K]
-        marg, hit, ts, errs = [], [], [], []
-        for row in (row_a[idx], row_b[idx]):
-            m = cone_margins(o[idx], d[idx], flat[:, row.long().clamp(min=0)].T, t_min)
-            marg.append(torch.minimum(m["disc"], torch.minimum(m["axis"].amin(0),
-                                                               m["t_min"].amin(0))))
-            hit.append(torch.isfinite(m["t"]))
-            ts.append(m["t"])
-            errs.append(m["t_err"])
-        fa, fb = found_a[idx], found_b[idx]
-        marginal = [x <= tol for x in marg]
-        plausible = [h | mg for h, mg in zip(hit, marginal)]
-        gap = (ts[0] - ts[1]).abs() / (errs[0] + errs[1])
-        t_tie = gap <= tol
-        t_gap[idx] = torch.where(torch.isfinite(gap), gap, float("nan"))
-        tie[idx] = torch.where(fa & fb, plausible[0] & plausible[1]
-                               & (marginal[0] | marginal[1] | t_tie),
-                               torch.where(fa, marginal[0], marginal[1]))
-        inf = torch.full_like(marg[0], float("inf"))
-        margin[idx] = torch.minimum(torch.where(fa, marg[0], inf), torch.where(fb, marg[1], inf))
-    return dict(agree=agree, tie=tie, margin=margin, t_gap=t_gap)
 
 
 def _flags(is_any, r: int) -> torch.Tensor:

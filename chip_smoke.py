@@ -265,34 +265,48 @@ PEAK_TF32_FLOPS = 495e12
 # on config 5's sorted wavefronts: their plain versions on VARIANT_PLAIN_RAYS
 # rays spread over each (whole pairs on the mixed one), the f64 brute force on
 # the same rays of the closest-hit wavefronts, their bounds from work_ref on
-# VARIANT_WORK_RAYS rays, scaled; the phase's budget VARIANT_BUDGET_S. The mxu
-# test's row gate: every ray where it differs from its plain version or from
-# the f32 test is a near tie (`cstream.near_ties`, a decision within
-# cstream.TIE_REL of flipping in f64); its found and winner-row agreement are
-# reported against MXU_FOUND_MIN and MXU_ROWS_MIN.
+# VARIANT_WORK_RAYS rays, scaled; the phase's budget VARIANT_BUDGET_S.
 VARIANT_PLAIN_RAYS, VARIANT_WORK_RAYS, VARIANT_BUDGET_S = 512, 16_384, 90.0
-MXU_FOUND_MIN, MXU_ROWS_MIN = 0.999, 0.99
-# The gate itself: every differing ray's rows plausible at MXU_GATE_REL
-# (`near_ties` at 10 x TIE_REL: a row the f64 test does not hit, or whose
-# decisions are not within 1e-4 of flipping, fails it; a wrong projection
-# gives rows ~1e-2-1 away), and the near ties at TIE_REL counted.
-MXU_GATE_REL = 1e-4
-# The variants' renders against the f32 render are reported, not gated
-# (`image_diff`: the image gate per pixel, IMG_TILE x IMG_TILE-pixel tile
-# means, the images' means): from the hair ball's camera the f32 quadratic
-# of a thin fiber rounds t by up to ~1e-3 (a fifth of a fiber's radius) in
-# either test, so the two place a hit, and its normal, apart, and pick
-# another fiber on ~5% of camera rays, each about as often against an f64
-# brute force; the kernels are held ray by ray above (`hold_variant`).
+# The mxu test's row gate (`mxu_gate`), against the f32 test's kernel on
+# every ray and against its plain version on the plain rays: found agreement
+# at least MXU_FOUND_FLOOR, winner-row agreement on the both-found closest
+# rays at least MXU_ROWS_FLOOR of the wavefront, and every ray where they
+# differ a near tie (`near_ties` at TIE_REL). The floors lie under what this
+# script read on an NVIDIA H100 80GB HBM3 at 700 W: found 0.99974-1.0; rows
+# 0.9499-0.9501 against the f32 test on the camera wavefront (a far ray's
+# quadratic rounds t by up to ~1e-3, a fifth of a fiber's radius: the f32
+# test itself picks the f64 brute force's row on 0.960 of them, and its FMA
+# build the f32 test's on 0.9484), 0.99991 on bounce 1 and the pairs.
+# Shadow rays have no closest rows.
+MXU_FOUND_FLOOR = 0.999
+MXU_ROWS_FLOOR = {"camera": 0.94, "bounce1": 0.999, "shadow": 0.999, "pairs": 0.999}
+# `near_ties`' bound on a decision's distance from flipping, in units of its
+# f32 error scale (`cone_margins`): each of the test's ~10 steps rounds at
+# 6e-8, so a decision of either f32 evaluation moves by ~1e-6 of its scale
+# at most; TIE_REL leaves a factor 10.
+TIE_REL = 1e-5
+# Wrong kernels that the row gate must fail (`hold_k3_controls`, on the
+# camera and bounce-1 wavefronts): copies of K3's source mutated as
+# (file, lines, replacement), built beside the port's build. "tf32" drops
+# the lo passes of mma_3xtf32, leaving one TF32 pass (10 mantissa bits);
+# "row" takes a quad neighbour's row off by one in the (t, row) shuffle (the
+# other row of its pair: within the leaf, so every row index stays valid).
+MXU_MUTANTS = {
+    "tf32": ("leaf_tiles.cuh", "  mma_tf32(c, al, bh0, bh1);\n"
+             "  if constexpr (!kExactB) mma_tf32(c, ah, bl0, bl1);\n", ""),
+    "row": ("leaf_tiles.cuh", "                  brow[m] = orow;\n",
+            "                  brow[m] = orow ^ 1;\n"),
+}
+# The image gate's control: the f32 test rounded another way (K3 built with
+# FMA contraction, without the -fmad=false of kernels.SOURCE_FLAGS),
+# rendered through the same hooks. The mxu render's difference from the f32
+# render, per pixel (`image_diff`: mean |diff| and the share of pixels off by
+# more than IMG_FLIP), is held to IMG_CONTROL_RATIO times the control's, and
+# the MXU_MUTANTS rendered through the mxu hooks must fail that limit; the
+# image gate of the plain-version checks (IMG_MEAN, IMG_FLIP_FRAC) is
+# reported beside it. IMG_TILE: the tile of `image_diff`'s tile means.
+IMG_CONTROL_RATIO = 1.5
 IMG_TILE = 32
-# ... and the found agreement below which the mxu test fails outright (a
-# wrong projection misses rays the other test hits: far below it; two f32
-# roundings of the thin-fiber quadratic disagree on ~0.5% of camera rays,
-# each about as often against an f64 brute force). Rows have no floor:
-# consecutive cones of a fiber overlap at their joint, where both give the
-# same t up to rounding and any two roundings pick either; the near-tie
-# test holds each differing row.
-MXU_FOUND_FLOOR = 0.98
 # K3's triangle instances, f32 and bf16: config 3's terrain (99,458
 # triangles) on a two-level median BVH, its camera and shadow wavefronts.
 TRI_STREAM = dict(res=(512, 512), n_tris=100_000, fanout=64)
@@ -1757,71 +1771,127 @@ def phase_joint(scene, cam, cfg, dev, separate) -> dict:
     return res
 
 
-def variant_hooks(variant: str, calls: list | None = None):
+K3_CONTROLS = {}  # name -> [library path, nvcc process, loaded stream_launch or None]
+
+
+def start_k3_controls() -> None:
+    """Start nvcc of K3's controls, each traverse_stream.cu in a directory of
+    its own under the kernels' build directory: the MXU_MUTANTS (a copy of
+    csrc with the mutation applied, the port's flags) and "fmad" (the
+    port's csrc with FMA contraction on). They build beside the port's own
+    kernels; `k3_build` waits for one and loads it."""
+    from ba_pathtracing_fur_torch import kernels
+
+    root = kernels.BUILD_DIR / "k3_controls"
+    for name in ("fmad", *MXU_MUTANTS):
+        out = root / name
+        shutil.rmtree(out, ignore_errors=True)
+        flags = kernels.SOURCE_FLAGS["traverse_stream.cu"]
+        src = kernels.SRC_DIR
+        if name == "fmad":
+            flags = tuple(f for f in flags if f != "-fmad=false")
+        else:
+            src = out / "csrc"
+            shutil.copytree(kernels.SRC_DIR, src)
+            file, old, new = MXU_MUTANTS[name]
+            text = (src / file).read_text()
+            if text.count(old) != 1:
+                raise AssertionError(f"K3 control {name}: its lines are not in {file} once")
+            (src / file).write_text(text.replace(old, new))
+        out.mkdir(parents=True, exist_ok=True)
+        lib = out / "libtraverse_stream.so"
+        cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, *flags, "-I", str(src), "-o", str(lib),
+               str(src / "traverse_stream.cu")]
+        K3_CONTROLS[name] = [lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                   stderr=subprocess.STDOUT, text=True), None]
+
+
+def stop_k3_controls() -> None:
+    """End any control build still running."""
+    for _, proc, _ in K3_CONTROLS.values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
+@contextlib.contextmanager
+def k3_build(name: str):
+    """traverse_stream launches the K3 control `name` (`start_k3_controls`)
+    in place of the port's build."""
+    import ctypes
+    import types
+    from ba_pathtracing_fur_torch import kernels
+
+    entry = K3_CONTROLS[name]
+    if entry[2] is None:
+        out = entry[1].communicate()[0]
+        if entry[1].returncode != 0:
+            raise RuntimeError(f"nvcc failed for the K3 control {name}:\n{out}")
+        fn = ctypes.CDLL(str(entry[0])).stream_launch
+        fn.argtypes, fn.restype = kernels.SIGNATURES["stream_launch"][1], ctypes.c_int
+        entry[2] = fn
+    base = kernels.load_library()
+    kernels._lib = types.SimpleNamespace(**{**vars(base), "stream_launch": entry[2]})
+    try:
+        yield
+    finally:
+        kernels._lib = base
+
+
+def variant_hooks(variant: str, calls: list | None = None, b16=None):
     """`closest_fn(o, d, scene)` and `occlude_fn(o, d, scene, t_max)` for
     `render_sample_ids` that trace the scene's two-level cone BVH with one
     of K3's variants ("f32", "mxu": traverse_stream(mxu=True), "bf16": the
-    BVH's pack_prim_hbm bf16 pack, made once), as a user of the API writes
-    them: the rays sorted as closest_hit / any_hit sort them, the variant on
-    the cone BVH and the scene's other pack as those functions take it (K5
-    for the hair ball's BVH-less scalp), the Hit from the port's helpers
-    (`traverse._assemble_hit` on the winners' rows) at the variant's own t
-    of its cone winner: `closest_hit` recomputes t by the f32 test, which
-    would drop a winner that only the variant's arithmetic accepts (with
-    the f32 variant the two are the same t bit for bit). Each variant call
+    BVH's pack_prim_hbm bf16 pack, `b16` or made once), as a user of the API
+    writes them: the rays sorted as closest_hit / any_hit sort them, the
+    variant on the cone BVH and the scene's other pack as those functions
+    take it (K5 for the hair ball's BVH-less scalp), the Hit as closest_hit
+    builds it from the rows the kernels picked (`traverse._hit_of_rows`: the
+    winner's t recomputed by the f32 test from its row of the traced BVH's
+    `aos_rows`, the bf16 pack's rounded ones for "bf16"), so that a variant
+    moves the image only through the rows it picks. Each variant call
     appends its mode to `calls`."""
     from ba_pathtracing_fur_torch.ops import traverse
     from ba_pathtracing_fur_torch.ops.cuda import intersect as cisect, stream as cstream
 
     packs = {}
 
-    def cone(o, d, t_max, scene, any_hit):
+    def traced(scene):
         bvh = scene.cone_bvh
-        if variant == "bf16":
-            if id(bvh) not in packs:
-                packs[id(bvh)] = (bvh, cstream.pack_prim_hbm(bvh, "cone", torch.bfloat16))
-            bvh = packs[id(bvh)][1]
+        if variant != "bf16":
+            return bvh
+        if b16 is not None:
+            return b16
+        if id(bvh) not in packs:
+            packs[id(bvh)] = (bvh, cstream.pack_prim_hbm(bvh, "cone", torch.bfloat16))
+        return packs[id(bvh)][1]
+
+    def cone(o, d, t_max, scene, any_hit):
         if calls is not None:
             calls.append("any" if any_hit else "closest")
-        return cstream.traverse_stream(o, d, t_max, bvh, "cone", any_hit=any_hit,
+        return cstream.traverse_stream(o, d, t_max, traced(scene), "cone", any_hit=any_hit,
                                        mxu=variant == "mxu")
 
     def closest_fn(o, d, scene):
-        from ba_pathtracing_fur_torch.ops import intersect as isect
-
-        r, inf = o.shape[0], traverse.INF
-        t_max = traverse._t_max_of(inf, r, o)
+        r = o.shape[0]
+        t_max = traverse._t_max_of(traverse.INF, r, o)
         o_s, d_s = o.detach(), d.detach()
         sort = traverse._sorted_rays(o_s, d_s, t_max, scene)
-        t, row, found = cone(*(sort[:3] if sort is not None else (o_s, d_s, t_max)), scene,
+        rows = {}
+        if scene.tri_bvh is not None:
+            rows["tri"] = traverse._traverse_rows(o_s, d_s, t_max, scene.tri_bvh, "tri", 1e-4,
+                                                  sort)
+        elif scene.tris.count and traverse._use_brute(o, scene.tris):
+            rows["tri"] = traverse._brute_rows(o_s, d_s, t_max,
+                                               cisect.tables_of(scene.tris, "tri"), "tri", 1e-4,
+                                               sort)
+        _, row, found = cone(*(sort[:3] if sort is not None else (o_s, d_s, t_max)), scene,
                              False)
         if sort is not None:
-            t, row, found = t[sort[3]], row[sort[3]], found[sort[3]]
-        row = torch.clamp(row, min=0)
-        t_cone = torch.where(found, t, inf)
-        cone_rc = traverse.take_cone_rows(scene.cone_bvh.aos_rows, row)
-        t_tri = torch.full((r,), inf, device=o.device)
-        tri_row = torch.zeros((r,), dtype=torch.int32, device=o.device)
-        tri_rp = None
-        if scene.tris.count:
-            if scene.tri_bvh is not None:
-                tri_row, tri_found = traverse._traverse_rows(o_s, d_s, t_max, scene.tri_bvh,
-                                                             "tri", 1e-4, sort)
-            elif traverse._use_brute(o, scene.tris):
-                tri_row, tri_found = traverse._brute_rows(
-                    o_s, d_s, t_max, cisect.tables_of(scene.tris, "tri"), "tri", 1e-4, sort)
-            else:
-                tri_found = None
-                t_tri, tri_row = traverse._grid_closest(o, d, scene.tris, isect.triangle_hit_grid,
-                                                        1e-4, t_max)
-            if tri_found is not None:
-                aos = (scene.tri_bvh.aos_rows if scene.tri_bvh is not None
-                       else traverse.tri_aos(scene.tris))
-                tri_rp = traverse.take_tri_rows(aos, tri_row)
-                t_tri = torch.where(tri_found, traverse._recompute_t_tri(tri_rp, o, d, 1e-4,
-                                                                         t_max), inf)
-        return traverse._assemble_hit(o, d, scene, t_tri, tri_row, t_cone, row, t_max,
-                                      tri_rp=tri_rp, cone_rc=cone_rc)
+            row, found = row[sort[3]], found[sort[3]]
+        rows["cone"] = (torch.clamp(row, min=0), found)
+        return traverse._hit_of_rows(o, d, dataclasses.replace(scene, cone_bvh=traced(scene)),
+                                     1e-4, t_max, rows)
 
     def occlude_fn(o, d, scene, t_max):
         r = o.shape[0]
@@ -1843,14 +1913,15 @@ def variant_hooks(variant: str, calls: list | None = None):
     return closest_fn, occlude_fn
 
 
-def hook_render(scene, cam, key, cfg, variant: str, calls: list | None = None) -> torch.Tensor:
+def hook_render(scene, cam, key, cfg, variant: str, calls: list | None = None,
+                b16=None) -> torch.Tensor:
     """render_image's running mean over cfg.spp samples, each sample through
-    `render_sample_ids` with `variant_hooks(variant)` (neither package's
-    render_image takes the hooks) -> [H, W, 3]."""
+    `render_sample_ids` with `variant_hooks(variant, calls, b16)` (neither
+    package's render_image takes the hooks) -> [H, W, 3]."""
     from ba_pathtracing_fur_torch.models import pathtracer as pt
     from ba_pathtracing_fur_torch.ops import tonemap
 
-    closest_fn, occlude_fn = variant_hooks(variant, calls)
+    closest_fn, occlude_fn = variant_hooks(variant, calls, b16)
     w, h = cam.resolution
     ids = torch.arange(w * h, device=scene.device)
     tables = pt.BounceTables.of(scene) if cfg.fused_shading else None
@@ -1883,22 +1954,117 @@ def brute_f64(o, d, t_max, bvh):
     return torch.cat(rows), torch.cat(founds)
 
 
+def cone_margins(o, d, g, t_min: float = 1e-4) -> dict:
+    """How near the f32 cone test's decisions are to flipping, for rays o, d
+    [N, 3] each against one row g [N, 16], evaluated in f64, each as its
+    distance over the size of its f32 error, so that two f32 evaluations of
+    the test can disagree on a decision only where its margin is a few
+    times 6e-8 (f32's unit roundoff) or less: `disc` the discriminant over
+    b^2 + |ac| + 2 |d|^2 |p| P (its terms' rounding, and p's rounding at
+    P = |o| + |b|: the mxu test's p = o.u - b.u rounds there, however near
+    the cone), `axis` each root's axis coordinate's distance to the nearer
+    end over |o.v| + |t d.v| + |d.v| P, `t_min` each root's distance to
+    1e-4 and t_min over `t_err`, the roots' error scale (|b| + |d| P +
+    that disc scale / 2 sqrt(disc)) / |a| (both inf where the f64
+    discriminant is negative: no roots to decide on), and `t` the accepted
+    root (inf where the f64 test misses). A far ray (|p| ~ 2 from fibers of
+    r ~ 0.002 at the hair ball's camera) puts every decision of the
+    quadratic within ~1e-6 of its scale; a ray from a fiber's surface loses
+    its precision to the mxu test's rounding of p."""
+    o, d = o.double(), d.double()
+    b, u, v, w = g[:, 0:3], g[:, 3:6], g[:, 6:9], g[:, 9:12]
+    slope, r_base, min_d, max_d = g[:, 12], g[:, 13], g[:, 14], g[:, 15]
+    r = o - b
+    px, py, pz = (r * u).sum(-1), (r * v).sum(-1), (r * w).sum(-1)
+    dx, dy, dz = (d * u).sum(-1), (d * v).sum(-1), (d * w).sum(-1)
+    a = dx * dx + dz * dz - slope * slope * dy * dy
+    bq = px * dx + pz * dz + r_base * slope * dy - slope * slope * py * dy
+    c_lin = r_base - slope * py
+    c = px * px + pz * pz - c_lin * c_lin
+    disc = bq * bq - a * c
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    a_safe = torch.where(a.abs() < 1e-12, 1e-12, a)
+    ra, rb = (-bq - sq) / a_safe, (-bq + sq) / a_safe
+    roots = torch.stack([torch.minimum(ra, rb), torch.maximum(ra, rb)])
+    ov = (o * v).sum(-1)
+    ax = ov + roots * dy
+    ok = (disc >= 0.0) & (roots >= 1e-4) & (roots > t_min) & (ax >= min_d) & (ax <= max_d)
+    t = torch.where(ok[0], roots[0], torch.where(ok[1], roots[1], float("inf")))
+    big_p = o.norm(dim=-1) + b.norm(dim=-1)
+    dn = d.norm(dim=-1)
+    disc_scale = bq * bq + (a * c).abs() + 2 * dn * dn * r.norm(dim=-1) * big_p
+    t_err = (bq.abs() + dn * big_p + disc_scale / (2 * sq).clamp(min=1e-300)) / a_safe.abs()
+    no_roots = (disc < 0.0)[None]  # the roots' decisions only count where there are roots
+    return dict(disc=disc.abs() / disc_scale,
+                axis=torch.where(no_roots, float("inf"),
+                                 torch.minimum((ax - min_d).abs(), (ax - max_d).abs())
+                                 / (ov.abs() + (roots * dy).abs() + dy.abs() * big_p)),
+                t_min=torch.where(no_roots, float("inf"),
+                                  torch.minimum((roots - 1e-4).abs(), (roots - t_min).abs())
+                                  / t_err),
+                t=t, t_err=t_err)
+
+
+def near_ties(o, d, bvh, a: tuple, b: tuple, tol: float = TIE_REL,
+              t_min: float = 1e-4) -> dict:
+    """Do two closest-hit results a = (row, found) and b = (row, found) [R]
+    over one cone pack (rows of `bvh.packed`, upcast) differ only by near
+    ties? Each row a side found is evaluated in f64 (`cone_margins`): it is
+    marginal when a decision of its test (the discriminant, an axis end or
+    t_min) lies within `tol` of flipping, and plausible when the f64 test
+    hits it or it is marginal. A ray where one side found nothing is a near
+    tie when the other side's row is marginal; a ray where the two found
+    different rows is one when both rows are plausible and one of them is
+    marginal or the two lie within `tol` of each other in t (over the sum of
+    their `t_err`). Returns `agree` [R] (the same found and, where found,
+    the same row), `tie` [R] (agreeing or a near tie), `margin` [R] (the smallest
+    relative distance of the ray's rows' decisions; 0 where they agree) and
+    `t_gap` [R] (|t_a - t_b| over the sum of their t_err, in f64, where both
+    sides found a row the f64 test hits, else nan)."""
+    from ba_pathtracing_fur_torch.ops.cuda import traverse as ctraverse
+
+    (row_a, found_a), (row_b, found_b) = a, b
+    agree = (found_a == found_b) & (~found_a | (row_a == row_b))
+    margin = torch.zeros(agree.shape, dtype=torch.float64, device=agree.device)
+    t_gap = torch.full(agree.shape, float("nan"), dtype=torch.float64, device=agree.device)
+    tie = agree.clone()
+    idx = (~agree).nonzero()[:, 0]
+    if idx.numel():
+        flat = torch.stack(ctraverse._rows_cm(bvh))[:, 0].double()  # [W, C*K]
+        marg, hit, ts, errs = [], [], [], []
+        for row in (row_a[idx], row_b[idx]):
+            m = cone_margins(o[idx], d[idx], flat[:, row.long().clamp(min=0)].T, t_min)
+            marg.append(torch.minimum(m["disc"], torch.minimum(m["axis"].amin(0),
+                                                               m["t_min"].amin(0))))
+            hit.append(torch.isfinite(m["t"]))
+            ts.append(m["t"])
+            errs.append(m["t_err"])
+        fa, fb = found_a[idx], found_b[idx]
+        marginal = [x <= tol for x in marg]
+        plausible = [h | mg for h, mg in zip(hit, marginal)]
+        gap = (ts[0] - ts[1]).abs() / (errs[0] + errs[1])
+        t_tie = gap <= tol
+        t_gap[idx] = torch.where(torch.isfinite(gap), gap, float("nan"))
+        tie[idx] = torch.where(fa & fb, plausible[0] & plausible[1]
+                               & (marginal[0] | marginal[1] | t_tie),
+                               torch.where(fa, marginal[0], marginal[1]))
+        inf = torch.full_like(marg[0], float("inf"))
+        margin[idx] = torch.minimum(torch.where(fa, marg[0], inf), torch.where(fb, marg[1], inf))
+    return dict(agree=agree, tie=tie, margin=margin, t_gap=t_gap)
+
+
 def agreement(o, d, bvh, a: tuple, b: tuple, closest) -> dict:
     """How two results (row, found) of the same rays over one pack agree:
     found agreement, winner-row agreement on the both-found closest rays
     (an any hit's row is whichever accepted row came first), and over the
-    rays where they differ (`cstream.near_ties`): how many are near ties at
-    TIE_REL and how many are not even plausible at MXU_GATE_REL, the
-    largest margin, how many differing row pairs are consecutive cones of
-    one fiber (original ids one apart) and the median t gap (over |o| + |b|)
-    of the pairs both hit in f64."""
-    from ba_pathtracing_fur_torch.ops.cuda import stream as cstream
-
+    rays where they differ (`near_ties` at TIE_REL): how many are no near
+    ties, the largest margin, how many differing row pairs are consecutive
+    cones of one fiber (original ids one apart) and the median t gap (over
+    the two rows' t_err) of the pairs both hit in f64."""
     (ra, fa), (rb, fb) = a, b
     both = fa & fb & closest
     rb = torch.where(~closest & fa & fb, ra, rb)
-    ties = cstream.near_ties(o, d, bvh, (ra, fa), (rb, fb))
-    gate = cstream.near_ties(o, d, bvh, (ra, fa), (rb, fb), tol=MXU_GATE_REL)
+    ties = near_ties(o, d, bvh, (ra, fa), (rb, fb))
     diff = ~ties["agree"]
     pair = diff & fa & fb
     ids = (bvh.perm[ra[pair].long()].long() - bvh.perm[rb[pair].long()].long()).abs()
@@ -1908,10 +2074,24 @@ def agreement(o, d, bvh, a: tuple, b: tuple, closest) -> dict:
     return dict(rays=int(fa.numel()), found=float((fa == fb).double().mean()),
                 rows=float((both & (ra == rb)).sum()) / n_both if n_both else 1.0,
                 rows_compared=n_both, differ=int(diff.sum()),
-                not_ties=int((~ties["tie"]).sum()), not_plausible=int((~gate["tie"]).sum()),
+                not_ties=int((~ties["tie"]).sum()),
                 max_margin=float(ties["margin"][diff].max()) if diff.any() else 0.0,
                 consecutive_cones=int((ids == 1).sum()), row_pairs=int(pair.sum()),
                 median_t_gap=float(gaps.median()) if gaps.numel() else 0.0)
+
+
+def mxu_gate(a: dict, wave: str) -> list:
+    """What an `agreement` of the mxu test on wavefront `wave` fails of the
+    row gate: found under MXU_FOUND_FLOOR, rows under MXU_ROWS_FLOOR[wave],
+    differing rays that are no near ties."""
+    fails = []
+    if a["found"] < MXU_FOUND_FLOOR:
+        fails.append(f"found {a['found']:.6f} < {MXU_FOUND_FLOOR}")
+    if a["rows"] < MXU_ROWS_FLOOR[wave]:
+        fails.append(f"rows {a['rows']:.6f} < {MXU_ROWS_FLOOR[wave]}")
+    if a["not_ties"]:
+        fails.append(f"{a['not_ties']} differing rays no near ties")
+    return fails
 
 
 def drift(a: tuple, b: tuple, closest) -> dict:
@@ -1930,7 +2110,7 @@ def image_diff(a: np.ndarray, b: np.ndarray) -> dict:
     |diff|, the share of pixels off by more than IMG_FLIP, and whether
     both are within IMG_MEAN and IMG_FLIP_FRAC), the mean |diff| of
     IMG_TILE x IMG_TILE-pixel tile means, and the relative difference of the
-    images' means."""
+    images' means, (a - b) / b, signed."""
     a, b = a.astype(np.float64), b.astype(np.float64)
     d = np.abs(a - b)
     mean, flips = float(d.mean()), float(np.mean(d.max(-1) > IMG_FLIP))
@@ -1938,7 +2118,7 @@ def image_diff(a: np.ndarray, b: np.ndarray) -> dict:
     tiles = (a - b)[:h, :w].reshape(h // IMG_TILE, IMG_TILE, w // IMG_TILE, IMG_TILE, -1)
     return dict(mean=mean, flips=flips, pixel_gate_held=mean < IMG_MEAN and flips <= IMG_FLIP_FRAC,
                 tile_mean=float(np.abs(tiles.mean((1, 3))).mean()),
-                image_mean_rel=float(abs(a.mean() - b.mean()) / max(abs(b.mean()), 1e-12)))
+                image_mean_rel=float((a.mean() - b.mean()) / max(abs(b.mean()), 1e-12)))
 
 
 def variant_bound(o, d, t_max, bvh, any_hit, hit, is_any, mxu) -> dict:
@@ -1968,13 +2148,13 @@ def variant_bound(o, d, t_max, bvh, any_hit, hit, is_any, mxu) -> dict:
                 bytes=n_bytes, row_tests_per_ray=w["leaf_row_tests"] / sub.numel())
 
 
-def hold_variant(wf: tuple, bvh, mxu: bool, ref, what: str) -> dict:
+def hold_variant(wf: tuple, bvh, mxu: bool, ref, what: str, wave: str) -> dict:
     """One K3 variant (`mxu`, on `bvh`'s f32 or bf16 pack) on one sorted
-    wavefront wf = (o, d, t_max, is_any, any_hit): against its plain version
-    on VARIANT_PLAIN_RAYS rays spread over it (bf16: found, t and closest
-    rows bit for bit; mxu: the row gate) and against `ref` = (t, row, found),
-    the f32 test's kernel on the same pack, on every ray (mxu: the row gate);
-    timed (median of TIMED_REPS) and bounded."""
+    wavefront wf = (o, d, t_max, is_any, any_hit), named `wave`: against its
+    plain version on VARIANT_PLAIN_RAYS rays spread over it (bf16: found, t
+    and closest rows bit for bit; mxu: `mxu_gate`) and against `ref` = (t,
+    row, found), the f32 test's kernel on the same pack, on every ray (mxu:
+    `mxu_gate`); timed (median of TIMED_REPS) and bounded."""
     from ba_pathtracing_fur_torch.ops.cuda import stream as cstream
 
     o, d, t_max, is_any, any_hit = wf
@@ -2010,12 +2190,10 @@ def hold_variant(wf: tuple, bvh, mxu: bool, ref, what: str) -> dict:
                                     closest[sub])
         res["vs_f32_test"] = agreement(o, d, bvh, (ref[1], ref[2]), (row, found), closest)
         for k in ("vs_plain", "vs_f32_test"):
-            a = res[k]
-            a["found_min_held"] = a["found"] >= MXU_FOUND_MIN
-            a["rows_min_held"] = a["rows"] >= MXU_ROWS_MIN
-            if a["not_plausible"] or a["found"] < MXU_FOUND_FLOOR:
-                raise AssertionError(f"{what}: the mxu kernel differs {k} by more than near "
-                                     f"ties: {a}")
+            fails = mxu_gate(res[k], wave)
+            if fails:
+                raise AssertionError(f"{what}: the mxu kernel fails the row gate {k}: {fails}; "
+                                     f"{res[k]}")
     res["ms"] = timed_median(lambda: cstream.traverse_stream(o, d, t_max, bvh, "cone", **kw))
     res["bound"] = variant_bound(o, d, t_max, bvh, any_hit, (t, row, found), is_any, mxu)
     res["result"] = (t, row, found)
@@ -2025,6 +2203,31 @@ def hold_variant(wf: tuple, bvh, mxu: bool, ref, what: str) -> dict:
         + f"; {res['ms']:.4f} ms, bound {res['bound']['bound_ms']:.4f} ms by "
         f"{res['bound']['bound_by']} ({res['bound']['row_tests_per_ray']:.1f} row tests a ray)")
     return res
+
+
+def hold_k3_controls(wf: tuple, bvh, ref, wave: str, mutants: bool) -> dict:
+    """K3's controls (`k3_build`) on wavefront wf = (o, d, t_max, is_any,
+    any_hit), named `wave`, against `ref` = (t, row, found), the f32 test's
+    kernel: each one's `agreement` and what it fails of `mxu_gate`. "fmad"
+    (the f32 test of the FMA build, the image gate's control) is reported;
+    each MXU_MUTANTS kernel (with `mutants`) must fail the gate."""
+    from ba_pathtracing_fur_torch.ops.cuda import stream as cstream
+
+    o, d, t_max, is_any, any_hit = wf
+    closest = torch.full((o.shape[0],), not any_hit, device=o.device) if is_any is None \
+        else ~is_any
+    out = {}
+    for name in ("fmad", *(MXU_MUTANTS if mutants else ())):
+        with k3_build(name):
+            _, row, found = cstream.traverse_stream(o, d, t_max, bvh, "cone", any_hit=any_hit,
+                                                    is_any=is_any, mxu=name != "fmad")
+        a = agreement(o, d, bvh, (ref[1], ref[2]), (row, found), closest)
+        a["fails"] = mxu_gate(a, wave)
+        log(f"K3 control {name!r}, {wave}: vs the f32 test on every ray {a}")
+        if name != "fmad" and not a["fails"]:
+            raise AssertionError(f"{wave}: the row gate passes the mxu control {name!r}: {a}")
+        out[name] = a
+    return out
 
 
 def phase_stream_tri(dev) -> dict:
@@ -2099,17 +2302,22 @@ def phase_stream_variants(scene, cam, cfg, dev, hb, joint, separate, card) -> di
     and the bf16 pack (f32 test), each in closest, any and mixed mode, on
     the sorted wavefronts of `phase_hairball_kernels` (`hb`: the camera and
     bounce-1 wavefronts, the bounce-0 shadow rays) and the bounce-1 pairs
-    of `phase_joint` (`joint`), by `hold_variant`; the f32 test and the
-    mxu test against an f64 brute force on the plain rays of the closest
-    wavefronts; the bf16 drift against the f32 test; the triangle instances
-    on the terrain (`phase_stream_tri`). Then config 5 rendered through
-    `render_sample_ids`' hooks (`hook_render`; with the f32 test bit for
-    bit `separate`, the render_image image) with the mxu test and with the
-    bf16 pack: each variant's launches (a closest and a shadow launch a
-    bounce, no plain call), its image's difference from `separate`
-    (`image_diff`, reported), rays/s beside the f32 render (median of
-    TIMED_REPS, in turns) and a traced sample of each. The phase's seconds
-    against VARIANT_BUDGET_S."""
+    of `phase_joint` (`joint`), by `hold_variant`; K3's controls
+    (`hold_k3_controls`: the FMA build on each wavefront, the MXU_MUTANTS on
+    the camera and bounce-1 ones, where the row gate must fail them); the
+    f32 test and the mxu test against an f64 brute force on the plain rays
+    of the closest wavefronts; the bf16 drift against the f32 test; the
+    triangle instances on the terrain (`phase_stream_tri`). Then config 5
+    rendered through `render_sample_ids`' hooks (`hook_render`; with the f32
+    test bit for bit `separate`, the render_image image) with the mxu test,
+    with the bf16 pack, with the f32 test of the FMA build (the image
+    gate's control) and with each MXU_MUTANTS kernel: each variant's
+    launches (a closest and a shadow launch a bounce, no plain call), each
+    image's difference from `separate` (`image_diff`; the mxu image's held
+    to IMG_CONTROL_RATIO times the control's, which the mutants' must
+    exceed; the bf16 image's reported), rays/s beside the f32 render
+    (median of TIMED_REPS, in turns) and a traced sample of each. The
+    phase's seconds against VARIANT_BUDGET_S."""
     from ba_pathtracing_fur_torch.core import rng
     from ba_pathtracing_fur_torch.ops.cuda import stream as cstream
 
@@ -2138,13 +2346,17 @@ def phase_stream_variants(scene, cam, cfg, dev, hb, joint, separate, card) -> di
         f32_ms = timed_median(lambda: cstream.traverse_stream(o, d, t_max, bvh, "cone",
                                                               any_hit=any_hit, is_any=flags))
         res = dict(f32_ms=f32_ms)
-        res["bf16"] = hold_variant(wf, b16, False, None, f"traverse_stream cone bf16, {name}")
+        res["bf16"] = hold_variant(wf, b16, False, None, f"traverse_stream cone bf16, {name}",
+                                   name)
         bf = res["bf16"].pop("result")
         res["bf16"]["drift"] = drift((ref[1], ref[2]), (bf[1], bf[2]), closest)
-        res["mxu"] = hold_variant(wf, bvh, True, ref, f"traverse_stream cone mxu, {name}")
-        res["mxu_bf16"] = hold_variant(wf, b16, True, bf, f"traverse_stream cone mxu bf16, {name}")
+        res["mxu"] = hold_variant(wf, bvh, True, ref, f"traverse_stream cone mxu, {name}", name)
+        res["mxu_bf16"] = hold_variant(wf, b16, True, bf, f"traverse_stream cone mxu bf16, {name}",
+                                       name)
         mx = res["mxu"].pop("result")
         res["mxu_bf16"].pop("result")
+        # the FMA build everywhere; wrong kernels, which the row gate must fail
+        res["controls"] = hold_k3_controls(wf, bvh, ref, name, name in ("camera", "bounce1"))
         if name in ("camera", "bounce1"):  # both f32 tests against the exact arithmetic
             sub = spread(o.shape[0], VARIANT_PLAIN_RAYS, dev)
             exact = brute_f64(o[sub], d[sub], t_max[sub], bvh)
@@ -2170,7 +2382,7 @@ def phase_stream_variants(scene, cam, cfg, dev, hb, joint, separate, card) -> di
     imgs = {}
     for variant, counter in (("mxu", "stream_mxu"), ("bf16", "stream_bf16")):
         reset_counts()
-        img = hook_render(scene, cam, key, cfg, variant)
+        img = hook_render(scene, cam, key, cfg, variant, b16=b16)
         torch.cuda.synchronize()
         counts = read_counts()
         log(f"config5 {variant} hook render: launches {counts} (expected {counter} {2 * n} = spp "
@@ -2179,14 +2391,35 @@ def phase_stream_variants(scene, cam, cfg, dev, hb, joint, separate, card) -> di
                      bruteforce_tri=2 * n, shade=n)
         imgs[variant] = check_image(img, (h, w, 3), f"config5 {variant} hook render")
         out[f"render_{variant}"] = dict(counts=counts)
+    with k3_build("fmad"):  # the control: the f32 test rounded another way
+        imgs["fmad"] = check_image(hook_render(scene, cam, key, cfg, "f32"), (h, w, 3),
+                                   "config5 f32 (FMA build) hook render")
+    for name in MXU_MUTANTS:  # wrong kernels, which the image gate must fail
+        with k3_build(name):
+            imgs[name] = check_image(hook_render(scene, cam, key, cfg, "mxu"), (h, w, 3),
+                                     f"config5 mxu ({name} mutant) hook render")
     want = separate.cpu().numpy()
-    for variant in ("mxu", "bf16"):
-        out[f"render_{variant}"]["diff"] = image_diff(imgs[variant], want)
+    for variant in ("fmad", "mxu", "bf16", *MXU_MUTANTS):
+        out.setdefault(f"render_{variant}", {})["diff"] = image_diff(imgs[variant], want)
         log(f"config5 {variant} hook render vs the f32 render: {out[f'render_{variant}']['diff']}")
+    ctl = out["render_fmad"]["diff"]
+    limit = dict(mean=IMG_CONTROL_RATIO * ctl["mean"], flips=IMG_CONTROL_RATIO * ctl["flips"])
+    held = {v: out[f"render_{v}"]["diff"]["mean"] <= limit["mean"]
+            and out[f"render_{v}"]["diff"]["flips"] <= limit["flips"]
+            for v in ("mxu", *MXU_MUTANTS)}
+    out["render_mxu"]["gate"] = gate = dict(mean_limit=limit["mean"],
+                                            flips_limit=limit["flips"], held=held["mxu"],
+                                            mutants_held={k: held[k] for k in MXU_MUTANTS})
+    log(f"config5 hook renders, image gate against the FMA-build control (x "
+        f"{IMG_CONTROL_RATIO}: mean |diff| <= {limit['mean']:.4e}, flipped pixels <= "
+        f"{limit['flips']:.4f}): "
+        + ", ".join(f"{v} {out[f'render_{v}']['diff']['mean']:.4e}, "
+                    f"{out[f'render_{v}']['diff']['flips']:.4f}: "
+                    f"{'held' if held[v] else 'failed'}" for v in held))
     rays = w * h * cfg.spp * cfg.depth
     runs = {"f32": lambda c: render(scene, cam, key, c),
             "mxu": lambda c: hook_render(scene, cam, key, c, "mxu"),
-            "bf16": lambda c: hook_render(scene, cam, key, c, "bf16")}
+            "bf16": lambda c: hook_render(scene, cam, key, c, "bf16", b16=b16)}
     walls = {k: [] for k in runs}
     for rep in range(TIMED_REPS):
         for name in (list(runs) if rep % 2 == 0 else list(runs)[::-1]):
@@ -2214,18 +2447,22 @@ def phase_stream_variants(scene, cam, cfg, dev, hb, joint, separate, card) -> di
     out["seconds"] = time.perf_counter() - start
     log(f"phase_stream_variants: {out['seconds']:.1f} s (budget {VARIANT_BUDGET_S:.0f} s: "
         f"{'held' if out['seconds'] <= VARIANT_BUDGET_S else 'missed'})")
+    if not gate["held"] or any(gate["mutants_held"].values()):
+        raise AssertionError(f"config5: the image gate against the FMA-build control fails "
+                             f"the mxu hook render or passes a mutant's: {gate}")
     return out
 
 
 VARIANT_WAVES = ("camera", "bounce1", "shadow", "pairs")
 
 
-def variant_entries(sv: dict, ptx: dict) -> tuple:
+def variant_entries(sv: dict, ptx: dict, main_counts: dict) -> tuple:
     """The `kernels` line's entries of K3's two variants from
-    `phase_stream_variants`' results `sv` and the build's `ptxas_report`:
-    launches in each variant's hook render (none on the main path), its
-    numbers on the camera wavefront, every wavefront's beside the f32
-    test's, the renders and the ptxas of its instances."""
+    `phase_stream_variants`' results `sv`, the build's `ptxas_report` and
+    the counts of config 5's main-path render (`main_counts`): launches in
+    each variant's hook render and on the main path, its numbers on the
+    camera wavefront, every wavefront's beside the f32 test's, the renders
+    and the ptxas of its instances."""
 
     def entry(name, key, counter, ptx_keep):
         cam_v = sv["camera"][key]
@@ -2237,11 +2474,13 @@ def variant_entries(sv: dict, ptx: dict) -> tuple:
                           if k in sv[w][key]}) for w in VARIANT_WAVES}
         render = {x: {k: sv[f"render_{k}"][x] for k in ("f32", key)}
                   for x in ("rays_per_s", "idle_share", "traced_launches", "stream_ms")}
-        render["image"] = sv[f"render_{key}"].get("gate") or sv[f"render_{key}"]["diff"]
+        render["image"] = dict(sv[f"render_{key}"]["diff"],
+                               **{k: v for k, v in sv[f"render_{key}"].items() if k == "gate"})
         return dict(name=name, route="cuda",
                     source="ba_pathtracing_fur_torch/csrc/traverse_stream.cu",
                     replaces="ba_pathtracing_fur_tpu/ops/pallas/stream.py:464",
-                    launches=sv[f"render_{key}"]["counts"][counter], main_path_launches=0,
+                    launches=sv[f"render_{key}"]["counts"][counter],
+                    main_path_launches=main_counts[counter],
                     max_abs_err=max(sv[w][key]["max_abs_err"] for w in VARIANT_WAVES),
                     ms=cam_v["ms"], plain_ms=cam_v["plain_ms"], plain_rays=cam_v["plain_rays"],
                     bound_ms=cam_v["bound"]["bound_ms"], bound_by=cam_v["bound"]["bound_by"],
@@ -2256,7 +2495,10 @@ def variant_entries(sv: dict, ptx: dict) -> tuple:
                              vs_plain=sv[w]["mxu_bf16"]["vs_plain"],
                              vs_bf16_f32_test=sv[w]["mxu_bf16"]["vs_f32_test"])
                      for w in VARIANT_WAVES},
-               vs_f64={w: sv[w]["vs_f64"] for w in ("camera", "bounce1")})
+               vs_f64={w: sv[w]["vs_f64"] for w in ("camera", "bounce1")},
+               controls={w: sv[w]["controls"] for w in VARIANT_WAVES},
+               fmad_image=sv["render_fmad"]["diff"],
+               mutant_images={k: sv[f"render_{k}"]["diff"] for k in MXU_MUTANTS})
     bf16 = entry("traverse_stream_bf16", "bf16", "stream_bf16",
                  lambda k: k.startswith("K3") and k.endswith(" bf16") and " mxu" not in k)
     bf16.update(pack_bytes=sv["pack_bytes"], f32_pack_bytes=sv["f32_pack_bytes"],
@@ -3479,8 +3721,19 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    kernels.load_library()
-    log(f"kernel build + load: {time.perf_counter() - t0:.2f} s")
+    start_k3_controls()  # their nvcc runs beside the port's
+    try:
+        kernels.load_library()
+        log(f"kernel build + load: {time.perf_counter() - t0:.2f} s")
+        return run(dev, card, t_start)
+    finally:
+        stop_k3_controls()
+
+
+def run(dev, card: str, t_start: float) -> int:
+    """`main` after the build: every phase, then the last lines."""
+    from ba_pathtracing_fur_torch import kernels
+
     # the BVH perm cache of this run (config 5's build uses it) lives in a
     # temporary directory, removed at the end
     cache = tempfile.mkdtemp(prefix="bvh_cache_")
@@ -3647,7 +3900,7 @@ def drive(dev, card: str) -> list:
             | {"train": para["train"]["counts"][count]}
 
     cf = cli["fused"]
-    mxu_entry, bf16_entry = variant_entries(sv, ptx)
+    mxu_entry, bf16_entry = variant_entries(sv, ptx, hb_main["counts"])
     t0, s0 = fur[0]["times"], fur[0]["shade"]
     b0 = fur[0]["closest_bound"]
     h0, k5t, k4b = hb[0], hb["k5_tri_0"], k4["config0_b0"]

@@ -562,8 +562,9 @@ def test_stream_kernel_mxu_on_the_card(pack, mode):
     matrix products) and against the f32 test's kernel on the same pack: the
     same found on >= 99% of rays and rows on >= 98% of the both-found
     closest rays, every ray where they differ a near tie
-    (`cstream.near_ties`); counted in MXU_LAUNCHES (and BF16_LAUNCHES on a
+    (`chip_smoke.near_ties`); counted in MXU_LAUNCHES (and BF16_LAUNCHES on a
     bf16 pack). Triangle leaves take the f32 test and its count."""
+    import chip_smoke
     from ba_pathtracing_fur_torch.ops.cuda import stream as cstream
 
     if not torch.cuda.is_available():
@@ -584,7 +585,7 @@ def test_stream_kernel_mxu_on_the_card(pack, mode):
         assert (f0 == f1).double().mean() >= 0.99 and f0.any() and not f0.all()
         assert not both.any() or (r0 == r1)[both].double().mean() >= 0.98
         r1c = torch.where(~closest & f0 & f1, r0, r1)  # an any hit's row is any accepted row
-        assert cstream.near_ties(o, d, bvh, (r0, f0), (r1c, f1))["tie"].all()  # TIE_REL
+        assert chip_smoke.near_ties(o, d, bvh, (r0, f0), (r1c, f1))["tie"].all()  # TIE_REL
     assert not f1[t_max == 0].any() and (t1[f1 & ~closest] == 0).all()
     tri, _, _, tri_t, _ = _variant_case("tri", "closest", dev)
     launches = cstream.KERNEL_LAUNCHES

@@ -169,7 +169,18 @@ def test_bf16_pack_matches_jax_pack_prim_hbm(two_level, tri_level, kind):
     np.testing.assert_array_equal(b16.packed.view(torch.int16).numpy().view(np.uint16),
                                   want.view(np.uint16))
     assert torch.equal(cstream.pack_prim_hbm(tb, kind).packed, tb.packed)
-    assert b16.aos_rows is tb.aos_rows  # the Hit is still built from the f32 rows
+    # the Hit is built from the rounded rows: the winner-row table follows the pack
+    c, w, k = b16.packed.shape
+    rows = b16.packed.float().permute(0, 2, 1).reshape(c * k, w)[:tb.aos_rows.shape[0]]
+    if kind == "cone":
+        assert torch.equal(b16.aos_rows[:, :16], rows)
+        assert torch.equal(b16.aos_rows[:, 16], (rows[:, 0:3] * rows[:, 6:9]).sum(-1))
+        assert torch.equal(b16.aos_rows[:, 17:], tb.aos_rows[:, 17:])
+    else:
+        assert torch.equal(b16.aos_rows[:, 0:3], rows[:, 0:3])
+        assert torch.equal(b16.aos_rows[:, 3:9], torch.cat([rows[:, 0:3] + rows[:, 3:6],
+                                                            rows[:, 0:3] + rows[:, 6:9]], 1))
+        assert torch.equal(b16.aos_rows[:, 9:], tb.aos_rows[:, 9:])
     with pytest.raises(ValueError, match="dtype"):
         cstream.pack_prim_hbm(tb, kind, torch.float16)
 
@@ -309,24 +320,29 @@ def test_work_ref_counts_the_variants(two_level, tri_level, variant):
 
 
 def test_near_ties_explain_the_mxu_test_against_the_f32_test(two_level):
-    """`near_ties` (the smoke's row gate): where the mxu and f32 plain
+    """`chip_smoke.near_ties` (in the smoke's row gate): where the mxu and f32 plain
     versions disagree, each ray is a near tie (a decision within TIE_REL of
     its f32 error scale from flipping, in f64), and rows that are no ties
     are mostly not explained away."""
+    import chip_smoke
+
     _, ts, o, d = two_level
     o, d = torch.from_numpy(o), torch.from_numpy(d)
     t_max = torch.full((N_RAYS,), INF)
     _, ra, fa = ctraverse.brute_force(o, d, t_max, ts.cone_bvh, "cone")
     _, rb, fb = ctraverse.brute_force(o, d, t_max, ts.cone_bvh, "cone", mxu=True)
-    res = cstream.near_ties(o, d, ts.cone_bvh, (ra, fa), (rb, fb))
+    res = chip_smoke.near_ties(o, d, ts.cone_bvh, (ra, fa), (rb, fb))
     assert res["tie"].all() and (res["margin"][res["agree"]] == 0).all()
     # a row elsewhere in the pack, as if hit: at these rays' distance (|p| ~
     # 2) the f32 test's own error admits fibers within ~4.5 radii of a ray,
-    # so a few of the dense patch's other rows pass for ties, most do not
+    # so some of the dense patch's other rows pass for ties (0.087 of them
+    # here; a neighbouring row, one or seven on, passes about half the
+    # time): the classifier alone does not catch a wrong row, which is why
+    # the smoke's row gate has floors on the agreement itself
     n_rows = ts.cone_bvh.n_leaves * ts.cone_bvh.leaf_size
     wrong = torch.where(fa, (ra + n_rows // 2) % n_rows, ra)
-    res = cstream.near_ties(o, d, ts.cone_bvh, (ra, fa), (wrong, fa))
-    assert not res["agree"][fa].any() and res["tie"][fa].float().mean() < 0.2
+    res = chip_smoke.near_ties(o, d, ts.cone_bvh, (ra, fa), (wrong, fa))
+    assert not res["agree"][fa].any() and res["tie"][fa].float().mean() < 0.1
 
 
 def test_render_through_the_hooks(two_level):
