@@ -11,7 +11,9 @@
 // A leaf block is float or bf16 (the streaming kernel's half-size pack,
 // ops/cuda/stream.py::pack_prim_hbm): `ld` reads either as f32, a bf16
 // value exactly (its 8 significant bits fit f32's 24), so a bf16 row is
-// tested in f32 as its upcast copy is by the twin.
+// tested in f32 as its upcast copy is by the twin. The streaming kernel's
+// bf16 instances hold a row in registers for a run of rays (Bf16Row) and
+// pass cone_row and tri_row a reference into it (k = 1).
 
 #pragma once
 
@@ -30,12 +32,33 @@ struct Ray {
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 
+// A row of N bf16 values held in registers, two to a word (the streaming
+// kernel's bf16 tiles, leaf_tiles.cuh), and a pointer-like reference into
+// it for cone_row and tri_row: ld of element i widens it to f32, exactly (a
+// bf16 value's bits are the high half of its f32's).
+template <int N>
+struct Bf16Row {
+  unsigned w[(N + 1) / 2];
+};
+
+template <int N>
+struct Bf16RowRef {
+  const Bf16Row<N>* row;
+  int i;
+  __device__ __forceinline__ Bf16RowRef operator+(int d) const { return {row, i + d}; }
+};
+
+template <int N>
+__device__ __forceinline__ float ld(Bf16RowRef<N> p) {
+  const unsigned v = p.row->w[p.i >> 1];
+  return __uint_as_float(p.i & 1 ? v & 0xffff0000u : v << 16);
+}
+
 // One cone row of a component-major leaf block (component c of the row at
-// p[c * k]): ops/bvh.py::_cone_core with t_best = cap, including its o.v
+// p[c * k]; p a pointer or a Bf16RowRef): ops/bvh.py::_cone_core with t_best = cap, including its o.v
 // sum in the order y, x, z. INF where not hit.
-template <class T>
-__device__ __forceinline__ float cone_row(const Ray& r, const T* p, int k, float t_min,
-                                          float cap) {
+template <class P>
+__device__ __forceinline__ float cone_row(const Ray& r, P p, int k, float t_min, float cap) {
   float bx = ld(p + 0 * k), by = ld(p + 1 * k), bz = ld(p + 2 * k);
   float ux = ld(p + 3 * k), uy = ld(p + 4 * k), uz = ld(p + 5 * k);
   float vx = ld(p + 6 * k), vy = ld(p + 7 * k), vz = ld(p + 8 * k);
@@ -66,21 +89,33 @@ __device__ __forceinline__ float cone_row(const Ray& r, const T* p, int k, float
   return INF;
 }
 
-// One cone row from the ray's six frame projections (ou, ov, ow = o.u,
-// o.v, o.w of its origin; dx, dy, dz = d.u, d.v, d.w) and the row's b.u,
-// b.v, b.w: ops/pallas/stream.py::_cone_block_mxu's order (p = o.u - b.u,
-// the axis slab from o.v), then the quadratic of cone_row. The tensor-core
-// leaf loop of the streaming kernel (leaf_tiles.cuh, kMxu) computes the
-// projections as matrix products. INF where not hit.
-__device__ __forceinline__ float cone_row_proj(float ou, float ov, float ow, float dx, float dy,
-                                               float dz, float bu, float bv, float bw,
-                                               float slope, float r_base, float min_d,
-                                               float max_d, float t_min, float cap) {
-  float px = ou - bu, py = ov - bv, pz = ow - bw;
-  float a = dx * dx + dz * dz - slope * slope * dy * dy;
-  float b = px * dx + pz * dz + r_base * slope * dy - slope * slope * py * dy;
+// One cone row from the ray's frame projections, in two steps, with
+// ops/pallas/stream.py::_cone_block_mxu's order (p = o.u - b.u, the axis slab
+// from o.v) and cone_row's quadratic, rounding for rounding: cone_uw takes
+// the u and w projections (ou, ow = o.u, o.w of the ray's origin; du, dw =
+// d.u, d.w) and the row's b.u, b.w into the u, w parts of a, b and c, and
+// cone_v finishes the row from them and the v projections (ov = o.v, dv =
+// d.v) and b.v. The tensor-core leaf loop of the streaming kernel
+// (leaf_tiles.cuh, kMxu) computes the projections as matrix products, u and
+// w before v, so that fewer of them are live at once. INF where not hit.
+struct ConeUW {
+  float a, b, c;  // dx*dx + dz*dz, px*dx + pz*dz, px*px + pz*pz
+};
+
+__device__ __forceinline__ ConeUW cone_uw(float ou, float ow, float du, float dw, float bu,
+                                          float bw) {
+  const float px = ou - bu, pz = ow - bw;
+  return {du * du + dw * dw, px * du + pz * dw, px * px + pz * pz};
+}
+
+__device__ __forceinline__ float cone_v(const ConeUW& uw, float ov, float dy, float bv,
+                                        float slope, float r_base, float min_d, float max_d,
+                                        float t_min, float cap) {
+  float py = ov - bv;
+  float a = uw.a - slope * slope * dy * dy;
+  float b = uw.b + r_base * slope * dy - slope * slope * py * dy;
   float c_lin = r_base - slope * py;
-  float c = px * px + pz * pz - c_lin * c_lin;
+  float c = uw.c - c_lin * c_lin;
   float disc = b * b - a * c;
   if (!(disc >= 0.0f)) return INF;
   float sq = sqrtf(fmaxf(disc, 1e-12f));
@@ -95,9 +130,8 @@ __device__ __forceinline__ float cone_row_proj(float ou, float ov, float ow, flo
 
 // One Möller-Trumbore row (v0, e1, e2 at p[c * k]): ops/bvh.py::_tri_core
 // with t_best = cap. INF where not hit.
-template <class T>
-__device__ __forceinline__ float tri_row(const Ray& r, const T* p, int k, float t_min,
-                                         float cap) {
+template <class P>
+__device__ __forceinline__ float tri_row(const Ray& r, P p, int k, float t_min, float cap) {
   float v0x = ld(p + 0 * k), v0y = ld(p + 1 * k), v0z = ld(p + 2 * k);
   float e1x = ld(p + 3 * k), e1y = ld(p + 4 * k), e1z = ld(p + 5 * k);
   float e2x = ld(p + 6 * k), e2y = ld(p + 7 * k), e2z = ld(p + 8 * k);

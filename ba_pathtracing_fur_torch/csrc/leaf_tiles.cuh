@@ -52,22 +52,38 @@
 // Leaf element type T (K3's bf16 pack, ops/cuda/stream.py::pack_prim_hbm):
 // a bf16 leaf is W*K*2 bytes, copied 16 or 4 bytes a cp.async where its
 // size allows and by plain loads otherwise (an odd W*K), and read as f32
-// (leaf_tests.cuh::ld). Its boxes bound the rounded rows.
+// (leaf_tests.cuh::ld, exact). Its boxes bound the rounded rows.
+//
+// Unit-major order (the bf16 and the tensor-core instances): the (pair,
+// unit) take flags put each pair's ray on the list of every unit whose box
+// it enters, in place of the (pair, unit) item list. The tensor-core
+// instances take a unit entered by n rays as ceil(n / UNIT_RAYS) tiles of up
+// to UNIT_RAYS = 8 of those rays, each warp every WARPS-th tile of the leaf.
+// The bf16 instances take the leaf's (unit, ray) items in unit-major order,
+// each warp a run of them: a lane holds its row of the unit in registers,
+// two bf16 a word, while its run stays in the unit, and tests the rays with
+// the f32 test (cone_row, tri_row) from there. The f32 instances read a row
+// once a (pair, unit) item.
 //
 // kMxu (K3's tensor-core cone test, ops/pallas/stream.py::_cone_block_mxu):
-// in place of the (pair, unit) items, a leaf's work is (group of 16 pairs,
-// unit) items, a unit run only where one of the group's rays enters its box.
-// A warp takes an item's rows 8 at a time: mma.sync m16n8k8 (TF32 in, f32
-// accumulated) of the group's rays [o | d | 0 0] (16 x 8) with the rows'
-// frame columns (8 x 8; u, v or w at depth 0-2 for o.u, o.v, o.w, at depth
-// 3-5 for d.u, d.v, d.w) gives the six projections of each (ray, row) in
-// the accumulator fragments, and each lane tests its four (ray, row)
-// elements with cone_row_proj. Precision: 3xTF32. Each operand x is split
-// into hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi) (-fmad=false keeps
-// x - hi from contracting), and a projection sums lo.hi + hi.lo + hi.hi in
-// f32: about f32's 24 bits, where one TF32 pass keeps 11 (3.9e-3 at |o| ~ 4,
-// a hair fiber's radius). A bf16 row is exact in TF32 (lo = 0), so its
-// hi.lo pass is left out.
+// when the leaf has landed, each row's b.u, b.v, b.w is computed once into
+// shared memory (the plain version's order, bx*ux + by*uy + bz*uz), beside
+// its slope, r_base, min_d and max_d in f32 (the row side). A warp
+// takes a tile and the unit's rows MXU_ROWS = 8 at a time: mma.sync m16n8k8
+// (TF32 in, f32 accumulated) of A (16 x 8: row i < 8 ray i's o, row 8 + i its
+// d) with B (8 x 8: column j row j's u, v or w) gives o.f and d.f of each
+// (ray, row) for one frame vector f, so three products give the six
+// projections, and each lane tests its two (ray, row) elements with
+// leaf_tests.cuh's cone_uw and cone_v (u and w first, then v: fewer
+// projections live at once). Precision: the operands are split as x ~ hi +
+// lo, hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi) (-fmad=false keeps x -
+// hi from contracting), and the ray's halves are folded into the depth: A's
+// row is [x_hi (3) | x_lo (3) | 0 0] and B's column [f_hi (3); f_hi (3); 0 0],
+// so one pass sums x_hi.f_hi + x_lo.f_hi; an f32 row adds x_hi.f_lo first, in
+// a second pass (B = [f_lo (3); 0; 0]). A bf16 row is exact in TF32 (f_lo =
+// 0): one pass. The dropped x_lo.f_lo and the halves' own rounding leave a
+// projection within 2^-20 sum |x_k f_k| of the exact one (tests/
+// test_torch_stream_variants.py), where one TF32 pass keeps 11 bits.
 
 #pragma once
 
@@ -91,7 +107,7 @@ constexpr int TILE = FUR_TILE_RAYS;        // rays of a block
 constexpr int THREADS = FUR_TILE_THREADS;  // threads of a block, for the box and leaf work
 constexpr int WARPS = THREADS / 32;
 constexpr int MIN_BLOCKS = 1024 / THREADS;  // blocks an SM should hold: at most 64 registers
-constexpr int MXU_RAYS = 16;  // rays of an mma tile (m16n8k8: 16 x 8 outputs)
+constexpr int UNIT_RAYS = 8;  // rays of a unit-major tile (m16n8k8's 16 A rows: their o and d)
 constexpr int MXU_ROWS = 8;   // leaf rows of an mma tile
 constexpr int CHUNK = 64;     // child boxes tested per round
 constexpr int UNIT = 32;      // rows of a leaf under one unit box (ops/bvh.py::unit_boxes)
@@ -103,20 +119,25 @@ constexpr int MAX_SHARED = 232448;  // bytes a block may opt in to on Hopper
 // each, the entry matrix [CHUNK][TILE], child boxes [6][CHUNK], child minima
 // and visiting order [CHUNK] each; then the walk stacks [depth][TILE] (node,
 // entry), the visited-super bits, the list of (pair, unit) work items
-// [TILE * U] (U = ceil(K / UNIT); the tensor-core instances keep their
-// (group, unit) items and flags there), and two leaf buffers of W*K
-// elements of `elem` bytes each at a 16-byte boundary.
+// [TILE * U] (U = ceil(K / UNIT)), or for the unit-major instances (bf16
+// leaves, mxu) in its place the list of each unit's rays [U][TILE], then
+// the units' ray counts [U] (mxu: also their first tiles [U + 1] and the row
+// side [7][K]); two leaf buffers of W*K elements of `elem` bytes each at a
+// 16-byte boundary.
 struct TileLayout {
-  int stack, visited, units, leaf, words;
+  int stack, visited, units, counts, rside, leaf, words;
 };
 
 __host__ __device__ inline TileLayout tile_layout(int w, int leaf_k, int n_sup, int depth,
-                                                  int elem = 4) {
+                                                  int elem = 4, bool mxu = false) {
   TileLayout l;
+  const int units = (leaf_k + UNIT - 1) / UNIT;
   l.stack = (2 + 10 + 2 + CHUNK) * TILE + 8 * CHUNK;
   l.visited = l.stack + 2 * depth * TILE;
   l.units = l.visited + (n_sup + 31) / 32;
-  l.leaf = (l.units + TILE * ((leaf_k + UNIT - 1) / UNIT) + 3) / 4 * 4;
+  l.counts = l.units + TILE * units;
+  l.rside = mxu ? l.counts + 2 * units + 1 : elem == 2 ? l.counts + units : l.counts;
+  l.leaf = (l.rside + (mxu ? 7 * leaf_k : 0) + 3) / 4 * 4;
   l.words = l.leaf + (2 * w * leaf_k * elem + 3) / 4;
   return l;
 }
@@ -126,7 +147,8 @@ __host__ __device__ inline TileLayout tile_layout(int w, int leaf_k, int n_sup, 
 // zeroed, read by the tile_stats entry points below: [0] blocks, [1] super
 // visits, [2] rays joined to them, [3] child rounds, [4] children entered,
 // [5] leaves tested, [6] (ray, leaf) pairs, [7] leaf copies issued, [8]
-// (ray, unit) work items.
+// (ray, unit) work items, [9] unit-major tiles (the bf16 and tensor-core
+// instances; their rays are [8]).
 #ifdef FUR_TILE_STATS
 __device__ unsigned long long tile_stats[16];
 #define FUR_STAT(i, v) \
@@ -240,10 +262,9 @@ __device__ __forceinline__ unsigned tf32_rna(float x) {
   return r;
 }
 
-// 3xTF32 halves of x: x ~ hi + lo, both TF32.
-__device__ __forceinline__ void tf32_split(float x, unsigned& hi, unsigned& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
+// The low half of x's split x ~ hi + lo (hi = tf32_rna(x)), both TF32.
+__device__ __forceinline__ unsigned tf32_lo(float x, unsigned hi) {
+  return tf32_rna(x - __uint_as_float(hi));
 }
 
 // c += a (16 x 8, row) * b (8 x 8, col) on the tensor cores, TF32 in, f32 out.
@@ -255,18 +276,31 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One projection by 3xTF32: lo.hi + hi.lo + hi.hi, small terms first;
-// kExactB (bf16 rows: b's lo is 0) leaves out hi.lo.
+// This lane's two A elements of one ray's vector x = v[0..2] (v[c * TILE],
+// the tile's ray record): the row [x_hi (3) | x_lo (3) | 0 0] at depth tig
+// (x_hi[tig], or x_lo[0] for tig 3) and depth tig + 4 (x_lo[tig + 1] for tig
+// 0, 1; else 0). Zeros for a ray that tests nothing.
+__device__ __forceinline__ void mxu_a(const float* v, bool ok, int tig, unsigned& at,
+                                      unsigned& at4) {
+  const float xa = ok ? v[(tig < 3 ? tig : 0) * TILE] : 0.0f;
+  const float xb = ok && tig < 2 ? v[(tig + 1) * TILE] : 0.0f;
+  const unsigned ha = tf32_rna(xa), hb = tf32_rna(xb);
+  at = tig < 3 ? ha : tf32_lo(xa, ha);
+  at4 = tf32_lo(xb, hb);
+}
+
+// One frame vector f's projections of a lane's elements: c = A * B with A =
+// the tile's [x_hi | x_lo | 0 0] rows (o above, d below) and B's column j =
+// row j's [f_hi; f_hi; 0 0] (this lane: b0 = f_hi at depth tig, bh1 at tig +
+// 4), one pass for x_hi.f_hi + x_lo.f_hi; an f32 row (kExactB false) sums
+// x_hi.f_lo first, the small term, in a pass of its own (B = [f_lo; 0; 0]:
+// bl0 = f_lo at depth tig < 3).
 template <bool kExactB>
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const unsigned (&ah)[4],
-                                           const unsigned (&al)[4], float b0, float b1) {
-  unsigned bh0, bl0, bh1, bl1;
-  tf32_split(b0, bh0, bl0);
-  tf32_split(b1, bh1, bl1);
+__device__ __forceinline__ void mxu_proj(float (&c)[4], const unsigned (&a)[4], unsigned bh0,
+                                         unsigned bh1, unsigned bl0) {
   c[0] = c[1] = c[2] = c[3] = 0.0f;
-  mma_tf32(c, al, bh0, bh1);
-  if constexpr (!kExactB) mma_tf32(c, ah, bl0, bl1);
-  mma_tf32(c, ah, bh0, bh1);
+  if constexpr (!kExactB) mma_tf32(c, a, bl0, 0u);
+  mma_tf32(c, a, bh0, bh1);
 }
 
 // Boxes: the source of the box tables, with
@@ -288,7 +322,6 @@ __device__ __forceinline__ void tile_traverse(
     const unsigned char* __restrict__ is_any = nullptr) {
   static_assert(!(kAnyHit && kMixed), "a mixed tile takes each ray's flag from is_any");
   static_assert(kCone || !kMxu, "the tensor-core loop tests cone rows");
-  static_assert(TILE % MXU_RAYS == 0, "a tile holds whole mma ray groups");
   constexpr int W = kCone ? 16 : 9;
   constexpr int RAY_WARPS = TILE / 32;
   extern __shared__ __align__(16) float smem[];
@@ -299,7 +332,8 @@ __device__ __forceinline__ void tile_traverse(
   __shared__ unsigned s_max_tb;  // ord() of the largest best t of the joined rays
 
   const int n_sup = bx.n_sup, fanout = bx.fanout, wk = W * leaf_k;
-  const TileLayout lay = tile_layout(W, leaf_k, n_sup, depth, static_cast<int>(sizeof(T)));
+  const TileLayout lay =
+      tile_layout(W, leaf_k, n_sup, depth, static_cast<int>(sizeof(T)), kMxu);
   unsigned long long* key = reinterpret_cast<unsigned long long*>(smem);  // [TILE]
   float* ray = smem + 2 * TILE;  // [10][TILE]
   int* join = reinterpret_cast<int*>(ray + 10 * TILE);
@@ -312,7 +346,12 @@ __device__ __forceinline__ void tile_traverse(
   float* stk_e = smem + lay.stack + depth * TILE;
   unsigned* visited = reinterpret_cast<unsigned*>(smem + lay.visited);
   int* items = reinterpret_cast<int*>(smem + lay.units);  // [TILE * U]
+  int* ulist = items;  // unit-major: [U][TILE]
   T* leaf_buf = reinterpret_cast<T*>(smem + lay.leaf);  // [2][W*K]
+  const int units = (leaf_k + UNIT - 1) / UNIT;  // unit boxes of a leaf
+  int* ucnt = reinterpret_cast<int*>(smem + lay.counts);  // unit-major: rays a unit [U]
+  int* ubase = ucnt + units;  // mxu: the first tile of each unit [U + 1]
+  float* rside = smem + lay.rside;  // mxu: b.u, b.v, b.w, slope, r_base, min_d, max_d [7][K]
   auto best_t = [&](int q) { return unord(static_cast<unsigned>(key[q] >> 32)); };
   auto any_ray = [&](int q) { return ((any_bits[q >> 5] >> (q & 31)) & 1u) != 0u; };
 
@@ -353,12 +392,10 @@ __device__ __forceinline__ void tile_traverse(
     }
   }
   for (int x = t; x < (n_sup + 31) / 32; x += THREADS) visited[x] = 0u;
-  constexpr int GROUPS = TILE / MXU_RAYS;  // mma ray groups of a tile
   constexpr bool kBf16 = sizeof(T) == 2;
-  if constexpr (kMxu) {  // the (group, unit) flags, behind the item list in `items`
-    const int units = (leaf_k + UNIT - 1) / UNIT;
-    for (int x = t; x < GROUPS * units; x += THREADS) items[GROUPS * units + x] = 0;
-  }
+  constexpr bool kUnitMajor = kMxu || kBf16;  // unit-major tiles (see above)
+  if constexpr (kUnitMajor)
+    for (int x = t; x < units; x += THREADS) ucnt[x] = 0;
   if (t == 0) { n_pairs = 0; n_items = 0; s_max_tb = 0u; }
 
   auto node_entry = [&](int n, float tb) {
@@ -463,7 +500,6 @@ __device__ __forceinline__ void tile_traverse(
       FUR_STAT(3, 1);
       FUR_STAT(4, nv);
       FUR_STAT(7, nv > 0);
-      const int units = (leaf_k + UNIT - 1) / UNIT;  // unit boxes of a leaf
       if (nv > 0) load_leaf(leaf_buf, packed, s * fanout + c0 + order[0], wk);
       cp_async_commit();
       for (int v = 0; v < nv; ++v) {
@@ -493,6 +529,19 @@ __device__ __forceinline__ void tile_traverse(
         FUR_STAT(6, np);
         const T* blk = leaf_buf + cur * wk;
         const int leaf = s * fanout + c0 + c;
+        if constexpr (kMxu) {  // each row's b.u, b.v, b.w (the plain version's
+          for (int k = t; k < leaf_k; k += THREADS) {  // order) and its 4 scalars, f32
+            const T* pr = blk + k;
+            const float bx = ld(pr), by = ld(pr + leaf_k), bz = ld(pr + 2 * leaf_k);
+            rside[k] = bx * ld(pr + 3 * leaf_k) + by * ld(pr + 4 * leaf_k) +
+                       bz * ld(pr + 5 * leaf_k);
+            rside[leaf_k + k] = bx * ld(pr + 6 * leaf_k) + by * ld(pr + 7 * leaf_k) +
+                                bz * ld(pr + 8 * leaf_k);
+            rside[2 * leaf_k + k] = bx * ld(pr + 9 * leaf_k) + by * ld(pr + 10 * leaf_k) +
+                                    bz * ld(pr + 11 * leaf_k);
+            for (int e = 12; e < 16; ++e) rside[(e - 9) * leaf_k + k] = ld(pr + e * leaf_k);
+          }
+        }
         // The work items: the units of UNIT rows whose box each pair's ray
         // enters within its best t.
         const float* ub = uboxes + static_cast<size_t>(leaf) * 6 * units;
@@ -509,118 +558,164 @@ __device__ __forceinline__ void tile_traverse(
                                ub[4 * units + u], ub[5 * units + u], tbq),
                           tbq);
           }
-          if constexpr (kMxu) {  // flag the unit for the pair's ray group
-            if (take) items[(GROUPS + x / units / MXU_RAYS) * units + x % units] = 1;
-          } else {
+          if constexpr (kUnitMajor) {  // the pair's ray joins the unit's list
+            if (take) {
+              const int u = x % units;
+              ulist[u * TILE + atomicAdd(&ucnt[u], 1)] = pairs[x / units];
+            }
+          }
+          if constexpr (!kUnitMajor) {
             append(take, x, items, &n_items);
+          } else if constexpr (!kMxu) {  // bf16: the leaf's (unit, ray) items
+            const unsigned m = __ballot_sync(FULL, take);
+            if (lane == 0 && m) atomicAdd(&n_items, __popc(m));
           }
         }
         __syncthreads();
-        if constexpr (kMxu) {
-          // The (group, unit) items, the flags cleared for the next leaf.
-          const int ng = (np + MXU_RAYS - 1) / MXU_RAYS;
-          int* flag = items + GROUPS * units;
-          for (int x0 = 0; x0 < ng * units; x0 += THREADS) {
-            const int x = x0 + t;
-            bool take = false;
-            if (x < ng * units) {
-              take = flag[x] != 0;
-              flag[x] = 0;
+#ifdef FUR_TILE_STATS
+        if constexpr (kUnitMajor) {
+          if (t == 0) {
+            int held = 0, tiles = 0;
+            for (int u = 0; u < units; ++u) {
+              held += ucnt[u];
+              tiles += (ucnt[u] + UNIT_RAYS - 1) / UNIT_RAYS;
             }
-            append(take, x, items, &n_items);
+            FUR_STAT(8, held);
+            FUR_STAT(9, tiles);
+          }
+        }
+#endif
+        if constexpr (kMxu) {
+          if (t == 0) {  // the units' tiles in order: ceil(rays / UNIT_RAYS) a unit
+            int n = 0;
+            for (int u = 0; u < units; ++u) {
+              ubase[u] = n;
+              n += (ucnt[u] + UNIT_RAYS - 1) / UNIT_RAYS;
+            }
+            ubase[units] = n;
           }
           __syncthreads();
-          // Each warp takes a run of items (a group's units lie together)
-          // and an item's rows MXU_ROWS at a time: a lane holds rays gid and
-          // gid + 8 of the group x rows 2 tig, 2 tig + 1 of the 8 (the
-          // accumulator fragment of m16n8k8).
-          const int ni = n_items, run = (ni + WARPS - 1) / WARPS;
-          FUR_STAT(8, ni);
+          // Each warp takes every WARPS-th tile and the unit's rows MXU_ROWS
+          // at a time: A's row gid is ray gid's o, row gid + 8 its d, and a
+          // lane holds (ray gid) x (rows 2 tig, 2 tig + 1 of the 8): c0, c1
+          // the o.f, c2, c3 the d.f of the m16n8k8 accumulator fragment.
           const int gid = lane >> 2, tig = lane & 3;
-          int g_cur = -1, q[2] = {0, 0};
-          bool ok[2] = {false, false}, qa[2] = {kAnyHit, kAnyHit};
-          float cap[2] = {0.0f, 0.0f};
-          unsigned ah[4], al[4];  // A = the group's [o | d | 0 0], 16 x 8, hi and lo
-          for (int y = warp * run; y < min(ni, (warp + 1) * run); ++y) {
-            const int x = items[y], g = x / units, u = x - g * units;
-            if (g != g_cur) {
-              g_cur = g;
-              float a[4];
-              for (int m = 0; m < 2; ++m) {  // a0, a1: depth tig; a2, a3: depth tig + 4
-                const int p = g * MXU_RAYS + gid + 8 * m;
-                ok[m] = p < np;
-                q[m] = ok[m] ? pairs[p] : 0;
-                cap[m] = ray[9 * TILE + q[m]];
-                if constexpr (kMixed) qa[m] = any_ray(q[m]);
-                a[m] = ok[m] ? ray[tig * TILE + q[m]] : 0.0f;
-                a[2 + m] = ok[m] && tig < 2 ? ray[(tig + 4) * TILE + q[m]] : 0.0f;
-              }
-              for (int i = 0; i < 4; ++i) tf32_split(a[i], ah[i], al[i]);
-            }
-            float best[2] = {INF, INF};
-            int brow[2] = {INT_MAX, INT_MAX};
-            const int r_end = min(leaf_k, (u + 1) * UNIT);
-            for (int r0 = u * UNIT; r0 < r_end; r0 += MXU_ROWS) {
-              // B column gid = row r0 + gid: its u, v or w at depth 0-2 for
-              // o.u, o.v, o.w, at depth 3-5 for d.u, d.v, d.w (b0 at depth
-              // tig, b1 at tig + 4).
+          for (int y = warp, u = 0; y < ubase[units]; y += WARPS) {
+            while (ubase[u + 1] <= y) ++u;
+            const int slot = (y - ubase[u]) * UNIT_RAYS + gid;
+            const int q = slot < ucnt[u] ? ulist[u * TILE + slot] : 0;
+            bool qa = kAnyHit;
+            if constexpr (kMixed) qa = any_ray(q);
+            // a shadow ray done by an earlier tile tests nothing more
+            const bool ok = slot < ucnt[u] && !(qa && best_t(q) < 0.0f);
+            if (!__any_sync(FULL, ok)) continue;
+            unsigned a[4];  // A: this lane's o at rows gid (a0, a2), d at gid + 8 (a1, a3)
+            mxu_a(ray + q, ok, tig, a[0], a[2]);
+            mxu_a(ray + 3 * TILE + q, ok, tig, a[1], a[3]);
+            float best = INF;
+            int brow = INT_MAX;
+            for (int r0 = u * UNIT; r0 < min(leaf_k, (u + 1) * UNIT); r0 += MXU_ROWS) {
+              // B's column gid: row r0 + gid's f at depth 0-2 and again at
+              // 3-5 (b0 at depth tig, b1 at tig + 4); f = u and w, then v
               const int n = r0 + gid;
-              float proj[6][4];
-#pragma unroll
-              for (int f = 0; f < 3; ++f) {
+              const auto project = [&](float (&cf)[4], int f) {
                 const T* col = blk + (3 + 3 * f) * leaf_k + n;
                 const float fa = n < leaf_k ? ld(col + (tig < 3 ? tig : 0) * leaf_k) : 0.0f;
                 const float fb = n < leaf_k && tig < 2 ? ld(col + (tig + 1) * leaf_k) : 0.0f;
-                mma_3xtf32<kBf16>(proj[f], ah, al, tig < 3 ? fa : 0.0f, 0.0f);
-                mma_3xtf32<kBf16>(proj[3 + f], ah, al, tig == 3 ? fa : 0.0f, fb);
+                if constexpr (kBf16) {  // exact in TF32
+                  mxu_proj<true>(cf, a, __float_as_uint(fa), __float_as_uint(fb), 0u);
+                } else {
+                  const unsigned ha = tf32_rna(fa);
+                  mxu_proj<false>(cf, a, ha, tf32_rna(fb), tig < 3 ? tf32_lo(fa, ha) : 0u);
+                }
+              };
+              ConeUW uw[2];
+              {
+                float pu[4], pw[4];
+                project(pu, 0);
+                project(pw, 2);
+#pragma unroll
+                for (int j = 0; j < 2; ++j) {
+                  const int rr = min(r0 + 2 * tig + j, leaf_k - 1);
+                  uw[j] = cone_uw(pu[j], pw[j], pu[2 + j], pw[2 + j], rside[rr],
+                                  rside[2 * leaf_k + rr]);
+                }
               }
+              float pv[4];
+              project(pv, 1);
 #pragma unroll
               for (int j = 0; j < 2; ++j) {
                 const int rr = r0 + 2 * tig + j;
                 if (rr >= leaf_k) continue;
-                const T* pr = blk + rr;
-                const float bx = ld(pr), by = ld(pr + leaf_k), bz = ld(pr + 2 * leaf_k);
-                const float bu = bx * ld(pr + 3 * leaf_k) + by * ld(pr + 4 * leaf_k) +
-                                 bz * ld(pr + 5 * leaf_k);
-                const float bv = bx * ld(pr + 6 * leaf_k) + by * ld(pr + 7 * leaf_k) +
-                                 bz * ld(pr + 8 * leaf_k);
-                const float bw = bx * ld(pr + 9 * leaf_k) + by * ld(pr + 10 * leaf_k) +
-                                 bz * ld(pr + 11 * leaf_k);
-                const float slope = ld(pr + 12 * leaf_k), r_base = ld(pr + 13 * leaf_k),
-                            min_d = ld(pr + 14 * leaf_k), max_d = ld(pr + 15 * leaf_k);
-#pragma unroll
-                for (int m = 0; m < 2; ++m) {
-                  const int e = 2 * m + j;
-                  const float lt =
-                      ok[m] ? cone_row_proj(proj[0][e], proj[1][e], proj[2][e], proj[3][e],
-                                            proj[4][e], proj[5][e], bu, bv, bw, slope, r_base,
-                                            min_d, max_d, t_min, cap[m])
-                            : INF;
-                  if (lt < best[m]) {  // rows ascend in a lane: the lowest of equal t
-                    best[m] = lt;
-                    brow[m] = rr;
-                  }
+                const float* rs = rside + rr;
+                const float lt = ok ? cone_v(uw[j], pv[j], pv[2 + j], rs[leaf_k], rs[3 * leaf_k],
+                                             rs[4 * leaf_k], rs[5 * leaf_k], rs[6 * leaf_k],
+                                             t_min, ray[9 * TILE + q])
+                                    : INF;
+                if (lt < best) {  // rows ascend in a lane: the lowest of equal t
+                  best = lt;
+                  brow = rr;
                 }
               }
             }
-            // The quad's lanes hold the same two rays: their (t, row) minimum.
+            // The quad's lanes hold the same ray: its (t, row) minimum.
 #pragma unroll
-            for (int m = 0; m < 2; ++m) {
-#pragma unroll
-              for (int off = 1; off < 4; off <<= 1) {
-                const float ot = __shfl_xor_sync(FULL, best[m], off);
-                const int orow = __shfl_xor_sync(FULL, brow[m], off);
-                if (ot < best[m] || (ot == best[m] && orow < brow[m])) {
-                  best[m] = ot;
-                  brow[m] = orow;
-                }
+            for (int off = 1; off < 4; off <<= 1) {
+              const float ot = __shfl_xor_sync(FULL, best, off);
+              const int orow = __shfl_xor_sync(FULL, brow, off);
+              if (ot < best || (ot == best && orow < brow)) {
+                best = ot;
+                brow = orow;
               }
-              // INF is a miss, also below an infinite t_max (the twin's rule)
-              if (tig == 0 && ok[m] && best[m] < cap[m] && best[m] < INF &&
-                  !(qa[m] && best_t(q[m]) < 0.0f))
-                atomicMin(&key[q[m]], ray_key(qa[m] ? -1.0f : best[m],
-                                              static_cast<unsigned>(leaf * leaf_k + brow[m])));
             }
+            // INF is a miss, also below an infinite t_max (the twin's rule)
+            if (tig == 0 && ok && best < ray[9 * TILE + q] && best < INF &&
+                !(qa && best_t(q) < 0.0f))
+              atomicMin(&key[q], ray_key(qa ? -1.0f : best,
+                                         static_cast<unsigned>(leaf * leaf_k + brow)));
+          }
+        } else if constexpr (kBf16) {
+          // The leaf's (unit, ray) items in unit-major order, each warp a run
+          // of them, lanes over the unit's rows: this lane's row held in
+          // registers (two bf16 a word) from where the run reaches its unit;
+          // each warp finds its run's first unit from the counts itself.
+          const int total = n_items;
+          const int run = (total + WARPS - 1) / WARPS, y_end = min(total, (warp + 1) * run);
+          Bf16Row<W> row;
+          for (int y = warp * run, u = -1, first = 0; y < y_end; ++y) {
+            if (u < 0 || y >= first + ucnt[u]) {  // the run reaches a new unit
+              if (u >= 0) first += ucnt[u];
+              for (++u; y >= first + ucnt[u]; ++u) first += ucnt[u];
+              const int k = u * UNIT + lane;
+#pragma unroll
+              for (int e = 0; e < (W + 1) / 2; ++e) {
+                const unsigned lo =
+                    k < leaf_k ? __bfloat16_as_ushort(blk[2 * e * leaf_k + k]) : 0u;
+                const unsigned hi = 2 * e + 1 < W && k < leaf_k
+                                        ? __bfloat16_as_ushort(blk[(2 * e + 1) * leaf_k + k])
+                                        : 0u;
+                row.w[e] = lo | hi << 16;
+              }
+            }
+            const int k = u * UNIT + lane;
+            const int qq = ulist[u * TILE + y - first];
+            bool qany = kAnyHit;
+            if constexpr (kMixed) qany = any_ray(qq);
+            if (qany && best_t(qq) < 0.0f) continue;  // done by another item
+            const Ray rq = {ray[qq], ray[TILE + qq], ray[2 * TILE + qq],
+                            ray[3 * TILE + qq], ray[4 * TILE + qq], ray[5 * TILE + qq]};
+            const float qcap = ray[9 * TILE + qq];
+            float lt = INF;
+            if (k < leaf_k) {
+              if constexpr (kCone) lt = cone_row(rq, Bf16RowRef<W>{&row, 0}, 1, t_min, qcap);
+              else lt = tri_row(rq, Bf16RowRef<W>{&row, 0}, 1, t_min, qcap);
+            }
+            int lr = lt < INF ? k : INT_MAX;
+            warp_argmin(lt, lr);
+            // INF is a miss, also below an infinite t_max (the twin's rule)
+            if (lane == 0 && lt < qcap && lt < INF)
+              atomicMin(&key[qq], ray_key(qany ? -1.0f : lt,
+                                          static_cast<unsigned>(leaf * leaf_k + lr)));
           }
         } else {
           // Each warp takes a run of consecutive items (a pair's units lie
@@ -655,12 +750,16 @@ __device__ __forceinline__ void tile_traverse(
         }
         __syncthreads();
         if (t == 0) { n_pairs = 0; n_items = 0; s_max_tb = 0u; }
+        if constexpr (kUnitMajor)
+          for (int x = t; x < units; x += THREADS) ucnt[x] = 0;
       }
       cp_async_wait<0>();
       __syncthreads();
       if (t == 0) { n_pairs = 0; n_items = 0; s_max_tb = 0u; }
     }
   }
+  if constexpr (kUnitMajor && kMixed)  // read again: not kept live across the walk
+    my_any = walker && i < n_rays && is_any[i] != 0;
   if (walker && i < n_rays) {
     const unsigned long long kq = key[t];
     const unsigned low = static_cast<unsigned>(kq);

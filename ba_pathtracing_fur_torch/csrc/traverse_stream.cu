@@ -28,19 +28,23 @@
 //
 // Two more variants of the TPU kernel (traverse_stream's mxu=True and a
 // pack_prim_hbm(dtype=bfloat16) pack), each in closest, any and mixed mode:
-//   * bf16 leaves (cone and triangle): the pack at half the bytes, upcast on
-//     read from shared memory and tested in f32, so a row's t is the twin's
-//     over the upcast pack bit for bit; its boxes bound the rounded rows
+//   * bf16 leaves (cone and triangle): the pack at half the bytes, tested in
+//     unit-major runs of the rays that enter each unit of a leaf: a lane's
+//     row held in registers (two bf16 a word) across the run, each value
+//     widened exactly at its use by the f32 test, so a row's t is the
+//     twin's over the upcast pack bit for bit; its boxes bound the rounded rows
 //     (ops/cuda/stream.py::pack_prim_hbm). Config 5's 587 MB of leaves
 //     become 294 MB.
 //   * mxu (cones, f32 or bf16 leaves): the six ray.frame projections of each
-//     (ray, row) on the tensor cores (mma.sync m16n8k8 TF32, 3xTF32 for f32
-//     precision; leaf_tiles.cuh kMxu), p = o.u - b.u and the quadratic of
-//     cone_row on the FP32 pipe (leaf_tests.cuh::cone_row_proj). The
-//     projections are 30 of a cone row's 93 flops. Its rows agree with the
-//     twin's (traverse_stream_ref(mxu=True)) but for near ties: the matrix
-//     products round otherwise than its f32 sums. Its 24 accumulators a lane
-//     spill ~100-130 bytes under the 64-register bound of two blocks an SM.
+//     (ray, row) on the tensor cores, in unit-major tiles of the rays that
+//     enter a unit (leaf_tiles.cuh kMxu: mma.sync m16n8k8 TF32, the ray's
+//     hi/lo halves folded into the depth: two passes a frame vector on f32
+//     rows, one on bf16 rows), each row's b.u, b.v, b.w once a leaf, p = o.u -
+//     b.u and the quadratic of cone_row on the FP32 pipe
+//     (leaf_tests.cuh::cone_uw, cone_v). The projections are 30 of a cone
+//     row's 93 flops. Its rows agree with the twin's
+//     (traverse_stream_ref(mxu=True)) but for near ties: the matrix products
+//     round otherwise than its f32 sums.
 //
 // What bounds it: operations (93 flops a cone row, ~700 rows a camera ray)
 // once the leaf bytes are shared; the cone arithmetic is built with
@@ -82,28 +86,51 @@ __global__ void __launch_bounds__(fur::THREADS, fur::MIN_BLOCKS)
                                                    found_out, is_any);
 }
 
+// The dynamic shared memory of an instance for this BVH (the block's
+// TileLayout), opted in to once it grows; cudaErrorInvalidValue past
+// MAX_SHARED.
+template <bool kCone, bool kAnyHit, bool kMixed, bool kMxu, class T>
+cudaError_t prepare(int n_sup, int leaf_k, size_t* bytes) {
+  *bytes = 4u * static_cast<size_t>(fur::tile_layout(kCone ? 16 : 9, leaf_k, n_sup,
+                                                     fur::walk_depth(n_sup), sizeof(T), kMxu)
+                                        .words);
+  if (*bytes > static_cast<size_t>(fur::MAX_SHARED)) return cudaErrorInvalidValue;
+  static size_t opted = 0;  // the dynamic shared memory this instance may use
+  if (*bytes > opted) {
+    cudaError_t e = cudaFuncSetAttribute(stream_kernel<kCone, kAnyHit, kMixed, kMxu, T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(*bytes));
+    if (e != cudaSuccess) return e;
+    opted = *bytes;
+  }
+  return cudaSuccess;
+}
+
 template <bool kCone, bool kAnyHit, bool kMixed, bool kMxu, class T>
 cudaError_t launch(const StreamBoxes& bx, int n_rays, const float* o, const float* d,
                    const float* t_max, const void* packed, const float* uboxes, int leaf_k,
                    float t_min, float* t_out, int* row_out, unsigned char* found_out,
                    const unsigned char* is_any, cudaStream_t st) {
-  const int depth = fur::walk_depth(bx.n_sup);
-  const size_t bytes = 4u * static_cast<size_t>(
-      fur::tile_layout(kCone ? 16 : 9, leaf_k, bx.n_sup, depth, sizeof(T)).words);
-  if (bytes > static_cast<size_t>(fur::MAX_SHARED)) return cudaErrorInvalidValue;
-  static size_t opted = 0;  // the dynamic shared memory this instance may use
-  if (bytes > opted) {
-    cudaError_t e = cudaFuncSetAttribute(stream_kernel<kCone, kAnyHit, kMixed, kMxu, T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-    if (e != cudaSuccess) return e;
-    opted = bytes;
-  }
+  size_t bytes = 0;
+  cudaError_t e = prepare<kCone, kAnyHit, kMixed, kMxu, T>(bx.n_sup, leaf_k, &bytes);
+  if (e != cudaSuccess) return e;
   const int grid = (n_rays + fur::TILE - 1) / fur::TILE;
   stream_kernel<kCone, kAnyHit, kMixed, kMxu, T><<<grid, fur::THREADS, bytes, st>>>(
-      bx, n_rays, o, d, t_max, static_cast<const T*>(packed), uboxes, leaf_k, depth, t_min,
-      t_out, row_out, found_out, is_any);
+      bx, n_rays, o, d, t_max, static_cast<const T*>(packed), uboxes, leaf_k,
+      fur::walk_depth(bx.n_sup), t_min, t_out, row_out, found_out, is_any);
   return cudaGetLastError();
+}
+
+// The dynamic shared memory of an instance a block, and the blocks of it one
+// SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+template <bool kCone, bool kAnyHit, bool kMixed, bool kMxu, class T>
+cudaError_t occupancy(int n_sup, int leaf_k, int* bytes, int* blocks) {
+  size_t b = 0;
+  cudaError_t e = prepare<kCone, kAnyHit, kMixed, kMxu, T>(n_sup, leaf_k, &b);
+  if (e != cudaSuccess) return e;
+  *bytes = static_cast<int>(b);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, stream_kernel<kCone, kAnyHit, kMixed, kMxu, T>, fur::THREADS, b);
 }
 
 // The closest, any or mixed instance of one (kind, test, element type).
@@ -119,6 +146,14 @@ cudaError_t launch_mode(int any_hit, const unsigned char* is_any, const StreamBo
   if (is_any) return go(launch<kCone, false, true, kMxu, T>);
   return any_hit ? go(launch<kCone, true, false, kMxu, T>)
                  : go(launch<kCone, false, false, kMxu, T>);
+}
+
+template <bool kCone, bool kMxu, class T>
+cudaError_t occupancy_mode(int any_hit, int mixed, int n_sup, int leaf_k, int* bytes,
+                           int* blocks) {
+  if (mixed) return occupancy<kCone, false, true, kMxu, T>(n_sup, leaf_k, bytes, blocks);
+  return any_hit ? occupancy<kCone, true, false, kMxu, T>(n_sup, leaf_k, bytes, blocks)
+                 : occupancy<kCone, false, false, kMxu, T>(n_sup, leaf_k, bytes, blocks);
 }
 
 }  // namespace
@@ -158,3 +193,24 @@ extern "C" int stream_launch(int n_rays, const float* o, const float* d, const f
   return static_cast<int>(e);
 }
 
+// The dynamic shared memory a block (*bytes) and the blocks an SM holds
+// (*blocks) of the instance stream_launch would take for these arguments
+// (mixed for the is_any launch); cudaErrorInvalidValue where it would refuse
+// the shape.
+extern "C" int stream_occupancy(int n_sup, int leaf_k, int cone, int any_hit, int mixed,
+                                int bf16, int mxu, int* bytes, int* blocks) {
+  if (n_sup < 1 || leaf_k <= 0 || (any_hit && mixed) || (mxu && !cone))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using bf = __nv_bfloat16;
+  cudaError_t e;
+  if (mxu)
+    e = bf16 ? occupancy_mode<true, true, bf>(any_hit, mixed, n_sup, leaf_k, bytes, blocks)
+             : occupancy_mode<true, true, float>(any_hit, mixed, n_sup, leaf_k, bytes, blocks);
+  else if (cone)
+    e = bf16 ? occupancy_mode<true, false, bf>(any_hit, mixed, n_sup, leaf_k, bytes, blocks)
+             : occupancy_mode<true, false, float>(any_hit, mixed, n_sup, leaf_k, bytes, blocks);
+  else
+    e = bf16 ? occupancy_mode<false, false, bf>(any_hit, mixed, n_sup, leaf_k, bytes, blocks)
+             : occupancy_mode<false, false, float>(any_hit, mixed, n_sup, leaf_k, bytes, blocks);
+  return static_cast<int>(e);
+}

@@ -69,6 +69,9 @@ SIGNATURES = {
         + [_C_VOID_P, _C_FLOAT]                # is_any (null unless mixed) t_min
         + [_C_VOID_P] * 3                      # t row found
         + [_C_VOID_P])),                       # cudaStream_t
+    "stream_occupancy": ("traverse_stream.cu", (
+        [_C_INT] * 7                           # n_sup leaf_k cone any_hit mixed bf16 mxu
+        + [_C_VOID_P] * 2)),                   # &bytes &blocks
     "bruteforce_launch": ("bruteforce.cu", (
         [_C_INT] + [_C_VOID_P] * 5             # n_rays, o d t_max prims boxes
         + [_C_INT, _C_INT, _C_FLOAT]           # n_prims cone t_min

@@ -35,12 +35,15 @@ or routes a render through them with `render_sample_ids`'s `closest_fn` /
 
 * `mxu=True` (cones; the TPU kernel's `_cone_block_mxu`): the six
   ray.frame projections of each (ray, row) as matrix products, on the
-  tensor cores (3xTF32). Its plain version is `brute_force(mxu=True)`; the
-  two agree but on near ties, where their products round apart. Triangle
+  tensor cores (TF32 halves of each operand, two passes a frame vector on
+  an f32 pack, one on a bf16 pack), in tiles of the rays that enter each
+  unit of a leaf. Its plain version is `brute_force(mxu=True)`; the two
+  agree but on near ties, where their products round apart. Triangle
   leaves ignore the flag, as in JAX: they launch the f32 test.
 * a bf16 pack (`pack_prim_hbm(bvh, kind, torch.bfloat16)`): the leaf
-  geometry at half the bytes, upcast to f32 in the kernel. Its plain
-  version is the brute force over the upcast pack, bit for bit.
+  geometry at half the bytes, each row held in registers across a run of
+  the rays that enter its unit and widened to f32 (exactly) at each use.
+  Its plain version is the brute force over the upcast pack, bit for bit.
 
 Launches are counted by instance family: `KERNEL_LAUNCHES` and
 `MIXED_LAUNCHES` the f32 test on an f32 pack, `MXU_LAUNCHES` every launch
@@ -273,6 +276,27 @@ def _traverse_stream_cuda(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: boo
     else:
         MIXED_LAUNCHES += 1
     return t_out, row_out, found_out
+
+
+def occupancy(bvh: bvh_mod.BVH, kind: str, mode: str = "closest", mxu: bool = False) -> dict:
+    """The kernel instance a launch on `bvh` in `mode` ("closest", "any" or
+    "mixed") takes, on the current CUDA device: its dynamic shared memory a
+    block (`bytes`) and the blocks of it an SM holds (`blocks_per_sm`,
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor; the kernel is built for
+    2 a SM, 64 registers a thread)."""
+    from ...kernels import load_library
+
+    if mode not in ("closest", "any", "mixed"):
+        raise ValueError(f"occupancy: mode must be closest, any or mixed, got {mode!r}")
+    n_bytes, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    err = load_library().stream_occupancy(
+        ctypes.c_int(bvh.n_leaves // bvh.fanout), ctypes.c_int(bvh.leaf_size),
+        ctypes.c_int(int(kind == "cone")), ctypes.c_int(int(mode == "any")),
+        ctypes.c_int(int(mode == "mixed")), ctypes.c_int(int(bvh.packed.dtype == torch.bfloat16)),
+        ctypes.c_int(int(mxu and kind == "cone")), ctypes.byref(n_bytes), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"traverse_stream occupancy query failed: CUDA error {err}")
+    return dict(bytes=n_bytes.value, blocks_per_sm=blocks.value)
 
 
 def traverse_stream(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = False,

@@ -49,8 +49,8 @@ render_image`) and checks the images:
     its compacted sample equal to the uncompacted one, rays/s of both
     renders in turns and a traced sample of each;
   * K3's last two variants on config 5 (`phase_stream_variants`): the
-    tensor-core cone test (`traverse_stream(mxu=True)`, 3xTF32 mma.sync)
-    and bf16 leaves (`pack_prim_hbm(dtype=torch.bfloat16)`), each in
+    tensor-core cone test (`traverse_stream(mxu=True)`, TF32 mma.sync in
+    unit-major tiles) and bf16 leaves (`pack_prim_hbm(dtype=torch.bfloat16)`), each in
     closest, any and mixed mode, on the sorted camera and bounce-1
     wavefronts, the bounce-0 shadow rays and the bounce-1 pairs: the bf16
     instances bit for bit against their plain version and their drift
@@ -252,8 +252,9 @@ TIMED_REPS = 3
 CLI = dict(quads=64, res=(1280, 720), depth=5, spp=16, spp_methods=4, spp_none=1,
            spp_report=1)
 CLI_SMALL = dict(quads=16, res=(64, 36), spp=2)
-# The CLI wavefronts on which K3 (median and morton cone trees) and K5
-# (`--accel none`, the 368,640-cone pack) are bounded.
+# The CLI wavefronts on which every traversal kernel is bounded: K3 (median
+# and morton cone trees), K2 (their triangle trees) and K5 (`--accel none`,
+# the 368,640-cone and the 8,192-triangle packs).
 CLI_BOUND_TRAFFIC = ("bounce-0 closest", "bounce-0 shadow")
 CLI_DIR = Path("smoke_out") / "cli"
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3;
@@ -287,15 +288,17 @@ MXU_ROWS_FLOOR = {"camera": 0.94, "bounce1": 0.999, "shadow": 0.999, "pairs": 0.
 TIE_REL = 1e-5
 # Wrong kernels that the row gate must fail (`hold_k3_controls`, on the
 # camera and bounce-1 wavefronts): copies of K3's source mutated as
-# (file, lines, replacement), built beside the port's build. "tf32" drops
-# the lo passes of mma_3xtf32, leaving one TF32 pass (10 mantissa bits);
-# "row" takes a quad neighbour's row off by one in the (t, row) shuffle (the
-# other row of its pair: within the leaf, so every row index stays valid).
+# (file, lines, replacement), built beside the port's build; each one's lines
+# occur once in csrc (tests/test_torch_stream_variants.py). "tf32" makes the
+# lo half of every TF32 split 0 (the ray's, folded into the depth, and an f32
+# row's), leaving one TF32 pass, x_hi.f_hi (10 mantissa bits); "row" takes a
+# quad neighbour's row off by one in the (t, row) shuffle (the other row of
+# its pair: within the leaf, so every row index stays valid).
 MXU_MUTANTS = {
-    "tf32": ("leaf_tiles.cuh", "  mma_tf32(c, al, bh0, bh1);\n"
-             "  if constexpr (!kExactB) mma_tf32(c, ah, bl0, bl1);\n", ""),
-    "row": ("leaf_tiles.cuh", "                  brow[m] = orow;\n",
-            "                  brow[m] = orow ^ 1;\n"),
+    "tf32": ("leaf_tiles.cuh", "  return tf32_rna(x - __uint_as_float(hi));\n",
+             "  return 0u;\n"),
+    "row": ("leaf_tiles.cuh", "                brow = orow;\n",
+            "                brow = orow ^ 1;\n"),
 }
 # The image gate's control: the f32 test rounded another way (K3 built with
 # FMA contraction, without the -fmad=false of kernels.SOURCE_FLAGS),
@@ -310,6 +313,9 @@ IMG_TILE = 32
 # K3's triangle instances, f32 and bf16: config 3's terrain (99,458
 # triangles) on a two-level median BVH, its camera and shadow wavefronts.
 TRI_STREAM = dict(res=(512, 512), n_tris=100_000, fanout=64)
+# blocks an SM each K3 instance must keep (leaf_tiles.cuh MIN_BLOCKS: its
+# launch bounds cap a thread at 64 registers so that two 512-thread blocks fit)
+K3_MIN_BLOCKS = 2
 # The full-bounce kernel's shading flops per ray, a rough count on
 # shade_core.cuh: its bound is set by the triangle rows (config 0) or the
 # bytes. The shade kernel's bound counts its branches (`cshade.work_ref`).
@@ -1659,6 +1665,22 @@ def phase_hairball_main_path(scene, cam, cfg, dev) -> dict:
     return dict(counts=counts, times=times, img=img)
 
 
+def bounce1_pairs(scene, cam, cfg, dev) -> tuple:
+    """Bounce 0 of `scene` as the joint path traces it
+    (`trace_bounce_fused_joint`) -> the bounce-1 rays and the bounce-0
+    shadow rays, (o, d, t_max) each, which `traverse.joint_wavefront` pairs."""
+    from ba_pathtracing_fur_torch.core import rng
+    from ba_pathtracing_fur_torch.models import pathtracer as pt
+
+    w, h = cam.resolution
+    state, keys = pt.camera_wavefront(cam, torch.arange(w * h, device=dev), rng.key(0, dev),
+                                      [0], cfg)
+    state, pend = pt.trace_bounce_fused_joint(state, pt.init_pending(w * h, dev), scene, keys, 0,
+                                              cfg, pt.BounceTables.of(scene))
+    return (state.origin, state.direction, pt._trace_cap(state), pend["o"], pend["d"],
+            pend["tmax"])
+
+
 def phase_joint(scene, cam, cfg, dev, separate) -> dict:
     """The joint closest + shadow path (`RenderConfig.joint_shadows`) on
     config 5, against the separate fused render `separate` of the same
@@ -1675,18 +1697,12 @@ def phase_joint(scene, cam, cfg, dev, separate) -> dict:
     TIMED_REPS, in turns), one traced sample of each; then the compacted
     joint sample against the uncompacted one (`phase_compaction`)."""
     from ba_pathtracing_fur_torch.core import rng
-    from ba_pathtracing_fur_torch.models import pathtracer as pt
     from ba_pathtracing_fur_torch.ops import traverse
     from ba_pathtracing_fur_torch.ops.cuda import stream as cstream
 
     bvh, key = scene.cone_bvh, rng.key(0, dev)
-    tables = pt.BounceTables.of(scene)
     w, h = cam.resolution
-    state, keys = pt.camera_wavefront(cam, torch.arange(w * h, device=dev), key, [0], cfg)
-    state, pend = pt.trace_bounce_fused_joint(state, pt.init_pending(w * h, dev), scene, keys, 0,
-                                              cfg, tables)
-    pairs = (state.origin, state.direction, pt._trace_cap(state), pend["o"], pend["d"],
-             pend["tmax"])
+    pairs = bounce1_pairs(scene, cam, cfg, dev)
     o2, d2, t2, is_any, _ = traverse.joint_wavefront(*pairs, bvh)
     t, row, found = cstream.traverse_stream(o2, d2, t2, bvh, "cone", is_any=is_any)
     sets = {"closest": (o2[0::2].contiguous(), d2[0::2].contiguous(), t2[0::2].contiguous()),
@@ -1732,7 +1748,7 @@ def phase_joint(scene, cam, cfg, dev, separate) -> dict:
     res = dict(times=times, max_abs_err=err, vs_launches=vs_launches, vs_twin=vs_twin,
                bound=stream_bound(o2, d2, t2, bvh, False, t, row, found, is_any=is_any),
                pairs=(o2, d2, t2, is_any, (t, row, found)))
-    del state, pend, pairs, o2, d2, t2, is_any, t, row, found, sets, own
+    del pairs, o2, d2, t2, is_any, t, row, found, sets, own
 
     joint = dataclasses.replace(cfg, joint_shadows=True)
     n = cfg.spp * cfg.depth
@@ -2121,20 +2137,32 @@ def image_diff(a: np.ndarray, b: np.ndarray) -> dict:
                 image_mean_rel=float((a.mean() - b.mean()) / max(abs(b.mean()), 1e-12)))
 
 
+def tile_spread(n: int, k: int, dev) -> torch.Tensor:
+    """About k ray indices of a wavefront of n as whole kernel ray tiles
+    (ctraverse.TILE_RAYS consecutive rays; whole pairs on a pair-sorted
+    wavefront) spread evenly over it."""
+    from ba_pathtracing_fur_torch.ops.cuda import traverse as ctraverse
+
+    tile = ctraverse.TILE_RAYS
+    first = spread(n // tile, max(1, min(k // tile, n // tile)), dev) * tile
+    return (first[:, None] + torch.arange(tile, device=dev)).reshape(-1)
+
+
 def variant_bound(o, d, t_max, bvh, any_hit, hit, is_any, mxu) -> dict:
     """A K3 variant's bound on one wavefront: `work_ref` (with `mxu`) on
-    VARIANT_WORK_RAYS rays spread over it (whole pairs for a mixed one) from
-    the variant's own hits, scaled; the FP32 operations over the FP32 peak
-    plus the TF32 products (3 passes) over the tensor cores' TF32 peak,
-    against the bytes (rays, boxes and tables, the entered leaves of the
-    pack, 2 bytes a value for bf16, the outputs) over the memory rate."""
+    VARIANT_WORK_RAYS rays of it, as whole ray tiles spread over it
+    (`tile_spread`), from the variant's own hits, scaled; the FP32
+    operations over the FP32 peak plus the TF32 products (ctraverse.
+    MXU_TERMS a projection) over the tensor cores' TF32 peak, against the
+    bytes (rays, boxes and tables, the entered leaves of the pack, 2 bytes a
+    value for bf16, the outputs) over the memory rate. With `mxu`, the
+    fewest unit-major mma tiles those tiles of rays need (`mma_tiles`,
+    scaled), their fill (rays a tile over ctraverse.UNIT_RAYS) and the
+    mma.sync a frame vector (ctraverse.MXU_PASSES)."""
     from ba_pathtracing_fur_torch.ops.cuda import traverse as ctraverse
 
     r, dev = o.shape[0], o.device
-    sub = spread(r, VARIANT_WORK_RAYS, dev)
-    if is_any is not None:
-        sub = (2 * spread(r // 2, VARIANT_WORK_RAYS // 2, dev)[:, None]
-               + torch.arange(2, device=dev)).reshape(-1)
+    sub = tile_spread(r, VARIANT_WORK_RAYS, dev)
     w = ctraverse.work_ref(o[sub], d[sub], t_max[sub], bvh, "cone", any_hit=any_hit,
                            hit=tuple(x[sub] for x in hit),
                            is_any=None if is_any is None else is_any[sub], mxu=mxu)
@@ -2143,9 +2171,14 @@ def variant_bound(o, d, t_max, bvh, any_hit, hit, is_any, mxu) -> dict:
         + w["leaf_bytes"] + r * 9 + (0 if is_any is None else nbytes(is_any))
     t_ops = (w["flops"] / PEAK_FP32_FLOPS + w["tf32_flops"] / PEAK_TF32_FLOPS) * scale * 1e3
     t_bytes = n_bytes / PEAK_BYTES * 1e3
-    return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes
-                else "bytes", flops=w["flops"] * scale, tf32_flops=w["tf32_flops"] * scale,
-                bytes=n_bytes, row_tests_per_ray=w["leaf_row_tests"] / sub.numel())
+    res = dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes
+               else "bytes", flops=w["flops"] * scale, tf32_flops=w["tf32_flops"] * scale,
+               bytes=n_bytes, row_tests_per_ray=w["leaf_row_tests"] / sub.numel())
+    if mxu:
+        res.update(mma_tiles=w["mma_tiles"] * scale, mma_rays=w["mma_rays"] * scale,
+                   mma_fill=w["mma_rays"] / max(1, ctraverse.UNIT_RAYS * w["mma_tiles"]),
+                   mma_passes=ctraverse.MXU_PASSES[bvh.packed.element_size()])
+    return res
 
 
 def hold_variant(wf: tuple, bvh, mxu: bool, ref, what: str, wave: str) -> dict:
@@ -2201,7 +2234,10 @@ def hold_variant(wf: tuple, bvh, mxu: bool, ref, what: str, wave: str) -> dict:
         f"({res['plain_ms']:.1f} ms): {res['vs_plain']}"
         + (f"; vs the f32 test on every ray: {res['vs_f32_test']}" if mxu else "")
         + f"; {res['ms']:.4f} ms, bound {res['bound']['bound_ms']:.4f} ms by "
-        f"{res['bound']['bound_by']} ({res['bound']['row_tests_per_ray']:.1f} row tests a ray)")
+        f"{res['bound']['bound_by']} ({res['bound']['row_tests_per_ray']:.1f} row tests a ray"
+        + (f"; at least {res['bound']['mma_tiles']:.4e} mma tiles of "
+           f"{res['bound']['mma_rays']:.4e} (ray, unit) entries, fill "
+           f"{res['bound']['mma_fill']:.4f}" if mxu else "") + ")")
     return res
 
 
@@ -2230,15 +2266,10 @@ def hold_k3_controls(wf: tuple, bvh, ref, wave: str, mutants: bool) -> dict:
     return out
 
 
-def phase_stream_tri(dev) -> dict:
-    """K3's triangle instances, f32 and bf16 (closest and any hit): config
-    3's terrain on a two-level median BVH (fanout 64), its camera wavefront
-    and shadow rays, entry-morton sorted: each against its plain version
-    (found, t and closest rows bit for bit on TWIN_RAYS rays spread over
-    it), timed and bounded, the bf16 drift against f32 reported."""
-    from ba_pathtracing_fur_torch.models import pathtracer as pt
+def terrain_stream(dev) -> tuple:
+    """Config 3's terrain (TRI_STREAM) on a two-level median BVH -> (scene,
+    camera)."""
     from ba_pathtracing_fur_torch.ops import traverse
-    from ba_pathtracing_fur_torch.ops.cuda import stream as cstream, traverse as ctraverse
     from ba_pathtracing_fur_torch.scene import builtins
 
     c = TRI_STREAM
@@ -2248,11 +2279,53 @@ def phase_stream_tri(dev) -> dict:
     if not 0 < b.fanout < b.n_leaves:
         raise AssertionError(f"terrain: not a two-level BVH: {b.n_leaves} leaves, fanout "
                              f"{b.fanout}")
+    return scene, cam
+
+
+def k3_occupancy(packs: dict, kind: str, what: str) -> dict:
+    """Each K3 instance a launch on these packs ({"f32": bvh, "bf16": its
+    bf16 pack}) takes (closest, any and mixed; cones also mxu): its dynamic
+    shared memory a block and the blocks an SM holds (`cstream.occupancy`),
+    printed; fails the run where one holds fewer than K3_MIN_BLOCKS, the
+    blocks its 64-register cap is built for. Nothing on the CPU."""
+    from ba_pathtracing_fur_torch.ops.cuda import stream as cstream
+
+    out, leaf_k = {}, packs["f32"].leaf_size
+    if packs["f32"].packed.device.type != "cuda":
+        return out
+    for pack, bvh in packs.items():
+        for mxu in ((False, True) if kind == "cone" else (False,)):
+            for mode in ("closest", "any", "mixed"):
+                name = f"K3 {kind} {mode}{' mxu' if mxu else ''} {pack}"
+                out[name] = cstream.occupancy(bvh, kind, mode, mxu)
+    log(f"K3 occupancy, {what} ({leaf_k}-row leaves): "
+        + ", ".join(f"{k} {v['bytes']} B a block, {v['blocks_per_sm']} a SM"
+                    for k, v in out.items()))
+    low = {k: v for k, v in out.items() if v["blocks_per_sm"] < K3_MIN_BLOCKS}
+    if low:
+        raise AssertionError(f"{what}: K3 instances under {K3_MIN_BLOCKS} blocks an SM: {low}")
+    return out
+
+
+def phase_stream_tri(dev) -> dict:
+    """K3's triangle instances, f32 and bf16 (closest and any hit): config
+    3's terrain on a two-level median BVH (fanout 64), its camera wavefront
+    and shadow rays, entry-morton sorted: each against its plain version
+    (found, t and closest rows bit for bit on TWIN_RAYS rays spread over
+    it), timed (the median of single calls, each between its own events,
+    and the mean of 10 calls back to back) and bounded, the bf16 drift
+    against f32 reported."""
+    from ba_pathtracing_fur_torch.models import pathtracer as pt
+    from ba_pathtracing_fur_torch.ops.cuda import stream as cstream, traverse as ctraverse
+
+    scene, cam = terrain_stream(dev)
+    b = scene.tri_bvh
     t0 = time.perf_counter()
     b16 = cstream.pack_prim_hbm(b, "tri", torch.bfloat16)
     torch.cuda.synchronize()
     out = dict(bvh=(b.n_leaves, b.leaf_size, b.fanout), triangles=scene.tris.count,
-               pack_s=time.perf_counter() - t0)
+               pack_s=time.perf_counter() - t0,
+               occupancy=k3_occupancy({"f32": b, "bf16": b16}, "tri", "terrain"))
     cfg = pt.RenderConfig(depth=4, spp=1, compact=False, fused_shading=True)
     waves = camera_and_shadow_rays(scene, cam, cfg, dev)
     for name, (o, d, t_max), any_hit in (("camera", waves[0], False),
@@ -2281,7 +2354,7 @@ def phase_stream_tri(dev) -> dict:
                 + w["leaf_bytes"] + o.shape[0] * 9
             res[pack] = dict(found=int(found.sum()), vs_plain=bad, plain_ms=e0.elapsed_time(e1),
                              max_abs_err=float((tp - t[sub]).abs().max()),
-                             ms=timed_median(run),
+                             ms=timed_median(run), ms_back_to_back=timed(run, 10),
                              bound=bound(w["flops"] * o.shape[0] / ws.numel(), n_bytes),
                              hit=(row, found))
         closest = torch.full((o.shape[0],), not any_hit, device=dev)
@@ -2289,7 +2362,8 @@ def phase_stream_tri(dev) -> dict:
         log(f"traverse_stream tri, terrain {name} ({o.shape[0]} rays, {b.n_leaves} leaves x "
             f"{b.leaf_size}, fanout {b.fanout}; plain on {TWIN_RAYS}): "
             + "; ".join(f"{p} found {r['found']}, vs plain {r['vs_plain']}, {r['ms']:.4f} ms "
-                        f"(plain {r['plain_ms']:.1f} ms), bound {r['bound']['bound_ms']:.4f} "
+                        f"a call ({r['ms_back_to_back']:.4f} ms a call of 10 back to back; "
+                        f"plain {r['plain_ms']:.1f} ms), bound {r['bound']['bound_ms']:.4f} "
                         f"ms by {r['bound']['bound_by']}" for p, r in res.items()
                         if p != "drift")
             + f"; bf16 against f32: {res['drift']}")
@@ -2327,7 +2401,8 @@ def phase_stream_variants(scene, cam, cfg, dev, hb, joint, separate, card) -> di
     b16 = cstream.pack_prim_hbm(bvh, "cone", torch.bfloat16)
     torch.cuda.synchronize()
     out = dict(pack_s=time.perf_counter() - t0, pack_bytes=nbytes(b16.packed),
-               f32_pack_bytes=nbytes(bvh.packed))
+               f32_pack_bytes=nbytes(bvh.packed),
+               occupancy=k3_occupancy({"f32": bvh, "bf16": b16}, "cone", "config5"))
     log(f"config5 bf16 pack: {out['pack_bytes']:.4e} bytes (f32 {out['f32_pack_bytes']:.4e}), "
         f"made with its refitted boxes in {out['pack_s']:.3f} s")
     o2, d2, t2, is_any, mixed = joint.pop("pairs")
@@ -2470,6 +2545,9 @@ def variant_entries(sv: dict, ptx: dict, main_counts: dict) -> tuple:
                        plain_ms=sv[w][key]["plain_ms"], plain_rays=sv[w][key]["plain_rays"],
                        bound_ms=sv[w][key]["bound"]["bound_ms"],
                        bound_by=sv[w][key]["bound"]["bound_by"],
+                       **{k: sv[w][key]["bound"][k] for k in ("mma_tiles", "mma_rays",
+                                                              "mma_fill")
+                          if k in sv[w][key]["bound"]},
                        **{k: sv[w][key][k] for k in ("vs_plain", "vs_f32_test", "drift")
                           if k in sv[w][key]}) for w in VARIANT_WAVES}
         render = {x: {k: sv[f"render_{k}"][x] for k in ("f32", key)}
@@ -2486,12 +2564,15 @@ def variant_entries(sv: dict, ptx: dict, main_counts: dict) -> tuple:
                     bound_ms=cam_v["bound"]["bound_ms"], bound_by=cam_v["bound"]["bound_by"],
                     library_ms=None, f32_ms=sv["camera"]["f32_ms"], wavefronts=per,
                     render=render, ptxas={k: v for k, v in ptx.items() if ptx_keep(k)},
+                    occupancy={k: v for k, v in {**sv["occupancy"], **sv["tri"]["occupancy"]}
+                               .items() if ptx_keep(k)},
                     phase_seconds=sv["seconds"])
 
     mxu = entry("traverse_stream_mxu", "mxu", "stream_mxu",
                 lambda k: k.startswith("K3") and " mxu" in k)
     mxu.update(bf16={w: dict(ms=sv[w]["mxu_bf16"]["ms"],
                              bound_ms=sv[w]["mxu_bf16"]["bound"]["bound_ms"],
+                             mma_fill=sv[w]["mxu_bf16"]["bound"]["mma_fill"],
                              vs_plain=sv[w]["mxu_bf16"]["vs_plain"],
                              vs_bf16_f32_test=sv[w]["mxu_bf16"]["vs_f32_test"])
                      for w in VARIANT_WAVES},
@@ -3370,7 +3451,7 @@ def traversal_launches(scene, calls: int, n_rays: int) -> dict:
     return want
 
 
-def hold_cli_traffic(kind, o, d, t_max, scene, what, bound_cones=False) -> dict:
+def hold_cli_traffic(kind, o, d, t_max, scene, what, bound=False) -> dict:
     """Every traversal kernel of the CLI scene on one captured wavefront,
     as `closest_hit` / `any_hit` feed them (sorted by the entry-morton key
     of the cone BVH, else the triangle BVH; unsorted without a BVH): per
@@ -3378,9 +3459,10 @@ def hold_cli_traffic(kind, o, d, t_max, scene, what, bound_cones=False) -> dict:
     against its twin on TRAFFIC_TWIN_RAYS live rays and 64 dead ones (found
     and t bit for bit, rows on closest hits); per BVH-less pack of K5's
     size, K5 against its twin on the same rays (t and index bit for bit).
-    Each kernel is timed on the whole wavefront; with `bound_cones`, K3 and
-    K5 on the cone pack are bounded on it too (`stream_bound` on K3's own
-    hits, `brute_bound` on K5_CONE_TILES tiles, as on configs 5 and 4)."""
+    Each kernel is timed on the whole wavefront; with `bound`, each is
+    bounded on it too: K3 by `stream_bound` and K2 by `traverse_bound` on
+    their own hits, K5 by `brute_bound` on K5_CONE_TILES tiles (as on
+    configs 5, 3 and 4)."""
     from ba_pathtracing_fur_torch.ops import traverse
     from ba_pathtracing_fur_torch.ops.cuda import intersect as cisect, stream as cstream, \
         traverse as ctraverse
@@ -3421,9 +3503,11 @@ def hold_cli_traffic(kind, o, d, t_max, scene, what, bound_cones=False) -> dict:
         ms = timed(lambda: fn(*rays), 3)
         out[f"{name}_{pk}"] = dict(mismatches=mis, found=found, max_abs_err=err, ms=ms,
                                    twin_rays=int(sub.numel()))
-        if bound_cones and pk == "cone" and name != "traverse":
+        if bound:
             out[f"{name}_{pk}"]["bound"] = (
                 stream_bound(*rays, bvh, any_hit, t1, r1, f1) if name == "traverse_stream"
+                else traverse_bound(*rays, bvh, pk, any_hit, hit=(t1, r1, f1))
+                if name == "traverse"
                 else brute_bound(*rays, tables, pk, tk, ik, max_tiles=K5_CONE_TILES))
         log(f"{name} {pk} {kind} hit, {what}: {o.shape[0]} rays, "
             f"{int((t_max > 0).sum())} with t_max > 0, found {found}; vs twin on "
@@ -3516,7 +3600,7 @@ def phase_cli(dev, card) -> dict:
         f"{main['counts']}; peak device memory {main['peak_gib']:.2f} GiB; debug_info "
         f"{main['debug_info']}; {CLI_DIR / 'cli_median.png'}; on {card}")
     held = {"median": {n: hold_cli_traffic(k, o, d, t, main["scene"], f"cli median {n} rays",
-                                           bound_cones=n in CLI_BOUND_TRAFFIC)
+                                           bound=n in CLI_BOUND_TRAFFIC)
                        for n, (k, o, d, t) in zip(names, main.pop("kept"))}}
     prof = profile_call(lambda: cli_render(path, "cli_profile.png", dev, spp=1),
                         "cli median spp-1 render (scene load and build included)",
@@ -3539,7 +3623,7 @@ def phase_cli(dev, card) -> dict:
                      **traversal_launches(run["scene"], 2 * spp * c["depth"], w * h))
         held[f"{m}_spp{spp}"] = {
             nm: hold_cli_traffic(k, o, d, t, run["scene"], f"cli {m} {nm} rays",
-                                 bound_cones=m in ("morton", "none") and nm in CLI_BOUND_TRAFFIC)
+                                 bound=m in ("morton", "none") and nm in CLI_BOUND_TRAFFIC)
             for nm, (k, o, d, t) in zip(names, run.pop("kept"))}
         if m == "median":
             refs[spp] = img
@@ -3765,6 +3849,10 @@ def drive(dev, card: str) -> list:
         + ", ".join(f"{k} {v.get('registers')} regs {v.get('spill_stores')} B spilled"
                     for k, v in ptx.items() if k.startswith(("K2 ", "K3 "))
                     and (k.startswith("K2 ") or k.endswith(" f32") and " mxu" not in k)))
+    spilled = {k: v["spill_stores"] for k, v in ptx.items()
+               if k.startswith(("K2 ", "K3 ")) and v.get("spill_stores")}
+    if spilled:  # every traversal instance, the tensor-core ones too, stays in registers
+        raise AssertionError(f"ptxas: traversal kernel instances spill (bytes): {spilled}")
     # threefry on the card is bit-exact with the CPU
     from ba_pathtracing_fur_torch.core import rng
     ids = torch.arange(4096)
@@ -4010,7 +4098,9 @@ def drive(dev, card: str) -> list:
              cli=cli_kernel("traverse_stream_cone"),
              joint_launches=joint["counts"]["stream"],
              ptxas={k: v for k, v in ptx.items() if k.startswith("K3") and k.endswith(" f32")
-                    and " mxu" not in k}),
+                    and " mxu" not in k},
+             occupancy={k: v for k, v in {**sv["occupancy"], **sv["tri"]["occupancy"]}.items()
+                        if k.endswith(" f32") and " mxu" not in k}),
         dict(name="traverse_stream_mixed", route="cuda",
              source="ba_pathtracing_fur_torch/csrc/traverse_stream.cu",
              replaces="ba_pathtracing_fur_tpu/ops/pallas/stream.py:464",

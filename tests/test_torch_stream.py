@@ -184,6 +184,34 @@ def test_work_ref_counts_the_leaves_it_enters(two_level, any_hit):
     assert dead["leaves_entered"] == 0 and dead["leaf_row_tests"] == 0
 
 
+def test_work_ref_counts_hits_on_a_flat_leafs_face():
+    """A Cornell wall's triangles make flat leaves, and a hit on one lies on
+    its leaf box's face: the slab test enters the box at the hit's t, which
+    the bound counts (the kernel's entry test takes t <= best t). Every hit
+    ray counts at least its winning row's unit, also where the box entry
+    rounds an ulp past the row test's t."""
+    from ba_pathtracing_fur_torch.ops import bvh as bvh_mod
+
+    ts, _ = builtins.cornell_box(resolution=(8, 8), device=CPU)
+    b = traverse.attach_bvh(ts, leaf_size=4, min_prims=1).tri_bvh
+    c = b.n_leaves
+    o, d = _rays(256, 0, ((-0.3, -0.3, -0.3), (0.3, 0.3, 0.3)))
+    o = torch.from_numpy(o * np.float32(0.15))
+    d = torch.from_numpy(d)
+    t_max = torch.full((256,), 3.4e38)
+    t, row, found = ctraverse.brute_force(o, d, t_max, b, "tri")
+    leaf = row.long() // b.leaf_size
+    flat = ((b.bmax[c - 1:] - b.bmin[c - 1:]) == 0).any(1)
+    e = ctraverse._slab_entry(o, d, b.bmin[c - 1:], b.bmax[c - 1:], t)
+    at_t = e[torch.arange(256), leaf] == t
+    assert int((found & flat[leaf] & at_t).sum()) > 10
+    for i in found.nonzero()[:, 0].tolist():
+        w = ctraverse.work_ref(o[i:i + 1], d[i:i + 1], t_max[i:i + 1], b, "tri",
+                               hit=(t[i:i + 1], row[i:i + 1], found[i:i + 1]))
+        assert w["leaf_row_tests"] >= min(bvh_mod.UNIT, b.leaf_size), i
+        assert w["leaves_entered"] >= 1
+
+
 @pytest.mark.parametrize("leaf", [16, 40, 88])
 def test_unit_boxes_bound_their_rows(leaf):
     """attach_bvh caches the boxes of each leaf's runs of UNIT rows: each

@@ -17,7 +17,12 @@ versions against the JAX package's, on the CPU.
   port's refitted boxes, and its winner's rounded box pokes out of JAX's f32
   child box) or the contraction of the f32 test (at most 2%); the refitted
   boxes bound every hit of the rounded rows and contain the f32 boxes.
-* `mxu=True` on triangles is the f32 test; `work_ref` counts both variants.
+* `mxu=True` on triangles is the f32 test; `work_ref` counts both variants
+  (the mxu test's TF32 terms by pack and its fewest unit-major mma tiles).
+* The mxu kernel's TF32 split, emulated in torch (cvt.rna.tf32): its passes
+  summed in f64 stay within 2^-20 sum |x_k f_k| of the f64 projection, and a
+  bf16 row needs no lo term; the smoke's mutants of the kernel patch lines
+  that occur once in csrc.
 * The slice as a whole: a render through `render_sample_ids`' hooks with
   the mxu test against the render through `closest_hit` (the image gate of
   tests/test_fused_shade.py), with the f32 test bit for bit equal to it.
@@ -280,43 +285,165 @@ def test_mxu_on_triangles_is_the_f32_test(tri_level):
     assert a[2].any()
 
 
-@pytest.mark.parametrize("variant", ["bf16", "mxu", "mxu_tri"])
+def _mma_cells(o, d, t_max, bvh, hit, is_any, tile):
+    """{(ray tile, leaf, unit): rays} entered by the rays, each ray tested
+    on its own (the reference count of `work_ref`'s mma tiles): every unit
+    of every leaf whose box the ray enters at or before its final t, and a
+    closest hit's own unit; for an occluded any-hit ray its row's unit."""
+    t, row, found = hit
+    cells = {}
+    ub = bvh.uboxes
+    n_units, c = ub.shape[2], bvh.n_leaves
+    for i in range(o.shape[0]):
+        if not t_max[i] > 0:
+            continue
+        if is_any[i] and found[i]:
+            r = int(row[i])
+            key = (i // tile, r // bvh.leaf_size, r % bvh.leaf_size // bvh_mod.UNIT)
+            cells[key] = cells.get(key, 0) + 1
+            continue
+        t_fin = t_max[i] if is_any[i] else t[i]
+        e = ctraverse._slab_entry(o[i:i + 1], d[i:i + 1], bvh.bmin[c - 1:], bvh.bmax[c - 1:],
+                                  t_fin[None])[0]
+        mine = set()
+        for leaf in (e < INF).nonzero()[:, 0].tolist():
+            units = ctraverse._units_entered(o[i:i + 1], d[i:i + 1], ub[leaf:leaf + 1],
+                                             t_fin[None])[0]
+            mine |= {(i // tile, leaf, u) for u in units.nonzero()[:, 0].tolist()}
+        if not is_any[i] and found[i]:
+            r = int(row[i])
+            mine.add((i // tile, r // bvh.leaf_size, r % bvh.leaf_size // bvh_mod.UNIT))
+        for key in mine:
+            cells[key] = cells.get(key, 0) + 1
+    return cells
+
+
+@pytest.mark.parametrize("variant", ["bf16", "mxu", "mxu_bf16", "mxu_tri", "mxu_any"])
 def test_work_ref_counts_the_variants(two_level, tri_level, variant):
     """The bounds' counts: a bf16 pack's leaves at 2 bytes a value (at least
     the f32 pack's tests on the same hits: its boxes hold the f32 ones); mxu
-    moves the six projections of each
-    cone row to `tf32_flops` (30 flops x 3 passes) and leaves 63 in `flops`;
-    triangles have no mxu test."""
+    moves the six projections of each cone row to `tf32_flops` (30 flops x 3
+    TF32 terms on an f32 pack, x 2 on a bf16 pack, whose rows have no lo
+    half) and leaves 63 in `flops`, and counts the fewest unit-major mma
+    tiles (ceil(rays / 8) for each (ray tile of 128, leaf, unit) its rays
+    enter; an occluded any-hit ray holds its row's unit) against a count
+    ray by ray; triangles have no mxu test."""
     kind = "tri" if variant == "mxu_tri" else "cone"
     _, ts, o, d = two_level if kind == "cone" else tri_level
     tb = ts.cone_bvh if kind == "cone" else ts.tri_bvh
     o, d = torch.from_numpy(o), torch.from_numpy(d)
     t_max = torch.full((N_RAYS,), INF)
+    any_hit = variant == "mxu_any"
+    if any_hit:
+        t_max = torch.full((N_RAYS,), 2.5)
+        t_max[::19] = 0.0
     hit = ctraverse.brute_force(o, d, t_max, tb, kind)
-    base = ctraverse.work_ref(o, d, t_max, tb, kind, hit=hit)
+    if any_hit:
+        _, arow, afound = ctraverse.brute_force(o, d, t_max, tb, kind, any_hit=True)
+        hit = (hit[0], torch.where(afound, arow, hit[1]), afound)
+    base = ctraverse.work_ref(o, d, t_max, tb, kind, any_hit=any_hit, hit=hit)
+    assert base["mma_tiles"] == base["mma_rays"] == 0
+    b16 = cstream.pack_prim_hbm(tb, kind, torch.bfloat16)
     if variant == "bf16":
-        got = ctraverse.work_ref(o, d, t_max, cstream.pack_prim_hbm(tb, kind, torch.bfloat16),
-                                 kind, hit=hit)
+        got = ctraverse.work_ref(o, d, t_max, b16, kind, hit=hit)
         units = tb.uboxes.shape[2]
         assert got["leaf_bytes"] == got["leaves_entered"] * (16 * tb.leaf_size * 2 + 6 * units * 4)
         assert base["leaf_bytes"] == base["leaves_entered"] * (16 * tb.leaf_size * 4
                                                                + 6 * units * 4)
         assert got["tf32_flops"] == 0
     else:
-        got = ctraverse.work_ref(o, d, t_max, tb, kind, hit=hit, mxu=True)
-        assert got["leaf_bytes"] == base["leaf_bytes"]
+        bvh = b16 if variant == "mxu_bf16" else tb
+        got = ctraverse.work_ref(o, d, t_max, bvh, kind, any_hit=any_hit, hit=hit, mxu=True)
+        base = ctraverse.work_ref(o, d, t_max, bvh, kind, any_hit=any_hit, hit=hit)
     if variant == "bf16":  # the refitted boxes hold the f32 ones: no fewer tests
         assert got["box_tests"] >= base["box_tests"]
         assert got["leaf_row_tests"] >= base["leaf_row_tests"]
     else:
         assert (got["box_tests"], got["leaf_row_tests"]) == (base["box_tests"],
                                                              base["leaf_row_tests"])
+        assert got["leaf_bytes"] == base["leaf_bytes"]
     rows = base["leaf_row_tests"]
-    if variant == "mxu":
-        assert got["tf32_flops"] == rows * 30 * 3
+    if variant.startswith("mxu") and kind == "cone":
+        terms = 2 if variant == "mxu_bf16" else 3
+        assert ctraverse.MXU_TERMS[bvh.packed.element_size()] == terms
+        assert got["tf32_flops"] == rows * 30 * terms
         assert got["flops"] == base["flops"] - rows * 30
+        is_any = torch.full((N_RAYS,), any_hit)
+        cells = _mma_cells(o, d, t_max, bvh, hit, is_any, ctraverse.TILE_RAYS)
+        assert got["mma_rays"] == sum(cells.values()) > 0
+        assert got["mma_tiles"] == sum(-(-n // ctraverse.UNIT_RAYS) for n in cells.values())
+        # a unit's rays fill its tiles but for the last: fill in (0, 1]
+        assert got["mma_rays"] <= ctraverse.UNIT_RAYS * got["mma_tiles"] < \
+            got["mma_rays"] + ctraverse.UNIT_RAYS * len(cells)
+        if not any_hit:  # every (ray, unit) entry tests the unit's rows
+            assert got["mma_rays"] * bvh_mod.UNIT >= rows
     elif variant == "mxu_tri":
         assert got["tf32_flops"] == 0 and got["flops"] == base["flops"]
+        assert got["mma_tiles"] == 0
+
+
+def _tf32(x):
+    """cvt.rna.tf32.f32 in torch: x rounded to TF32 (10 mantissa bits) to
+    nearest, ties away from zero, its low 13 bits cleared. IEEE floats are
+    sign and magnitude, so adding half the dropped step to the bits rounds
+    the magnitude (a carry into the exponent is the right result)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def test_tf32_split_error_model(two_level):
+    """The mxu kernel's arithmetic (csrc/leaf_tiles.cuh mxu_a, mxu_proj),
+    emulated: each operand split as hi = rna(x), lo = rna(x - hi); a
+    projection x . f sums x_hi.f_hi + x_lo.f_hi (one pass, the ray's halves
+    in the depth) and, on an f32 row, x_hi.f_lo (a second pass). On the test
+    scene's rays (o and d) and rows (u, v, w), those products summed in f64
+    lie within 2^-20 sum_k |x_k f_k| of the f64 projection (the dropped
+    x_lo.f_lo and the halves' rounding, 2^-22 each), while one TF32 pass
+    (x_hi.f_hi, the smoke's `tf32` mutant) does not; a bf16 row is exact in
+    TF32, so its lo half is 0 and the one pass holds the same bound."""
+    _, ts, o, d = two_level
+    bvh = ts.cone_bvh
+    # the emulation: a tie rounds away from zero, the low bits are cleared
+    x = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12, 3.0])
+    assert torch.equal(_tf32(x), torch.tensor([1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0, 3.0]))
+    assert (_tf32(torch.randn(1000)).view(torch.int32) & 0x1FFF == 0).all()
+    rays = torch.cat([torch.from_numpy(o), torch.from_numpy(d)])  # [2R, 3]
+    comp = torch.stack(ctraverse._rows_cm(bvh))[:, 0]  # [16, C*K]
+    real = bvh.perm >= 0
+    frames = [comp[3 + 3 * f:6 + 3 * f][:, real].T for f in range(3)]  # u, v, w: [N, 3]
+    b16 = cstream.pack_prim_hbm(bvh, "cone", torch.bfloat16)
+    comp16 = torch.stack(ctraverse._rows_cm(b16))[:, 0]
+    frames16 = [comp16[3 + 3 * f:6 + 3 * f][:, real].T for f in range(3)]
+    x_hi = _tf32(rays)
+    x_lo = _tf32(rays - x_hi)
+    for rows, exact in ((frames, False), (frames16, True)):
+        for f in rows:
+            f_hi = _tf32(f)
+            f_lo = _tf32(f - f_hi)
+            if exact:  # a bf16 row needs no lo term
+                assert torch.equal(f_hi, f) and (f_lo == 0).all()
+            ref = rays.double() @ f.double().T
+            scale = rays.double().abs() @ f.double().abs().T
+            got = (x_hi.double() @ f_hi.double().T + x_lo.double() @ f_hi.double().T
+                   + x_hi.double() @ f_lo.double().T)
+            err = ((got - ref).abs() / scale.clamp(min=1e-30)).max()
+            assert err <= 2.0 ** -20
+            one = x_hi.double() @ f_hi.double().T
+            assert ((one - ref).abs() / scale.clamp(min=1e-30)).max() > 2.0 ** -14
+
+
+def test_mxu_mutants_patch_lines_that_occur_once():
+    """`chip_smoke.MXU_MUTANTS`: each control's lines occur exactly once in
+    the port's csrc (in its file and nowhere else), so the mutated copy
+    differs from the kernel there alone, and `start_k3_controls` finds them."""
+    import chip_smoke
+    from ba_pathtracing_fur_torch import kernels
+
+    texts = {p.name: p.read_text() for p in kernels.SRC_DIR.glob("*.cu*")}
+    assert set(chip_smoke.MXU_MUTANTS) == {"tf32", "row"}
+    for name, (file, old, new) in chip_smoke.MXU_MUTANTS.items():
+        assert old != new and old.endswith("\n")
+        assert {f: t.count(old) for f, t in texts.items() if old in t} == {file: 1}, name
 
 
 def test_near_ties_explain_the_mxu_test_against_the_f32_test(two_level):
