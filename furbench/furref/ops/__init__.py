@@ -1,0 +1,1 @@
+"""Frozen plain reference of the path tracer (see furbench/README.md)."""
