@@ -49,6 +49,12 @@ under autograd. `tonemap` maps the finished image (`ops/tonemap`).
 `render_progressive` yields the running mean after each sample, as the
 CLI and `utils/checkpoint.render_resumable` consume it.
 
+While a torch.profiler session records, a pass, its camera wavefront, each
+bounce and the running mean are spans of `utils/profiling` (`pass`,
+`camera`, `bounce`, `mean`), and each bounce counts its lanes (`rays`),
+the lanes it traces (`live`) and its shadow rays with t_max > 0
+(`shadow_live`); off, each costs one boolean read.
+
 `render_sample_ids(..., closest_fn=, occlude_fn=)` is the JAX package's
 seam for the geometry-sharded render (`parallel/render.py`): the hooks
 `closest_fn(o, d, scene) -> Hit` and `occlude_fn(o, d, scene, t_max) ->
@@ -84,6 +90,7 @@ from ..scene.types import (
     LIGHT_POINT, LIGHT_QUAD, MATFLAG_CYLINDER_T_BOUNCE, MATFLAG_CYLINDER_TR_BOUNCE,
     MATFLAG_EMISSIVE_BOUNCE, MATFLAG_SPECULAR_BOUNCE, SHADER_MARSCHNER_HAIR, DeviceScene,
 )
+from ..utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,9 +226,11 @@ def shade_inputs(state: RayState, scene: DeviceScene, keys: torch.Tensor, bounce
 
 def _trace_cap(state: RayState) -> torch.Tensor:
     """t_max of the bounce's closest-hit rays: INF, 0 on dead lanes (they
-    trace nothing)."""
+    trace nothing); the live lanes are counted into the open span."""
     do_trace = (state.radiance != 0.0).any(-1) & (state.direction != 0.0).any(-1)
-    return torch.where(do_trace, traverse.INF, 0.0)
+    t_max = torch.where(do_trace, traverse.INF, 0.0)
+    profiling.count_nonzero("live", t_max)
+    return t_max
 
 
 def _closest(state: RayState, scene: DeviceScene, n_alive, closest_fn):
@@ -241,6 +250,7 @@ def _shade_stage(state: RayState, scene: DeviceScene, keys: torch.Tensor, bounce
     state, its colour without the NEE term; the pending NEE term: its
     shadow rays `o`, `d`, `tmax` and its colour `direct`)."""
     out = cshade.shade_bounce(**shade_inputs(state, scene, keys, bounce, cfg, hit, tables))
+    profiling.count_nonzero("shadow_live", out["shadow_tmax"])
     nxt = RayState(origin=out["origin"], direction=out["direction"], radiance=out["radiance"],
                    color=out["color"], flags=out["flags"], theta_i=out["theta_i"],
                    prev_pdf=out["prev_pdf"])
@@ -251,8 +261,9 @@ def _shade_stage(state: RayState, scene: DeviceScene, keys: torch.Tensor, bounce
 def _add_unblocked(state: RayState, pend: dict, blocked: torch.Tensor) -> RayState:
     """The state with the pending NEE colour added where its shadow ray is
     not blocked."""
-    return dataclasses.replace(
-        state, color=state.color + torch.where(blocked[:, None], 0.0, pend["direct"]))
+    with profiling.span("nee"):
+        return dataclasses.replace(
+            state, color=state.color + torch.where(blocked[:, None], 0.0, pend["direct"]))
 
 
 def trace_bounce_fused(state: RayState, scene: DeviceScene, keys: torch.Tensor,
@@ -471,22 +482,23 @@ def camera_wavefront(camera: cam_mod.Camera, pixel_ids: torch.Tensor, key: torch
     """The camera rays of samples `sample_ids` for the global `pixel_ids`,
     as ONE wavefront of len(sample_ids) * len(pixel_ids) rays ->
     (RayState, keys [S*R, 2])."""
-    w, _ = camera.resolution
-    key = key.to(pixel_ids.device)
-    keys, jitter, dof_u = [], [], []
-    for s in sample_ids:
-        k = rng.keys_for_pixels(key, pixel_ids, s)
-        keys.append(k)
-        jitter.append(rng.qmc_jitter(key, pixel_ids, s, cfg.spp) if cfg.qmc
-                      else rng.bounce_uniform(k, -1, 2, tag=7))
-        if camera.use_dof:
-            dof_u.append(rng.bounce_uniform(k, -1, 2, tag=8))
-    keys = torch.cat(keys)
-    px = (pixel_ids % w).to(torch.float32).repeat(len(sample_ids))
-    py = (pixel_ids // w).to(torch.float32).repeat(len(sample_ids))
-    o, d = cam_mod.rays_from_pixels(camera, px, py, torch.cat(jitter),
-                                    torch.cat(dof_u) if dof_u else None)
-    return init_state(o, d), keys
+    with profiling.span("camera"):
+        w, _ = camera.resolution
+        key = key.to(pixel_ids.device)
+        keys, jitter, dof_u = [], [], []
+        for s in sample_ids:
+            k = rng.keys_for_pixels(key, pixel_ids, s)
+            keys.append(k)
+            jitter.append(rng.qmc_jitter(key, pixel_ids, s, cfg.spp) if cfg.qmc
+                          else rng.bounce_uniform(k, -1, 2, tag=7))
+            if camera.use_dof:
+                dof_u.append(rng.bounce_uniform(k, -1, 2, tag=8))
+        keys = torch.cat(keys)
+        px = (pixel_ids % w).to(torch.float32).repeat(len(sample_ids))
+        py = (pixel_ids // w).to(torch.float32).repeat(len(sample_ids))
+        o, d = cam_mod.rays_from_pixels(camera, px, py, torch.cat(jitter),
+                                        torch.cat(dof_u) if dof_u else None)
+        return init_state(o, d), keys
 
 
 def _render_samples(scene: DeviceScene, camera: cam_mod.Camera, pixel_ids: torch.Tensor,
@@ -539,24 +551,26 @@ def _render_samples(scene: DeviceScene, camera: cam_mod.Camera, pixel_ids: torch
     slot, n_alive = torch.arange(keys.shape[0], device=keys.device), None
     pend = init_pending(keys.shape[0], keys.device) if use_joint else None
     for b in range(cfg.depth):
-        sample = slot // n_pix if subpaths is not None else None
-        if use_joint:
-            state, pend = trace_bounce_fused_joint(state, pend, scene, keys, b, cfg, tables,
-                                                   n_alive=n_alive)
-        elif remat:
-            state = torch.utils.checkpoint.checkpoint(step, state, keys, b, n_alive, sample,
-                                                      use_reentrant=False)
-        else:
-            state = step(state, keys, b, n_alive, sample)
-        if cfg.compact:
-            alive = (state.radiance != 0.0).any(-1)
-            if use_joint:  # a pending shadow ray still owes its lane a colour
-                alive = alive | (pend["tmax"] > 0.0)
-            perm, n_alive = compact.compaction_permutation(alive)
-            state = compact.gather_fields(state, perm)
-            keys, slot = keys[perm.long()], slot[perm.long()]
+        with profiling.span("bounce", bounce=b):
+            profiling.count("rays", keys.shape[0])
+            sample = slot // n_pix if subpaths is not None else None
             if use_joint:
-                pend = {k: v[perm.long()] for k, v in pend.items()}
+                state, pend = trace_bounce_fused_joint(state, pend, scene, keys, b, cfg, tables,
+                                                       n_alive=n_alive)
+            elif remat:
+                state = torch.utils.checkpoint.checkpoint(step, state, keys, b, n_alive, sample,
+                                                          use_reentrant=False)
+            else:
+                state = step(state, keys, b, n_alive, sample)
+            if cfg.compact:
+                alive = (state.radiance != 0.0).any(-1)
+                if use_joint:  # a pending shadow ray still owes its lane a colour
+                    alive = alive | (pend["tmax"] > 0.0)
+                perm, n_alive = compact.compaction_permutation(alive)
+                state = compact.gather_fields(state, perm)
+                keys, slot = keys[perm.long()], slot[perm.long()]
+                if use_joint:
+                    pend = {k: v[perm.long()] for k, v in pend.items()}
     if use_joint:
         state = _add_unblocked(state, pend, traverse.any_hit(pend["o"], pend["d"], scene,
                                                              pend["tmax"], n_alive=n_alive))
@@ -604,9 +618,11 @@ def render_image(scene: DeviceScene, camera: cam_mod.Camera, key: torch.Tensor,
     pixel_ids = torch.arange(w * h, device=scene.device)
     acc = torch.zeros((w * h, 3), dtype=torch.float32, device=scene.device)
     for i in range(cfg.spp // bsz):
-        cs = _render_samples(scene, camera, pixel_ids, key,
-                             range(i * bsz, (i + 1) * bsz), cfg, tables)
-        acc = acc + (cs.mean(0) - acc) / (i + 1.0)
+        with profiling.span("pass", pass_index=i):
+            cs = _render_samples(scene, camera, pixel_ids, key,
+                                 range(i * bsz, (i + 1) * bsz), cfg, tables)
+            with profiling.span("mean"):
+                acc = acc + (cs.mean(0) - acc) / (i + 1.0)
     img = acc.reshape(h, w, 3)
     return tonemap.tonemap(img) if cfg.tonemap else img
 
@@ -626,6 +642,8 @@ def render_progressive(scene: DeviceScene, camera: cam_mod.Camera, key: torch.Te
            else accum.reshape(r, 3).to(scene.device))
     tables = BounceTables.of(scene) if cfg.fused_shading and not cfg.bdpt else None
     for i in range(start_sample, cfg.spp):
-        c = render_sample(scene, camera, key, i, cfg, tables)
-        acc = acc + (c - acc) / (i + 1.0)
+        with profiling.span("pass", pass_index=i):
+            c = render_sample(scene, camera, key, i, cfg, tables)
+            with profiling.span("mean"):
+                acc = acc + (c - acc) / (i + 1.0)
         yield i, acc.reshape(h, w, 3)

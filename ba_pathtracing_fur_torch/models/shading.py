@@ -10,6 +10,8 @@ function and in its order of operations:
     traversal kernel on a BVH) and against the analytic lights
     (`ops/intersect.light_hit_grid`), with no 1/N pick compensation
     (SimpleShader.h:101-152), and its MIS form `calc_direct_light_mis`;
+    both count their shadow rays with t_max > 0 into the open span
+    (`shadow_live`, `utils/profiling`);
   * the light-hit radiance (LightShader.h:20-26) and the environment on a
     miss, constant, sphere map or cube map (EnvironmentShader.h:21-28).
 
@@ -31,6 +33,7 @@ from ..scene.types import (
     ENV_COLOR, ENV_SPHERE_MAP, LIGHT_POINT, LIGHT_QUAD, LIGHT_SPOT, LIGHT_SUN, DeviceScene,
     Environment, LightPack,
 )
+from ..utils import profiling
 from . import bsdf as bsdf_mod
 from .shade_core import _w3, power_heuristic
 
@@ -225,6 +228,7 @@ def calc_direct_light_mis(scene: DeviceScene, mp, hit, ray_dir, u_pick, u_light,
     t_max = dist * (1.0 - 1e-3)  # stop short of the target itself
     if active is not None:
         t_max = torch.where(active, t_max, 0.0)
+    profiling.count_nonzero("shadow_live", t_max)
     blocked = (traverse.any_hit(origin, wi, scene, t_max, n_alive=n_alive)
                if occlude_fn is None else occlude_fn(origin, wi, scene, t_max))
     t_l, valid_l = isect.light_hit_grid(origin, wi, lights)
@@ -261,6 +265,7 @@ def calc_direct_light(scene: DeviceScene, mp, hit, ray_dir, u_pick, u_light, act
     t_max = vm.length(lightpos - origin)
     if active is not None:
         t_max = torch.where(active, t_max, 0.0)
+    profiling.count_nonzero("shadow_live", t_max)
     blocked = (traverse.any_hit(origin, wi, scene, t_max, n_alive=n_alive)
                if occlude_fn is None else occlude_fn(origin, wi, scene, t_max))
     # the light geometry occludes too (SimpleShader.h:135-144)

@@ -36,6 +36,7 @@ from ...core import rng, vecmath as vm
 from ...models import bsdf, shade_core as sc
 from ...models.shade_core import CoreCfg, CoreLight
 from ...scene.types import ENV_COLOR, DeviceScene, LightPack, MaterialTable, TrianglePack
+from ...utils import profiling
 
 MAX_FULL_FUSE_TRIS = 512
 T_MIN = 1e-4  # bruteforce closest/any-hit t_min
@@ -285,11 +286,12 @@ def _shade_bounce_full_cuda(*, origin, direction, radiance, color, flags, theta_
 def shade_bounce_full(*, origin, u_hairp=None, **kw) -> dict:
     """One full bounce. CPU tensors run the plain version; CUDA tensors
     launch the kernel (or raise). Returns the new RayState fields."""
-    if origin.device.type == "cpu":
-        return shade_bounce_full_ref(origin=origin, u_hairp=u_hairp, **kw)
-    if origin.device.type == "cuda":
-        return _shade_bounce_full_cuda(origin=origin, **kw)
-    raise ValueError(f"shade_bounce_full: no kernel for device {origin.device}")
+    with profiling.span("k4"):
+        if origin.device.type == "cpu":
+            return shade_bounce_full_ref(origin=origin, u_hairp=u_hairp, **kw)
+        if origin.device.type == "cuda":
+            return _shade_bounce_full_cuda(origin=origin, **kw)
+        raise ValueError(f"shade_bounce_full: no kernel for device {origin.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -444,11 +446,12 @@ def shade_bounce(*, origin, **kw) -> dict:
     `tex_slots`. CPU tensors run the plain version; CUDA tensors launch the
     kernel (or raise). Returns the new ray state and the NEE shadow ray
     with its direct term."""
-    if origin.device.type == "cpu":
-        return shade_bounce_ref(origin=origin, **kw)
-    if origin.device.type == "cuda":
-        return _shade_bounce_cuda(origin=origin, **kw)
-    raise ValueError(f"shade_bounce: no kernel for device {origin.device}")
+    with profiling.span("shade"):
+        if origin.device.type == "cpu":
+            return shade_bounce_ref(origin=origin, **kw)
+        if origin.device.type == "cuda":
+            return _shade_bounce_cuda(origin=origin, **kw)
+        raise ValueError(f"shade_bounce: no kernel for device {origin.device}")
 
 
 def kernel_draws(keys: torch.Tensor, bounce: int, n_tags: int) -> torch.Tensor:

@@ -60,6 +60,7 @@ import torch
 
 from .. import bvh as bvh_mod
 from ..intersect import INF
+from ...utils import profiling
 from . import traverse as ctraverse
 
 #: the largest fanout the kernel is held to its twin at (it tests the
@@ -315,8 +316,9 @@ def traverse_stream(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = Fa
         raise ValueError("traverse_stream: any_hit and is_any exclude each other")
     ctraverse.require_detached("traverse_stream", o, d, t_max)
     o, d, t_max = o.contiguous(), d.contiguous(), t_max.contiguous()
-    if o.device.type == "cpu":
-        return traverse_stream_ref(o, d, t_max, bvh, kind, any_hit, t_min, is_any, mxu)
-    if o.device.type == "cuda":
-        return _traverse_stream_cuda(o, d, t_max, bvh, kind, any_hit, t_min, is_any, mxu)
-    raise ValueError(f"traverse_stream: no kernel for device {o.device}")
+    with profiling.span("k3"):
+        if o.device.type == "cpu":
+            return traverse_stream_ref(o, d, t_max, bvh, kind, any_hit, t_min, is_any, mxu)
+        if o.device.type == "cuda":
+            return _traverse_stream_cuda(o, d, t_max, bvh, kind, any_hit, t_min, is_any, mxu)
+        raise ValueError(f"traverse_stream: no kernel for device {o.device}")

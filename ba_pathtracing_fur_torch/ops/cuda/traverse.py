@@ -36,6 +36,7 @@ import torch
 
 from .. import bvh as bvh_mod
 from ..intersect import INF
+from ...utils import profiling
 
 KINDS = {"cone": 16, "tri": 9}  # leaf width W of `bvh.packed` per kind
 #: bound on the elements of one [rays, rows] chunk of the plain version
@@ -334,8 +335,9 @@ def traverse(o, d, t_max, bvh: bvh_mod.BVH, kind: str, any_hit: bool = False,
         raise ValueError(f"traverse: kind must be one of {sorted(KINDS)}, got {kind!r}")
     require_detached("traverse", o, d, t_max)
     o, d, t_max = o.contiguous(), d.contiguous(), t_max.contiguous()
-    if o.device.type == "cpu":
-        return traverse_ref(o, d, t_max, bvh, kind, any_hit, t_min)
-    if o.device.type == "cuda":
-        return _traverse_cuda(o, d, t_max, bvh, kind, any_hit, t_min)
-    raise ValueError(f"traverse: no kernel for device {o.device}")
+    with profiling.span("k2"):
+        if o.device.type == "cpu":
+            return traverse_ref(o, d, t_max, bvh, kind, any_hit, t_min)
+        if o.device.type == "cuda":
+            return _traverse_cuda(o, d, t_max, bvh, kind, any_hit, t_min)
+        raise ValueError(f"traverse: no kernel for device {o.device}")

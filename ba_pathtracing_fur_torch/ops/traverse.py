@@ -46,6 +46,7 @@ import torch
 
 from ..core import vecmath as vm
 from ..scene.types import ConePack, DeviceScene, TrianglePack
+from ..utils import profiling
 from . import bruteforce, bvh as bvh_mod, intersect as isect
 from .compact import invert_permutation
 from .cuda import intersect as cisect, stream as cstream, traverse as ctraverse
@@ -373,8 +374,9 @@ def _sorted_rays(o, d, t_max, scene: DeviceScene):
     bvh = scene.cone_bvh if scene.cone_bvh is not None else scene.tri_bvh
     if bvh is None or not SORT_RAYS:
         return None
-    perm, inv = _entry_morton_perms(o, d, t_max, bvh)
-    return o[perm], d[perm], t_max[perm], inv
+    with profiling.span("sort"):
+        perm, inv = _entry_morton_perms(o, d, t_max, bvh)
+        return o[perm], d[perm], t_max[perm], inv
 
 
 def _traverse_rows(o, d, t_max, bvh, kind, t_min, sort):
@@ -534,26 +536,28 @@ def _hit_of_rows(o, d, scene: DeviceScene, t_min, t_max, rows: dict,
     `rows[kind] = (row [R], 0 on a miss; found [R])` in the callers' ray
     order for each pack a kernel ran on (its BVH's traversal, or K5 on a
     BVH-less pack), the winner's t recomputed from the gathered row; the
-    dense grid for every other BVH-less pack."""
+    dense grid for every other BVH-less pack (all in the span `hit`)."""
     r = o.shape[0]
     kinds = {}  # kind -> (t [R], row [R], the gathered rows or None)
-    for kind, pack, bvh, aos_fn, take, recompute, grid_fn in (
-            ("tri", scene.tris, scene.tri_bvh, tri_aos, take_tri_rows, _recompute_t_tri,
-             isect.triangle_hit_grid),
-            ("cone", scene.cones, scene.cone_bvh, cone_aos, take_cone_rows, _recompute_t_cone,
-             isect.cone_hit_grid)):
-        if kind in rows:
-            row, found = rows[kind]
-            rp = take(bvh.aos_rows if bvh is not None else aos_fn(pack), row)
-            kinds[kind] = (torch.where(found, recompute(rp, o, d, t_min, t_max), INF), row, rp)
-        elif pack.count:
-            kinds[kind] = (*_grid_closest(o, d, pack, grid_fn, t_min, t_max, n_alive), None)
-        else:
-            kinds[kind] = (torch.full((r,), INF, device=o.device),
-                           torch.zeros((r,), dtype=torch.int32, device=o.device), None)
-    (t_tri, tri_row, tri_rp), (t_cone, cone_row, cone_rc) = kinds["tri"], kinds["cone"]
-    return _assemble_hit(o, d, scene, t_tri, tri_row, t_cone, cone_row, t_max,
-                         tri_rp=tri_rp, cone_rc=cone_rc)
+    with profiling.span("hit"):
+        for kind, pack, bvh, aos_fn, take, recompute, grid_fn in (
+                ("tri", scene.tris, scene.tri_bvh, tri_aos, take_tri_rows, _recompute_t_tri,
+                 isect.triangle_hit_grid),
+                ("cone", scene.cones, scene.cone_bvh, cone_aos, take_cone_rows,
+                 _recompute_t_cone, isect.cone_hit_grid)):
+            if kind in rows:
+                row, found = rows[kind]
+                rp = take(bvh.aos_rows if bvh is not None else aos_fn(pack), row)
+                kinds[kind] = (torch.where(found, recompute(rp, o, d, t_min, t_max), INF), row,
+                               rp)
+            elif pack.count:
+                kinds[kind] = (*_grid_closest(o, d, pack, grid_fn, t_min, t_max, n_alive), None)
+            else:
+                kinds[kind] = (torch.full((r,), INF, device=o.device),
+                               torch.zeros((r,), dtype=torch.int32, device=o.device), None)
+        (t_tri, tri_row, tri_rp), (t_cone, cone_row, cone_rc) = kinds["tri"], kinds["cone"]
+        return _assemble_hit(o, d, scene, t_tri, tri_row, t_cone, cone_row, t_max,
+                             tri_rp=tri_rp, cone_rc=cone_rc)
 
 
 def any_hit(o, d, scene: DeviceScene, t_max, t_min=1e-4, n_alive=None) -> torch.Tensor:
@@ -608,9 +612,10 @@ def joint_wavefront(o_c, d_c, tcap_c, o_a, d_a, tmax_a, bvh):
     r = o_c.shape[0]
     inv = None
     if SORT_RAYS:
-        perm, inv = _entry_morton_perms(o_c, d_c, torch.maximum(tcap_c, tmax_a), bvh)
-        o_c, d_c, tcap_c, o_a, d_a, tmax_a = (x[perm] for x in (o_c, d_c, tcap_c, o_a, d_a,
-                                                                 tmax_a))
+        with profiling.span("sort"):
+            perm, inv = _entry_morton_perms(o_c, d_c, torch.maximum(tcap_c, tmax_a), bvh)
+            o_c, d_c, tcap_c, o_a, d_a, tmax_a = (x[perm] for x in (o_c, d_c, tcap_c, o_a,
+                                                                     d_a, tmax_a))
     o2 = torch.stack([o_c, o_a], 1).reshape(2 * r, 3)
     d2 = torch.stack([d_c, d_a], 1).reshape(2 * r, 3)
     t2 = torch.stack([tcap_c, tmax_a], 1).reshape(2 * r)
