@@ -36,14 +36,16 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
-#: per-source flags on top of NVCC_FLAGS. The traversal, brute-force and
-#: shade kernels are built without FMA contraction, so their arithmetic
+#: per-source flags on top of NVCC_FLAGS. The traversal, brute-force, hit
+#: and shade kernels are built without FMA contraction, so their arithmetic
 #: rounds like the plain torch versions' separate ops: the traversal
-#: kernels agree with their twins bit for bit on t, rows and found, and the
-#: shade kernel's hair paths do not drift from its twin's over a render's
+#: kernels agree with their twins bit for bit on t, rows and found, the hit
+#: kernel with the torch assembly on every field of the Hit, and the shade
+#: kernel's hair paths do not drift from its twin's over a render's
 #: samples. The full-bounce kernel (its own source) keeps contraction on.
 SOURCE_FLAGS = {name: ("-fmad=false",)
-                for name in ("traverse.cu", "traverse_stream.cu", "bruteforce.cu", "shade.cu")}
+                for name in ("traverse.cu", "traverse_stream.cu", "bruteforce.cu", "hit.cu",
+                             "shade.cu")}
 
 _C_VOID_P, _C_INT, _C_FLOAT, _C_UINT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                                        ctypes.c_uint)
@@ -76,6 +78,11 @@ SIGNATURES = {
         [_C_INT] + [_C_VOID_P] * 5             # n_rays, o d t_max prims boxes
         + [_C_INT, _C_INT, _C_FLOAT]           # n_prims cone t_min
         + [_C_VOID_P] * 2                      # t idx
+        + [_C_VOID_P])),                       # cudaStream_t
+    "hit_launch": ("hit.cu", (
+        [_C_INT] + [_C_VOID_P] * 3 + [_C_FLOAT]  # n_rays, o d t_max, t_min
+        + [_C_VOID_P] * 10                     # tri then cone: aos row found t perm
+        + [_C_VOID_P] * 12                     # the Hit's fields
         + [_C_VOID_P])),                       # cudaStream_t
     "shade_launch": ("shade.cu", (
         [_C_INT, _C_VOID_P, _C_VOID_P]         # n_rays, &ShadeIn, &ShadeOut

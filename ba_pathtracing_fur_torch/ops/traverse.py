@@ -16,13 +16,16 @@ Each kernel is the CUDA launch on the card and its plain twin on the CPU.
 
 As in the JAX package, the traversal only selects the winning row; the
 winner's t is recomputed outside it from the gathered row, with the same
-arithmetic as the leaf test. When the scene has a BVH the rays are sorted
-by the JAX package's entry-morton key (`_entry_morton_perms`, position
-only) before every kernel of the call, K5 on a BVH-less pack beside the BVH
-included (the JAX package's order), so the tiles of K2, K3 and K5 hold rays
-that enter the same leaves or primitives; the sort is a pure permutation,
-undone on the rows (closest hit) or the blocked flags (any hit), so the Hit
-is the same per ray with it or without it. K5's tables are made once per
+arithmetic as the leaf test, and the Hit assembled from the rows: by the
+hit kernel K6 (`ops/cuda/hit`, one launch) on the card, by the torch
+assembly (`_torch_hit`) on the CPU and wherever autograd records. When the
+scene has a BVH the rays are sorted by the JAX package's entry-morton key
+(`_entry_morton_perms`, position only) before every kernel of the call, K5
+on a BVH-less pack beside the BVH included (the JAX package's order), so
+the tiles of K2, K3 and K5 hold rays that enter the same leaves or
+primitives; the sort is a pure permutation, undone on the rows (closest
+hit) or the blocked flags (any hit), so the Hit is the same per ray with it
+or without it. K5's tables are made once per
 pack (`cisect.tables_of`), not per call.
 
 `joint_closest_any` (the JAX package's joint pass, for
@@ -38,6 +41,7 @@ import dataclasses
 import hashlib
 import os
 import time
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -49,7 +53,7 @@ from ..scene.types import ConePack, DeviceScene, TrianglePack
 from ..utils import profiling
 from . import bruteforce, bvh as bvh_mod, intersect as isect
 from .compact import invert_permutation
-from .cuda import intersect as cisect, stream as cstream, traverse as ctraverse
+from .cuda import hit as chit, intersect as cisect, stream as cstream, traverse as ctraverse
 
 INF = isect.INF
 
@@ -276,6 +280,28 @@ def tri_aos(tris: TrianglePack) -> torch.Tensor:
                       tris.fiber_w, _i2f(tris.mat_id)[:, None]], dim=1)
 
 
+#: pack_aos's cache: (id of a pack, kind) -> its row table, an entry dropped
+#: when its pack is freed
+_AOS: dict = {}
+
+
+def pack_aos(pack, kind: str) -> torch.Tensor:
+    """The row table (`tri_aos` / `cone_aos`) of a BVH-less pack, which the
+    Hit assembly reads, made at the pack's first call and kept while the
+    pack lives, as `cisect.tables_of` keeps K5's (a BVH keeps its own as
+    `aos_rows`). A table that autograd records through is made anew each
+    call and not kept, and one made under no_grad is not kept either: it
+    cannot tell whether the pack requires grad."""
+    key = (id(pack), kind)
+    aos = _AOS.get(key)
+    if aos is None:
+        aos = (cone_aos if kind == "cone" else tri_aos)(pack)
+        if torch.is_grad_enabled() and not aos.requires_grad:
+            _AOS[key] = aos
+            weakref.finalize(pack, _AOS.pop, key, None)
+    return aos
+
+
 def take_cone_rows(aos: torch.Tensor, rows: torch.Tensor) -> dict:
     """One [R, 19] row gather of the winning cones' fields from `cone_aos`'s
     table (the BVH's `aos_rows`)."""
@@ -427,13 +453,13 @@ def _grid_any(o, d, pack, grid_fn, t_min, t_max, n_alive=None):
     return blocked
 
 
-def _assemble_hit(o, d, scene: DeviceScene, t_tri, tri_row, t_cone, cone_row, t_max,
-                  tri_rp=None, cone_rc=None) -> bruteforce.Hit:
+def _assemble_hit(o, d, t_tri, tri_row, t_cone, cone_row, t_max, tri_rp, cone_rc,
+                  tri_perm=None, cone_perm=None) -> bruteforce.Hit:
     """Merge the per-kind winners into a full Hit. Rows index the scene's
-    current (reordered) packs; the BVH's perm maps them back to the
+    current (reordered) packs, `tri_rp`/`cone_rc` hold them gathered (None
+    for a kind with no primitives); a BVH's perm maps them back to the
     original primitive ids."""
     r = o.shape[0]
-    tris, cones = scene.tris, scene.cones
     cone_wins = t_cone < t_tri
     t = torch.where(cone_wins, t_cone, t_tri)
     valid = t < t_max
@@ -452,9 +478,7 @@ def _assemble_hit(o, d, scene: DeviceScene, t_tri, tri_row, t_cone, cone_row, t_
     def w3(m, a, b):
         return torch.where(m[:, None], a, b)
 
-    if tris.count:
-        if tri_rp is None:
-            tri_rp = take_tri_rows(tri_aos(tris), tri_row)
+    if tri_rp is not None:
         is_tri = prim_type == bruteforce.PRIM_TRI
         # the other lanes take a finite ray toward the row's first vertex:
         # their values are dropped below (see the cone block)
@@ -465,11 +489,9 @@ def _assemble_hit(o, d, scene: DeviceScene, t_tri, tri_row, t_cone, cone_row, t_
         mat_id = torch.where(is_tri, tri_rp.mat_id, mat_id)
         fu, fv, fw = (w3(is_tri, tri_rp.fiber_u, fu), w3(is_tri, tri_rp.fiber_v, fv),
                       w3(is_tri, tri_rp.fiber_w, fw))
-        orig = scene.tri_bvh.perm[tri_row.long()] if scene.tri_bvh is not None else tri_row
+        orig = tri_perm[tri_row.long()] if tri_perm is not None else tri_row
         prim_id = torch.where(is_tri, orig, prim_id)
-    if cones.count:
-        if cone_rc is None:
-            cone_rc = take_cone_rows(cone_aos(cones), cone_row)
+    if cone_rc is not None:
         is_cone = prim_type == bruteforce.PRIM_CONE
         # the other lanes (misses at o + INF d among them) take the cone
         # fields at a finite point off the row's axis: their values are
@@ -487,7 +509,7 @@ def _assemble_hit(o, d, scene: DeviceScene, t_tri, tri_row, t_cone, cone_row, t_
         enter = is_cone & _cone_enter_rows(cone_rc["base"], cone_rc["u"], cone_rc["v"],
                                            cone_rc["w"], cone_rc["slope"],
                                            cone_rc["r_base"], o, d, t)
-        orig = scene.cone_bvh.perm[cone_row.long()] if scene.cone_bvh is not None else cone_row
+        orig = cone_perm[cone_row.long()] if cone_perm is not None else cone_row
         prim_id = torch.where(is_cone, orig, prim_id)
 
     return bruteforce.Hit(
@@ -535,29 +557,50 @@ def _hit_of_rows(o, d, scene: DeviceScene, t_min, t_max, rows: dict,
     """The closest Hit from the winner rows that the kernels picked:
     `rows[kind] = (row [R], 0 on a miss; found [R])` in the callers' ray
     order for each pack a kernel ran on (its BVH's traversal, or K5 on a
-    BVH-less pack), the winner's t recomputed from the gathered row; the
-    dense grid for every other BVH-less pack (all in the span `hit`)."""
-    r = o.shape[0]
-    kinds = {}  # kind -> (t [R], row [R], the gathered rows or None)
+    BVH-less pack), the winner's t recomputed from the row; the dense grid
+    for every other BVH-less pack. K6 (`ops/cuda/hit`) assembles the Hit on
+    the card, the torch assembly (`_torch_hit`) on the CPU (all in the span
+    `hit`)."""
     with profiling.span("hit"):
-        for kind, pack, bvh, aos_fn, take, recompute, grid_fn in (
-                ("tri", scene.tris, scene.tri_bvh, tri_aos, take_tri_rows, _recompute_t_tri,
-                 isect.triangle_hit_grid),
-                ("cone", scene.cones, scene.cone_bvh, cone_aos, take_cone_rows,
-                 _recompute_t_cone, isect.cone_hit_grid)):
-            if kind in rows:
-                row, found = rows[kind]
-                rp = take(bvh.aos_rows if bvh is not None else aos_fn(pack), row)
-                kinds[kind] = (torch.where(found, recompute(rp, o, d, t_min, t_max), INF), row,
-                               rp)
-            elif pack.count:
-                kinds[kind] = (*_grid_closest(o, d, pack, grid_fn, t_min, t_max, n_alive), None)
+        profiling.count("hit_rays", o.shape[0])
+        won = {}  # kind -> (row table, row [R], found [R] or None, t [R] or None, perm or None)
+        for kind, pack, bvh, grid_fn in (
+                ("tri", scene.tris, scene.tri_bvh, isect.triangle_hit_grid),
+                ("cone", scene.cones, scene.cone_bvh, isect.cone_hit_grid)):
+            if not pack.count:
+                continue
+            if bvh is not None:
+                won[kind] = (bvh.aos_rows, *rows[kind], None, bvh.perm)
+            elif kind in rows:
+                won[kind] = (pack_aos(pack, kind), *rows[kind], None, None)
             else:
-                kinds[kind] = (torch.full((r,), INF, device=o.device),
-                               torch.zeros((r,), dtype=torch.int32, device=o.device), None)
-        (t_tri, tri_row, tri_rp), (t_cone, cone_row, cone_rc) = kinds["tri"], kinds["cone"]
-        return _assemble_hit(o, d, scene, t_tri, tri_row, t_cone, cone_row, t_max,
-                             tri_rp=tri_rp, cone_rc=cone_rc)
+                t, row = _grid_closest(o, d, pack, grid_fn, t_min, t_max, n_alive)
+                won[kind] = (pack_aos(pack, kind), row, None, t, None)
+        return chit.hit_of_rows(o, d, t_max, t_min, won)
+
+
+def _torch_hit(o, d, t_max, t_min, won: dict) -> bruteforce.Hit:
+    """The torch assembly, K6's plain version (`ops/cuda/hit.hit_of_rows`'s
+    `won`) and the graph K6's backward differentiates: each kind's rows
+    gathered (`take_tri_rows`/`take_cone_rows`), its t recomputed where
+    found (or the dense grid's), `_assemble_hit`."""
+    r = o.shape[0]
+    kinds = {}  # kind -> (t [R], row [R], the gathered rows or None, perm or None)
+    for kind, take, recompute in (("tri", take_tri_rows, _recompute_t_tri),
+                                  ("cone", take_cone_rows, _recompute_t_cone)):
+        if kind not in won:
+            kinds[kind] = (torch.full((r,), INF, device=o.device),
+                           torch.zeros((r,), dtype=torch.int32, device=o.device), None, None)
+            continue
+        aos, row, found, t, perm = won[kind]
+        rp = take(aos, row)
+        if t is None:
+            t = torch.where(found, recompute(rp, o, d, t_min, t_max), INF)
+        kinds[kind] = (t, row, rp, perm)
+    (t_tri, tri_row, tri_rp, tri_perm), (t_cone, cone_row, cone_rc, cone_perm) = (
+        kinds["tri"], kinds["cone"])
+    return _assemble_hit(o, d, t_tri, tri_row, t_cone, cone_row, t_max, tri_rp, cone_rc,
+                         tri_perm, cone_perm)
 
 
 def any_hit(o, d, scene: DeviceScene, t_max, t_min=1e-4, n_alive=None) -> torch.Tensor:

@@ -348,14 +348,15 @@ def card_line() -> str:
 def plain_bounces():
     """Route every kernel of a bounce through its plain torch version, on
     any device."""
-    from ba_pathtracing_fur_torch.ops.cuda import intersect as cisect, shade as cshade, \
-        stream as cstream, traverse as ctraverse
+    from ba_pathtracing_fur_torch.ops.cuda import hit as chit, intersect as cisect, \
+        shade as cshade, stream as cstream, traverse as ctraverse
 
     swaps = ((cshade, "shade_bounce_full", cshade.shade_bounce_full_ref),
              (cshade, "shade_bounce", cshade.shade_bounce_ref),
              (ctraverse, "traverse", ctraverse.traverse_ref),
              (cstream, "traverse_stream", cstream.traverse_stream_ref),
-             (cisect, "closest", cisect.closest_ref))
+             (cisect, "closest", cisect.closest_ref),
+             (chit, "hit_of_rows", chit.hit_of_rows_ref))
     kernels_fns = [getattr(m, name) for m, name, _ in swaps]
     for m, name, ref in swaps:
         setattr(m, name, ref)
@@ -364,6 +365,39 @@ def plain_bounces():
     finally:
         for (m, name, _), fn in zip(swaps, kernels_fns):
             setattr(m, name, fn)
+
+
+@contextlib.contextmanager
+def plain_hit_assembly():
+    """Assemble every Hit by the torch assembly (K6's plain version), the
+    traversal kernels left as they are."""
+    from ba_pathtracing_fur_torch.ops.cuda import hit as chit
+
+    fn = chit.hit_of_rows
+    chit.hit_of_rows = chit.hit_of_rows_ref
+    try:
+        yield
+    finally:
+        chit.hit_of_rows = fn
+
+
+@contextlib.contextmanager
+def hit_calls(seen: list):
+    """Keep the arguments of every Hit assembly (`ops/cuda/hit.hit_of_rows`:
+    the winner rows as closest_hit and joint_closest_any hand them over)."""
+    from ba_pathtracing_fur_torch.ops.cuda import hit as chit
+
+    fn = chit.hit_of_rows
+
+    def spy(*args):
+        seen.append(args)
+        return fn(*args)
+
+    chit.hit_of_rows = spy
+    try:
+        yield
+    finally:
+        chit.hit_of_rows = fn
 
 
 @contextlib.contextmanager
@@ -399,9 +433,10 @@ def unsorted_rays():
 
 def reset_counts():
     """Every kernel wrapper's launch and plain-call counts to 0."""
-    from ba_pathtracing_fur_torch.ops.cuda import intersect as cisect, shade as cshade, \
-        stream as cstream, traverse as ctraverse
+    from ba_pathtracing_fur_torch.ops.cuda import hit as chit, intersect as cisect, \
+        shade as cshade, stream as cstream, traverse as ctraverse
 
+    chit.HIT_LAUNCHES = chit.HIT_REF_CALLS = chit.HIT_GRAD_CALLS = 0
     cshade.KERNEL_LAUNCHES = cshade.REF_CALLS = 0
     cshade.SHADE_LAUNCHES = cshade.SHADE_REF_CALLS = 0
     ctraverse.KERNEL_LAUNCHES = ctraverse.REF_CALLS = 0
@@ -411,8 +446,10 @@ def reset_counts():
 
 
 def read_counts() -> dict:
-    from ba_pathtracing_fur_torch.ops.cuda import intersect as cisect, shade as cshade, \
-        stream as cstream, traverse as ctraverse
+    """Every kernel wrapper's launch and plain-call counts (K6's backward
+    recomputes, `HIT_GRAD_CALLS`, apart: the gradient phases read them)."""
+    from ba_pathtracing_fur_torch.ops.cuda import hit as chit, intersect as cisect, \
+        shade as cshade, stream as cstream, traverse as ctraverse
 
     return dict(full_bounce=cshade.KERNEL_LAUNCHES, full_bounce_ref=cshade.REF_CALLS,
                 shade=cshade.SHADE_LAUNCHES, shade_ref=cshade.SHADE_REF_CALLS,
@@ -421,7 +458,8 @@ def read_counts() -> dict:
                 stream_mxu=cstream.MXU_LAUNCHES, stream_bf16=cstream.BF16_LAUNCHES,
                 stream_ref=cstream.REF_CALLS,
                 bruteforce_tri=cisect.TRI_LAUNCHES, bruteforce_cone=cisect.CONE_LAUNCHES,
-                bruteforce_ref=cisect.REF_CALLS)
+                bruteforce_ref=cisect.REF_CALLS, hit=chit.HIT_LAUNCHES,
+                hit_ref=chit.HIT_REF_CALLS)
 
 
 def check_counts(counts: dict, what: str, **want) -> None:
@@ -1070,8 +1108,8 @@ def phase_fur_main_path(scene, cam, cfg, dev) -> dict:
     counts = read_counts()
     want = cfg.spp * cfg.depth
     log(f"config4: launches {counts} (expected traverse {2 * want} = spp x depth x "
-        f"(closest + shadow), shade {want}, no plain calls)")
-    check_counts(counts, "config4", shade=want, traverse=2 * want)
+        f"(closest + shadow), shade and hit {want}, no plain calls)")
+    check_counts(counts, "config4", shade=want, traverse=2 * want, hit=want)
     w, h = cam.resolution
     a = check_image(img, (h, w, 3), "config4")
     OUT_DIR.mkdir(exist_ok=True)
@@ -1101,11 +1139,12 @@ def mesh_launches(shards_by_row, calls: int, n_rays: int, shade: int) -> dict:
     """The kernel launches a sharded render must make: per dp row and geo
     shard, `traversal_launches` of its shard scene over its row's rays
     (each shard's BVHs and K5-sized packs, as the unsharded render counts
-    them), and `shade` K1 launches a row."""
+    them) and a K6 launch for each of its closest hits (half the `calls`),
+    and `shade` K1 launches a row."""
     want: dict = {}
     for shards in shards_by_row:
         for s in shards:
-            for k, v in traversal_launches(s, calls, n_rays).items():
+            for k, v in (traversal_launches(s, calls, n_rays) | {"hit": calls // 2}).items():
                 want[k] = want.get(k, 0) + v
         if shade:
             want["shade"] = want.get("shade", 0) + shade
@@ -1187,7 +1226,8 @@ def phase_parallel(dev, card) -> dict:
     sharded = prender.shard_scene_bvh(raw, 4, method="median")
     state, _ = pt.camera_wavefront(cam, torch.arange(w * h, device=dev), key, [0], fused)
     o, d = state.origin, state.direction
-    want_hit = traverse.closest_hit(o, d, bvh_scene)
+    with plain_hit_assembly():  # the unsharded Hit by the torch assembly, the shards' by K6
+        want_hit = traverse.closest_hit(o, d, bvh_scene)
     got_hit = prender.geo_closest_fn(prender.geo_shards(sharded, 4))(o, d, sharded)
     torch.cuda.synchronize()
     t_bad = int((got_hit.t.view(torch.int32) != want_hit.t.view(torch.int32)).sum())
@@ -1319,7 +1359,7 @@ def phase_tri_bvh(dev) -> dict:
     want = cfg.spp * cfg.depth
     log(f"cornell with a triangle BVH ({bvh.n_leaves} leaves x {bvh.leaf_size}): "
         f"launches {counts}")
-    check_counts(counts, "cornell tri BVH", shade=want, traverse=2 * want)
+    check_counts(counts, "cornell tri BVH", shade=want, traverse=2 * want, hit=want)
     w, h = c["res"]
     a = check_image(img, (h, w, 3), "cornell tri BVH")
     ref = check_image(render(scene, cam, key, cfg), (h, w, 3), "cornell full bounce")
@@ -1451,6 +1491,38 @@ def compare_stream(o, d, t_max, bvh, any_hit, what) -> dict:
     return dict(max_abs_err=err, t=t3, row=r3, found=f3, sorted=(so, sd, st))
 
 
+def compare_hit(args, what) -> dict:
+    """K6 against the torch assembly (`hit.hit_of_rows_ref`) on one call's
+    winner rows as closest_hit hands them over (`hit_calls`): every field of
+    the Hit bit for bit (floats by their int32 views, so NaN and the sign
+    of 0 count), both timed, and K6's bound by bytes (`hit.work_ref`)."""
+    from ba_pathtracing_fur_torch.ops.cuda import hit as chit
+
+    got, want = chit.hit_of_rows(*args), chit.hit_of_rows_ref(*args)
+    torch.cuda.synchronize()
+    bad = {}
+    for f in dataclasses.fields(got):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        bad[f.name] = int((a != b).reshape(a.shape[0], -1).any(-1).sum())
+    work = chit.work_ref(got, args[4])
+    r = got.t.shape[0]
+    res = dict(rays=r, valid=int(got.valid.sum()), mismatched=bad,
+               max_abs_err=0.0 if not any(bad.values()) else None,
+               ms=timed(lambda: chit.hit_of_rows(*args), 20),
+               plain_ms=timed(lambda: chit.hit_of_rows_ref(*args), 5),
+               bound_ms=work["bytes"] / PEAK_BYTES * 1e3, bound_by="bytes",
+               bytes=work["bytes"], rows_read=work["rows"])
+    log(f"K6 vs the torch assembly, {what} ({r} rays, {res['valid']} hits, kinds "
+        f"{sorted(args[4])}): rays with a differing field {bad}; K6 {res['ms']:.4f} ms (back to "
+        f"back), torch assembly {res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+        f"({work['bytes']} bytes, {work['rows']} winner rows read)")
+    if any(bad.values()):
+        raise AssertionError(f"{what}: K6 differs from the torch assembly")
+    return res
+
+
 def stream_bound(o, d, t_max, bvh, any_hit, t, row, found, is_any=None) -> dict:
     """K3's bound on this wavefront: the tests `work_ref` counts on WORK_RAYS
     rays spread over it (from K3's own hits, held to the twin above),
@@ -1562,11 +1634,12 @@ def k5_wavefront(o, d, t_max, pack, kind, bvh, what, max_tiles=0, plain=False) -
 def phase_hairball_kernels(scene, cam, cfg, dev) -> dict:
     """Bounces 0-1 of config 5 through the kernels: K3 (closest hit on the
     wavefront, any hit on its shadow rays) against its twin and K2, timed
-    beside K2 and bounded; K5 on the scalp (the camera and bounce-1
-    wavefronts and the bounce-0 shadow rays, sorted as the main path feeds
-    it and unsorted) against its twin, timed and bounded; K1 against its
-    plain version on every ray (per-field gate), its draws held to the torch
-    threefry bit for bit, timed and bounded."""
+    beside K2 and bounded; K6 against the torch assembly on each wavefront's
+    Hit (every field bit for bit), timed and bounded; K5 on the scalp (the
+    camera and bounce-1 wavefronts and the bounce-0 shadow rays, sorted as
+    the main path feeds it and unsorted) against its twin, timed and
+    bounded; K1 against its plain version on every ray (per-field gate), its
+    draws held to the torch threefry bit for bit, timed and bounded."""
     from ba_pathtracing_fur_torch.core import rng
     from ba_pathtracing_fur_torch.models import pathtracer as pt
     from ba_pathtracing_fur_torch.ops import traverse
@@ -1585,7 +1658,10 @@ def phase_hairball_kernels(scene, cam, cfg, dev) -> dict:
         o, d = state.origin, state.direction
         what = "camera wavefront" if bounce == 0 else "bounce-1 wavefront"
         closest = compare_stream(o, d, t_cap, bvh, False, what)
-        hit = traverse.closest_hit(o, d, scene, t_max=t_cap)
+        seen = []
+        with hit_calls(seen):
+            hit = traverse.closest_hit(o, d, scene, t_max=t_cap)
+        out[f"k6_{bounce}"] = compare_hit(seen[0], f"config5 {what}")
         kw = pt.shade_inputs(state, scene, keys, bounce, cfg, hit, tables)
         sh = cshade.shade_bounce(**kw)
         compare_shade(sh, cshade.shade_bounce_ref(**kw), f"config5 bounce {bounce}", out["k1"])
@@ -1653,8 +1729,9 @@ def phase_hairball_main_path(scene, cam, cfg, dev) -> dict:
     counts = read_counts()
     want = cfg.spp * cfg.depth
     log(f"config5: launches {counts} (expected stream and bruteforce_tri {2 * want} = spp x "
-        f"depth x (closest + shadow), shade {want}, no plain calls)")
-    check_counts(counts, "config5", shade=want, stream=2 * want, bruteforce_tri=2 * want)
+        f"depth x (closest + shadow), shade and hit {want}, no plain calls)")
+    check_counts(counts, "config5", shade=want, stream=2 * want, bruteforce_tri=2 * want,
+                 hit=want)
     w, h = cam.resolution
     a = check_image(img, (h, w, 3), "config5")
     log(f"config5 image: finite, max {a.max():.4f}, mean {a.mean():.5f}, std {a.std():.5f}; "
@@ -1757,9 +1834,9 @@ def phase_joint(scene, cam, cfg, dev, separate) -> dict:
     res["counts"] = read_counts()
     log(f"config5 joint: launches {res['counts']} (expected stream_mixed {n} = spp x depth, "
         f"stream {cfg.spp} (the last bounce's shadow rays), bruteforce_tri "
-        f"{cfg.spp * (2 * cfg.depth + 1)}, shade {n}, no plain calls)")
+        f"{cfg.spp * (2 * cfg.depth + 1)}, shade and hit {n}, no plain calls)")
     check_counts(res["counts"], "config5 joint", stream_mixed=n, stream=cfg.spp,
-                 bruteforce_tri=cfg.spp * (2 * cfg.depth + 1), shade=n)
+                 bruteforce_tri=cfg.spp * (2 * cfg.depth + 1), shade=n, hit=n)
     if not torch.equal(img, separate):
         d = (img - separate).abs()
         raise AssertionError(f"config5 joint: the image differs from the separate fused one "
@@ -1783,7 +1860,8 @@ def phase_joint(scene, cam, cfg, dev, separate) -> dict:
             f"{rays / med:.4e} rays/s")
     res["compaction"] = phase_compaction(scene, cam, joint, "config5 joint",
                                          stream_mixed=cfg.depth, stream=1,
-                                         bruteforce_tri=2 * cfg.depth + 1, shade=cfg.depth)
+                                         bruteforce_tri=2 * cfg.depth + 1, shade=cfg.depth,
+                                         hit=cfg.depth)
     return res
 
 
@@ -2461,9 +2539,9 @@ def phase_stream_variants(scene, cam, cfg, dev, hb, joint, separate, card) -> di
         torch.cuda.synchronize()
         counts = read_counts()
         log(f"config5 {variant} hook render: launches {counts} (expected {counter} {2 * n} = spp "
-            f"x depth x (closest + shadow), bruteforce_tri {2 * n}, shade {n})")
+            f"x depth x (closest + shadow), bruteforce_tri {2 * n}, shade and hit {n})")
         check_counts(counts, f"config5 {variant} hook render", **{counter: 2 * n},
-                     bruteforce_tri=2 * n, shade=n)
+                     bruteforce_tri=2 * n, shade=n, hit=n)
         imgs[variant] = check_image(img, (h, w, 3), f"config5 {variant} hook render")
         out[f"render_{variant}"] = dict(counts=counts)
     with k3_build("fmad"):  # the control: the f32 test rounded another way
@@ -2627,7 +2705,8 @@ def phase_bruteforce_cone(dev) -> dict:
     counts = read_counts()
     want = cfg.spp * cfg.depth
     log(f"fur patch without a BVH: launches {counts}")
-    check_counts(counts, "fur patch without a BVH", shade=want, bruteforce_cone=2 * want)
+    check_counts(counts, "fur patch without a BVH", shade=want, bruteforce_cone=2 * want,
+                 hit=want)
     b = check_image(render(traverse.attach_bvh(scene), cam, key, cfg), shape,
                     "fur patch with a BVH")
     res["gate"] = image_gate(b, a, "fur patch spp 1: BVH-less (K5) vs BVH (K2) image")
@@ -2659,7 +2738,8 @@ def phase_mid_hairball(dev) -> dict:
     want = cfg.spp * cfg.depth
     log(f"mid hair ball ({scene.cones.count} cones, BVH {b.n_leaves} leaves x {b.leaf_size}, "
         f"fanout {b.fanout}, {w}x{h}): launches {counts}")
-    check_counts(counts, "mid hair ball", shade=want, stream=2 * want, bruteforce_tri=2 * want)
+    check_counts(counts, "mid hair ball", shade=want, stream=2 * want, bruteforce_tri=2 * want,
+                 hit=want)
     t0 = time.perf_counter()
     with plain_bounces():
         p = check_image(render(scene, cam, key, cfg), (h, w, 3), "mid hair ball plain")
@@ -2792,8 +2872,8 @@ def phase_terrain_main_path(scene, cam, cfg, dev) -> dict:
     counts = read_counts()
     want = cfg.spp * cfg.depth
     log(f"config3: launches {counts} (expected traverse {2 * want} = spp x depth x "
-        f"(closest + shadow), no plain calls)")
-    check_counts(counts, "config3", traverse=2 * want)
+        f"(closest + shadow), hit {want}, no plain calls)")
+    check_counts(counts, "config3", traverse=2 * want, hit=want)
     w, h = cam.resolution
     a = check_image(img, (h, w, 3), "config3")
     OUT_DIR.mkdir(exist_ok=True)
@@ -2826,7 +2906,8 @@ def phase_terrain_gate(dev) -> dict:
     reset_counts()
     a = check_image(render(scene, cam, key, cfg), (h, w, 3), "small terrain")
     counts = read_counts()
-    check_counts(counts, "small terrain", traverse=2 * cfg.spp * cfg.depth)
+    check_counts(counts, "small terrain", traverse=2 * cfg.spp * cfg.depth,
+                 hit=cfg.spp * cfg.depth)
     with plain_bounces():
         b = check_image(render(scene, cam, key, cfg), (h, w, 3), "small terrain plain")
     return image_gate(b, a, f"terrain {c['n_tris']} triangles {w}x{h} spp {cfg.spp}: kernels "
@@ -2867,8 +2948,9 @@ def phase_gradient(scene, cam, dev) -> dict:
     """diff.fit on config 4's fur patch at full width (GRAD): the unfused
     bounce under autograd with compaction on. Times a recorded forward, a
     forward plus backward and a fit step; the peak device memory with remat
-    off and on; K2 launched on every bounce of every full-width step, in
-    the forward and in remat's recompute, and no plain version; every
+    off and on; K2 and K6 launched on every bounce of every full-width
+    step, in the forward and in remat's recompute, and no plain version
+    (K6's backward recomputes the torch assembly: counted apart); every
     gradient finite, the hair parameters' not all 0; the finite-difference
     check on the fur's diffuse red; and the gradients with the kernels
     against those with the twins on the card at GRAD_TWIN_RES."""
@@ -2876,6 +2958,7 @@ def phase_gradient(scene, cam, dev) -> dict:
     from ba_pathtracing_fur_torch.core import rng
     from ba_pathtracing_fur_torch.models import pathtracer as pt
     from ba_pathtracing_fur_torch.ops import traverse
+    from ba_pathtracing_fur_torch.ops.cuda import hit as chit
     from ba_pathtracing_fur_torch.scene import builtins
     from ba_pathtracing_fur_torch.scene.types import SHADER_MARSCHNER_HAIR
 
@@ -2935,8 +3018,13 @@ def phase_gradient(scene, cam, dev) -> dict:
         f"{', '.join(f'{x:.6e}' for x in res.losses)}, hair_beta {beta[hair].item():.4f} -> "
         f"{res.params['materials']['hair_beta'][hair].item():.4f} (true "
         f"{mats.hair_beta[hair].item():.4f}); launches {counts} (expected traverse {want} = "
-        f"steps x depth x (closest + shadow) x (forward + recompute), no plain calls)")
-    check_counts(counts, "fit", traverse=want)
+        f"steps x depth x (closest + shadow) x (forward + recompute), hit {want // 2}, no "
+        f"plain calls); the torch assembly recomputed by K6's backward "
+        f"{chit.HIT_GRAD_CALLS} times")
+    check_counts(counts, "fit", traverse=want, hit=want // 2)
+    fit_hit_grad = chit.HIT_GRAD_CALLS
+    if not fit_hit_grad <= want // 2:
+        raise AssertionError("fit: more backward recomputes of the Hit than K6 launches")
     if not np.all(np.isfinite(res.losses)):
         raise AssertionError("fit: non-finite loss")
 
@@ -2961,7 +3049,13 @@ def phase_gradient(scene, cam, dev) -> dict:
     small = dataclasses.replace(small, materials=start.materials)
     reset_counts()
     got = material_grads(small, scam, small_target)
-    check_counts(read_counts(), "gradient, kernels", traverse=2 * cfg.depth)
+    check_counts(read_counts(), "gradient, kernels", traverse=2 * cfg.depth, hit=cfg.depth)
+    twin_hit_grad = chit.HIT_GRAD_CALLS
+    log(f"gradient at {GRAD_TWIN_RES[0]}x{GRAD_TWIN_RES[1]}: {cfg.depth} K6 launches, the torch "
+        f"assembly recomputed by K6's backward {twin_hit_grad} times (the twins below assemble "
+        f"every Hit in torch)")
+    if not twin_hit_grad <= cfg.depth:
+        raise AssertionError("gradient: more backward recomputes of the Hit than K6 launches")
     with plain_bounces():
         want_g = material_grads(small, scam, small_target)
     worst = max((got[k] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
@@ -2971,7 +3065,7 @@ def phase_gradient(scene, cam, dev) -> dict:
     if set(got) != set(want_g) or not worst <= GRAD_TWIN_TOL:
         raise AssertionError("gradient: kernels and twins disagree")
     return dict(out, fit_step_s=step_s, step_launches=want // FIT_STEPS, fd_rel=rel,
-                twin_rel=worst)
+                twin_rel=worst, fit_hit_grad_calls=fit_hit_grad, twin_hit_grad_calls=twin_hit_grad)
 
 
 def phase_unfused_vs_fused(dev) -> dict:
@@ -3002,7 +3096,7 @@ def phase_unfused_vs_fused(dev) -> dict:
                                       (c["res"][1], c["res"][0], 3), f"{name} fused={fused}")
             want = cfg.spp * cfg.depth
             check_counts(read_counts(), f"{name} fused={fused}", traverse=2 * want,
-                         shade=want if fused else 0)
+                         shade=want if fused else 0, hit=want)
         out[name] = image_gate(imgs[True], imgs[False], f"{name}: unfused vs fused image")
     return out
 
@@ -3010,17 +3104,18 @@ def phase_unfused_vs_fused(dev) -> dict:
 @contextlib.contextmanager
 def traffic(rec: dict, keep: int = 0):
     """Count every `traverse.closest_hit` / `any_hit` call into `rec`: its
-    calls, and its traced rays (t_max > 0) as a device tensor; keep the
-    ("closest" | "any", o, d, t_max) of the first `keep` calls in
-    rec["kept"]."""
+    calls (rec["closest"] the closest hits among them), and its traced rays
+    (t_max > 0) as a device tensor; keep the ("closest" | "any", o, d,
+    t_max) of the first `keep` calls in rec["kept"]."""
     from ba_pathtracing_fur_torch.ops import traverse
 
     closest_fn, any_fn = traverse.closest_hit, traverse.any_hit
-    rec.update(calls=0, rays=0, kept=[])
+    rec.update(calls=0, closest=0, rays=0, kept=[])
 
     def note(kind, o, d, t_max):
         t_max = traverse._t_max_of(t_max, o.shape[0], o)
         rec["calls"] += 1
+        rec["closest"] += kind == "closest"
         rec["rays"] = rec["rays"] + (t_max > 0).sum()
         if len(rec["kept"]) < keep:
             rec["kept"].append((kind, o.detach(), d.detach(), t_max.detach()))
@@ -3154,7 +3249,8 @@ def counted_run(fn, keep: int = 0) -> dict:
         img = fn()
         torch.cuda.synchronize()
     return dict(img=img, first_s=time.perf_counter() - t0, counts=read_counts(),
-                calls=rec["calls"], traced_rays=int(rec["rays"]), kept=rec["kept"],
+                calls=rec["calls"], closest=rec["closest"], traced_rays=int(rec["rays"]),
+                kept=rec["kept"],
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
@@ -3184,7 +3280,8 @@ def phase_whitted(name, scene, cam, card, kernels, profile=False, lobes=("all", 
         if run["calls"] != iters * len(names):
             raise AssertionError(f"{name} {lb}: {run['calls']} traversal calls for {iters} "
                                  f"iterations of {len(names)}")
-        check_counts(run["counts"], f"{name} {lb}", **{k: run["calls"] for k in kernels})
+        check_counts(run["counts"], f"{name} {lb}", **{k: run["calls"] for k in kernels},
+                     hit=run["closest"])
         a = check_image(run.pop("img"), (h, w, 3), f"{name} {lb}")
         walls = timed_wall(fn)
         med, rays = float(np.median(walls)), run["traced_rays"]
@@ -3237,7 +3334,7 @@ def phase_bdpt(scene, cam, card) -> dict:
     if run["calls"] != cfg.spp * len(names):
         raise AssertionError(f"B4: {run['calls']} traversal calls, expected "
                              f"{cfg.spp * len(names)}")
-    check_counts(run["counts"], "B4", traverse=run["calls"])
+    check_counts(run["counts"], "B4", traverse=run["calls"], hit=run["closest"])
     a = check_image(run.pop("img"), (h, w, 3), "B4")
     OUT_DIR.mkdir(exist_ok=True)
     film.write_png(OUT_DIR / "smoke_bdpt_fur_patch.png", a)
@@ -3426,7 +3523,8 @@ def cli_render(scene_path: Path, out: str, dev, *, accel="median", spp=None, res
     info = {k: bvh_mod.debug_info(b) for k, b in (("tri", scene.tri_bvh),
                                                  ("cone", scene.cone_bvh)) if b is not None}
     return dict(argv=argv, wall=wall, render_s=spy["render_s"], counts=read_counts(),
-                calls=rec["calls"], traced_rays=int(rec["rays"]), kept=rec["kept"],
+                calls=rec["calls"], closest=rec["closest"], traced_rays=int(rec["rays"]),
+                kept=rec["kept"],
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30, img=spy["img"],
                 scene=scene, camera=spy["camera"], build_s=build,
                 build_stages=dict(traverse.LAST_BUILD_STATS), debug_info=info)
@@ -3588,7 +3686,7 @@ def phase_cli(dev, card) -> dict:
     main = cli_render(path, "cli_median.png", dev, keep=len(names))
     walls = [cli_render(path, "cli_median.png", dev)["wall"] for _ in range(TIMED_REPS)]
     rays = w * h * c["spp"] * c["depth"]
-    check_counts(main["counts"], "cli median",
+    check_counts(main["counts"], "cli median", hit=main["closest"],
                  **traversal_launches(main["scene"], 2 * c["spp"] * c["depth"], w * h))
     a_main = check_image(main["img"], (h, w, 3), "cli median")
     med = float(np.median(walls))
@@ -3619,7 +3717,7 @@ def phase_cli(dev, card) -> dict:
         run = cli_render(path, f"cli_{m}_spp{spp}.png", dev, accel=m, spp=spp,
                          keep=len(names))
         img = check_image(run["img"], (h, w, 3), f"cli {m} spp {spp}")
-        check_counts(run["counts"], f"cli {m}",
+        check_counts(run["counts"], f"cli {m}", hit=run["closest"],
                      **traversal_launches(run["scene"], 2 * spp * c["depth"], w * h))
         held[f"{m}_spp{spp}"] = {
             nm: hold_cli_traffic(k, o, d, t, run["scene"], f"cli {m} {nm} rays",
@@ -3696,7 +3794,7 @@ def phase_cli_fused(scene, cam, unfused: np.ndarray, dev, card) -> dict:
     wall = time.perf_counter() - t0
     counts = read_counts()
     n = c["spp"] * c["depth"]
-    check_counts(counts, "cli fused", shade=n, **traversal_launches(scene, 2 * n, w * h))
+    check_counts(counts, "cli fused", shade=n, hit=n, **traversal_launches(scene, 2 * n, w * h))
     a = check_image(img, (h, w, 3), "cli fused")
     gate = image_gate(unfused, a, f"cli fused (K1 textured) spp {c['spp']} against the "
                       f"unfused CLI render")
@@ -3770,7 +3868,7 @@ def phase_cli_small(dev) -> dict:
     path = write_skin_scene(CLI_DIR / "small", c["quads"], c["res"], dev)
     kw = dict(spp=c["spp"], res=c["res"])
     card = cli_render(path, "small_cuda.png", dev, **kw)
-    check_counts(card["counts"], "cli small",
+    check_counts(card["counts"], "cli small", hit=card["closest"],
                  **traversal_launches(card["scene"], 2 * c["spp"] * CLI["depth"], w * h))
     a = check_image(card["img"], (h, w, 3), "cli small card")
     with plain_bounces():
@@ -3888,7 +3986,8 @@ def drive(dev, card: str) -> list:
         f"{prof4['launches'] - un4['profile']['launches']} launches a sample; BVH build "
         f"{build_s:.3f} s, on {card}")
     compaction["config4"] = phase_compaction(scene4, cam4, cfg4, "config4",
-                                             traverse=2 * cfg4.depth, shade=cfg4.depth)
+                                             traverse=2 * cfg4.depth, shade=cfg4.depth,
+                                             hit=cfg4.depth)
     grad = phase_gradient(scene4, cam4, dev)
     log(f"gradient phase on {card}: {grad}")
     w4 = phase_whitted("fur_patch", scene4, cam4, card, ("traverse",), profile=True)
@@ -3901,7 +4000,7 @@ def drive(dev, card: str) -> list:
     scene5, cam5, cfg5, build5 = hair_ball_scene(dev)
     hb = phase_hairball_kernels(scene5, cam5, cfg5, dev)
     hb_main = phase_hairball_main_path(scene5, cam5, cfg5, dev)
-    marks5 = ("stream_kernel", "brute_kernel", "shade_kernel")
+    marks5 = ("stream_kernel", "brute_kernel", "shade_kernel", "hit_kernel")
     prof5 = phase_profile(scene5, cam5, rng.key(0, dev), cfg5, name="config-5", marks=marks5)
     un5 = phase_sort_effect(scene5, cam5, rng.key(0, dev), cfg5, "config5", marks5)
     rays5 = cam5.resolution[0] * cam5.resolution[1] * cfg5.spp * cfg5.depth
@@ -3912,7 +4011,7 @@ def drive(dev, card: str) -> list:
         f"{build5['gen_s']:.3f} s, BVH build {build5['build_s']:.3f} s, on {card}")
     compaction["config5"] = phase_compaction(scene5, cam5, cfg5, "config5",
                                              stream=2 * cfg5.depth, bruteforce_tri=2 * cfg5.depth,
-                                             shade=cfg5.depth)
+                                             shade=cfg5.depth, hit=cfg5.depth)
     img5 = hb_main.pop("img")
     joint = phase_joint(scene5, cam5, cfg5, dev, img5)
     jr, sr = joint["joint"], joint["separate"]
@@ -3944,7 +4043,7 @@ def drive(dev, card: str) -> list:
     log(f"config3 end to end: {main3['rays_per_s']:.4e} rays/s; SAH build "
         f"{build3['build_s']:.3f} s (split {build3['stages']['split']:.3f} s), on {card}")
     compaction["config3"] = phase_compaction(scene3, cam3, cfg3, "config3",
-                                             traverse=2 * cfg3.depth)
+                                             traverse=2 * cfg3.depth, hit=cfg3.depth)
     # K1's texture fetch at full size: the terrain's textured material on
     # the fused path (the CLI skin's fur hides its skin from bounces 0-1)
     k1t = k1_bounces(scene3, cam3, dataclasses.replace(cfg3, fused_shading=True), dev,
@@ -4153,6 +4252,18 @@ def drive(dev, card: str) -> list:
              bounce1_bound_ms=k5_cone[1]["bound"]["bound_ms"],
              cli=cli_kernel("bruteforce_cone"),
              parallel_launches=parallel_launches("bruteforce_cone")),
+        dict(name="hit", route="cuda", source="ba_pathtracing_fur_torch/csrc/hit.cu",
+             replaces="ba_pathtracing_fur_tpu/ops/traverse.py:824 (_assemble_hit, plain JAX)",
+             launches=hb_main["counts"]["hit"], max_abs_err=0.0,
+             mismatched={b: hb[f"k6_{b}"]["mismatched"] for b in (0, 1)},
+             ms=hb["k6_0"]["ms"], plain_ms=hb["k6_0"]["plain_ms"],
+             bound_ms=hb["k6_0"]["bound_ms"], bound_by="bytes", library_ms=None,
+             bounce1_ms=hb["k6_1"]["ms"], bounce1_plain_ms=hb["k6_1"]["plain_ms"],
+             bounce1_bound_ms=hb["k6_1"]["bound_ms"],
+             config5_traced_ms_per_launch=per_launch(prof5, "hit_kernel"),
+             config5_traced_launches=prof5["kernel_launches"]["hit_kernel"],
+             joint_launches=joint["counts"]["hit"], fit_launches=grad["step_launches"] // 2,
+             parallel_launches=parallel_launches("hit")),
     ]
     return kernels_line
 
