@@ -32,6 +32,15 @@ two-level one, K5 on a big BVH-less pack; their twins on the CPU). The TT
 and TRT traces give the lanes that are not hair t_max = 0: their results are
 masked off, and the traversal then skips them. `LAST_QUEUE_LIVE` holds the live
 lanes of each iteration of the last walks.
+
+Spans (`utils/profiling`, off unless a profiler records): `whitted` around a
+render; `node` around each DFS iteration (its bounce is the iteration's
+index; counters `live`, the iteration's live lanes, and `miss`, the live
+nodes whose closest hit found nothing: the quirk's rays above); `light`
+around `light_shading` (counter `shadow_live`, the shadow rays with
+t_max > 0); `lobes` around the TT and TRT traces of `_hair_color` (counter
+`lobe_live`, their rays with t_max > 0). The traversal's own spans (`sort`,
+`k3`, `k5`, `hit`) nest inside them.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ import torch
 from ..core import camera as cam_mod, rng, sampling, vecmath as vm
 from ..ops import compact, traverse
 from ..scene.types import LIGHT_SUN, SHADER_MARSCHNER_HAIR, DeviceScene
+from ..utils import profiling
 from . import bsdf as bsdf_mod, fur, shading
 
 MINWEIGHT = 0.01  # CVK_Defs.h:67
@@ -108,6 +118,13 @@ def light_shading(scene: DeviceScene, pos, norm, uv, view, mp, diff_color,
     of `shadow_samples` jittered rays. `active` [R] bool: the lanes that
     shade; the others get t_max = 0 shadow rays. `n_alive` is passed to
     the shadow any-hit."""
+    with profiling.span("light"):
+        return _light_shading(scene, pos, norm, uv, view, mp, diff_color, cfg, key, n_alive,
+                              active)
+
+
+def _light_shading(scene: DeviceScene, pos, norm, uv, view, mp, diff_color,
+                   cfg: WhittedConfig, key, n_alive, active):
     lights = scene.lights
     r = pos.shape[0]
     color = scene.env.ambient * diff_color  # ambient (:88)
@@ -165,16 +182,27 @@ def light_shading(scene: DeviceScene, pos, norm, uv, view, mp, diff_color,
                     sphere = sampling.uniform_sphere_sample(u[:, 0], u[:, 1]) \
                         * (u[:, 2:] ** (1.0 / 3.0))
                     sdir = target + scale * sphere - origin
+                    profiling.count_nonzero("shadow_live", shadow_t)
                     blocked = traverse.any_hit(origin, sdir, scene, shadow_t,
                                                n_alive=n_alive)
                     vis = vis + torch.where(blocked, 0.0, 1.0 / ns)
                 direct = direct * vis[:, None]
             else:
                 sdir = target - origin
+                profiling.count_nonzero("shadow_live", shadow_t)
                 blocked = traverse.any_hit(origin, sdir, scene, shadow_t, n_alive=n_alive)
                 direct = _w3(blocked, 0.0, direct)
         color = color + direct
     return color
+
+
+def _count_lobe_live(t_max, r: int) -> None:
+    """The `lobe_live` counter of one TT or TRT trace: its rays with t_max > 0
+    (`t_max` a tensor, or INF for all r rays)."""
+    if isinstance(t_max, torch.Tensor):
+        profiling.count_nonzero("lobe_live", t_max)
+    else:
+        profiling.count("lobe_live", r)
 
 
 def _hair_color(scene: DeviceScene, hit, view_n, mp, cfg: WhittedConfig, is_hair=None):
@@ -186,21 +214,25 @@ def _hair_color(scene: DeviceScene, hit, view_n, mp, cfg: WhittedConfig, is_hair
     be a miss's o + INF d, whose backward would be NaN)."""
     nin, normal = view_n, hit.normal
     if cfg.hair_lobes == "all":
-        if is_hair is None:
-            t_max, live = traverse.INF, lambda o: o
-        else:
-            t_max = torch.where(is_hair, traverse.INF, 0.0)
-            live = lambda o: _w3(is_hair, o, 0.0)  # noqa: E731
-        nf = vm.faceforward(normal, -nin, normal)
-        t_dir = vm.refract(-nin, nf, 1.0 / mp.ior)
-        t_hit = traverse.closest_hit(live(hit.position + 1e-4 * t_dir), t_dir, scene,
-                                     t_max=t_max)
-        t_normal = _w3(t_hit.valid, t_hit.normal, normal)
-        t_pos = _w3(t_hit.valid, t_hit.position, hit.position)
-        t_nf = vm.faceforward(t_normal, -vm.normalize(t_dir), t_normal)
-        tr_dir = vm.reflect(-vm.normalize(t_dir), t_nf)
-        tr_hit = traverse.closest_hit(live(t_pos + 1e-4 * tr_dir), tr_dir, scene, t_max=t_max)
-        tr_normal = _w3(tr_hit.valid, tr_hit.normal, normal)
+        with profiling.span("lobes"):
+            if is_hair is None:
+                t_max, live = traverse.INF, lambda o: o
+            else:
+                t_max = torch.where(is_hair, traverse.INF, 0.0)
+                live = lambda o: _w3(is_hair, o, 0.0)  # noqa: E731
+            nf = vm.faceforward(normal, -nin, normal)
+            t_dir = vm.refract(-nin, nf, 1.0 / mp.ior)
+            _count_lobe_live(t_max, nin.shape[0])
+            t_hit = traverse.closest_hit(live(hit.position + 1e-4 * t_dir), t_dir, scene,
+                                         t_max=t_max)
+            t_normal = _w3(t_hit.valid, t_hit.normal, normal)
+            t_pos = _w3(t_hit.valid, t_hit.position, hit.position)
+            t_nf = vm.faceforward(t_normal, -vm.normalize(t_dir), t_normal)
+            tr_dir = vm.reflect(-vm.normalize(t_dir), t_nf)
+            _count_lobe_live(t_max, nin.shape[0])
+            tr_hit = traverse.closest_hit(live(t_pos + 1e-4 * tr_dir), tr_dir, scene,
+                                          t_max=t_max)
+            tr_normal = _w3(tr_hit.valid, tr_hit.normal, normal)
     else:
         t_normal = tr_normal = normal
     lobes = fur.marschner_closed_form(mp, nin, normal, hit.fiber_v, t_normal, tr_normal)
@@ -222,6 +254,12 @@ def render_whitted(scene: DeviceScene, camera: cam_mod.Camera,
     """Deterministic Whitted render -> `[H, W, 3]` on the scene's device.
     `key` seeds the soft-shadow samples (`cfg.soft_shadows`), `rng.key(0)`
     by default."""
+    with profiling.span("whitted"):
+        return _render_whitted(scene, camera, cfg, key)
+
+
+def _render_whitted(scene: DeviceScene, camera: cam_mod.Camera, cfg: WhittedConfig,
+                    key) -> torch.Tensor:
     dev = scene.device
     LAST_QUEUE_LIVE.clear()
     if key is None and cfg.soft_shadows:
@@ -367,34 +405,37 @@ def _trace_queue(scene, o, d, cfg: WhittedConfig, lvl0: int = 0, active=None, n_
         if n_live == 0:
             break
         log.append(n_live)
-        kk = None if key is None else rng.fold_in(key, it)
-        c, t_child, r_child, spawn_t, spawn_r = _trace_shade(
-            scene, cur["o"], cur["d"], cur["W"], cur["w"], cur["lvl"], live, cfg,
-            n_alive=n_alive, key=kk)
-        color = color + c
+        with profiling.span("node", bounce=it):
+            profiling.count("live", n_live)
+            kk = None if key is None else rng.fold_in(key, it)
+            c, t_child, r_child, spawn_t, spawn_r = _trace_shade(
+                scene, cur["o"], cur["d"], cur["W"], cur["w"], cur["lvl"], live, cfg,
+                n_alive=n_alive, key=kk)
+            color = color + c
 
-        # push the reflection child when both children spawned
-        push = live & spawn_t & spawn_r
-        mask = push[:, None] & (slot == sp[:, None])  # [R, D] one-hot at sp
-        stack = {k: torch.where(_bc(mask, stack[k]), r_child[k][:, None], stack[k])
-                 for k in _NODE}
-        sp = sp + push.to(torch.int32)
+            # push the reflection child when both children spawned
+            push = live & spawn_t & spawn_r
+            mask = push[:, None] & (slot == sp[:, None])  # [R, D] one-hot at sp
+            stack = {k: torch.where(_bc(mask, stack[k]), r_child[k][:, None], stack[k])
+                     for k in _NODE}
+            sp = sp + push.to(torch.int32)
 
-        # continue into a child, the refraction first (the reference's call order)
-        cont = live & (spawn_t | spawn_r)
-        take_t = live & spawn_t
-        child = {k: torch.where(_bc(take_t, t_child[k]), t_child[k], r_child[k]) for k in _NODE}
+            # continue into a child, the refraction first (the reference's call order)
+            cont = live & (spawn_t | spawn_r)
+            take_t = live & spawn_t
+            child = {k: torch.where(_bc(take_t, t_child[k]), t_child[k], r_child[k])
+                     for k in _NODE}
 
-        # no child: pop the deferred sibling, else the ray is done; sp ==
-        # dcap reads the last slot, as jnp's clamped gather does (unused)
-        pop = ~cont & (sp > 0)
-        sp = sp - pop.to(torch.int32)
-        top = torch.clamp(sp, max=dcap - 1).long()
-        popped = {k: stack[k][rows, top] for k in _NODE}
-        cur = {k: torch.where(_bc(cont, child[k]), child[k],
-                              torch.where(_bc(pop, popped[k]), popped[k], cur[k]))
-               for k in _NODE}
-        live = cont | pop
+            # no child: pop the deferred sibling, else the ray is done; sp ==
+            # dcap reads the last slot, as jnp's clamped gather does (unused)
+            pop = ~cont & (sp > 0)
+            sp = sp - pop.to(torch.int32)
+            top = torch.clamp(sp, max=dcap - 1).long()
+            popped = {k: stack[k][rows, top] for k in _NODE}
+            cur = {k: torch.where(_bc(cont, child[k]), child[k],
+                                  torch.where(_bc(pop, popped[k]), popped[k], cur[k]))
+                   for k in _NODE}
+            live = cont | pop
         it += 1
     return color
 
@@ -406,6 +447,7 @@ def _trace_shade(scene, o, d, W, w, level, live, cfg: WhittedConfig, n_alive=Non
     live = live & (W > 0.0).any(-1)
     t_cap = torch.where(live, float("inf"), 0.0)  # dead lanes trace nothing
     hit = traverse.closest_hit(o, d, scene, t_max=t_cap, n_alive=n_alive)
+    profiling.count_nonzero("miss", lambda: (live & (hit.t == traverse.INF)).float())
     view = vm.normalize(d)
 
     # the background (:77)

@@ -24,7 +24,8 @@ otherwise.
   * `count(name, value)`: adds `value` (a number or a tensor, summed only
     when `Span.count` reads it, so a count adds no host sync) to the
     innermost open span's counter `name`; `count_nonzero(name, x)` adds the
-    number of x's nonzero entries by one reduction on x's device. Both do
+    number of x's nonzero entries by one reduction on x's device (x may be
+    a function that makes the tensor, called only while on). Both do
     nothing while off;
   * `spans()` / `clear()`: the log (at most `MAX_SPANS` records: later
     spans still reach the trace, and `dropped()` counts them) and its reset.
@@ -148,12 +149,15 @@ def count(name: str, value) -> None:
         _OPEN[-1].counts.setdefault(name, []).append(value)
 
 
-def count_nonzero(name: str, x: torch.Tensor) -> None:
+def count_nonzero(name: str, x) -> None:
     """Add the number of x's nonzero entries to the innermost open span's
     counter `name` (while on): x's L0 norm, one reduction on its device and
     no sync (accumulated in x's float type, so exact below 2^24 entries for
-    float32)."""
+    float32). `x` a tensor, or a function of no arguments that makes it,
+    called only while on: a tensor made for the count alone costs nothing
+    while off."""
     if _autograd_profiler._is_profiler_enabled and _OPEN:
+        x = x() if callable(x) else x
         count(name, torch.linalg.vector_norm(x.detach(), ord=0))
 
 

@@ -4,15 +4,20 @@ only while a profiler records; counters sum when read; the render's spans
 nest pass > bounce > stage on the fused, joint and unfused paths, in the
 trace and in the log; `live` and `shadow_live` equal recounts from the
 render's own state; with no profiler the log stays empty, nothing is
-recorded or counted, and the image is bit-identical to a traced one."""
+recorded or counted, and the image is bit-identical to a traced one. The
+Whitted render's spans nest whitted > node > {light, lobes} > k3 / hit, its
+counters `live`, `miss`, `shadow_live` and `lobe_live` equal recounts, and
+untraced it records nothing and matches a traced render bit for bit."""
 
+import dataclasses
 import json
 
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ba_pathtracing_fur_torch.core import rng
-from ba_pathtracing_fur_torch.models import pathtracer as pt
+from ba_pathtracing_fur_torch.models import pathtracer as pt, whitted
 from ba_pathtracing_fur_torch.ops import traverse
 from ba_pathtracing_fur_torch.ops.cuda import shade as cshade
 from ba_pathtracing_fur_torch.scene import builtins
@@ -76,6 +81,26 @@ def test_counters_sum_when_read_and_only_while_on(tmp_path):
     outer, inner = profiling.spans()
     assert outer.count("n") == 8 and outer.count("nz") == 2 and outer.count("x") is None
     assert inner.count("n") == 100
+
+
+def test_count_nonzero_makes_its_tensor_only_while_on(tmp_path):
+    """A function handed to `count_nonzero` is called only while a profiler
+    records and a span is open; its tensor is counted as a tensor is."""
+    made = []
+
+    def mask():
+        made.append(1)
+        return torch.tensor([1.0, 0.0, -2.0])
+
+    profiling.count_nonzero("nz", mask)  # off
+    with profiling.trace(str(tmp_path)):
+        profiling.count_nonzero("nz", mask)  # on, but no span is open
+        assert made == []
+        with profiling.span("outer"):
+            profiling.count_nonzero("nz", mask)
+            profiling.count_nonzero("nz", lambda: mask() * 0.0 + 1.0)
+    (outer,) = profiling.spans()
+    assert made == [1, 1] and outer.count("nz") == 5
 
 
 def test_the_log_is_bounded(tmp_path, monkeypatch):
@@ -226,3 +251,182 @@ def test_untraced_render_records_nothing_and_matches_a_traced_one(tmp_path, monk
     assert profiling.spans() == [] and made == []
     for a, b in zip(traced, untraced):
         assert torch.equal(a, b)
+
+
+def _whitted_ball(reflective=False):
+    """The tiny two-level ball with the scalp on K5's twin; `reflective`
+    gives the scalp a mirror term, so that the DFS runs more than one
+    iteration."""
+    scene, cam = _ball()
+    if reflective:
+        mats = scene.materials
+        refl = mats.reflectivity.clone()
+        refl[0] = 0.6
+        scene = dataclasses.replace(scene, materials=dataclasses.replace(mats,
+                                                                         reflectivity=refl))
+    return scene, cam
+
+
+WHITTED_CFG = whitted.WhittedConfig(depth=3, hair_lobes="all")
+
+
+def test_a_traced_whitted_render_nests_its_stages(tmp_path, monkeypatch):
+    """whitted > node > {light, lobes} > k3 / hit in the Chrome trace (by
+    time) and in the log (by parent); each node carries its DFS iteration as
+    its bounce."""
+    monkeypatch.setattr(traverse, "_BRUTE_MIN", 1 << 10)
+    scene, cam = _whitted_ball(reflective=True)
+    with profiling.trace(str(tmp_path)):
+        whitted.render_whitted(scene, cam, WHITTED_CFG)
+    iterations = len(whitted.LAST_QUEUE_LIVE[0])
+    assert iterations > 1
+
+    ev = [(e["name"][5:], e["ts"], e["ts"] + e["dur"]) for e in _events(tmp_path)
+          if e.get("ph") == "X" and e["name"].startswith("bapt.")]
+
+    def within(name, outer):
+        return [x for x in ev if x[0] == name and outer[1] <= x[1] and x[2] <= outer[2]]
+
+    (top,) = [x for x in ev if x[0] == "whitted"]
+    nodes = within("node", top)
+    assert len(nodes) == iterations
+    for n in nodes:
+        (light,) = within("light", n)
+        (lobes,) = within("lobes", n)
+        assert within("k3", light) and within("k5", light)
+        assert within("k3", lobes) and len(within("hit", lobes)) == 2
+
+    log = profiling.spans()
+    (head,) = [s for s in log if s.name == "whitted"]
+    assert head.parent is None and head.index == 0
+    node_spans = [s for s in log if s.parent == head.index]
+    assert [s.name for s in node_spans] == ["node"] * iterations
+    for it, node in enumerate(node_spans):
+        assert node.bounce == it
+        inner = [s for s in log if s.parent == node.index]
+        assert [s.name for s in inner] == ["sort", "k5", "k3", "hit", "light", "lobes"]
+        for stage in inner[-2:]:
+            kids = [s.name for s in log if s.parent == stage.index]
+            assert "k3" in kids and all(s.bounce == it for s in log if s.parent == stage.index)
+        lobe_kids = [s.name for s in log if s.parent == inner[-1].index]
+        assert lobe_kids.count("hit") == 2
+    assert all(s.events is None for s in log)
+
+
+def test_whitted_counters_equal_recounts(tmp_path, monkeypatch):
+    """Each node's `live` equals the DFS's live lanes, `miss` its live
+    nodes whose closest hit found nothing, `shadow_live` its shadow rays
+    with t_max > 0 and `lobe_live` its TT and TRT rays with t_max > 0, all
+    recounted from the traversal calls of the same render untraced."""
+    scene, cam = _whitted_ball(reflective=True)
+    with profiling.trace(str(tmp_path)):
+        whitted.render_whitted(scene, cam, WHITTED_CFG)
+    log = profiling.spans()
+
+    def counted(name, key):
+        return [sum(s.count(key) or 0 for s in log if s.parent == n.index or s is n)
+                for n in log if n.name == "node"]
+
+    live = [s.count("live") for s in log if s.name == "node"]
+    miss = [s.count("miss") for s in log if s.name == "node"]
+    shadow = counted("light", "shadow_live")
+    lobe = counted("lobes", "lobe_live")
+
+    profiling.clear()
+    calls = []
+    closest, any_hit = traverse.closest_hit, traverse.any_hit
+
+    def closest_spy(o, d, scene, t_min=1e-4, t_max=traverse.INF, **k):
+        hit = closest(o, d, scene, t_min=t_min, t_max=t_max, **k)
+        tm = traverse._t_max_of(t_max, o.shape[0], o)
+        # a node traces once, then its TT and its TRT rays
+        kind = "lobe" if sum(c[0] != "shadow" for c in calls) % 3 else "node"
+        calls.append((kind, int((tm > 0).sum()),
+                      int(((tm > 0) & (hit.t == traverse.INF)).sum())))
+        return hit
+
+    def any_spy(o, d, scene, t_max, **k):
+        calls.append(("shadow", int((traverse._t_max_of(t_max, o.shape[0], o) > 0).sum()), 0))
+        return any_hit(o, d, scene, t_max, **k)
+
+    monkeypatch.setattr(traverse, "closest_hit", closest_spy)
+    monkeypatch.setattr(traverse, "any_hit", any_spy)
+    whitted.render_whitted(scene, cam, WHITTED_CFG)
+    assert profiling.spans() == []
+
+    per_node, cur = [], None
+    for kind, n, m in calls:
+        if kind == "node":
+            cur = dict(live=n, miss=m, shadow=0, lobe=0)
+            per_node.append(cur)
+        else:
+            cur[kind] += n
+    assert live == whitted.LAST_QUEUE_LIVE[0]
+    assert [p["live"] for p in per_node] == live  # no W = 0 lane at these depths
+    assert miss == [p["miss"] for p in per_node] and miss[0] > 0
+    assert shadow == [p["shadow"] for p in per_node] and shadow[0] > 0
+    assert lobe == [p["lobe"] for p in per_node] and lobe[0] > 0
+
+
+def test_untraced_whitted_render_records_nothing_and_matches_a_traced_one(tmp_path,
+                                                                          monkeypatch):
+    monkeypatch.setattr(traverse, "_BRUTE_MIN", 1 << 10)
+    scene, cam = _whitted_ball(reflective=True)
+    with profiling.trace(str(tmp_path)):
+        traced = whitted.render_whitted(scene, cam, WHITTED_CFG)
+    assert len(profiling.spans()) > 0
+    profiling.clear()
+
+    def forbidden(name):
+        def call(*a, **k):
+            raise AssertionError(f"{name} while tracing is off")
+        return call
+
+    monkeypatch.setattr(torch.cuda, "Event", forbidden("Event"))
+    monkeypatch.setattr(profiling._autograd_profiler, "record_function",
+                        forbidden("record_function"))
+    monkeypatch.setattr(profiling.torch.linalg, "vector_norm", forbidden("vector_norm"))
+    ops = _OpInputs()
+    _spy_on_counts(monkeypatch, ops)
+    with ops:
+        untraced = whitted.render_whitted(scene, cam, WHITTED_CFG)
+    assert profiling.spans() == []
+    assert torch.equal(traced, untraced)
+    # a counter off reads only tensors the render computes anyway: each one
+    # handed to `count_nonzero` is an input of a later operation of the
+    # render; a function that would make one is never called
+    assert ops.counted and all(ops.used_after(i, x) for i, x in ops.counted)
+
+
+class _OpInputs(TorchDispatchMode):
+    """The ids of every operation's tensor inputs, in order; `counted` the
+    tensors handed to `count_nonzero` (kept alive, so no id is reused) with
+    the number of operations before them."""
+
+    def __init__(self):
+        super().__init__()
+        self.inputs, self.counted = [], []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        self.inputs.append({id(a) for a in (*args, *kwargs.values())
+                            if isinstance(a, torch.Tensor)})
+        return func(*args, **kwargs)
+
+    def used_after(self, i, x) -> bool:
+        return any(id(x) in ids for ids in self.inputs[i:])
+
+
+def _spy_on_counts(monkeypatch, ops):
+    """`count_nonzero` spied on: its tensor arguments go to `ops.counted`;
+    a function argument is handed on as one that fails when called."""
+    real = profiling.count_nonzero
+
+    def spy(name, x):
+        if callable(x):
+            return real(name, lambda: pytest.fail(f"{name} made its tensor while off"))
+        assert isinstance(x, torch.Tensor), name
+        ops.counted.append((len(ops.inputs), x))
+        return real(name, x)
+
+    monkeypatch.setattr(profiling, "count_nonzero", spy)
