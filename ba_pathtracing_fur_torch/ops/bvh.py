@@ -72,6 +72,9 @@ class BVH:
     # one BVH per geometry shard, every tensor stacked on a leading [n_geo]
     # axis (parallel/render.shard_scene_bvh); the ints are the shards' own
     geo_stacked: bool = False
+    # a cone pack's `far_rays_inert` fact on the rows the kernels test, set
+    # with the kernel layouts (False: not known, and nothing relies on it)
+    far_inert: bool = False
 
     @property
     def depth(self) -> int:
@@ -430,6 +433,43 @@ def pack_tris(tris: TrianglePack, bvh: BVH) -> BVH:
     comps = [v0[:, 0], v0[:, 1], v0[:, 2], e1[:, 0], e1[:, 1], e1[:, 2],
              e2[:, 0], e2[:, 1], e2[:, 2]]
     return dataclasses.replace(bvh, packed=_pack_comps(comps, bvh.n_leaves, bvh.leaf_size))
+
+
+#: the pack fact of `far_rays_inert`: the largest |min_d| and |max_d| of a
+#: row with a non-empty axial slab, and the largest departure of its frame
+#: from orthonormal (a norm's from 1, a pairwise dot's from 0)
+FAR_SLAB_MAX = 2.0 ** 64
+FAR_FRAME_TOL = 2.0 ** -10
+
+
+def far_rays_inert(packed: torch.Tensor) -> bool:
+    """Does every row of the cone pack [C, 16, K] (the rows K2 and K3 test;
+    a bf16 pack as its exact f32 upcast) meet the fact under which no row
+    test accepts a ray with |d|inf >= 2^127 (`far_inert_rows`)? The proof
+    is in `ops/traverse.py`, beside `any_hit`'s dispatch."""
+    return bool(far_inert_rows(packed).all())
+
+
+def far_inert_rows(packed: torch.Tensor) -> torch.Tensor:
+    """[C, K] bool: which rows of the cone pack [C, 16, K] meet the fact of
+    `far_rays_inert`. A row meets it when its axial slab is empty (min_d >
+    max_d: the padding rows), or when
+      * the slab leaves out 0 (min_d > 0 or max_d < 0),
+      * |min_d| and |max_d| are at most FAR_SLAB_MAX, and
+      * the frame u, v, w is orthonormal within FAR_FRAME_TOL (each norm
+        within it of 1, each pairwise dot within it of 0).
+    A NaN fails it. One pass over the rows in f32, whose rounding (~1e-7)
+    is far inside the proof's margin (it needs the frame's smallest
+    singular value above 1/2)."""
+    p = packed.float()
+    u, v, w = p[:, 3:6], p[:, 6:9], p[:, 9:12]  # [C, 3, K]
+    lo, hi = p[:, 14], p[:, 15]
+    ok = ((lo > 0.0) | (hi < 0.0)) & (lo.abs() <= FAR_SLAB_MAX) & (hi.abs() <= FAR_SLAB_MAX)
+    for a in (u, v, w):
+        ok &= ((a * a).sum(1).sqrt() - 1.0).abs() <= FAR_FRAME_TOL
+    for a, b in ((u, v), (u, w), (v, w)):
+        ok &= (a * b).sum(1).abs() <= FAR_FRAME_TOL
+    return ok | (lo > hi)
 
 
 def pack_cones(cones: ConePack, bvh: BVH) -> BVH:

@@ -162,7 +162,8 @@ def pack_prim_hbm(bvh: bvh_mod.BVH, kind: str, dtype=torch.float32) -> bvh_mod.B
     union with the f32 box it replaces. Its winner-row table (`aos_rows`,
     from which a Hit is built) holds the rounded geometry too (`_round_aos`),
     so a hit's point, normal and frame lie on the cone or triangle that the
-    kernel tested."""
+    kernel tested, and a cone pack's `far_inert` is taken again on the
+    rounded rows (`bvh_mod.far_rays_inert`)."""
     if kind not in ctraverse.KINDS:
         raise ValueError(f"pack_prim_hbm: kind must be one of {sorted(ctraverse.KINDS)}, "
                          f"got {kind!r}")
@@ -189,7 +190,8 @@ def pack_prim_hbm(bvh: bvh_mod.BVH, kind: str, dtype=torch.float32) -> bvh_mod.B
                                                                bmax[2 * nodes + 2]))
     aos = None if bvh.aos_rows is None else _round_aos(bvh.aos_rows, packed, kind)
     out = dataclasses.replace(bvh, packed=packed, bmin=bmin, bmax=bmax, uboxes=uboxes,
-                              aos_rows=aos)
+                              aos_rows=aos,
+                              far_inert=kind == "cone" and bvh_mod.far_rays_inert(packed))
     if 0 < bvh.fanout < bvh.n_leaves:
         out = dataclasses.replace(out, sboxes=pack_super_boxes(out),
                                   cboxes=pack_child_boxes(out))

@@ -26,7 +26,9 @@ the tiles of K2, K3 and K5 hold rays that enter the same leaves or
 primitives; the sort is a pure permutation, undone on the rows (closest
 hit) or the blocked flags (any hit), so the Hit is the same per ray with it
 or without it. K5's tables are made once per
-pack (`cisect.tables_of`), not per call.
+pack (`cisect.tables_of`), not per call. `any_hit` gives a cone BVH the
+lanes with |d|inf >= 2^127 dead where its pack meets `bvh.far_rays_inert`:
+no row test accepts them there (the proof is beside `any_hit`).
 
 `joint_closest_any` (the JAX package's joint pass, for
 `RenderConfig.joint_shadows`) answers a closest-hit set and a shadow set of
@@ -208,12 +210,14 @@ def _cache_kernel_layouts(bvh, kind: str, pack):
     instead of per call (None stays None): the winner-row AoS table (a
     per-call `cone_aos` is a 697 MB copy at hair-ball scale), the unit boxes
     of the leaves' row runs and, for a two-level BVH, its super-cluster and
-    child box tables."""
+    child box tables; for cones, the pack fact `far_inert`
+    (`bvh.far_rays_inert` of the packed rows, which `any_hit` reads)."""
     if bvh is None:
         return None
     aabbs = isect.cone_aabbs if kind == "cone" else isect.triangle_aabbs
     out = {"aos_rows": (cone_aos if kind == "cone" else tri_aos)(pack),
-           "uboxes": bvh_mod.unit_boxes(*aabbs(pack), bvh)}
+           "uboxes": bvh_mod.unit_boxes(*aabbs(pack), bvh),
+           "far_inert": kind == "cone" and bvh_mod.far_rays_inert(bvh.packed)}
     if _two_level(bvh):
         out.update(sboxes=cstream.pack_super_boxes(bvh), cboxes=cstream.pack_child_boxes(bvh))
     return dataclasses.replace(bvh, **out)
@@ -603,6 +607,76 @@ def _torch_hit(o, d, t_max, t_min, won: dict) -> bruteforce.Hit:
                          tri_perm, cone_perm)
 
 
+# ---------------------------------------------------------------------------
+# Far rays: answered before the cone traversal, by a proof
+# ---------------------------------------------------------------------------
+#
+# A Whitted miss is shaded as a surface at o + 3.4e38 d (the JAX package's
+# nodes trace with t_max = inf), and its hard shadow ray toward a quad light
+# has d = target - origin = -origin, |d|inf of order 1e38. Its box tests
+# enter most of the cone tree, and every row test it reaches overflows and
+# accepts nothing. Where the cone pack meets `bvh.far_rays_inert` (the BVH's
+# `far_inert`), `any_hit` hands every lane with |d|inf >= FAR_D to the cone
+# traversal with t_max = 0, a dead lane, which finds nothing: the answer
+# "not blocked by a cone" that the walk gives, bit for bit.
+#
+# The proof covers every form of the row test: `csrc/leaf_tests.cuh`'s
+# cone_row (-fmad=false: each product and sum rounds on its own) and its
+# torch twin `ops/bvh._cone_core`, and the tensor-core test's `cone_uw` +
+# `cone_v` and their twin `ops/cuda/traverse._cone_core_mxu`, whose
+# projections are sums of TF32 products or torch matmuls. Each form takes
+# the projections dx, dy, dz = d.u, d.v, d.w and ov = o.v; a = dx*dx +
+# dz*dz - slope*slope*dy*dy; disc = b*b - a*c; the roots (-b -+ sqrt(disc))
+# / a_safe; and accepts a root t only if t >= 1e-4, t > t_min, t < cap and
+# ax = ov + t*dy (rounded product, then rounded sum) lies in [min_d, max_d].
+# Take a ray with |d|inf >= 2^127 and a row that meets the fact.
+#
+# 1. If a is not finite, no root is accepted. a*c is then +-inf or NaN, so
+#    disc is NaN or +-inf whatever b is. NaN and -inf fail disc >= 0. For
+#    disc = +inf, sqrt(disc) = +inf, both numerators -b -+ inf are +-inf or
+#    NaN, and over a_safe = a = +-inf both roots are NaN (fminf and fmaxf
+#    of two NaNs are NaN), which fail t >= 1e-4.
+# 2. If a is finite, so are dx, dy and dz (a non-finite one makes its term
+#    of a non-finite: slope*slope*dy is NaN or +-inf for a non-finite dy,
+#    slope 0 included), and |dx|, |dz| < 2^64 (else its square rounds to
+#    +inf). The frame is orthonormal within 2^-10, so by Gershgorin on its
+#    Gram matrix its smallest singular value is at least sqrt(1 - 2^-8) >
+#    0.99; the projections round by less than 2^-19 of |d| in every form
+#    (a TF32 split's dropped lo*lo term is 2^-22), and an overflow on the
+#    way makes the projection non-finite. So |(dx, dy, dz)| > 0.98 * 2^127,
+#    and with |dx|, |dz| < 2^64, |dy| > 2^126.
+# 3. An accepted root has t >= 1e-4 > 2^-14, so |t*dy| >= 2^112, or is
+#    +inf (t NaN fails t >= 1e-4).
+# 4. If t*dy or ov is not finite, ax is +-inf or NaN, in no finite slab.
+#    If |ov| < 2^111, |ax| >= 2^112 - 2^111 = 2^111 after rounding. Else ov
+#    and t*dy are floats of magnitude >= 2^111 and >= 2^112, so multiples
+#    of 2^88 and 2^89, and their rounded sum is a multiple of 2^88: ax is 0
+#    or |ax| >= 2^88.
+# 5. The fact bounds |min_d| and |max_d| by 2^64 < 2^88, so the row accepts
+#    only if 0 lies in [min_d, max_d], which the fact rules out; and a row
+#    with an empty slab accepts nothing at all.
+#
+# No step reads t_min or cap: the slab alone rejects every root, so the
+# walk answers "not found" for every t_min and cap, as the dead lane does.
+# The triangle rows are not covered, so K5 and the triangle BVH keep every
+# lane's t_max; `closest_hit` and `joint_closest_any` trace as before.
+
+#: |d|inf from which a lane is far (see above)
+FAR_D = 2.0 ** 127
+
+
+def _far_dead(d, t_max):
+    """t_max with 0 on the far lanes (|d|inf >= FAR_D), for the cone
+    traversal of a pack that meets `bvh.far_rays_inert`: four kernels
+    (`where` with a scalar would fill a one-element tensor first; the
+    masked fill's copy is a memcpy). The counter `k3_far_skipped` gets the
+    far lanes' mask, which it sums only when read, so a traced pass
+    launches nothing more for it."""
+    far = d.abs().amax(1) >= FAR_D
+    profiling.count("k3_far_skipped", far)
+    return t_max.masked_fill(far, 0.0)
+
+
 def any_hit(o, d, scene: DeviceScene, t_max, t_min=1e-4, n_alive=None) -> torch.Tensor:
     """Shadow-ray occlusion: does any geometry lie in (t_min, t_max)? -> [R]
     bool. A traversal kernel's any-hit mode for packs with a BVH, K5's
@@ -610,8 +684,9 @@ def any_hit(o, d, scene: DeviceScene, t_max, t_min=1e-4, n_alive=None) -> torch.
     ones (its chunks past `n_alive` skipped, as in closest_hit: the sort
     puts dead rays last, so the live rays stay in the prefix). With a BVH
     (and SORT_RAYS) every pack runs on the entry-morton sorted rays and the
-    flags are unsorted once. The answer is a flag, so every test runs on
-    detached rays."""
+    flags are unsorted once. A cone BVH whose pack meets the far-ray fact
+    (`far_inert`) gets the far lanes dead (`_far_dead`: proved to find
+    nothing). The answer is a flag, so every test runs on detached rays."""
     r = o.shape[0]
     o, d, t_max = o.detach(), d.detach(), _t_max_of(t_max, r, o).detach()
     sort = _sorted_rays(o, d, t_max, scene)
@@ -622,7 +697,8 @@ def any_hit(o, d, scene: DeviceScene, t_max, t_min=1e-4, n_alive=None) -> torch.
             ("tri", scene.tris, scene.tri_bvh, isect.triangle_hit_grid),
             ("cone", scene.cones, scene.cone_bvh, isect.cone_hit_grid)):
         if bvh is not None:
-            blocked |= _traverse(o, d, t_max, bvh, kind, True, t_min)[2]
+            t_k = _far_dead(d, t_max) if kind == "cone" and bvh.far_inert else t_max
+            blocked |= _traverse(o, d, t_k, bvh, kind, True, t_min)[2]
         elif pack.count and _use_brute(o, pack):
             blocked |= _brute_rows(o, d, t_max, cisect.tables_of(pack, kind), kind, t_min)[1]
         elif pack.count:

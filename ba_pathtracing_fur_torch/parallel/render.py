@@ -117,14 +117,16 @@ def _slice_pack(pack, lo: int, hi: int):
 
 
 def _stack_bvhs(bvhs: list):
-    """One BVH whose tensors are the shards' stacked on a leading axis."""
+    """One BVH whose tensors are the shards' stacked on a leading axis; its
+    `far_inert` holds where every shard's does."""
     first = bvhs[0]
     out = {}
     for f in dataclasses.fields(first):
         v = getattr(first, f.name)
         if isinstance(v, torch.Tensor):
             out[f.name] = torch.stack([getattr(b, f.name) for b in bvhs])
-    return dataclasses.replace(first, geo_stacked=True, **out)
+    return dataclasses.replace(first, geo_stacked=True,
+                               far_inert=all(b.far_inert for b in bvhs), **out)
 
 
 def shard_scene_bvh(scene: DeviceScene, n_geo: int, method: str = "median",

@@ -7,7 +7,9 @@ render's own state; with no profiler the log stays empty, nothing is
 recorded or counted, and the image is bit-identical to a traced one. The
 Whitted render's spans nest whitted > node > {light, lobes} > k3 / hit, its
 counters `live`, `miss`, `shadow_live` and `lobe_live` equal recounts, and
-untraced it records nothing and matches a traced render bit for bit."""
+untraced it records nothing and matches a traced render bit for bit;
+`k3_far_skipped` counts its far shadow lanes while traced and makes
+nothing untraced."""
 
 import dataclasses
 import json
@@ -396,6 +398,47 @@ def test_untraced_whitted_render_records_nothing_and_matches_a_traced_one(tmp_pa
     # handed to `count_nonzero` is an input of a later operation of the
     # render; a function that would make one is never called
     assert ops.counted and all(ops.used_after(i, x) for i, x in ops.counted)
+
+
+def test_k3_far_skipped_counts_the_far_lanes_and_makes_nothing_untraced(tmp_path,
+                                                                         monkeypatch):
+    """`k3_far_skipped` (in the `light` spans) equals the shadow lanes with
+    |d|inf >= 2^127 recounted from the render's own any-hit calls, and the
+    `miss` count (each miss fires one such ray at the quad light, all of
+    them live); untraced, the mask it is handed is the one the skip reads
+    anyway, so counting makes nothing and launches nothing."""
+    scene, cam = _whitted_ball()
+    assert scene.cone_bvh.far_inert
+    with profiling.trace(str(tmp_path)):
+        traced = whitted.render_whitted(scene, cam, WHITTED_CFG)
+    log = profiling.spans()
+    skipped = sum(s.count("k3_far_skipped") or 0 for s in log if s.name == "light")
+    assert skipped == sum(s.count("k3_far_skipped") or 0 for s in log)
+    miss = sum(s.count("miss") for s in log if s.name == "node")
+    profiling.clear()
+
+    far, handed = [], []
+    any_hit, count = traverse.any_hit, profiling.count
+
+    def any_spy(o, d, scene, t_max, **k):
+        tm = traverse._t_max_of(t_max, o.shape[0], o)
+        far.append((int((d.abs().amax(1) >= 2.0 ** 127).sum()),
+                    int(((d.abs().amax(1) >= 2.0 ** 127) & (tm > 0)).sum())))
+        return any_hit(o, d, scene, t_max, **k)
+
+    def count_spy(name, x):
+        if name == "k3_far_skipped":
+            handed.append((len(ops.inputs), x))
+        return count(name, x)
+
+    ops = _OpInputs()
+    monkeypatch.setattr(traverse, "any_hit", any_spy)
+    monkeypatch.setattr(profiling, "count", count_spy)
+    with ops:
+        untraced = whitted.render_whitted(scene, cam, WHITTED_CFG)
+    assert profiling.spans() == [] and torch.equal(traced, untraced)
+    assert len(handed) == len(far) > 0 and all(ops.used_after(i, x) for i, x in handed)
+    assert skipped == sum(n for n, _ in far) == sum(n for _, n in far) == miss > 0
 
 
 class _OpInputs(TorchDispatchMode):

@@ -16,7 +16,13 @@ the JAX package's on the CPU.
   fiber), and a small hair ball on a two-level cone BVH (K3's twin, and
   K5's twin on the scalp) -- all under the image gate of
   tests/test_fused_shade.py::_compare;
-* `record_hair_paths`.
+* `record_hair_paths`;
+* the far-ray skip of `traverse.any_hit` (tests/test_torch_far_rays.py
+  holds its proof): on the tiny hair ball's Whitted shadow rays (misses'
+  rays from o + 3.4e38 d, rays the scalp blocks) and its progressive NEE
+  rays (some blocked by cones), on one- and two-level BVHs, `any_hit`
+  equals the cone walk on the unmodified t_max or'ed with the scalp's
+  answer, and `render_whitted` equals its render with the pack fact false.
 
 JAX's renders come from two child processes with XLA's ISA capped below FMA
 (XLA compiles the while loop's body and contracts a*b + c on the CPU, which
@@ -46,6 +52,7 @@ from ba_pathtracing_fur_torch.models import bsdf, fur, whitted
 from ba_pathtracing_fur_torch.ops import traverse
 from ba_pathtracing_fur_torch.ops.cuda import intersect as cisect, stream as cstream
 from ba_pathtracing_fur_torch.scene.types import scene_from_numpy
+from test_torch_far_rays import BALL, BIG, _shadow_traffic, _walked
 from test_torch_fur import _compare_images
 from test_torch_unfused import _close_most, _mats, _unit
 
@@ -362,6 +369,76 @@ def test_record_hair_paths_matches_jax(jax_renders):
         g, w = getattr(rec, f).numpy()[valid], jax_renders[f"record/{f}"][valid]
         assert np.isfinite(g).all(), f
         np.testing.assert_allclose(g, w, rtol=1e-3, atol=1e-3, err_msg=f)
+
+
+# ---------------------------------------------------------------------------
+# Far shadow rays (traverse.any_hit's skip)
+# ---------------------------------------------------------------------------
+
+#: the tiny ball's BVH layouts: attach_bvh's keywords (K2's twin, K3's)
+FAR_LAYOUTS = {"one_level": dict(method="median"),
+               "two_level": dict(method="median", leaf_size=16, fanout=8)}
+
+
+def _far_ball(layout):
+    from ba_pathtracing_fur_torch.scene import builtins
+
+    scene, cam = builtins.hair_ball(**BALL, device=CPU)
+    scene = traverse.attach_bvh(scene, **FAR_LAYOUTS[layout])
+    assert traverse._two_level(scene.cone_bvh) == (layout == "two_level")
+    return scene, cam
+
+
+@pytest.mark.parametrize("layout", sorted(FAR_LAYOUTS))
+@pytest.mark.parametrize("traffic", ["whitted_shadow", "nee"])
+def test_any_hit_answers_far_lanes_as_the_walk(traffic, layout, monkeypatch):
+    """Each `any_hit` call of a render: its answers bit-equal to the cone
+    traversal called on the unmodified t_max, or'ed with the scalp's (K5's
+    twin); Whitted's traffic holds far lanes and rays the scalp blocks, the
+    NEE traffic rays that cones block."""
+    from ba_pathtracing_fur_torch.models import pathtracer as pt
+
+    monkeypatch.setattr(traverse, "_BRUTE_MIN", 1 << 10)  # the scalp on K5's twin
+    scene, cam = _far_ball(layout)
+    assert scene.cone_bvh.far_inert
+    cfg = (whitted.WhittedConfig(depth=8, hair_lobes="all") if traffic == "whitted_shadow"
+           else pt.RenderConfig(depth=2, spp=1, fused_shading=True, compact=False))
+    calls, _ = _shadow_traffic(scene, cam, cfg, monkeypatch)
+    far = by_scalp = by_cones = 0
+    for o, d, t_max in calls:
+        want, by_cone = _walked(o, d, t_max, scene)
+        assert torch.equal(traverse.any_hit(o, d, scene, t_max), want)
+        far += int(((d.abs().amax(1) >= BIG) & (t_max > 0)).sum())
+        by_scalp += int((want & ~by_cone).sum())
+        by_cones += int(by_cone.sum())
+    if traffic == "whitted_shadow":
+        assert far > 0 and by_scalp > 0
+    else:
+        assert far == 0 and by_cones > 0
+
+
+@pytest.mark.parametrize("layout", sorted(FAR_LAYOUTS))
+def test_render_whitted_equals_its_render_without_the_pack_fact(layout, monkeypatch):
+    """The tiny ball's Whitted render, with far lanes skipped, bit-equal to
+    the render of the same scene attached with the pack fact false."""
+    from ba_pathtracing_fur_torch.ops import bvh as bvh_mod
+
+    cfg = whitted.WhittedConfig(depth=8, hair_lobes="all")
+    skipped, far_dead = [], traverse._far_dead
+
+    def spy(d, t_max):
+        skipped.append(int(((d.abs().amax(1) >= BIG) & (t_max > 0)).sum()))
+        return far_dead(d, t_max)
+
+    monkeypatch.setattr(traverse, "_far_dead", spy)
+    scene, cam = _far_ball(layout)
+    img = whitted.render_whitted(scene, cam, cfg)
+    assert sum(skipped) > 0
+    monkeypatch.setattr(bvh_mod, "far_rays_inert", lambda packed: False)
+    off, _ = _far_ball(layout)
+    assert scene.cone_bvh.far_inert and not off.cone_bvh.far_inert
+    n = len(skipped)
+    assert torch.equal(img, whitted.render_whitted(off, cam, cfg)) and len(skipped) == n
 
 
 if __name__ == "__main__":
