@@ -59,8 +59,8 @@ class BVH:
     # leaf clusters per super-cluster of the two-level traversal (K3,
     # ops/cuda/stream.py); 0 = flat (K2, ops/cuda/traverse.py)
     fanout: int = 0
-    # kernel layouts cached at attach time (ops/traverse._cache_kernel_
-    # layouts): the super-cluster boxes [6, S] and the leaf boxes grouped
+    # kernel layouts cached at attach time (ops/traverse.kernel_layouts):
+    # the super-cluster boxes [6, S] and the leaf boxes grouped
     # per super [S, 6, F] of a two-level BVH, and the winner-row AoS table
     # of the reordered pack
     sboxes: Optional[torch.Tensor] = None

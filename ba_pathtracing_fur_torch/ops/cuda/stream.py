@@ -131,7 +131,7 @@ def _row_boxes(rows: torch.Tensor, kind: str):
 
 
 def _round_aos(aos: torch.Tensor, packed: torch.Tensor, kind: str) -> torch.Tensor:
-    """`ops/traverse.cone_aos` / `tri_aos` rows [N, *] with their geometry
+    """`ops/cuda/hit.cone_aos` / `tri_aos` rows [N, *] with their geometry
     taken from the rounded pack [C, W, K] (upcast; row = cluster * K +
     within): a cone's 16 test fields and its base_d = base . v of the
     rounded base and axis (what the normal subtracts), a triangle's v0 and

@@ -138,14 +138,14 @@ def shard_scene_bvh(scene: DeviceScene, n_geo: int, method: str = "median",
     the slots of a shard). The BVHs' tensors carry a leading [n_geo] axis
     (`geo_stacked`); `perm` maps a slot to the GLOBAL original primitive
     id. All shards share (n_leaves, leaf_size, fanout)."""
-    from ..ops import bvh as bvh_mod, intersect as isect, traverse
+    from ..ops import intersect as isect, traverse
 
     if scene.tri_bvh is not None or scene.cone_bvh is not None:
         raise ValueError("shard_scene_bvh takes a scene without BVHs")
     scene = pad_scene_geo(scene, n_geo)
     build = traverse.ACCEL_BUILDERS[method]
 
-    def build_stack(pack, kind, aabb_fn, reorder_fn, pack_fn):
+    def build_stack(pack, kind, aabb_fn):
         n = pack.count
         if n < n_geo:
             return pack, None
@@ -156,8 +156,7 @@ def shard_scene_bvh(scene: DeviceScene, n_geo: int, method: str = "median",
             part = _slice_pack(pack, i * m, (i + 1) * m)
             b = build(*aabb_fn(part), k)
             b.fanout = traverse.auto_fanout(b.n_leaves) if fanout is None else fanout
-            rp = reorder_fn(part, b)
-            b = traverse._cache_kernel_layouts(pack_fn(rp, b), kind, rp)
+            rp, b = traverse.finish_bvh(part, b, kind)
             b.perm = torch.where(b.perm >= 0, b.perm + i * m, -1).to(torch.int32)
             bvhs.append(b)
             packs.append(rp)
@@ -165,10 +164,8 @@ def shard_scene_bvh(scene: DeviceScene, n_geo: int, method: str = "median",
                             for f in dataclasses.fields(pack)})
         return cat, _stack_bvhs(bvhs)
 
-    tris, tri_bvh = build_stack(scene.tris, "tri", isect.triangle_aabbs, bvh_mod.reorder_tris,
-                                bvh_mod.pack_tris)
-    cones, cone_bvh = build_stack(scene.cones, "cone", isect.cone_aabbs,
-                                  bvh_mod.reorder_cones, bvh_mod.pack_cones)
+    tris, tri_bvh = build_stack(scene.tris, "tri", isect.triangle_aabbs)
+    cones, cone_bvh = build_stack(scene.cones, "cone", isect.cone_aabbs)
     return dataclasses.replace(scene, tris=tris, cones=cones, tri_bvh=tri_bvh,
                                cone_bvh=cone_bvh)
 

@@ -476,7 +476,7 @@ def scene_from_numpy(scene, device="cuda") -> DeviceScene:
     atlas included (with the port's kernel layouts made on `device`), into
     the port's scene on `device` (the card unless the caller asks for
     another). The JAX object is passed in, so no jax import is needed."""
-    from ..ops.traverse import _cache_kernel_layouts
+    from ..ops.traverse import kernel_layouts
 
     env = scene.env
     out = DeviceScene(
@@ -492,5 +492,5 @@ def scene_from_numpy(scene, device="cuda") -> DeviceScene:
         tri_bvh=_read_bvh(scene.tri_bvh), cone_bvh=_read_bvh(scene.cone_bvh))
     out = to_device(out, device)
     return dataclasses.replace(
-        out, tri_bvh=_cache_kernel_layouts(out.tri_bvh, "tri", out.tris),
-        cone_bvh=_cache_kernel_layouts(out.cone_bvh, "cone", out.cones))
+        out, tri_bvh=kernel_layouts(out.tri_bvh, "tri", out.tris),
+        cone_bvh=kernel_layouts(out.cone_bvh, "cone", out.cones))

@@ -1937,72 +1937,52 @@ def variant_hooks(variant: str, calls: list | None = None, b16=None):
     `render_sample_ids` that trace the scene's two-level cone BVH with one
     of K3's variants ("f32", "mxu": traverse_stream(mxu=True), "bf16": the
     BVH's pack_prim_hbm bf16 pack, `b16` or made once), as a user of the API
-    writes them: the rays sorted as closest_hit / any_hit sort them, the
-    variant on the cone BVH and the scene's other pack as those functions
-    take it (K5 for the hair ball's BVH-less scalp), the Hit as closest_hit
-    builds it from the rows the kernels picked (`traverse._hit_of_rows`: the
-    winner's t recomputed by the f32 test from its row of the traced BVH's
-    `aos_rows`, the bf16 pack's rounded ones for "bf16"), so that a variant
-    moves the image only through the rows it picks. Each variant call
-    appends its mode to `calls`."""
+    writes them: `traverse.closest_hit` and `traverse.any_hit` on the scene
+    with the traced BVH (the bf16 pack's for "bf16", so the sort keys on its
+    refitted root box and the Hit reads its rounded `aos_rows`), with
+    `cstream.traverse_stream` wrapped for the duration of the call to launch
+    the variant on the cones, so that a variant moves the image only
+    through the rows it picks. Each variant call appends its mode to
+    `calls`."""
     from ba_pathtracing_fur_torch.ops import traverse
-    from ba_pathtracing_fur_torch.ops.cuda import intersect as cisect, stream as cstream
+    from ba_pathtracing_fur_torch.ops.cuda import stream as cstream
 
     packs = {}
 
     def traced(scene):
         bvh = scene.cone_bvh
         if variant != "bf16":
-            return bvh
+            return scene
         if b16 is not None:
-            return b16
+            return dataclasses.replace(scene, cone_bvh=b16)
         if id(bvh) not in packs:
             packs[id(bvh)] = (bvh, cstream.pack_prim_hbm(bvh, "cone", torch.bfloat16))
-        return packs[id(bvh)][1]
+        return dataclasses.replace(scene, cone_bvh=packs[id(bvh)][1])
 
-    def cone(o, d, t_max, scene, any_hit):
-        if calls is not None:
-            calls.append("any" if any_hit else "closest")
-        return cstream.traverse_stream(o, d, t_max, traced(scene), "cone", any_hit=any_hit,
-                                       mxu=variant == "mxu")
+    @contextlib.contextmanager
+    def launching():
+        launch = cstream.traverse_stream
+
+        def variant_launch(o, d, t_max, bvh, kind, any_hit=False, **k):
+            if kind == "cone":
+                if calls is not None:
+                    calls.append("any" if any_hit else "closest")
+                k["mxu"] = variant == "mxu"
+            return launch(o, d, t_max, bvh, kind, any_hit=any_hit, **k)
+
+        cstream.traverse_stream = variant_launch
+        try:
+            yield
+        finally:
+            cstream.traverse_stream = launch
 
     def closest_fn(o, d, scene):
-        r = o.shape[0]
-        t_max = traverse._t_max_of(traverse.INF, r, o)
-        o_s, d_s = o.detach(), d.detach()
-        sort = traverse._sorted_rays(o_s, d_s, t_max, scene)
-        rows = {}
-        if scene.tri_bvh is not None:
-            rows["tri"] = traverse._traverse_rows(o_s, d_s, t_max, scene.tri_bvh, "tri", 1e-4,
-                                                  sort)
-        elif scene.tris.count and traverse._use_brute(o, scene.tris):
-            rows["tri"] = traverse._brute_rows(o_s, d_s, t_max,
-                                               cisect.tables_of(scene.tris, "tri"), "tri", 1e-4,
-                                               sort)
-        _, row, found = cone(*(sort[:3] if sort is not None else (o_s, d_s, t_max)), scene,
-                             False)
-        if sort is not None:
-            row, found = row[sort[3]], found[sort[3]]
-        rows["cone"] = (torch.clamp(row, min=0), found)
-        return traverse._hit_of_rows(o, d, dataclasses.replace(scene, cone_bvh=traced(scene)),
-                                     1e-4, t_max, rows)
+        with launching():
+            return traverse.closest_hit(o, d, traced(scene))
 
     def occlude_fn(o, d, scene, t_max):
-        r = o.shape[0]
-        o, d, t_max = o.detach(), d.detach(), traverse._t_max_of(t_max, r, o).detach()
-        sort = traverse._sorted_rays(o, d, t_max, scene)
-        if sort is not None:
-            o, d, t_max, inv = sort
-        blocked = cone(o, d, t_max, scene, True)[2]
-        if scene.tri_bvh is not None:
-            blocked |= traverse._traverse(o, d, t_max, scene.tri_bvh, "tri", True, 1e-4)[2]
-        elif scene.tris.count and traverse._use_brute(o, scene.tris):
-            blocked |= traverse._brute_rows(o, d, t_max, cisect.tables_of(scene.tris, "tri"),
-                                            "tri", 1e-4)[1]
-        elif scene.tris.count:
-            from ba_pathtracing_fur_torch.ops import intersect as isect
-            blocked |= traverse._grid_any(o, d, scene.tris, isect.triangle_hit_grid, 1e-4, t_max)
-        return blocked if sort is None else blocked[inv]
+        with launching():
+            return traverse.any_hit(o, d, traced(scene), t_max)
 
     return closest_fn, occlude_fn
 
@@ -3165,7 +3145,7 @@ def hold_traffic(kind, o, d, t_max, scene, what) -> dict:
     bvh = scene.cone_bvh
     so, sd, st, perm = sorted_rays(o, d, t_max, bvh)
     sub = live_subset(st, TRAFFIC_TWIN_RAYS)
-    two_level = traverse._two_level(bvh)
+    two_level = traverse.route(scene.cones, bvh, o.shape[0]) == "k3"
     fn = lambda a, b, c: (cstream.traverse_stream if two_level else ctraverse.traverse)(  # noqa
         a, b, c, bvh, "cone", any_hit=any_hit)
     ref = cstream.traverse_stream_ref if two_level else ctraverse.traverse_ref
@@ -3197,7 +3177,7 @@ def hold_traffic(kind, o, d, t_max, scene, what) -> dict:
         raise AssertionError(f"{name} {what}: kernel disagrees with plain")
     same_unsorted(fn, (o, d, t_max), perm, (t1, r1, f1), any_hit, f"{name} {what}")
     tris = scene.tris
-    if scene.tri_bvh is None and tris.count and traverse._use_brute(o, tris):
+    if traverse.route(tris, scene.tri_bvh, o.shape[0]) == "k5":
         tables = cisect.tables_of(tris, "tri")
         tk, ik = cisect.closest(so, sd, st, tables, "tri")
         tp, ip = cisect.closest_ref(so, sd, st, tables, "tri")
@@ -3375,7 +3355,7 @@ def phase_engine_gates(dev) -> dict:
     ball, bcam = builtins.hair_ball(resolution=c["res"], n_fibers=c["n_fibers"],
                                     on_device=True, device=dev)
     ball = traverse.attach_bvh(ball, method="median", fanout=64)
-    if not traverse._two_level(ball.cone_bvh) or fur.cone_bvh is None:
+    if traverse.route(ball.cones, ball.cone_bvh, 0) != "k3" or fur.cone_bvh is None:
         raise AssertionError("engine gates: unexpected BVHs")
     wcfg = whitted.WhittedConfig(hair_lobes="all")
     bcfg = pt.RenderConfig(depth=4, spp=2, bdpt=True)
@@ -3539,13 +3519,10 @@ def traversal_launches(scene, calls: int, n_rays: int) -> dict:
     want: dict = {}
     for kind, pack, bvh in (("tri", scene.tris, scene.tri_bvh),
                             ("cone", scene.cones, scene.cone_bvh)):
-        if bvh is not None:
-            k = "stream" if traverse._two_level(bvh) else "traverse"
-        elif pack.count and n_rays * pack.count >= traverse._BRUTE_MIN:
-            k = f"bruteforce_{kind}"
-        else:
-            continue
-        want[k] = want.get(k, 0) + calls
+        k = {"k3": "stream", "k2": "traverse", "k5": f"bruteforce_{kind}"}.get(
+            traverse.route(pack, bvh, n_rays))
+        if k is not None:
+            want[k] = want.get(k, 0) + calls
     return want
 
 
@@ -3573,8 +3550,9 @@ def hold_cli_traffic(kind, o, d, t_max, scene, what, bound=False) -> dict:
     out = {}
     for pk, pack, bvh in (("tri", scene.tris, scene.tri_bvh),
                           ("cone", scene.cones, scene.cone_bvh)):
-        if bvh is not None:
-            two = traverse._two_level(bvh)
+        rt = traverse.route(pack, bvh, o.shape[0])
+        if rt in ("k3", "k2"):
+            two = rt == "k3"
             name = "traverse_stream" if two else "traverse"
             fn = lambda *r: (cstream.traverse_stream if two else ctraverse.traverse)(  # noqa
                 *r, bvh, pk, any_hit=any_hit)
@@ -3586,7 +3564,7 @@ def hold_cli_traffic(kind, o, d, t_max, scene, what, bound=False) -> dict:
             if not any_hit:
                 mis["rows"] = int((r0 != r1[sub]).sum())
             found, err = int(f1.sum()), float((t0 - t1[sub]).abs().max())
-        elif pack.count and traverse._use_brute(o, pack):
+        elif rt == "k5":
             name = "bruteforce"
             tables = cisect.tables_of(pack, pk)
             fn = lambda *r: cisect.closest(*r, tables, pk)  # noqa: E731

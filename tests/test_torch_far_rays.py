@@ -30,7 +30,8 @@ import torch
 from ba_pathtracing_fur_torch.core import rng
 from ba_pathtracing_fur_torch.models import pathtracer as pt, whitted
 from ba_pathtracing_fur_torch.ops import bvh as bvh_mod, traverse
-from ba_pathtracing_fur_torch.ops.cuda import stream as cstream, traverse as ctraverse
+from ba_pathtracing_fur_torch.ops.cuda import intersect as cisect, stream as cstream, \
+    traverse as ctraverse
 from ba_pathtracing_fur_torch.scene import builtins
 from ba_pathtracing_fur_torch.utils import profiling
 
@@ -290,20 +291,21 @@ def test_a_pack_with_a_row_whose_slab_holds_0_skips_nothing(tmp_path, monkeypatc
     c, k = torch.nonzero(packed[:, 14] < packed[:, 15])[0].tolist()
     packed[c, 14, k] = -1e-3
     assert packed[c, 15, k] > 0.0
-    odd = traverse._cache_kernel_layouts(dataclasses.replace(bvh, packed=packed), "cone",
-                                         scene.cones)
+    odd = traverse.kernel_layouts(dataclasses.replace(bvh, packed=packed), "cone", scene.cones)
     assert not odd.far_inert and not bvh_mod.far_inert_rows(packed)[c, k]
     assert int((~bvh_mod.far_inert_rows(packed)).sum()) == 1
     o, d = _far_rays(_rows_of(bvh.packed))
     t_max = torch.ones(o.shape[0])
     seen = []
-    walk = traverse._traverse
+    two_level = traverse.route(scene.cones, bvh, o.shape[0]) == "k3"
+    mod, name = (cstream, "traverse_stream") if two_level else (ctraverse, "traverse")
+    walk = getattr(mod, name)
 
-    def spy(o_, d_, t_, bvh_, kind, any_hit, t_min):
+    def spy(o_, d_, t_, bvh_, kind, **k):
         seen.append(t_.clone())
-        return walk(o_, d_, t_, bvh_, kind, any_hit, t_min)
+        return walk(o_, d_, t_, bvh_, kind, **k)
 
-    monkeypatch.setattr(traverse, "_traverse", spy)
+    monkeypatch.setattr(mod, name, spy)
     with profiling.trace(str(tmp_path)), profiling.span("light"):
         traverse.any_hit(o, d, dataclasses.replace(scene, cone_bvh=odd), t_max)
     assert len(seen) == 1 and torch.equal(seen[0], t_max)
@@ -338,9 +340,8 @@ def _walked(o, d, t_max, scene):
     answer (K5 at these sizes), on the entry-morton sorted rays as any_hit
     runs them -> (blocked, blocked by a cone) in the callers' order."""
     o_s, d_s, t_s, inv = traverse._sorted_rays(o, d, t_max, scene)
-    cone = traverse._traverse(o_s, d_s, t_s, scene.cone_bvh, "cone", True, 1e-4)[2]
-    tri = traverse._brute_rows(o_s, d_s, t_s, traverse.cisect.tables_of(scene.tris, "tri"),
-                               "tri", 1e-4)[1]
+    cone = cstream.traverse_stream(o_s, d_s, t_s, scene.cone_bvh, "cone", any_hit=True)[2]
+    tri = cisect.closest(o_s, d_s, t_s, cisect.tables_of(scene.tris, "tri"), "tri", 1e-4)[1] >= 0
     return (cone | tri)[inv], cone[inv]
 
 

@@ -56,7 +56,7 @@ from ba_pathtracing_fur_torch.core import rng
 from ba_pathtracing_fur_torch.core.camera import camera_from_numpy
 from ba_pathtracing_fur_torch.models import pathtracer as pt
 from ba_pathtracing_fur_torch.ops import bvh, intersect, traverse
-from ba_pathtracing_fur_torch.ops.cuda import intersect as cisect, stream as cstream
+from ba_pathtracing_fur_torch.ops.cuda import hit as chit, intersect as cisect, stream as cstream
 from ba_pathtracing_fur_torch.scene import builtins, types
 from test_torch_fur import _compare_images
 from test_torch_scene import _assert_scene_equal
@@ -161,7 +161,7 @@ def test_attach_bvh_two_level_layouts(jax_numpy_build):
                                       np.asarray(getattr(js.cones, f.name)), f.name)
     np.testing.assert_array_equal(tb.sboxes.numpy(), np.asarray(jstream.pack_super_boxes(jb)))
     np.testing.assert_array_equal(tb.cboxes.numpy(), np.asarray(jstream.pack_child_boxes(jb)))
-    np.testing.assert_array_equal(tb.aos_rows.numpy(), traverse.cone_aos(ts.cones).numpy())
+    np.testing.assert_array_equal(tb.aos_rows.numpy(), chit.cone_aos(ts.cones).numpy())
     assert ts.tri_bvh is None  # 768 scalp triangles stay BVH-less
 
 

@@ -383,8 +383,8 @@ def test_hit_kernel_matches_torch_assembly_on_the_card(case, monkeypatch):
         won = {kind: (aos_fn(pack), torch.randint(0, pack.count, (r,), generator=g,
                                                   dtype=torch.int32).to(dev), None,
                       t.to(dev), None)
-               for kind, pack, aos_fn, t in (("tri", scene.tris, traverse.tri_aos, t_tri),
-                                             ("cone", scene.cones, traverse.cone_aos, t_cone))}
+               for kind, pack, aos_fn, t in (("tri", scene.tris, chit.tri_aos, t_tri),
+                                             ("cone", scene.cones, chit.cone_aos, t_cone))}
         got = chit.hit_of_rows(o, d, t_max, 1e-4, won)
         assert (got.prim_type == 0).any() and (t_tri == t_cone).any()
     elif case == "joint":
@@ -394,7 +394,7 @@ def test_hit_kernel_matches_torch_assembly_on_the_card(case, monkeypatch):
     else:
         got = traverse.closest_hit(o, d, scene, t_max=t_max)
     assert len(seen) == 1
-    want = traverse._torch_hit(*seen[0])
+    want = chit._torch_hit(*seen[0])
     torch.cuda.synchronize()
     assert counts() == (before[0] + 1, before[1], before[2])
     if case in ("hairball", "joint"):
@@ -486,10 +486,10 @@ def test_hit_assembly_under_autograd_takes_the_torch_path():
     (hit.t[hit.valid].sum() + hit.normal[cone].sum() + hit.uv[cone].sum()).backward()
     for x in (o, d, base):
         assert x.grad is not None and torch.isfinite(x.grad).all() and x.grad.abs().sum() > 0
-    assert traverse.pack_aos(scene.cones, "cone") is not traverse.pack_aos(scene.cones, "cone")
-    assert traverse.pack_aos(plain.cones, "cone") is traverse.pack_aos(plain.cones, "cone")
+    assert chit.pack_aos(scene.cones, "cone") is not chit.pack_aos(scene.cones, "cone")
+    assert chit.pack_aos(plain.cones, "cone") is chit.pack_aos(plain.cones, "cone")
     with torch.no_grad():
-        assert traverse.pack_aos(scene.cones, "cone").grad_fn is None
+        assert chit.pack_aos(scene.cones, "cone").grad_fn is None
 
 
 def test_kernel_hit_backward_is_the_torch_assemblys_gradient(monkeypatch):
@@ -507,7 +507,7 @@ def test_kernel_hit_backward_is_the_torch_assemblys_gradient(monkeypatch):
 
     def launch(o, d, t_max, t_min, kinds):
         with torch.no_grad():
-            return traverse._torch_hit(o, d, t_max, t_min, kinds)
+            return chit._torch_hit(o, d, t_max, t_min, kinds)
 
     monkeypatch.setattr(chit, "_hit_cuda", launch)
     scene, _ = builtins.fur_patch(resolution=(8, 8), fibers_per_face=3, device="cpu")
