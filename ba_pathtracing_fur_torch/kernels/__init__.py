@@ -36,16 +36,17 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
-#: per-source flags on top of NVCC_FLAGS. The traversal, brute-force, hit
-#: and shade kernels are built without FMA contraction, so their arithmetic
-#: rounds like the plain torch versions' separate ops: the traversal
-#: kernels agree with their twins bit for bit on t, rows and found, the hit
-#: kernel with the torch assembly on every field of the Hit, and the shade
-#: kernel's hair paths do not drift from its twin's over a render's
+#: per-source flags on top of NVCC_FLAGS. The traversal, brute-force, hit,
+#: shade and camera kernels are built without FMA contraction, so their
+#: arithmetic rounds like the plain torch versions' separate ops: the
+#: traversal kernels agree with their twins bit for bit on t, rows and
+#: found, the hit kernel with the torch assembly on every field of the Hit,
+#: the camera kernel with the torch chain on every ray and key, and the
+#: shade kernel's hair paths do not drift from its twin's over a render's
 #: samples. The full-bounce kernel (its own source) keeps contraction on.
 SOURCE_FLAGS = {name: ("-fmad=false",)
                 for name in ("traverse.cu", "traverse_stream.cu", "bruteforce.cu", "hit.cu",
-                             "shade.cu")}
+                             "shade.cu", "camera.cu")}
 
 _C_VOID_P, _C_INT, _C_FLOAT, _C_UINT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                                        ctypes.c_uint)
@@ -91,6 +92,14 @@ SIGNATURES = {
         + [_C_INT, _C_INT, _C_INT, _C_FLOAT, _C_UINT]  # mis rr rr_gate clamp present
         + [_C_INT, _C_INT, _C_INT]             # has_hair hair_p_random env_per_ray
         + [_C_VOID_P]                          # &TexIn, null when untextured
+        + [_C_VOID_P])),                       # cudaStream_t
+    "camera_launch": ("camera.cu", (
+        [_C_INT, _C_VOID_P, _C_UINT, _C_VOID_P, _C_INT]  # n_rays, base key, sample, ids, width
+        + [_C_VOID_P] * 4                      # position bottom_left axis_x axis_y
+        + [_C_FLOAT] * 3                       # pixel_size focus_distance 3*aperture
+        + [_C_INT, _C_INT, _C_FLOAT, _C_FLOAT]  # use_dof qmc, the Hammersley point
+        + [_C_INT]                             # first slot
+        + [_C_VOID_P] * 8                      # keys and the RayState fields
         + [_C_VOID_P])),                       # cudaStream_t
     "shade_draws_launch": ("shade.cu", (
         [_C_INT, _C_VOID_P, _C_INT, _C_INT]    # n_rays, keys, bounce, n_tags

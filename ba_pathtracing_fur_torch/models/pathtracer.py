@@ -31,6 +31,8 @@ closest-hit launch (one mixed launch of the streaming kernel), and the
 image equals the separate bounces' bit for bit.
 
 On the card each kernel is a CUDA launch; on the CPU its plain twin runs.
+A sample's camera wavefront (each pixel's key, jitter and camera ray, and
+the initial state) is one launch of the camera kernel (`ops/cuda/camera`).
 
 With `compact=True` (the default, as in the JAX package) the wavefront is
 compacted after every bounce: the rays with a non-zero throughput move to
@@ -85,7 +87,7 @@ from ..core import camera as cam_mod, rng, vecmath as vm
 from ..models import bdpt as bdpt_mod, bsdf, fur, shading
 from ..models.shade_core import CoreCfg, _w3 as w3
 from ..ops import compact, intersect as isect, tonemap, traverse
-from ..ops.cuda import shade as cshade
+from ..ops.cuda import camera as ccamera, shade as cshade
 from ..scene.types import (
     LIGHT_POINT, LIGHT_QUAD, MATFLAG_CYLINDER_T_BOUNCE, MATFLAG_CYLINDER_TR_BOUNCE,
     MATFLAG_EMISSIVE_BOUNCE, MATFLAG_SPECULAR_BOUNCE, SHADER_MARSCHNER_HAIR, DeviceScene,
@@ -132,15 +134,7 @@ class RayState:
 
 
 def init_state(origins: torch.Tensor, directions: torch.Tensor) -> RayState:
-    r = origins.shape[0]
-    dev = origins.device
-    return RayState(
-        origin=origins.contiguous(), direction=directions.contiguous(),
-        radiance=torch.ones((r, 3), dtype=torch.float32, device=dev),
-        color=torch.zeros((r, 3), dtype=torch.float32, device=dev),
-        flags=torch.zeros((r,), dtype=torch.int32, device=dev),
-        theta_i=torch.zeros((r,), dtype=torch.float32, device=dev),
-        prev_pdf=torch.full((r,), -1.0, dtype=torch.float32, device=dev))
+    return RayState(*ccamera.state_fields(origins, directions))
 
 
 @dataclasses.dataclass
@@ -481,24 +475,11 @@ def camera_wavefront(camera: cam_mod.Camera, pixel_ids: torch.Tensor, key: torch
                      sample_ids: Sequence[int], cfg: RenderConfig):
     """The camera rays of samples `sample_ids` for the global `pixel_ids`,
     as ONE wavefront of len(sample_ids) * len(pixel_ids) rays ->
-    (RayState, keys [S*R, 2])."""
+    (RayState, keys [S*R, 2]): the camera kernel on the card (one launch a
+    sample), its torch chain on the CPU (`ops/cuda/camera.camera_rays`)."""
     with profiling.span("camera"):
-        w, _ = camera.resolution
-        key = key.to(pixel_ids.device)
-        keys, jitter, dof_u = [], [], []
-        for s in sample_ids:
-            k = rng.keys_for_pixels(key, pixel_ids, s)
-            keys.append(k)
-            jitter.append(rng.qmc_jitter(key, pixel_ids, s, cfg.spp) if cfg.qmc
-                          else rng.bounce_uniform(k, -1, 2, tag=7))
-            if camera.use_dof:
-                dof_u.append(rng.bounce_uniform(k, -1, 2, tag=8))
-        keys = torch.cat(keys)
-        px = (pixel_ids % w).to(torch.float32).repeat(len(sample_ids))
-        py = (pixel_ids // w).to(torch.float32).repeat(len(sample_ids))
-        o, d = cam_mod.rays_from_pixels(camera, px, py, torch.cat(jitter),
-                                        torch.cat(dof_u) if dof_u else None)
-        return init_state(o, d), keys
+        keys, fields = ccamera.camera_rays(camera, pixel_ids, key, sample_ids, cfg.qmc, cfg.spp)
+        return RayState(*fields), keys
 
 
 def _render_samples(scene: DeviceScene, camera: cam_mod.Camera, pixel_ids: torch.Tensor,

@@ -25,7 +25,10 @@ render_image`) and checks the images:
     BVH; its numbers go under `soup` in the traverse_tri entry;
   * the hair ball (bench config 5: 1,000,000 fibers = 9,000,000 cones on a
     768-triangle scalp, 1024x1024, depth 4; spp cut from 16 to 4),
-    generated and its BVH built on the card, through the streaming
+    generated and its BVH built on the card; its camera wavefront through
+    the camera kernel (K7, `phase_camera`: keys, rays and the initial state
+    bit for bit against its torch chain, one launch a sample, timed and
+    bounded); then through the streaming
     traversal kernel (K3, two-level cone BVH), the brute-force kernel (K5,
     the BVH-less scalp) and the shade kernel (held to its plain version
     and its draws bit for bit on bounces 0-1, timed). K3 is held against its twin
@@ -346,12 +349,13 @@ def card_line() -> str:
 
 @contextlib.contextmanager
 def plain_bounces():
-    """Route every kernel of a bounce through its plain torch version, on
-    any device."""
-    from ba_pathtracing_fur_torch.ops.cuda import hit as chit, intersect as cisect, \
-        shade as cshade, stream as cstream, traverse as ctraverse
+    """Route every kernel of a sample (the camera wavefront and each
+    bounce) through its plain torch version, on any device."""
+    from ba_pathtracing_fur_torch.ops.cuda import camera as ccamera, hit as chit, \
+        intersect as cisect, shade as cshade, stream as cstream, traverse as ctraverse
 
-    swaps = ((cshade, "shade_bounce_full", cshade.shade_bounce_full_ref),
+    swaps = ((ccamera, "camera_rays", ccamera.camera_rays_ref),
+             (cshade, "shade_bounce_full", cshade.shade_bounce_full_ref),
              (cshade, "shade_bounce", cshade.shade_bounce_ref),
              (ctraverse, "traverse", ctraverse.traverse_ref),
              (cstream, "traverse_stream", cstream.traverse_stream_ref),
@@ -433,9 +437,10 @@ def unsorted_rays():
 
 def reset_counts():
     """Every kernel wrapper's launch and plain-call counts to 0."""
-    from ba_pathtracing_fur_torch.ops.cuda import hit as chit, intersect as cisect, \
-        shade as cshade, stream as cstream, traverse as ctraverse
+    from ba_pathtracing_fur_torch.ops.cuda import camera as ccamera, hit as chit, \
+        intersect as cisect, shade as cshade, stream as cstream, traverse as ctraverse
 
+    ccamera.CAMERA_LAUNCHES = ccamera.CAMERA_REF_CALLS = 0
     chit.HIT_LAUNCHES = chit.HIT_REF_CALLS = chit.HIT_GRAD_CALLS = 0
     cshade.KERNEL_LAUNCHES = cshade.REF_CALLS = 0
     cshade.SHADE_LAUNCHES = cshade.SHADE_REF_CALLS = 0
@@ -446,12 +451,16 @@ def reset_counts():
 
 
 def read_counts() -> dict:
-    """Every kernel wrapper's launch and plain-call counts (K6's backward
-    recomputes, `HIT_GRAD_CALLS`, apart: the gradient phases read them)."""
-    from ba_pathtracing_fur_torch.ops.cuda import hit as chit, intersect as cisect, \
-        shade as cshade, stream as cstream, traverse as ctraverse
+    """Every kernel wrapper's launch and plain-call counts, so every check
+    requires the camera's torch chain calls (`camera_ref`) to be 0. Apart:
+    K6's backward recomputes, `HIT_GRAD_CALLS`, which the gradient phases
+    read, and K7's launches, which `phase_camera` and the config-5 render
+    read."""
+    from ba_pathtracing_fur_torch.ops.cuda import camera as ccamera, hit as chit, \
+        intersect as cisect, shade as cshade, stream as cstream, traverse as ctraverse
 
-    return dict(full_bounce=cshade.KERNEL_LAUNCHES, full_bounce_ref=cshade.REF_CALLS,
+    return dict(camera_ref=ccamera.CAMERA_REF_CALLS,
+                full_bounce=cshade.KERNEL_LAUNCHES, full_bounce_ref=cshade.REF_CALLS,
                 shade=cshade.SHADE_LAUNCHES, shade_ref=cshade.SHADE_REF_CALLS,
                 traverse=ctraverse.KERNEL_LAUNCHES, traverse_ref=ctraverse.REF_CALLS,
                 stream=cstream.KERNEL_LAUNCHES, stream_mixed=cstream.MIXED_LAUNCHES,
@@ -492,6 +501,25 @@ def timed_median(fn, reps: int = TIMED_REPS) -> float:
     ms = []
     for _ in range(reps):
         t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        ms.append(t0.elapsed_time(t1))
+    return float(np.median(ms))
+
+
+def device_ms(fn, reps: int = 21) -> float:
+    """Median device milliseconds of a call of `fn` (its launches alone)
+    between CUDA events, with the stream held by a spin kernel while the
+    host enqueues the call, so that the enqueue's host time stays out (a
+    lone ctypes launch may not show in a torch.profiler trace)."""
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(reps):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)  # ~1 ms of the card's clock
         t0.record()
         fn()
         t1.record()
@@ -1523,6 +1551,68 @@ def compare_hit(args, what) -> dict:
     return res
 
 
+def compare_camera(cam, ids, key, samples, cfg, what) -> dict:
+    """The camera kernel (K7) against its torch chain (`camera.
+    camera_rays_ref`) on one wavefront as `pt.camera_wavefront` makes it:
+    the keys and every initial RayState field bit for bit (floats by their
+    int32 views), one launch a sample and no chain call (the counters),
+    both timed back to back and as device time (`device_ms`; the chain's
+    launches and device time from a trace), and the kernel's bound
+    (`camera.work_ref`: bytes, and the threefry's integer work)."""
+    from ba_pathtracing_fur_torch.models import pathtracer as pt
+    from ba_pathtracing_fur_torch.ops.cuda import camera as ccamera
+
+    launches, refs = ccamera.CAMERA_LAUNCHES, ccamera.CAMERA_REF_CALLS
+    state, keys = pt.camera_wavefront(cam, ids, key, samples, cfg)
+    torch.cuda.synchronize()
+    n_launch, n_ref = ccamera.CAMERA_LAUNCHES - launches, ccamera.CAMERA_REF_CALLS - refs
+    if (n_launch, n_ref) != (len(samples), 0):
+        raise AssertionError(f"camera {what}: {n_launch} kernel launches and {n_ref} torch "
+                             f"chain calls, expected {len(samples)} and 0")
+    want_keys, want = ccamera.camera_rays_ref(cam, ids, key, samples, cfg.qmc, cfg.spp)
+    bad = {"keys": int((keys != want_keys).any(-1).sum())}
+    for name, b in zip(FIELDS, want):
+        a = getattr(state, name)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        bad[name] = int((a != b).reshape(a.shape[0], -1).any(-1).sum())
+    n = keys.shape[0]
+    work = ccamera.work_ref(n, cfg.qmc, cam.use_dof)
+    lim = bound(0.0, work["bytes"], work["int_ops"])
+    run = lambda: pt.camera_wavefront(cam, ids, key, samples, cfg)  # noqa: E731
+    chain = lambda: ccamera.camera_rays_ref(cam, ids, key, samples, cfg.qmc, cfg.spp)  # noqa
+    chain_prof = profile_call(lambda: (chain(), torch.cuda.synchronize()),
+                              f"camera torch chain {what}", ())
+    res = dict(rays=n, samples=list(samples), mismatched=bad,
+               max_abs_err=0.0 if not any(bad.values()) else None,
+               ms=timed(run, 20), plain_ms=timed(chain, 5),
+               device_ms=device_ms(run), plain_device_ms=chain_prof["busy"] * 1e3, plain_launches=chain_prof["launches"],
+               bound_ms=lim["bound_ms"], bound_by=lim["bound_by"], bytes=work["bytes"],
+               int_ops=work["int_ops"])
+    log(f"K7 vs the torch chain, {what} ({n} rays, samples {list(samples)}): rays with a "
+        f"differing field {bad}; K7 {res['ms']:.4f} ms back to back, {res['device_ms']:.4f} "
+        f"ms on the device; torch chain {res['plain_ms']:.4f} "
+        f"ms back to back, {res['plain_device_ms']:.4f} ms on the device in "
+        f"{res['plain_launches']} launches; bound {res['bound_ms']:.4f} ms by "
+        f"{res['bound_by']} ({work['bytes']} bytes, {work['int_ops']:.4e} integer ops)")
+    if any(bad.values()):
+        raise AssertionError(f"camera {what}: K7 differs from its torch chain")
+    return res
+
+
+def phase_camera(cam, cfg, dev) -> dict:
+    """K7 on the hair ball's 1024^2 camera: the main path's wavefront (one
+    sample, what a hairball.progressive pass makes) and a wavefront of three
+    samples (0, 7, 2^20) from a large seed, each held to its torch chain bit
+    for bit, timed and bounded (`compare_camera`)."""
+    from ba_pathtracing_fur_torch.core import rng
+
+    ids = torch.arange(cam.resolution[0] * cam.resolution[1], device=dev)
+    return dict(main=compare_camera(cam, ids, rng.key(0, dev), [0], cfg, "config5 pass"),
+                samples3=compare_camera(cam, ids, rng.key((1 << 33) + 977, dev),
+                                        [0, 7, 1 << 20], cfg, "config5, three samples"))
+
+
 def stream_bound(o, d, t_max, bvh, any_hit, t, row, found, is_any=None) -> dict:
     """K3's bound on this wavefront: the tests `work_ref` counts on WORK_RAYS
     rays spread over it (from K3's own hits, held to the twin above),
@@ -1722,16 +1812,23 @@ def phase_hairball_main_path(scene, cam, cfg, dev) -> dict:
     from ba_pathtracing_fur_torch.core import rng
     from ba_pathtracing_fur_torch.utils import film
 
+    from ba_pathtracing_fur_torch.ops.cuda import camera as ccamera
+
     key = rng.key(0, dev)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     img = render(scene, cam, key, cfg)
     counts = read_counts()
     want = cfg.spp * cfg.depth
-    log(f"config5: launches {counts} (expected stream and bruteforce_tri {2 * want} = spp x "
-        f"depth x (closest + shadow), shade and hit {want}, no plain calls)")
+    log(f"config5: launches {counts}, camera {ccamera.CAMERA_LAUNCHES} (expected stream and "
+        f"bruteforce_tri {2 * want} = spp x depth x (closest + shadow), shade and hit {want}, "
+        f"camera spp = {cfg.spp}, no plain calls)")
     check_counts(counts, "config5", shade=want, stream=2 * want, bruteforce_tri=2 * want,
                  hit=want)
+    if ccamera.CAMERA_LAUNCHES != cfg.spp:
+        raise AssertionError(f"config5: {ccamera.CAMERA_LAUNCHES} camera launches, expected "
+                             f"one a sample ({cfg.spp})")
+    counts["camera_launches"] = ccamera.CAMERA_LAUNCHES
     w, h = cam.resolution
     a = check_image(img, (h, w, 3), "config5")
     log(f"config5 image: finite, max {a.max():.4f}, mean {a.mean():.5f}, std {a.std():.5f}; "
@@ -3976,9 +4073,10 @@ def drive(dev, card: str) -> list:
 
     from ba_pathtracing_fur_torch.models import pathtracer as pt
     scene5, cam5, cfg5, build5 = hair_ball_scene(dev)
+    k7 = phase_camera(cam5, cfg5, dev)
     hb = phase_hairball_kernels(scene5, cam5, cfg5, dev)
     hb_main = phase_hairball_main_path(scene5, cam5, cfg5, dev)
-    marks5 = ("stream_kernel", "brute_kernel", "shade_kernel", "hit_kernel")
+    marks5 = ("stream_kernel", "brute_kernel", "shade_kernel", "hit_kernel", "camera_kernel")
     prof5 = phase_profile(scene5, cam5, rng.key(0, dev), cfg5, name="config-5", marks=marks5)
     un5 = phase_sort_effect(scene5, cam5, rng.key(0, dev), cfg5, "config5", marks5)
     rays5 = cam5.resolution[0] * cam5.resolution[1] * cfg5.spp * cfg5.depth
@@ -4242,6 +4340,19 @@ def drive(dev, card: str) -> list:
              config5_traced_launches=prof5["kernel_launches"]["hit_kernel"],
              joint_launches=joint["counts"]["hit"], fit_launches=grad["step_launches"] // 2,
              parallel_launches=parallel_launches("hit")),
+        dict(name="camera", route="cuda", source="ba_pathtracing_fur_torch/csrc/camera.cu",
+             replaces="ba_pathtracing_fur_tpu/models/pathtracer.py (camera_wavefront, plain "
+                      "JAX)",
+             launches=hb_main["counts"]["camera_launches"], max_abs_err=0.0,
+             mismatched={k: v["mismatched"] for k, v in k7.items()},
+             ms=k7["main"]["ms"], device_ms=k7["main"]["device_ms"],
+             plain_ms=k7["main"]["plain_ms"], plain_device_ms=k7["main"]["plain_device_ms"],
+             plain_launches=k7["main"]["plain_launches"], bound_ms=k7["main"]["bound_ms"],
+             bound_by=k7["main"]["bound_by"], library_ms=None,
+             samples3_device_ms=k7["samples3"]["device_ms"],
+             samples3_bound_ms=k7["samples3"]["bound_ms"],
+             config5_traced_ms_per_launch=per_launch(prof5, "camera_kernel"),
+             config5_traced_launches=prof5["kernel_launches"]["camera_kernel"]),
     ]
     return kernels_line
 

@@ -45,17 +45,18 @@ def test_device_without_kernel_raises():
 
 def test_nvcc_command_targets_hopper_without_fast_math(tmp_path):
     srcs = kernels.sources()
-    assert [s.name for s in srcs] == ["bruteforce.cu", "full_bounce.cu", "hit.cu", "shade.cu",
-                                      "traverse.cu", "traverse_stream.cu"]
+    assert [s.name for s in srcs] == ["bruteforce.cu", "camera.cu", "full_bounce.cu", "hit.cu",
+                                      "shade.cu", "traverse.cu", "traverse_stream.cu"]
     for src in srcs:  # one nvcc per source, each into its own library
         cmd = kernels.build_command(src, tmp_path / f"lib{src.stem}.so")
         assert "arch=compute_90a,code=sm_90a" in cmd and "-O3" in cmd
         assert not any("fast_math" in c or "fast-math" in c for c in cmd)
         assert [Path(c).name for c in cmd if c.endswith(".cu")] == [src.name]
-        # the ray-primitive tests and the shade stage round as their twins:
-        # no FMA contraction (the full-bounce kernel keeps it)
-        assert ("-fmad=false" in cmd) == (src.name in ("bruteforce.cu", "hit.cu", "shade.cu",
-                                                         "traverse.cu", "traverse_stream.cu"))
+        # the ray-primitive tests, the shade stage and the camera round as
+        # their twins: no FMA contraction (the full-bounce kernel keeps it)
+        assert ("-fmad=false" in cmd) == (src.name in ("bruteforce.cu", "camera.cu", "hit.cu",
+                                                         "shade.cu", "traverse.cu",
+                                                         "traverse_stream.cu"))
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):
@@ -533,6 +534,132 @@ def test_kernel_hit_backward_is_the_torch_assemblys_gradient(monkeypatch):
         g_torch = torch.autograd.grad(_hit_loss(want), (o, d, base))
     for a, b in zip(g_k6, g_torch):
         assert a.abs().sum() > 0 and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+#: a large seed, so that both words of the base key are non-zero
+CAMERA_SEED = (1 << 33) + 977
+#: the gate's sample indices (2^20: a sample index past any pass count)
+CAMERA_SAMPLES = [0, 7, 1 << 20]
+
+
+def _dof_camera(res, dev):
+    """The hair ball's camera with the thin lens on, focused on the ball."""
+    from ba_pathtracing_fur_torch.core import camera as cam_mod
+
+    return cam_mod.make_camera(position=(0.0, 0.3, 2.2), look_at=(0.0, -0.1, -1.0),
+                               resolution=res, focus_distance=2.2, use_dof=True, device=dev)
+
+
+def _camera_chain(cam, ids, key, samples, qmc, spp):
+    """The camera wavefront written out from core/rng and core/camera, as
+    models/pathtracer made it before the camera kernel -> (keys, o, d)."""
+    from ba_pathtracing_fur_torch.core import camera as cam_mod
+
+    w = cam.resolution[0]
+    keys = [rng.keys_for_pixels(key, ids, s) for s in samples]
+    jitter = [rng.qmc_jitter(key, ids, s, spp) if qmc else rng.bounce_uniform(k, -1, 2, tag=7)
+              for s, k in zip(samples, keys)]
+    dof_u = (torch.cat([rng.bounce_uniform(k, -1, 2, tag=8) for k in keys]) if cam.use_dof
+             else None)
+    px = (ids % w).to(torch.float32).repeat(len(samples))
+    py = (ids // w).to(torch.float32).repeat(len(samples))
+    o, d = cam_mod.rays_from_pixels(cam, px, py, torch.cat(jitter), dof_u)
+    return torch.cat(keys), o, d
+
+
+@pytest.mark.parametrize("qmc,dof", [(False, False), (True, False), (False, True),
+                                     (True, True)])
+def test_camera_wavefront_takes_the_torch_chain_on_the_cpu(qmc, dof, monkeypatch):
+    """CPU tensors take the camera kernel's plain version: CAMERA_REF_CALLS
+    counts one call a wavefront, the kernels are never loaded, and the
+    wavefront is the chain of core/rng and core/camera, with the initial
+    state of every ray."""
+    from ba_pathtracing_fur_torch.ops.cuda import camera as ccamera
+
+    def refuse():
+        raise AssertionError("the camera's CPU path loaded the kernels")
+
+    monkeypatch.setattr(kernels, "load_library", refuse)
+    cam = _dof_camera((12, 8), "cpu") if dof else builtins.hair_ball(
+        resolution=(12, 8), n_fibers=16, device="cpu")[1]
+    ids = torch.tensor([0, 5, 11, 12, 50, 95])
+    key = rng.key(CAMERA_SEED, "cpu")
+    launches, refs = ccamera.CAMERA_LAUNCHES, ccamera.CAMERA_REF_CALLS
+    state, keys = pt.camera_wavefront(cam, ids, key, CAMERA_SAMPLES,
+                                      pt.RenderConfig(spp=4, qmc=qmc))
+    assert ccamera.CAMERA_REF_CALLS == refs + 1 and ccamera.CAMERA_LAUNCHES == launches
+    want_keys, o, d = _camera_chain(cam, ids, key, CAMERA_SAMPLES, qmc, 4)
+    n = len(CAMERA_SAMPLES) * ids.shape[0]
+    assert torch.equal(keys, want_keys) and keys.shape == (n, 2)
+    assert torch.equal(state.origin, o) and torch.equal(state.direction, d)
+    assert torch.equal(state.radiance, torch.ones(n, 3))
+    assert torch.equal(state.color, torch.zeros(n, 3))
+    assert state.flags.dtype == torch.int32 and not state.flags.any()
+    assert torch.equal(state.theta_i, torch.zeros(n))
+    assert torch.equal(state.prev_pdf, torch.full((n,), -1.0))
+
+
+def test_camera_work_ref_counts_bytes_and_threefry():
+    """The camera kernel's bound: 8 B read and 76 B written a ray (88 MB at
+    1024^2), and the threefry calls of each branch."""
+    from ba_pathtracing_fur_torch.ops.cuda import camera as ccamera
+
+    r = 1 << 20
+    for qmc, dof, calls in ((False, False, 5), (True, False, 6), (False, True, 8),
+                            (True, True, 9)):
+        w = ccamera.work_ref(r, qmc, dof)
+        draws = 4 if dof else 2
+        assert w["bytes"] == 84 * r == 88_080_384 and w["threefry"] == calls
+        assert w["int_ops"] == r * (calls * cshade.THREEFRY_INT_OPS
+                                    + draws * cshade.DRAW_INT_OPS)
+
+
+def _camera_case(case, dev):
+    """(camera, pixel ids, sample ids, qmc, spp) of a camera-kernel gate case:
+    the hair ball's 1024^2 camera on every pixel, a shard's pixel ids, one
+    and three samples, the Hammersley jitter, a thin-lens camera."""
+    res = (1024, 1024)
+    _, cam = builtins.hair_ball(resolution=res, n_fibers=16, device=dev)
+    ids = torch.arange(res[0] * res[1], device=dev)
+    if case == "shard":  # the third of four dp rows, then a scattered subset
+        pick = torch.randperm(ids.shape[0], generator=torch.Generator().manual_seed(5))[:4099]
+        ids = torch.cat([ids[2 * (1 << 18):3 * (1 << 18)], pick.to(dev)])
+    samples = {"hairball": [0], "shard": [7], "samples_3": CAMERA_SAMPLES,
+               "qmc": [1 << 20], "qmc_samples_3": CAMERA_SAMPLES, "dof": [7],
+               "dof_samples_3": CAMERA_SAMPLES}[case]
+    if case.startswith("dof"):
+        cam = _dof_camera(res, dev)
+    return cam, ids, samples, case.startswith("qmc"), 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hairball", "shard", "samples_3", "qmc", "qmc_samples_3",
+                                  "dof", "dof_samples_3"])
+def test_camera_kernel_matches_the_torch_chain_on_the_card(case):
+    """The camera kernel's keys, o, d and every initial RayState field equal
+    its torch chain's on the same card tensors bit for bit (floats by their
+    int32 views); one launch a sample, and the chain never runs on the
+    card's path."""
+    from ba_pathtracing_fur_torch.ops.cuda import camera as ccamera
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card with -m cuda)")
+    dev = torch.device("cuda")
+    cam, ids, samples, qmc, spp = _camera_case(case, dev)
+    key = rng.key(CAMERA_SEED, dev)
+    launches, refs = ccamera.CAMERA_LAUNCHES, ccamera.CAMERA_REF_CALLS
+    state, keys = pt.camera_wavefront(cam, ids, key, samples, pt.RenderConfig(spp=spp, qmc=qmc))
+    torch.cuda.synchronize()
+    assert ccamera.CAMERA_LAUNCHES == launches + len(samples)
+    assert ccamera.CAMERA_REF_CALLS == refs
+    want_keys, want = ccamera.camera_rays_ref(cam, ids, key, samples, qmc, spp)
+    assert torch.equal(keys, want_keys)
+    for name, b in zip(pt.RayState.__dataclass_fields__, want):
+        a = getattr(state, name)
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), f"{case}: {name} differs in {int((a != b).sum())} values"
 
 
 def _shade_gate(want, got, what):

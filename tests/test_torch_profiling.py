@@ -193,6 +193,27 @@ def test_a_traced_pass_nests_its_stages(path, tmp_path, monkeypatch):
     assert all(s.events is None for s in log)  # the CPU
 
 
+@pytest.mark.parametrize("spp_batch", [1, 2])
+def test_one_camera_span_and_one_camera_call_a_wavefront(spp_batch, tmp_path):
+    """Each wavefront opens exactly one `camera` span, under its pass, and
+    calls the camera stage once whatever number of samples it holds (on the
+    CPU the camera kernel's torch chain, counted by CAMERA_REF_CALLS)."""
+    from ba_pathtracing_fur_torch.ops.cuda import camera as ccamera
+
+    scene, cam = _ball()
+    cfg = pt.RenderConfig(depth=1, spp=4, spp_batch=spp_batch, fused_shading=True,
+                          compact=False)
+    launches, refs = ccamera.CAMERA_LAUNCHES, ccamera.CAMERA_REF_CALLS
+    with profiling.trace(str(tmp_path)):
+        pt.render_image(scene, cam, rng.key(3, CPU), cfg)
+    log = profiling.spans()
+    passes = [s for s in log if s.name == "pass"]
+    assert len(passes) == 4 // spp_batch
+    assert [s.parent for s in log if s.name == "camera"] == [p.index for p in passes]
+    assert ccamera.CAMERA_REF_CALLS - refs == len(passes)
+    assert ccamera.CAMERA_LAUNCHES == launches
+
+
 def test_live_and_shadow_live_equal_recounts(tmp_path, monkeypatch):
     """Each bounce's `live` equals the live lanes recounted from the state
     the bounce starts from, and `shadow_live` the shade stage's shadow rays
